@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve, agree.
+"""Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
+train, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,14 +8,17 @@ Phases, each printing one JSON line:
 1. build     — compile thunder_tpu_torch/csrc into the kernel library (nvcc,
                one process per source, all started together).
 2. kernels   — each hand-written kernel against its plain PyTorch version at
-               the serving path's shapes, in bf16 and f32, then timed beside
-               its bound, its plain version and, where one exists, the one
-               PyTorch call that computes the same function. ``ms`` is device
-               time: 200 launches captured in one CUDA graph and replayed
-               between two CUDA events, inputs rotated through more than the
-               50 MB L2 so every launch reads device memory. ``eager_ms`` is
-               the same 200 launches issued one by one from Python, as the
-               op-by-op serving path issues them.
+               the shapes its path gives it, in bf16 and f32, then timed
+               beside its bound, its plain version and, where one exists, the
+               one PyTorch call that computes the same function. ``ms`` is
+               device time: the launches captured in one CUDA graph and
+               replayed between two CUDA events, inputs rotated through more
+               than the 50 MB L2 so every launch reads device memory.
+               ``eager_ms`` is the same launches issued one by one from
+               Python, as the op-by-op paths issue them. The flash-RoPE
+               forward and backward run at llama-350m's shape (B=4, H=16,
+               T=2048, D=64) and llama-1b's GQA shape (B=1, H=16, Hkv=4,
+               T=2048, D=128).
 3. serve     — ServingEngine over Llama-3-1B at full width and depth in bf16
                (random weights from --seed): 16 greedy requests, prompts of
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
@@ -25,6 +29,29 @@ Phases, each printing one JSON line:
                through the dense solo GPTInference: the streams must match,
                or differ only after a step where the solo top-2 logit gap is
                below AGREE_GAP.
+6. train     — TrainStep(jit(GPTForCausalLM(llama-350m), transforms=
+               [AutocastTransform()]), AdamW(lr=1e-4)) at full width and
+               depth, f32 master weights, bf16 autocast, B=4, T=2048, one
+               batch from np.random.RandomState(seed) every step (bench.py's
+               setup): the first call timed as compile, 2 warm-up and 10
+               timed steps. The flash-RoPE counters are zeroed just before
+               the timed steps and must read 24 x 10 each just after; the
+               losses must be finite and fall. ``bound_ms`` is the step's
+               least time from shapes (step_bound) and ``mfu`` its
+               operations over the step time at the bf16 peak. ``baseline`` is a
+               hand-written plain-PyTorch step of the same model in bf16
+               autocast with F.scaled_dot_product_attention, timed alike
+               (the counterpart of bench.py's hand-written baseline; the
+               port never calls it).
+7. train_profile — torch.profiler over 2 train steps: device busy share,
+               the kernels that take the time (by name, and per step by
+               kind: attention, matmul, optimizer, ...), launches a step.
+8. train_agreement — f32, TF32 off, llama-350m width at 2 layers, B=1,
+               T=2048: 3 steps of the port's TrainStep against the
+               hand-written reference step (its own module math, torch
+               autograd, AdamW written out as thunder_tpu/optim.py does) from
+               the same weights and batch. Losses within LOSS_RTOL; the
+               parameters within PARAM_ATOL.
 
 Then the kernels line, the card's name and power limit, and the final
 {"ok": true, ...} line. Any failure exits non-zero without the final line;
@@ -48,6 +75,17 @@ import torch
 # the top two logits are closer than this.
 AGREE_GAP = 1e-3
 KERNEL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The flash kernels are held to KERNEL_TOL on |kernel - plain| / max(1, |plain|):
+# absolute below 1, relative above. In bf16 an output of magnitude ~4 is
+# itself rounded to 2^-6 = 0.016, and the kernels round p and ds to bf16
+# before their products as the TPU kernels do; the plain versions do not.
+# Two f32 training runs of the same math in another summation order: losses
+# within LOSS_RTOL. AdamW's step is ±lr wherever |g| >> eps, whatever |g|, so
+# a gradient element near 0 whose sign the summation order flips moves its
+# parameter by up to 2 lr a step: PARAM_ATOL is that bound over 3 steps.
+LOSS_RTOL = 1e-4
+TRAIN_LR = 1e-4
+PARAM_ATOL = 2 * TRAIN_LR * 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; f32 non-tensor
 L2_BYTES = 50 * 2 ** 20
@@ -187,6 +225,106 @@ def check_paged(cudaex, dev, gen) -> dict:
                 **timings["ragged"])
 
 
+FLASH_SHAPES = {"llama-350m": dict(B=4, H=16, Hkv=16, T=2048, D=64),
+                "llama-1b": dict(B=1, H=16, Hkv=4, T=2048, D=128)}
+
+
+def flash_inputs(dev, gen, dt, B, H, Hkv, T, D):
+    from thunder_tpu_torch.models.litgpt import build_rope_cache
+
+    q = torch.randn(B, H, T, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, Hkv, T, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, Hkv, T, D, device=dev, generator=gen).to(dt)
+    do = torch.randn(B, H, T, D, device=dev, generator=gen).to(dt)
+    cos, sin = build_rope_cache(T, D, 10000, torch.float32, dev)
+    return q, k, v, cos, sin, do
+
+
+def flash_err(got, want) -> tuple[float, float]:
+    """(max abs error, max of |got - want| / max(1, |want|))."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d / want.float().abs().clamp(min=1.0)).max().item()
+
+
+def check_flash(cudaex, dev, gen) -> tuple[dict, dict]:
+    """flash_rope_fwd (o, lse) and flash_rope_bwd (dq, dk, dv) against their
+    plain versions in bf16 and f32 at both shapes, then timed in bf16."""
+    res = {"fwd": {"errs": [], "cases": [], "timing": {}},
+           "bwd": {"errs": [], "cases": [], "timing": {}}}
+    for label, shp in FLASH_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, cos, sin, do = flash_inputs(dev, gen, dt, **shp)
+            o, lse = cudaex.flash_rope_attention(q, k, v, cos, sin, True)
+            grads = cudaex.flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, True)
+            torch.cuda.synchronize()
+            ro, rlse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, True)
+            fwd = [flash_err(o, ro), flash_err(lse, rlse)]
+            del ro, rlse
+            ref = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, True)
+            bwd = [flash_err(g, r) for g, r in zip(grads, ref)]
+            del ref, grads
+            torch.cuda.empty_cache()
+            for kind, errs in (("fwd", fwd), ("bwd", bwd)):
+                err = max(e[0] for e in errs)
+                scaled = max(e[1] for e in errs)
+                res[kind]["errs"].append(err)
+                res[kind]["cases"].append({"shape": label, "dtype": dname(dt), "max_abs_err": err,
+                                           "max_err_over_max1": scaled})
+                if not scaled <= KERNEL_TOL[dname(dt)]:
+                    raise AssertionError(f"flash_rope_{kind} {label} {dt}: error {scaled}")
+    for label, shp in FLASH_SHAPES.items():
+        B, H, Hkv, T, D = (shp[x] for x in ("B", "H", "Hkv", "T", "D"))
+        qb, kvb = B * H * T * D * 2, B * Hkv * T * D * 2
+        fwd_ops = 4 * B * H * T * T * D / 2
+        fwd_bytes = 2 * qb + 2 * kvb + B * H * T * 4 + 2 * T * D * 4
+        bwd_bytes = 4 * qb + 4 * kvb + B * H * T * 4 + 2 * T * D * 4
+        sets = copies(lambda: flash_inputs(dev, gen, torch.bfloat16, **shp), 2 * qb + 2 * kvb)
+        outs = [cudaex.flash_rope_attention(*a[:5], True) for a in sets]
+        bsets = [(q, k, v, o, lse, cos, sin, do) for (q, k, v, cos, sin, do), (o, lse) in zip(sets, outs)]
+        pre = []  # the library's inputs: pre-roped q and k
+        for q, k, v, cos, sin, do in sets:
+            qr = cudaex._rope_plain(q.float(), cos, sin).to(q.dtype)
+            kr = cudaex._rope_plain(k.float(), cos, sin).to(k.dtype)
+            pre.append((qr.requires_grad_(), kr.requires_grad_(), v.clone().requires_grad_(), do))
+        gqa = H != Hkv
+
+        def lib_fwd(q, k, v, do):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                    enable_gqa=gqa)
+
+        def lib_fwd_bwd(q, k, v, do):
+            return torch.autograd.grad(lib_fwd(q, k, v, do), (q, k, v), do)
+
+        for kind, ops, nbytes, fn, plain, bs in (
+                ("fwd", fwd_ops, fwd_bytes, lambda *a: cudaex.flash_rope_attention(*a, True),
+                 lambda *a: cudaex.flash_rope_attention_plain(*a, True), [a[:5] for a in sets]),
+                ("bwd", 2.5 * fwd_ops, bwd_bytes,
+                 lambda *a: cudaex.flash_rope_attention_backward(*a, True),
+                 lambda *a: cudaex.flash_rope_attention_backward_plain(*a, True), bsets)):
+            b, by = bound_ms(nbytes, ops, "bfloat16")
+            ms, eager = cuda_ms(fn, bs, iters=50)
+            plain_ms, plain_eager = cuda_ms(plain, bs[:1], iters=5)
+            torch.cuda.empty_cache()
+            res[kind]["timing"][label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                              eager_ms=eager, plain_eager_ms=plain_eager)
+        # the library's backward: its forward + autograd backward, less its forward
+        lf, lf_eager = cuda_ms(lib_fwd, pre, iters=50)
+        lfb, lfb_eager = cuda_ms(lib_fwd_bwd, pre, iters=50)
+        res["fwd"]["timing"][label].update(library_ms=lf, library_eager_ms=lf_eager)
+        res["bwd"]["timing"][label].update(library_ms=lfb - lf, library_fwd_bwd_ms=lfb,
+                                           library_eager_ms=lfb_eager - lf_eager)
+        del sets, outs, bsets, pre
+        torch.cuda.empty_cache()
+    out = {}
+    for kind in ("fwd", "bwd"):
+        emit("kernels", kernel=f"flash_rope_{kind}", cases=res[kind]["cases"],
+             timing_bf16=res[kind]["timing"])
+        out[kind] = dict(max_abs_err=max(res[kind]["errs"]),
+                         shape="B=4 H=16 T=2048 D=64 causal bf16 (llama-350m)",
+                         **res[kind]["timing"]["llama-350m"])
+    return out["fwd"], out["bwd"]
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: serve, profile, agreement
 # ---------------------------------------------------------------------------
@@ -323,6 +461,291 @@ def agreement(cfg, prompts, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: train, train_profile, train_agreement
+# ---------------------------------------------------------------------------
+
+
+def train_batch(cfg, B, T, seed):
+    rng = np.random.RandomState(seed)
+    idx = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)).cuda()
+    tgt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T)).astype(np.int32)).cuda()
+    return idx, tgt
+
+
+def reference_loss(params: dict, cfg, idx, tgt, attention):
+    """The llama loss written out in plain torch ops over GPTForCausalLM's
+    parameter dict — the module math of models/litgpt.py, independent of
+    the port's trace compiler. ``attention(q, k, v)`` takes roped (B, H, T,
+    hs) q and (B, Hkv, T, hs) k, v."""
+    from thunder_tpu_torch.models.litgpt import build_rope_cache
+
+    F = torch.nn.functional
+    B, T = idx.shape
+    nh, ng, hs = cfg.n_head, cfg.n_query_groups, cfg.head_size
+    cos, sin = build_rope_cache(T, hs, cfg.rope_base, torch.float32, idx.device)
+
+    def rms(x, w):
+        xf = x.float()
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + cfg.norm_eps)
+        return y.to(x.dtype) * w
+
+    def rope(x):
+        xf = x.float()
+        rot = torch.cat([-xf[..., hs // 2:], xf[..., :hs // 2]], -1)
+        return (xf * cos + rot * sin).to(x.dtype)
+
+    x = F.embedding(idx.long(), params["gpt.wte.weight"])
+    for i in range(cfg.n_layer):
+        w = lambda n: params[f"gpt.h.{i}.{n}"]  # noqa: E731
+        qkv = F.linear(rms(x, w("norm_1.weight")), w("attn.attn.weight"))
+        qkv = qkv.view(B, T, ng, nh // ng + 2, hs)
+        q = qkv[:, :, :, :nh // ng].reshape(B, T, nh, hs).transpose(1, 2)
+        k = qkv[:, :, :, nh // ng].transpose(1, 2)
+        v = qkv[:, :, :, nh // ng + 1].transpose(1, 2)
+        y = attention(rope(q), rope(k), v).transpose(1, 2).reshape(B, T, nh * hs)
+        x = x + F.linear(y, w("attn.proj.weight"))
+        h = rms(x, w("norm_2.weight"))
+        x = x + F.linear(F.silu(F.linear(h, w("mlp.fc_1.weight"))) * F.linear(h, w("mlp.fc_2.weight")),
+                         w("mlp.proj.weight"))
+    logits = F.linear(rms(x, params["gpt.ln_f.weight"]), params["gpt.lm_head.weight"])
+    return F.cross_entropy(logits.reshape(B * T, -1).float(), tgt.reshape(-1).long())
+
+
+def plain_attention(q, k, v):
+    """Causal softmax attention written out in f32, GQA by repeating k/v."""
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    T = q.shape[2]
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool, device=q.device).tril(), float("-inf"))
+    return torch.matmul(torch.softmax(s, -1), v)
+
+
+def sdpa_attention(q, k, v):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=q.shape[1] != k.shape[1])
+
+
+class ReferenceAdamW:
+    """AdamW written out as thunder_tpu/optim.py:83-106 (f32 moments, decay
+    then step), over lists of tensors with torch's multi-tensor ops."""
+
+    def __init__(self, params: list, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01):
+        self.params, self.lr, (self.b1, self.b2), self.eps, self.wd = params, lr, betas, eps, weight_decay
+        self.m = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.v = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        self.t = 0
+
+    @torch.no_grad()
+    def step(self, grads: list):
+        self.t += 1
+        bc1, bc2 = 1.0 - self.b1 ** self.t, 1.0 - self.b2 ** self.t
+        g32 = [g.float() for g in grads]
+        self.m = torch._foreach_add(torch._foreach_mul(self.m, self.b1), torch._foreach_mul(g32, 1 - self.b1))
+        self.v = torch._foreach_add(torch._foreach_mul(self.v, self.b2),
+                                    torch._foreach_mul(torch._foreach_mul(g32, g32), 1 - self.b2))
+        upd = torch._foreach_div(torch._foreach_div(self.m, bc1),
+                                 torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(self.v, bc2)),
+                                                    self.eps))
+        p32 = [p.float() for p in self.params]
+        p32 = torch._foreach_sub(p32, torch._foreach_mul(p32, self.lr * self.wd))
+        p32 = torch._foreach_sub(p32, torch._foreach_mul(upd, self.lr))
+        for p, q in zip(self.params, p32):
+            p.copy_(q)
+
+
+def reference_step(params: dict, opt: ReferenceAdamW, cfg, idx, tgt, attention, autocast: bool):
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+        loss = reference_loss(params, cfg, idx, tgt, attention)
+    grads = torch.autograd.grad(loss, opt.params)
+    opt.step(grads)
+    return loss.detach()
+
+
+def timed_steps(step, warmup: int, n: int) -> tuple[float, list]:
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n, [float(x) for x in losses]
+
+
+def step_bound(model, cfg, B, T) -> dict:
+    """The least time one train step could take on the card, from shapes:
+    operations are 6 per weight of every matmul per token (forward and
+    backward) plus causal attention's 4·B·H·T²·hs/2 forward and 2.5× that
+    backward; bytes are the f32 parameters and AdamW moments read and
+    written once and the batch read once."""
+    n_mm = sum(p.numel() for name, p in model.named_parameters() if p.ndim == 2 and "wte" not in name)
+    n_all = sum(p.numel() for p in model.parameters())
+    ops = 6 * n_mm * B * T + 3.5 * cfg.n_layer * 4 * B * cfg.n_head * T * T * cfg.head_size / 2
+    b, by = bound_ms(2 * 3 * 4 * n_all + 2 * B * T * 4, ops, "bfloat16")
+    return dict(model_ops_per_step=ops, bound_ms=b, bound_by=by)
+
+
+def train(tt, cudaex, seed) -> dict:
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = 4, 2048, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), optim.AdamW(lr=TRAIN_LR))
+    idx, tgt = train_batch(cfg, B, T, seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    cudaex.flash_rope_attention.launches = 0
+    cudaex.flash_rope_attention_backward.launches = 0
+    cudaex.rms_norm.launches = 0
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    launches = {"flash_rope_fwd": cudaex.flash_rope_attention.launches,
+                "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches,
+                "rms_norm": cudaex.rms_norm.launches}
+    want = cfg.n_layer * n_steps
+    if launches["flash_rope_fwd"] != want or launches["flash_rope_bwd"] != want:
+        raise AssertionError(f"flash launches {launches} over {n_steps} steps, want {want} each")
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}")
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    claims = {"forward": sorted({b.sym.id for b in fwd if b.sym.id == "cuda.rope_flash_fwd"
+                                 and b.impl is cudaex._rope_flash_fwd_impl}),
+              "backward": sorted({b.sym.id for b in bwd if b.sym.id == "cuda.rope_flash_bwd"
+                                  and b.impl is cudaex._rope_flash_bwd_impl})}
+    if claims != {"forward": ["cuda.rope_flash_fwd"], "backward": ["cuda.rope_flash_bwd"]}:
+        raise AssertionError(f"the step's cuda claims are {claims}")
+    ops = {name: sum(1 for b in t if b.sym.name not in ("python_del", "python_return"))
+           for name, t in (("forward", fwd), ("backward", bwd))}
+    bound = step_bound(model, cfg, B, T)
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 autocast, f32 master",
+               steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s,
+               mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"], **bound,
+               compile_s=compile_s, init_s=t_init, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, launches=launches, claims=claims, ops_per_step=ops)
+    emit("train", **out)
+    prof = train_profile(step, idx, tgt)
+    del step, model
+    torch.cuda.empty_cache()
+    out["baseline"] = baseline(cfg, B, T, n_steps, seed, bound["model_ops_per_step"])
+    return out, prof
+
+
+# Device kernels by what they do, by name: the first kind with a matching
+# mark wins.
+KERNEL_KINDS = (
+    ("attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel",)),
+    ("copy_cast", ("direct_copy", "copy_kernel")),
+    ("elementwise", ("elementwise_kernel", "index_elementwise")),
+)
+
+
+def train_profile(step, idx, tgt) -> dict:
+    """Device busy share over 2 steps, the kernels that took the time (by
+    name and by kind, per step), and the kernel launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(idx, tgt)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if str(e.device_type).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    by_kind: dict = {}
+    for us, k, _ in rows:
+        kind = next((kind for kind, marks in KERNEL_KINDS if any(m in k for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / 2
+    out = dict(steps=2, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               idle_share=(1 - busy_us / wall_us) if busy_us else None,
+               kernel_launches_per_step=sum(r[2] for r in rows) / 2,
+               device_ms_per_step_by_kind=by_kind,
+               top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]])
+    emit("train_profile", **out)
+    return out
+
+
+def baseline(cfg, B, T, n_steps, seed, model_ops) -> dict:
+    """The hand-written plain-PyTorch step at the train phase's shape: bf16
+    autocast, F.scaled_dot_product_attention, the reference AdamW. Its
+    weights are random (seeded); only its speed is read."""
+    from thunder_tpu_torch.models.litgpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    params = {k: p.detach().requires_grad_() for k, p in model.named_parameters()}
+    opt = ReferenceAdamW(list(params.values()), TRAIN_LR)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = timed_steps(
+        lambda: reference_step(params, opt, cfg, idx, tgt, sdpa_attention, True), 2, n_steps)
+    out = dict(ms_per_step=step_s * 1e3, baseline_tokens_per_s=B * T / step_s,
+               mfu=model_ops / step_s / PEAK_OPS["bfloat16"], losses=losses,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("train_baseline", **out)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_agreement(tt, cudaex, seed) -> dict:
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+
+    B, T, n_steps = 1, 2048, 3
+    cfg = Config.from_name("llama-350m", n_layer=2, block_size=T)
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    ref = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    idx, tgt = train_batch(cfg, B, T, seed)
+    step = TrainStep(tt.jit(model), optim.AdamW(lr=TRAIN_LR))
+    opt = ReferenceAdamW(list(ref.values()), TRAIN_LR)
+    n0 = cudaex.flash_rope_attention.launches
+    got = [float(step(idx, tgt)) for _ in range(n_steps)]
+    want = [float(reference_step(ref, opt, cfg, idx, tgt, plain_attention, False))
+            for _ in range(n_steps)]
+    if cudaex.flash_rope_attention.launches - n0 != cfg.n_layer * n_steps:
+        raise AssertionError("the f32 step did not run the flash kernels")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    diffs = torch.cat([(p.detach() - ref[k].detach()).abs().flatten()
+                       for k, p in model.named_parameters()])
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False,
+               losses=got, reference_losses=want, loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               param_max_abs=diffs.max().item(), param_p999_abs=torch.quantile(
+                   diffs[torch.randperm(diffs.numel(), device=diffs.device)[:1 << 24]], 0.999).item(),
+               param_atol=PARAM_ATOL)
+    emit("train_agreement", **out)
+    if not loss_rel <= LOSS_RTOL or not out["param_max_abs"] <= PARAM_ATOL:
+        raise AssertionError(f"train agreement: losses {loss_rel}, params {out['param_max_abs']}")
+    del step, model, ref, opt
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -350,21 +773,29 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rms = check_rms(cudaex, dev, gen)
     paged = check_paged(cudaex, dev, gen)
+    flash_fwd, flash_bwd = check_flash(cudaex, dev, gen)
 
     cfg = Config.from_name("Llama-3-1B")
     rng = np.random.RandomState(args.seed)
     prompts = make_prompts(rng, 16, 128, 1024, cfg.vocab_size)
     served, _ = serve(tt, cudaex, cfg, prompts, args.seed)
     agreement(cfg, prompts[:4], args.seed)
+    torch.cuda.empty_cache()
+    trained, _ = train(tt, cudaex, args.seed)
+    train_agreement(tt, cudaex, args.seed)
 
     kernels = []
-    for name, res, src, rep in (
+    for name, res, src, rep, launches in (
             ("rms_norm", rms, "thunder_tpu_torch/csrc/rms_norm.cu",
-             "thunder_tpu/executors/pallasex.py:1245"),
+             "thunder_tpu/executors/pallasex.py:1245", served["launches"]["rms_norm"]),
             ("paged_attention", paged, "thunder_tpu_torch/csrc/paged_attention.cu",
-             "thunder_tpu/executors/pallasex.py:1738")):
+             "thunder_tpu/executors/pallasex.py:1738", served["launches"]["paged_attention"]),
+            ("flash_rope_fwd", flash_fwd, "thunder_tpu_torch/csrc/flash_rope_fwd.cu",
+             "thunder_tpu/executors/pallasex.py:611", trained["launches"]["flash_rope_fwd"]),
+            ("flash_rope_bwd", flash_bwd, "thunder_tpu_torch/csrc/flash_rope_bwd.cu",
+             "thunder_tpu/executors/pallasex.py:850", trained["launches"]["flash_rope_bwd"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                        "launches": served["launches"][name], "max_abs_err": res["max_abs_err"],
+                        "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                         "shape": res["shape"]})

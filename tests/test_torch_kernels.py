@@ -11,8 +11,15 @@ differ by at most one bf16 ulp (2^-8 relative, ~1.6e-2 at |y| = 4). bf16
 paged attention at 2e-2, the bar thunder_tpu's own kernel test uses
 (tests/test_inference.py:279). On the card, f32 paged attention at 1e-4:
 the kernel's exp2 with log2(e) folded into the scale against the plain
-version's exp.
+version's exp. Flash-RoPE plain versions against the Pallas kernels at
+test_pallas.py's f32 bars, 2e-3 forward and 5e-3 backward; on the card the
+kernels against their plain versions at 1e-4 (f32: exp2 against exp, other
+summation order) and 2e-2 (bf16: the kernels round the probabilities and
+ds to bf16 before their products, as the TPU kernels do), absolute plus
+relative.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -55,7 +62,7 @@ def jax_ref():
 
 
 def _torch(a, dtype=None):
-    t = torch.tensor(a)
+    t = torch.tensor(np.asarray(a))
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
@@ -150,6 +157,75 @@ def test_wrappers_run_plain_only_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# Flash attention with RoPE: plain versions against pallasex's kernels
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [(1, 4, 4, 128, 32), (1, 4, 2, 128, 64), (1, 4, 2, 128, 32), (1, 4, 4, 128, 64)]
+FLASH_IDS = ["mha-d32", "gqa-d64", "gqa-d32", "mha-d64"]
+
+
+def _flash_inputs(B, H, Hkv, T, D, seed=0):
+    """numpy q, k, v, cos, sin, do; no jax, so the card tests can use it."""
+    from thunder_tpu_torch.models.litgpt import build_rope_cache
+
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, T, D).astype(np.float32)
+    k = rng.randn(B, Hkv, T, D).astype(np.float32)
+    v = rng.randn(B, Hkv, T, D).astype(np.float32)
+    do = rng.randn(B, H, T, D).astype(np.float32)
+    cos, sin = (a.numpy() for a in build_rope_cache(T, D, 10000, torch.float32, "cpu"))
+    return q, k, v, cos, sin, do
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_rope_plain_matches_pallas(jax_ref, B, H, Hkv, T, D):
+    jnp, pallasex = jax_ref
+    q, k, v, cos, sin, do = _flash_inputs(B, H, Hkv, T, D)
+    scale = 1.0 / math.sqrt(D)  # a python float: jax keeps the f32 kernels f32
+    jo, jlse = pallasex.flash_rope_attention_forward(
+        *(jnp.asarray(a) for a in (q, k, v, cos, sin)), causal=True, scale=scale)
+    jdq, jdk, jdv = pallasex.flash_rope_attention_backward(
+        *(jnp.asarray(a) for a in (q, k, v)), jo, jlse, jnp.asarray(cos), jnp.asarray(sin),
+        jnp.asarray(do), causal=True, scale=scale)
+    tq, tk, tv, tcos, tsin, tdo = (_torch(a) for a in (q, k, v, cos, sin, do))
+    o, lse = cudaex.flash_rope_attention(tq, tk, tv, tcos, tsin, True, scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-3, rtol=2e-3)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-3, rtol=2e-3)
+    grads = cudaex.flash_rope_attention_backward(tq, tk, tv, o, lse, tcos, tsin, tdo, True, scale)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, (jdq, jdk, jdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+def test_flash_rope_checker_is_hoppers():
+    """Any T (no TPU % 512 or T >= 1024 rule); D up to 128, even, a
+    multiple of the 16-byte vector; H % Hkv == 0; cos/sin (T, D)."""
+    from thunder_tpu_torch.core.proxies import TensorProxy
+    from thunder_tpu_torch.core import dtypes
+
+    def ok(B=1, H=4, Hkv=2, T=100, D=64, dt=dtypes.bfloat16, cs=None):
+        p = lambda *s, d=dt: TensorProxy(shape=s, dtype=d, device=tt.devices.cpu)  # noqa: E731
+        cs = cs or (T, D)
+        return cudaex.rope_sdpa_supported(p(B, H, T, D), p(B, Hkv, T, D), p(B, Hkv, T, D),
+                                          p(*cs, d=dtypes.float32), p(*cs, d=dtypes.float32))
+
+    assert ok() and ok(T=1) and ok(T=2048, D=128) and ok(D=4, dt=dtypes.float32)
+    assert not ok(D=136) and not ok(D=36) and not ok(Hkv=3) and not ok(cs=(64, 64))
+    assert not ok(D=8, dt=dtypes.int32)
+
+
+def test_flash_rope_autograd_function_on_cpu():
+    """FlashRopeAttention.apply runs the plain versions on CPU tensors; its
+    gradients match torch.autograd through the plain forward."""
+    q, k, v, cos, sin, do = (_torch(a) for a in _flash_inputs(1, 4, 2, 40, 32, seed=3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cudaex.FlashRopeAttention.apply(*leaves, cos, sin, True, None).backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    cudaex.flash_rope_attention_plain(*ref, cos, sin, True, None)[0].backward(do)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -189,6 +265,51 @@ def test_paged_kernel_matches_plain(cuda, dtype, tol):
     assert cudaex.paged_attention.launches == n0 + 1
     torch.testing.assert_close(out.float(), cudaex.paged_attention_plain(*args).float(),
                                atol=tol, rtol=tol)
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
+    (2, 4, 4, 200, 64, True), (1, 8, 2, 256, 128, True), (1, 4, 2, 77, 32, False),
+    (1, 2, 1, 64, 16, True), (1, 4, 2, 33, 24, True)],
+    ids=["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_rope_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, cos, sin, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    n0 = (cudaex.flash_rope_attention.launches, cudaex.flash_rope_attention_backward.launches)
+    o, lse = cudaex.flash_rope_attention(q, k, v, cos, sin, causal)
+    grads = cudaex.flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, causal)
+    torch.cuda.synchronize()
+    assert (cudaex.flash_rope_attention.launches, cudaex.flash_rope_attention_backward.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    tol = FLASH_TOL[dtype]
+    ro, rlse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, causal)
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    ref = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_rope_autograd_matches_autograd_through_plain(cuda):
+    """FlashRopeAttention (both kernels) against torch.autograd through the
+    plain forward, in f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, cos, sin, do = (_torch(a).to(cuda) for a in _flash_inputs(2, 4, 2, 150, 64, seed=5))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = cudaex.FlashRopeAttention.apply(*leaves, cos, sin, True, None)
+    out.backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    rout = cudaex.flash_rope_attention_plain(*ref, cos, sin, True, None)[0]
+    rout.backward(do)
+    torch.testing.assert_close(out, rout, atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -7,10 +7,13 @@ device. Executors, in claim order: ``cuda`` (hand-written Hopper kernels,
 executors/cudaex.py), then ``torch`` (one torch call per prim,
 executors/torchex.py; the always-executor).
 
-This first slice serves: ``jit`` and ``last_traces`` here, ``nn``,
-``models.litgpt``, ``inference`` and ``serving``. A program runs where its
-tensor inputs live; model and engine constructors take ``device`` and default
-to the card (raising when there is none).
+The serving slice brought ``jit`` and ``last_traces`` here, ``nn``,
+``models.litgpt``, ``inference`` and ``serving``; the training slice brings
+``value_and_grad``/``grad`` (transforms/autodiff.py), ``AutocastTransform``
+(transforms/autocast.py), ``jit(module, transforms=...)`` returning a
+``ThunderModule``, ``optim`` and ``training.TrainStep``. A program runs where
+its tensor inputs live; model and engine constructors take ``device`` and
+default to the card (raising when there is none).
 """
 from __future__ import annotations
 
@@ -47,18 +50,20 @@ def _is_tensor_like(x) -> bool:
     return isinstance(x, torch.Tensor)
 
 
-def acquire_trace(fn: Callable, args, kwargs) -> TraceCtx:
+def acquire_trace(fn: Callable, args, kwargs, grad_mask: Sequence[bool] | None = None) -> TraceCtx:
     """Trace fn by calling it with proxies for its tensor leaves. The
-    trace's device is its first tensor input's."""
+    trace's device is its first tensor input's. ``grad_mask`` (one flag per
+    leaf) marks the proxies autodiff differentiates."""
     leaves, treedef = tree_flatten((args, kwargs))
     trc = TraceCtx(fn)
     tensor_mask = [_is_tensor_like(leaf) for leaf in leaves]
+    grad_mask = grad_mask or [False] * len(leaves)
     first = next((leaf for leaf, m in zip(leaves, tensor_mask) if m), None)
     if first is not None:
         trc.device = devices.to_device(first.device)
     with tracectx(trc):
-        proxy_leaves = [proxy_from_torch(leaf) if m else leaf
-                        for leaf, m in zip(leaves, tensor_mask)]
+        proxy_leaves = [proxy_from_torch(leaf, requires_grad=g) if m else leaf
+                        for leaf, m, g in zip(leaves, tensor_mask, grad_mask)]
         trc.args = tuple(p for p, m in zip(proxy_leaves, tensor_mask) if m)
         pargs, pkwargs = tree_unflatten(proxy_leaves, treedef)
         prims.python_return(fn(*pargs, **pkwargs))
@@ -130,9 +135,15 @@ class ThunderCompiledFunction:
         cs = self._cs
         trc = acquire_trace(self._cd.fn, args, kwargs)
         pro = build_prologue(trc)
+        traces = [trc]
+        for tf in self._cd.transforms:
+            pro, trc = tf.transform_traces_pre_autodiff(pro, trc, compile_data=self._cd)
+            traces.append(trc)
         dce_trc = dce(trc)
         ex_trc = transform_for_execution(dce_trc, self._cd.executors or get_default_executors())
-        cs.last_traces = [trc, dce_trc, ex_trc]
+        for tf in self._cd.transforms:
+            ex_trc = tf.transform_trace_post_optimization(ex_trc, compile_data=self._cd)
+        cs.last_traces = traces + [dce_trc, ex_trc]
         cs.last_prologue_traces = [pro]
         entry = CacheEntry(prologue_fn=pro.python_callable(),
                            computation_fn=ex_trc.python_callable())
@@ -163,11 +174,18 @@ class ThunderCompiledFunction:
         return int(self._cs.cache_misses)
 
 
-def jit(fn: Callable, *, executors: Sequence | None = None) -> ThunderCompiledFunction:
+def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence | None = None):
     """Compile a callable into a cached trace program. Its tensor inputs
     decide the device it runs on; calls with new (shape, dtype, device)
-    metadata compile a new specialization."""
-    cd = CompileData(fn=fn, executors=resolve_executors(executors) if executors is not None else ())
+    metadata compile a new specialization. A ``torch.nn.Module`` becomes a
+    ``ThunderModule`` whose program takes the parameters as inputs;
+    ``transforms`` rewrite the acquired trace (e.g. ``AutocastTransform``)."""
+    from .nn.module import ThunderModule
+
+    if isinstance(fn, torch.nn.Module):
+        return ThunderModule(fn, executors=executors, transforms=transforms)
+    cd = CompileData(fn=fn, executors=resolve_executors(executors) if executors is not None else (),
+                     transforms=transforms or ())
     return ThunderCompiledFunction(cd)
 
 
@@ -184,6 +202,12 @@ def last_traces(cfn) -> list:
     return _get_cs(cfn).last_traces
 
 
+def last_backward_traces(cfn) -> list:
+    """[backward trace, after executor claiming] of the most recent
+    value_and_grad (or TrainStep) compile."""
+    return _get_cs(cfn).last_backward_traces
+
+
 def last_prologue_traces(cfn) -> list:
     return _get_cs(cfn).last_prologue_traces
 
@@ -194,3 +218,18 @@ def cache_hits(cfn) -> int:
 
 def cache_misses(cfn) -> int:
     return int(_get_cs(cfn).cache_misses)
+
+
+def value_and_grad(fn, argnums=0):
+    """(value, grads) of a scalar-valued callable (differentiated in its
+    ``argnums`` positional arguments), Module or ThunderModule
+    (transforms/autodiff.py)."""
+    from .transforms.autodiff import value_and_grad as _vag
+
+    return _vag(fn, argnums)
+
+
+def grad(fn, argnums=0):
+    from .transforms.autodiff import grad as _grad
+
+    return _grad(fn, argnums)

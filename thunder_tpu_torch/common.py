@@ -1,8 +1,8 @@
 """CompileData / CompileStats / CacheEntry for jit.
 
-The bookkeeping of thunder_tpu/common.py, without the transforms, the
-distributed state and the buffer-mutation epilogue (they wait for the
-slices that need them)."""
+The bookkeeping of thunder_tpu/common.py, without the distributed state
+and the buffer-mutation epilogue (they wait for the slices that need
+them)."""
 from __future__ import annotations
 
 import threading
@@ -33,14 +33,16 @@ class CompileStats:
         self.cache_misses = _Counter()
         self.last_traces: list = []
         self.last_prologue_traces: list = []
+        self.last_backward_traces: list = []
 
 
 class CompileData:
     """Per-function compile configuration."""
 
-    def __init__(self, *, fn: Callable, executors: Sequence = ()):
+    def __init__(self, *, fn: Callable, executors: Sequence = (), transforms: Sequence = ()):
         self.fn = fn
         self.executors = tuple(executors)
+        self.transforms = tuple(transforms)
 
 
 class CacheEntry:

@@ -1,7 +1,8 @@
-"""Common trace-to-trace passes: dce, cse and del_last_used.
+"""Common trace-to-trace passes (dce, cse, del_last_used) and the
+``Transform`` base of the compile pipeline.
 
-The passes of thunder_tpu/core/transform_common.py (the Transform base and
-trace flattening wait for the transforms slice).
+The passes and the Transform of thunder_tpu/core/transform_common.py (trace
+flattening waits for the slice that needs it).
 """
 from __future__ import annotations
 
@@ -117,3 +118,25 @@ def del_last_used(trace: TraceCtx) -> TraceCtx:
     new_trace.bound_symbols = list(reversed(out))
     new_trace.set_provenance(f"Delete Last Used (took {(time.perf_counter()-start)*1000:.2f} ms)")
     return new_trace
+
+
+class Transform:
+    """User-extensible compile-pipeline hook (thunder_tpu/core/transform_common.py:142).
+
+    Subclasses override any of:
+      - transform_module(module): eager module rewrite at registration time
+      - transform_traces_pre_autodiff(prologue_trc, computation_trc, **kwargs)
+      - transform_trace_post_optimization(trc, **kwargs)
+    """
+
+    def transform_module(self, module) -> None:
+        return None
+
+    def transform_traces_pre_autodiff(self, prologue_trc, computation_trc, *, compile_data=None):
+        return prologue_trc, computation_trc
+
+    def transform_trace_post_optimization(self, trc, *, compile_data=None):
+        return trc
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__}>"

@@ -1,0 +1,229 @@
+// Flash attention forward with RoPE applied in the kernel, for Hopper (sm_90a).
+//
+// Replaces thunder_tpu/executors/pallasex.py:flash_rope_attention_forward
+// (kernel body _flash_rope_fwd_kernel): q, k, v (B, H | Hkv, T, D) pre-RoPE,
+// cos/sin (T, D) f32 duplicated-half caches -> o (B, H, T, D) and the
+// natural-log lse (B, H, T) f32 that the backward reads. kv head = q head //
+// (H / Hkv). Causal or full.
+//
+// What bounds it: the products. Causal attention does 4·B·H·T²·D/2 flops
+// against about 4·B·H·T·D·2 bytes of q, k, v and o; at llama-350m's shape
+// (B=4, H=16, T=2048, D=64, bf16) that is 34.4 GFLOP (34.7 us at the 989
+// TFLOP/s bf16 peak) against 69 MB (20.6 us at 3.35 TB/s).
+//
+// What the design does about that: the products run on the tensor cores
+// (mma.sync m16n8k16, bf16/fp16 in, f32 accumulation) from shared-memory
+// tiles, and nothing of size T² touches device memory. One block per (q
+// tile of 128 rows — 64 in f32 —, head, batch); q is roped once into shared
+// memory; a loop inside the block walks the 64-key k/v tiles up to the
+// causal limit (tiles past the diagonal are skipped). Tile i + 1 is copied
+// with cp.async while tile i is computed; each k tile is roped in shared
+// memory once it has landed. The online-softmax state — base-2, log2(e)
+// folded into the scale, as the TPU kernel — stays in registers. The
+// probabilities are rounded to the input dtype for the p·v product, as the
+// TPU kernel rounds them. RoPE is a compile-time switch: with it off the same
+// kernel is plain flash attention.
+//
+// Not done yet: no wgmma or TMA, and the probabilities pass through shared
+// memory on their way to p·v.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace tt::flash;
+
+constexpr int kBK = 64;  // keys per k/v tile
+
+// Warps of a block: 8 (a 128-row q tile) for 16-bit types, 4 for f32.
+template <typename T> struct FwdWarps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
+
+template <typename T, int DP>
+size_t fwd_smem_bytes() {
+  constexpr int BQ = 16 * FwdWarps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
+  // q, raw k and v stages, roped k, probabilities
+  return sizeof(T) * ((BQ + 2 * ST * kBK + kBK) * LD + BQ * (kBK + Pad<T>::N));
+}
+
+template <typename T, int DP, bool ROPE>
+__global__ void __launch_bounds__(32 * FwdWarps<T>::N)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ cos, const float* __restrict__ sin,
+                     T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int T_, int D,
+                     int causal, float scale_log2e) {
+  constexpr int W = FwdWarps<T>::N, NT = 32 * W, BQ = 16 * W, ST = Stages<T>::N;
+  constexpr int LD = DP + Pad<T>::N;   // row stride of the q, k, v tiles
+  constexpr int LP = kBK + Pad<T>::N;  // row stride of the probability tile
+  constexpr int NS = kBK / 8;          // 8-column slices of a score row block
+  constexpr int NO = DP / 8;           // 8-column slices of an output row block
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* kraw_s = q_s + BQ * LD;           // ST stages of raw k
+  T* v_s = kraw_s + ST * kBK * LD;     // ST stages of v
+  T* k_s = v_s + ST * kBK * LD;        // the roped k tile
+  T* p_s = k_s + kBK * LD;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x >> 5;
+  const size_t slab = static_cast<size_t>(T_) * D;
+  const T* qb = q + (static_cast<size_t>(b) * H + h) * slab;
+  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * slab;
+  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * slab;
+  const int q0 = qt * BQ, w0 = q0 + 16 * warp;
+
+  int n_kt = (T_ + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q0 + BQ + kBK - 1) / kBK);  // tiles past the diagonal: none
+  auto fetch = [&](int kt) {  // starts the copy of k/v tile kt into its stage
+    const int st = kt % ST;
+    copy_tile_async<T, DP, kBK, NT>(kraw_s + st * kBK * LD, LD, kb, kt * kBK, T_, D);
+    copy_tile_async<T, DP, kBK, NT>(v_s + st * kBK * LD, LD, vb, kt * kBK, T_, D);
+    cp_async_commit();
+  };
+  if (ST == 2) fetch(0);
+  load_tile<T, DP, BQ, NT, ROPE>(q_s, LD, qb, q0, T_, D, cos, sin);
+  const T* qw = q_s + 16 * warp * LD;
+  T* pw = p_s + 16 * warp * LP;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    const T* kr = kraw_s + (kt % ST) * kBK * LD;
+    const T* vs = v_s + (kt % ST) * kBK * LD;
+    if (ST == 1) {
+      fetch(kt);
+      cp_async_wait<0>();
+    } else if (kt + 1 < n_kt) {
+      fetch(kt + 1);  // overlaps this tile's math
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt has landed for every thread
+    if (ROPE) {
+      rope_tile<T, DP, kBK, NT>(k_s, kr, LD, k0, T_, D, cos, sin);
+      __syncthreads();
+    }
+    const T* ks = ROPE ? k_s : kr;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    warp_mma<T, NS, DP, true>(s, qw, LD, ks, LD);
+
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + acc_col(j, e), row = w0 + acc_row(e);
+        const float x = (key >= T_ || (causal && key > row)) ? kNegInf : s[j][e] * scale_log2e;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+    }
+    store_acc<T, NS>(pw, LP, s);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    }
+    __syncwarp();  // this warp's probabilities are written
+    warp_mma<T, NO, kBK, false>(acc, pw, LP, vs, LD);
+    __syncthreads();  // every warp is done with this tile's stage and k_s
+  }
+
+  const size_t row0 = (static_cast<size_t>(b) * H + h) * T_;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w0 + acc_row(2 * r);
+    if (row >= T_) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const int col = acc_col(j, e);
+        if (col < D) o[(row0 + row) * D + col] = tt::from_f32<T>(acc[j][e] / l_safe);
+      }
+    }
+    if ((threadIdx.x & 3) == 0) lse[row0 + row] = (m[r] + log2f(l_safe)) * kLn2;
+  }
+}
+
+template <typename T, int DP>
+int launch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
+           void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
+           float scale_log2e, cudaStream_t stream) {
+  constexpr int W = FwdWarps<T>::N;
+  auto kernel = flash_fwd_kernel<T, DP, true>;
+  const size_t smem = fwd_smem_bytes<T, DP>();
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), H, B), 32 * W, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), cos, sin,
+      static_cast<T*>(o), lse, H, Hkv, T_, D, causal, scale_log2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
+             void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
+             float scale_log2e, cudaStream_t s) {
+  switch (padded_head_dim(D)) {
+    case 32:
+      return launch<T, 32>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+    case 64:
+      return launch<T, 64>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+    default:
+      return launch<T, 128>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+  }
+}
+
+}  // namespace
+
+// All tensors contiguous; q, k, v and o of one dtype; cos/sin f32 (T, D);
+// D even, a multiple of the 16-byte vector and at most 128; H % Hkv == 0.
+// Returns the launch's CUDA error.
+extern "C" int tt_flash_rope_fwd(const void* q, const void* k, const void* v, const void* cos,
+                                 const void* sin, void* o, void* lse, int B, int H, int Hkv,
+                                 int T, int D, int causal, float scale_log2e, int dtype,
+                                 void* stream) {
+  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  float* l = static_cast<float*>(lse);
+  switch (dtype) {
+    case tt::kF32:
+      return dispatch<float>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e, s);
+    case tt::kBF16:
+      return dispatch<__nv_bfloat16>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
+                                     s);
+    case tt::kF16:
+      return dispatch<__half>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,12 +1,22 @@
-"""cudaex: hand-written Hopper kernels for the hot ops of the serving path.
+"""cudaex: hand-written Hopper kernels for the hot ops of the serving and
+training paths.
 
-The port's counterpart of thunder_tpu/executors/pallasex.py. It claims two
+The port's counterpart of thunder_tpu/executors/pallasex.py. It claims three
 composite ltorch symbols whole:
 
 * ``torch.nn.functional.rms_norm`` → ``rms_norm`` (csrc/rms_norm.cu), which
   replaces pallasex.fused_rms_norm;
 * ``thunder.paged_attention`` → ``paged_attention`` (csrc/paged_attention.cu),
-  which replaces pallasex.paged_attention_decode.
+  which replaces pallasex.paged_attention_decode;
+* ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_rope_fwd.cu),
+  which replaces pallasex.flash_rope_attention_forward.
+
+and registers the grad rule of ``thunder.rope_sdpa`` as pallasex does: the
+augmented forward records ``cuda.rope_flash_fwd`` (the forward kernel, which
+also returns the softmax's lse) and the backward ``cuda.rope_flash_bwd``
+(``flash_rope_attention_backward``, csrc/flash_rope_bwd.cu), which replaces
+pallasex.flash_rope_attention_backward and its fused single pass.
+``FlashRopeAttention`` is the same pair as a ``torch.autograd.Function``.
 
 The kernels are CUDA C++ for sm_90a with a plain C interface, compiled by
 ``nvcc`` at first use into one shared library under ``build/thunder_tpu_torch/``
@@ -31,8 +41,11 @@ from pathlib import Path
 
 import torch
 
+from ..core import dtypes
 from ..core.dtypes import to_torch_dtype
+from ..core.proxies import TensorProxy
 from ..extend import OperatorExecutor, register_executor
+from ..transforms.autodiff import VJPResult, register_augmented_forward, register_backward
 
 ex = OperatorExecutor("cuda")
 register_executor(ex)
@@ -107,6 +120,11 @@ def _library():
         lib.tt_rms_norm.restype = i
         lib.tt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.tt_paged_attention.restype = i
+        lib.tt_flash_rope_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.tt_flash_rope_fwd.restype = i
+        lib.tt_flash_rope_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, f, f, i, p]
+        lib.tt_flash_rope_bwd.restype = i
         _lib = lib
     return _lib
 
@@ -283,3 +301,238 @@ def _paged_attention_impl(q, k_pages, v_pages, page_table, seq_lens, scale=None)
 
 ex.register_implementation("thunder.paged_attention", _paged_attention_impl,
                            checker=paged_attention_supported)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention with RoPE applied in the kernel: forward and backward
+# ---------------------------------------------------------------------------
+
+_FLASH_MAX_D = 128  # csrc/flash_rope_*.cu instantiate padded head dims 32, 64, 128
+
+
+def _rope_plain(x, cos, sin):
+    """Half-split RoPE in f32: x·cos + rotate_half(x)·sin."""
+    h = x.shape[-1] // 2
+    return x * cos + torch.cat([-x[..., h:], x[..., :h]], -1) * sin
+
+
+def _rope_vjp_plain(dxr, cos, sin):
+    """VJP of _rope_plain: dxr·cos + rotate_halfᵀ(dxr·sin)."""
+    h = dxr.shape[-1] // 2
+    ds = dxr * sin
+    return dxr * cos + torch.cat([ds[..., h:], -ds[..., :h]], -1)
+
+
+def _flash_plain_scores(q, k, cos, sin, causal, scale):
+    """Roped q/k (in f32, rounded to the input dtype as the kernels round
+    them), k repeated over the GQA group, and the masked scores."""
+    B, H, T, D = q.shape
+    g = H // k.shape[1]
+    cos, sin = cos.float(), sin.float()
+    qr = _rope_plain(q.float(), cos, sin).to(q.dtype).float()
+    kr = _rope_plain(k.float(), cos, sin).to(k.dtype).float()
+    kr = kr.repeat_interleave(g, 1)
+    s = torch.matmul(qr, kr.transpose(-1, -2)) * scale
+    if causal:
+        live = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(live, s, float("-inf"))
+    return qr, kr, s
+
+
+def flash_rope_attention_plain(q, k, v, cos, sin, causal=True, scale=None):
+    """The forward kernel's function in plain PyTorch, f32 step by step:
+    rope, masked softmax, natural-log lse. -> (o in q's dtype, lse f32)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    g = q.shape[1] // k.shape[1]
+    _, _, s = _flash_plain_scores(q, k, cos, sin, causal, scale)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.matmul(p, v.float().repeat_interleave(g, 1))
+    return o.to(q.dtype), lse
+
+
+def flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal=True, scale=None):
+    """The backward kernels' function in plain PyTorch, f32 step by step:
+    P from the saved lse, dP = dO·Vᵀ, dS = P·(dP − delta)·scale with delta =
+    rowsum(dO·O), dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO (summed over the GQA
+    group), then the RoPE VJP on dQ and dK. -> (dq, dk, dv)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    do = do.to(q.dtype).float()
+    qr, kr, s = _flash_plain_scores(q, k, cos, sin, causal, scale)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (do * o.float()).sum(-1)
+    dp = torch.matmul(do, v.float().repeat_interleave(g, 1).transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    dqr = torch.matmul(ds, kr)
+    dkr = torch.matmul(ds.transpose(-1, -2), qr).reshape(B, Hkv, g, T, D).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), do).reshape(B, Hkv, g, T, D).sum(2)
+    cos, sin = cos.float(), sin.float()
+    return (_rope_vjp_plain(dqr, cos, sin).to(q.dtype), _rope_vjp_plain(dkr, cos, sin).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check_flash(name, q, k, v, cos, sin) -> None:
+    B, H, T, D = q.shape
+    _check_cuda(name, q, k, v, cos, sin)
+    _require(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"{name}: q, k and v must share a float dtype")
+    _require(k.ndim == 4 and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B
+             and k.shape[2] == T and k.shape[3] == D and H % k.shape[1] == 0,
+             f"{name}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
+    _require(D % 2 == 0 and D % _vec(q.dtype) == 0 and D <= _FLASH_MAX_D,
+             f"{name}: head dim {D} unsupported for {q.dtype}")
+    _require(cos.dtype == torch.float32 and tuple(cos.shape) == (T, D)
+             and tuple(sin.shape) == (T, D) and sin.dtype == torch.float32,
+             f"{name}: cos/sin must be f32 ({T}, {D})")
+
+
+def flash_rope_attention(q, k, v, cos, sin, causal=True, scale=None):
+    """q (B, H, T, D), k/v (B, Hkv, T, D) pre-RoPE, cos/sin (T, D)
+    duplicated-half caches -> (o (B, H, T, D) in q's dtype, lse (B, H, T)
+    f32, natural log). kv head = q head // (H // Hkv)."""
+    if q.device.type == "cpu":
+        return flash_rope_attention_plain(q, k, v, cos, sin, causal, scale)
+    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    _check_flash("flash_rope_attention", q, k, v, cos, sin)
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if q.numel():
+        _raise_on(_library().tt_flash_rope_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T, D, int(bool(causal)),
+            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "flash_rope_attention")
+        flash_rope_attention.launches += 1
+    return o, lse
+
+
+flash_rope_attention.launches = 0
+
+
+def flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, causal=True, scale=None):
+    """dq, dk, dv of flash_rope_attention for the cotangent do of o. A wider
+    cotangent (f32 under autocast) is cast to q's dtype first, as
+    pallasex does; delta = rowsum(do·o) is taken in f32 here, outside the
+    kernels, as pallasex takes it outside its pallas_call."""
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal, scale)
+    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    do = do.contiguous()
+    _check_flash("flash_rope_attention_backward", q, k, v, cos, sin)
+    _check_cuda("flash_rope_attention_backward", q, o, lse, do)
+    _require(tuple(o.shape) == tuple(q.shape) and tuple(do.shape) == tuple(q.shape)
+             and tuple(lse.shape) == tuple(q.shape[:3]) and lse.dtype == torch.float32,
+             "flash_rope_attention_backward: o/do must be q's shape and lse f32 (B, H, T)")
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        _raise_on(_library().tt_flash_rope_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, k.shape[1], T, D, int(bool(causal)), float(scale),
+            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "flash_rope_attention_backward")
+        flash_rope_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_rope_attention_backward.launches = 0
+
+
+def rope_sdpa_supported(q, k, v, cos, sin, is_causal=True, scale=None) -> bool:
+    """Hopper's checker: 4-d q/k/v of one float dtype, k and v of one shape,
+    H % Hkv == 0, one T, an even D that is a multiple of the 16-byte vector
+    and at most 128, cos/sin (T, D) of a float dtype. Any T: the kernels
+    mask the ragged edge (the TPU's T >= 1024 and % 512 rules are TPU
+    tiling heuristics)."""
+    if getattr(q, "ndim", 0) != 4 or getattr(k, "ndim", 0) != 4 or getattr(v, "ndim", 0) != 4:
+        return False
+    B, H, T, D = q.shape
+    tdt = to_torch_dtype(q.dtype)
+    return (
+        tdt in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype
+        and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B and k.shape[2] == T
+        and k.shape[3] == D and H % k.shape[1] == 0
+        and D % 2 == 0 and D % _vec(tdt) == 0 and D <= _FLASH_MAX_D
+        and tuple(cos.shape) == (T, D) and tuple(sin.shape) == (T, D)
+        and cos.dtype.is_float and sin.dtype.is_float
+    )
+
+
+def _rope_sdpa_impl(q, k, v, cos, sin, is_causal=True, scale=None):
+    o, _ = flash_rope_attention(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin,
+                                is_causal, scale)
+    return o
+
+
+def _rope_flash_fwd_impl(q, k, v, cos, sin, causal, scale):
+    return flash_rope_attention(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin,
+                                causal, scale)
+
+
+def _rope_flash_bwd_impl(q, k, v, o, lse, cos, sin, causal, scale, do):
+    return flash_rope_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(), o, lse,
+                                         cos, sin, do, causal, scale)
+
+
+ex.register_implementation("thunder.rope_sdpa", _rope_sdpa_impl, checker=rope_sdpa_supported)
+
+rope_flash_fwd = ex.register_operator(
+    "rope_flash_fwd",
+    meta=lambda q, k, v, cos, sin, causal, scale: (
+        TensorProxy(shape=q.shape, dtype=q.dtype, device=q.device),
+        TensorProxy(shape=q.shape[:-1], dtype=dtypes.float32, device=q.device),
+    ),
+    fn=_rope_flash_fwd_impl,
+)
+rope_flash_bwd = ex.register_operator(
+    "rope_flash_bwd",
+    meta=lambda q, k, v, o, lse, cos, sin, causal, scale, do: (
+        TensorProxy(shape=q.shape, dtype=q.dtype, device=q.device),
+        TensorProxy(shape=k.shape, dtype=k.dtype, device=k.device),
+        TensorProxy(shape=v.shape, dtype=v.dtype, device=v.device),
+    ),
+    fn=_rope_flash_bwd_impl,
+)
+
+
+@register_augmented_forward("thunder.rope_sdpa")
+def _rope_sdpa_aug(q, k, v, cos, sin, is_causal=True, scale=None):
+    if not rope_sdpa_supported(q, k, v, cos, sin, is_causal, scale):
+        return NotImplemented  # decompose: the composite rope + sdpa rules apply
+    o, lse = rope_flash_fwd(q, k, v, cos, sin, bool(is_causal), scale)
+    return VJPResult(o, (q, k, v, o, lse, cos, sin, bool(is_causal), scale))
+
+
+@register_backward("thunder.rope_sdpa")
+def _rope_sdpa_bwd(q, k, v, o, lse, cos, sin, causal, scale, g):
+    dq, dk, dv = rope_flash_bwd(q, k, v, o, lse, cos, sin, causal, scale, g)
+    return dq, dk, dv, None, None, None, None
+
+
+class FlashRopeAttention(torch.autograd.Function):
+    """flash_rope_attention with flash_rope_attention_backward as its
+    gradient, for tensor-level use: ``FlashRopeAttention.apply(q, k, v,
+    cos, sin, causal, scale)`` -> o. cos/sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, causal=True, scale=None):
+        o, lse = flash_rope_attention(q.contiguous(), k.contiguous(), v.contiguous(), cos, sin,
+                                      causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse, cos, sin)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, cos, sin = ctx.saved_tensors
+        dq, dk, dv = flash_rope_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                                                   o, lse, cos, sin, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None

@@ -98,6 +98,22 @@ _reg(PrimIDs.CAT, lambda tensors, dim: torch.cat(list(tensors), dim))
 _reg(PrimIDs.FLIP, lambda a, dims: torch.flip(a, tuple(dims)))
 
 
+def _pad(a, padding_value, padding_config):
+    """lax.pad: per dim (lo, hi, interior); negative lo/hi crop. The slice
+    VJP emits it (transforms/autodiff.py)."""
+    grown = [(builtins.max(lo, 0), builtins.max(hi, 0), it) for lo, hi, it in padding_config]
+    shape = [lo + hi + s + builtins.max(0, s - 1) * it for s, (lo, hi, it) in zip(a.shape, grown)]
+    out = torch.full(shape, padding_value, dtype=a.dtype, device=a.device)
+    out[tuple(builtins.slice(lo, lo + builtins.max(0, s - 1) * (it + 1) + builtins.min(s, 1), it + 1)
+              for s, (lo, _, it) in zip(a.shape, grown))] = a
+    crop = tuple(builtins.slice(-builtins.min(lo, 0), n + builtins.min(hi, 0))
+                 for n, (lo, hi, _) in zip(shape, padding_config))
+    return out[crop]
+
+
+_reg(PrimIDs.PAD, _pad)
+
+
 def _take(a, indices, dim):
     out = torch.index_select(a, dim, indices.reshape(-1))
     return out.reshape(a.shape[:dim] + indices.shape + a.shape[dim + 1:])

@@ -3,8 +3,9 @@
 The registry of thunder_tpu/extend.py. Executors claim BoundSymbols at any
 level of the hierarchy: OperatorExecutors provide concrete implementations
 per symbol id, with an optional checker that decides whether a bound symbol
-is claimed. Operator symbols of an executor's own (register_operator),
-execution transforms and fusion executors wait for the slices that need them."""
+is claimed, and operator symbols of their own (register_operator) that grad
+rules record. Execution transforms and fusion executors wait for the slices
+that need them."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence
@@ -23,6 +24,13 @@ class OperatorExecutor:
 
     def __repr__(self) -> str:
         return f"<Executor {self.name}>"
+
+    def register_operator(self, name: str, *, meta: Callable, fn: Callable) -> Symbol:
+        """A prim-level Symbol ``<executor>.<name>`` that only this executor
+        runs (thunder_tpu/extend.py:OperatorExecutor.register_operator)."""
+        sym = Symbol(name, meta, id=f"{self.name}.{name}", is_prim=True, module=self.name)
+        self.implmap[sym.id] = (fn, None)
+        return sym
 
     def register_implementation(self, sym_or_id, fn: Callable, *, checker=None) -> None:
         sym_id = sym_or_id.id if isinstance(sym_or_id, Symbol) else sym_or_id

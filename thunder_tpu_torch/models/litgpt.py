@@ -7,9 +7,10 @@ LLaMA (SwiGLU) MLPs and parallel residuals.
 
 Weights are random, made on the model's device from ``seed``;
 ``load_jax_params`` loads thunder_tpu's weights instead. The attention of
-``GPT.forward`` (``ltorch.rope_sdpa``) runs as its decomposition until the
-training slice brings its kernel; serving runs the blocks itself
-(inference.py, serving/runner.py)."""
+``GPT.forward`` (``ltorch.rope_sdpa``) is claimed by the flash-RoPE kernels
+(executors/cudaex.py); serving runs the blocks itself (inference.py,
+serving/runner.py). ``GPTForCausalLM`` adds the shifted-target loss that
+``training.TrainStep`` minimizes."""
 from __future__ import annotations
 
 import math
@@ -45,7 +46,7 @@ class Config:
     rope_base: int = 10000
     lm_head_bias: bool = False
     shared_embedding: bool = False
-    # thunder_tpu's remat switch; the port has no backward yet, so it is
+    # thunder_tpu's remat switch; the port has no remat yet, so it is
     # carried for config parity and read by nothing
     activation_checkpoint: bool = False
 
@@ -288,6 +289,22 @@ class GPT(nn.Module):
         return self.lm_head(x)
 
 
+class GPTForCausalLM(nn.Module):
+    """GPT + cross-entropy loss over (B*T) positions — the pretraining step
+    target (thunder_tpu/models/litgpt.py:GPTForCausalLM)."""
+
+    def __init__(self, cfg: Config, dtype=torch.float32, *, device=None, seed: int = 0):
+        super().__init__()
+        self.gpt = GPT(cfg, dtype, device=device, seed=seed)
+        self.cfg = cfg
+
+    def forward(self, idx, targets):
+        logits = self.gpt(idx)
+        B, T, V = logits.shape
+        return ltorch.cross_entropy(
+            ltorch.reshape(logits, (B * T, V)), ltorch.reshape(targets, (B * T,)))
+
+
 def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000, dtype=torch.float32,
                      device=None):
     device = resolve_device(device)
@@ -301,12 +318,13 @@ def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000, dtype=torch.f
     return torch.cos(idx_theta).to(dtype), torch.sin(idx_theta).to(dtype)
 
 
-def load_jax_params(gpt: GPT, params: dict) -> None:
-    """Load thunder_tpu's weights into the port's model: ``params`` is
+def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
+    """Load thunder_tpu's weights into the port's model (a GPT, or a
+    GPTForCausalLM whose names carry the ``gpt.`` prefix): ``params`` is
     ``{name: np.asarray(p.data)}`` over the JAX model's ``named_parameters()``.
     Both packages use the same names and the (out, in) Linear layout; the
     rope buffers are rebuilt by each model, not copied."""
-    own = dict(gpt.named_parameters())
+    own = dict(model.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

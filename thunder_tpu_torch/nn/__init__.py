@@ -1,2 +1,2 @@
-from .module import Module, ModuleList, Parameter, functional_params
+from .module import Module, ModuleList, Parameter, ThunderModule, functional_params
 from .layers import Embedding, LayerNorm, Linear, RMSNorm

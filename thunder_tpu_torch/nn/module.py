@@ -5,7 +5,8 @@ models are ``torch.nn.Module``s holding ``torch.nn.Parameter``s, and their
 ``forward`` is written in the port's ltorch, so calling it under a trace
 records ltorch bound symbols. ``functional_params`` swaps proxies in for the
 parameters and buffers while a program is traced, so the computation trace
-takes them as explicit inputs (thunder_tpu/nn/module.py:functional_params)."""
+takes them as explicit inputs (thunder_tpu/nn/module.py:functional_params).
+``ThunderModule`` is the compiled wrapper ``jit(module)`` returns."""
 from __future__ import annotations
 
 from contextlib import contextmanager
@@ -35,3 +36,50 @@ def functional_params(module: torch.nn.Module, param_map: dict):
     finally:
         for store, name, orig in saved:
             store[name] = orig
+
+
+class ThunderModule:
+    """Compiled wrapper around a Module (thunder_tpu/nn/module.py:ThunderModule).
+
+    The traced program takes ``(params, args, kwargs)``: every parameter and
+    buffer, by qualified name, is an explicit input, pulled fresh from the
+    module on every call — an optimizer's in-place updates take effect
+    without retracing as long as the metadata matches."""
+
+    def __init__(self, module: torch.nn.Module, *, executors=None, transforms=None):
+        from .. import jit as _jit
+
+        self._module = module
+
+        def _traced(params: dict, args: tuple, kwargs: dict):
+            with functional_params(module, params):
+                return module(*args, **kwargs)
+
+        _traced.__name__ = f"{type(module).__name__}_forward"
+        transforms = list(transforms or ())
+        for tf in transforms:
+            tf.transform_module(self)
+        self._cfn = _jit(_traced, executors=executors, transforms=transforms)
+
+    @property
+    def module(self) -> torch.nn.Module:
+        return self._module
+
+    @property
+    def _cs(self):
+        return self._cfn._cs
+
+    @property
+    def _cd(self):
+        return self._cfn._cd
+
+    def get_parameters(self) -> dict:
+        return dict(self._module.named_parameters())
+
+    def get_buffers(self) -> dict:
+        """Qualified-name buffers — traced as inputs so they are not baked
+        into the program as constants."""
+        return dict(self._module.named_buffers())
+
+    def __call__(self, *args, **kwargs):
+        return self._cfn({**self.get_parameters(), **self.get_buffers()}, args, kwargs)

@@ -840,8 +840,9 @@ def rope_sdpa(q, k, v, cos, sin, is_causal=True, scale=None):
     """Fused half-split RoPE + scaled-dot-product attention.
 
     q/k arrive PRE-rope; cos/sin are (T, head_dim) duplicated-half caches.
-    thunder_tpu's Pallas executor claims this whole; the port runs the
-    decomposition below until the training slice brings its kernel."""
+    The cuda executor claims this whole with the flash-RoPE kernels, and
+    registers its grad rule (executors/cudaex.py); a shape its checker
+    declines runs the decomposition below."""
     hs = q.shape[-1]
     h = hs // 2
 
@@ -1044,6 +1045,71 @@ def cross_entropy(logits, target, weight=None, ignore_index=-100, reduction="mea
         return clang.sum_(nll)
     count = clang.sum_(clang.maybe_convert_to_dtype(valid, nll.dtype))
     return clang.true_divide(clang.sum_(nll), count)
+
+
+def _register_cross_entropy_grad():
+    """Composite-level VJP for cross_entropy (thunder_tpu/ops/ltorch.py:1058):
+    forward saves (logits, lse) instead of the full (N, C) log-softmax — for
+    an LM head that residual is the single biggest tensor in the step
+    (N=B*T, C=vocab) — and the backward recomputes softmax from logits."""
+    from ..transforms.autodiff import VJPResult, register_augmented_forward, register_backward
+
+    @register_augmented_forward("torch.nn.functional.cross_entropy")
+    def _xent_aug(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                  label_smoothing=0.0):
+        if weight is not None or logits.ndim != 2:
+            return NotImplemented
+        n, c = logits.shape
+        lg = clang.maybe_convert_to_dtype(logits, dtypes.float32)
+        m = clang.amax(lg, 1, keepdim=True)
+        lse = clang.add(prims.log(clang.sum_(prims.exp(clang.sub(lg, m)), 1, keepdim=True)), m)
+        tgt2 = clang.unsqueeze(target, 1)
+        # gather from the original-dtype logits and upcast the picked values
+        # (exact for bf16→f32), as thunder_tpu does
+        picked = clang.maybe_convert_to_dtype(
+            clang.take_along_axis(logits, tgt2, 1), dtypes.float32)
+        nll = clang.squeeze(clang.sub(lse, picked), 1)
+        if label_smoothing > 0.0:
+            # smooth term: -mean(log_softmax) = lse - mean(logits)
+            smooth = clang.sub(clang.squeeze(lse, 1), clang.mean(lg, 1))
+            nll = clang.add(clang.mul(nll, 1.0 - label_smoothing),
+                            clang.mul(smooth, label_smoothing))
+        valid = clang.ne(target, ignore_index)
+        nll = clang.where(valid, nll, clang.full_like(nll, 0))
+        count = clang.sum_(clang.maybe_convert_to_dtype(valid, dtypes.float32))
+        if reduction == "none":
+            out = nll
+        elif reduction == "sum":
+            out = clang.sum_(nll)
+        else:
+            out = clang.true_divide(clang.sum_(nll), count)
+        return VJPResult(out, (logits, target, lse, valid, count,
+                               reduction, float(label_smoothing), int(c)))
+
+    @register_backward("torch.nn.functional.cross_entropy")
+    def _xent_bwd(logits, target, lse, valid, count, reduction, label_smoothing, c, g):
+        lg = clang.maybe_convert_to_dtype(logits, dtypes.float32)
+        soft = prims.exp(clang.sub(lg, lse))  # softmax recomputed from lse
+        onehot = clang.eq(
+            clang.unsqueeze(target, 1),
+            clang.unsqueeze(prims.iota(c, dtype=dtypes.int64, device=logits.device), 0))
+        onehot_f = clang.maybe_convert_to_dtype(onehot, dtypes.float32)
+        if label_smoothing > 0.0:
+            target_dist = clang.add(clang.mul(onehot_f, 1.0 - label_smoothing),
+                                    label_smoothing / c)
+        else:
+            target_dist = onehot_f
+        dlogits = clang.sub(soft, target_dist)
+        valid_f = clang.maybe_convert_to_dtype(valid, dtypes.float32)
+        if reduction == "mean":
+            gi = clang.mul(clang.true_divide(g, count), valid_f)
+        else:
+            gi = clang.mul(g, valid_f)
+        dlogits = clang.mul(dlogits, clang.unsqueeze(gi, 1))
+        return (clang.maybe_convert_to_dtype(dlogits, logits.dtype), None)
+
+
+_register_cross_entropy_grad()
 
 
 @torchsymbol(name="repeat_interleave", method_names=("repeat_interleave",))
