@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
-train, agree.
+fleet-serve, train, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
                Python, as the op-by-op paths issue them. The flash-RoPE
                forward and backward run at llama-350m's shape (B=4, H=16,
                T=2048, D=64) and llama-1b's GQA shape (B=1, H=16, Hkv=4,
-               T=2048, D=128).
+               T=2048, D=128). Paged chunk attention runs at the fleet
+               path's chunk shape (B=1, T=256 from positions 0, 1024, 1792)
+               and verify shape (B=8, T=3, ragged, one query past the
+               table), Llama-3-1B heads (H=32, Hkv=8, D=64), page 16.
 3. serve     — ServingEngine over Llama-3-1B at full width and depth in bf16
                (random weights from --seed): 16 greedy requests, prompts of
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
@@ -29,7 +32,24 @@ Phases, each printing one JSON line:
                through the dense solo GPTInference: the streams must match,
                or differ only after a step where the solo top-2 logit gap is
                below AGREE_GAP.
-6. train     — TrainStep(jit(GPTForCausalLM(llama-350m), transforms=
+6. fleet     — the fleet engine over Llama-3-1B at full width and depth in
+               bf16: ServingEngine(prefix_sharing=True, chunk_tokens=256,
+               draft_gpt=gpt, spec_k=2), 32 requests drawn as
+               benchmark_serving.py's mixed workload (half share a
+               1024-token system prompt, one in eight are long batch-lane
+               prompts, the rest 128-512 tokens; 32 new tokens each). The
+               wave is replayed once to compile and warm the prefix cache,
+               then the counters are zeroed and the wave submitted at once;
+               paged_chunk_attention must launch n_layer x (chunk + verify
+               programs) times (the self-draft's chunk programs too), with 0
+               compiles. The same wave through the plain engine in the same
+               call is printed beside it. fleet_profile: torch.profiler over
+               the first 8 requests of the wave on the warm engine.
+7. fleet_agreement — f32, TF32 off: Llama-3-1B with a 2-layer draft from
+               another seed, prefix sharing, chunks and a 48-page pool that
+               forces a preemption; 6 streams against solo GPTInference
+               under the AGREE_GAP rule.
+8. train     — TrainStep(jit(GPTForCausalLM(llama-350m), transforms=
                [AutocastTransform()]), AdamW(lr=1e-4)) at full width and
                depth, f32 master weights, bf16 autocast, B=4, T=2048, one
                batch from np.random.RandomState(seed) every step (bench.py's
@@ -43,10 +63,10 @@ Phases, each printing one JSON line:
                autocast with F.scaled_dot_product_attention, timed alike
                (the counterpart of bench.py's hand-written baseline; the
                port never calls it).
-7. train_profile — torch.profiler over 2 train steps: device busy share,
+9. train_profile — torch.profiler over 2 train steps: device busy share,
                the kernels that take the time (by name, and per step by
                kind: attention, matmul, optimizer, ...), launches a step.
-8. train_agreement — f32, TF32 off, llama-350m width at 2 layers, B=1,
+10. train_agreement — f32, TF32 off, llama-350m width at 2 layers, B=1,
                T=2048: 3 steps of the port's TrainStep against the
                hand-written reference step (its own module math, torch
                autograd, AdamW written out as thunder_tpu/optim.py does) from
@@ -225,6 +245,98 @@ def check_paged(cudaex, dev, gen) -> dict:
                 **timings["ragged"])
 
 
+def chunk_inputs(dev, gen, dt, q_pos, H=32, Hkv=8, D=64, ps=16, npm=128):
+    """Paged chunk attention's inputs at the engine's pool (max_batch 8,
+    max_seq 2048): each row's table a random permutation of pool pages
+    covering its largest position, null page 0 past it; rows 0 and 1
+    share their first pages (prefix sharing)."""
+    B, T = q_pos.shape
+    P = 1 + 8 * npm
+    kp = torch.randn(P, ps, Hkv, D, device=dev, generator=gen).to(dt)
+    vp = torch.randn(P, ps, Hkv, D, device=dev, generator=gen).to(dt)
+    q = torch.randn(B, H, T, D, device=dev, generator=gen).to(dt)
+    perm = (torch.randperm(P - 1, device=dev, generator=gen) + 1).to(torch.int32)
+    pt = torch.zeros(B, npm, dtype=torch.int32, device=dev)
+    used = 0
+    for b in range(B):
+        n = min(npm, int(q_pos[b].max()) // ps + 1)
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    if B > 1:
+        pt[1, :4] = pt[0, :4]
+    return q, kp, vp, pt, q_pos.to(dev)
+
+
+def chunk_work(q_pos, H=32, Hkv=8, D=64, ps=16, npm=128, itemsize=2) -> tuple[float, float]:
+    """(bytes, operations) paged chunk attention needs for these positions:
+    each sequence's live K/V (keys up to its largest position, capped at the
+    table) read once, q and the page table and positions read once, o
+    written once; 4·D operations per query head and live key."""
+    B, T = q_pos.shape
+    live = (q_pos.long() + 1).clamp(max=npm * ps)
+    kv = sum(int(live[b].max()) for b in range(B)) * Hkv * D * 2 * itemsize
+    nbytes = kv + 2 * B * H * T * D * itemsize + B * npm * 4 + B * T * 4
+    return nbytes, 4.0 * H * D * float(live.sum())
+
+
+CHUNK_POS = {"chunk_start0": torch.arange(256, dtype=torch.int32)[None],
+             "chunk_start1024": 1024 + torch.arange(256, dtype=torch.int32)[None],
+             "chunk_start1792": 1792 + torch.arange(256, dtype=torch.int32)[None],
+             # ragged verify rows; the fifth reaches 2048, one past the table
+             "verify": (torch.tensor([1, 17, 300, 1024, 2046, 16, 777, 1500], dtype=torch.int32)[:, None]
+                        + torch.arange(3, dtype=torch.int32))}
+
+
+def check_chunk(cudaex, dev, gen) -> dict:
+    """paged_chunk_attention against its plain version at the chunk and
+    verify shapes in bf16 and f32, then timed in bf16. ``sdpa_pregathered_ms``
+    is a side number, not library_ms: F.scaled_dot_product_attention over K/V
+    gathered beforehand into contiguous (B, Hkv, keys, D) with the position
+    mask — no one PyTorch call gathers the pages."""
+    errs, cases = [], []
+    for label, qp in CHUNK_POS.items():
+        for dt in (torch.bfloat16, torch.float32):
+            args = chunk_inputs(dev, gen, dt, qp)
+            out = cudaex.paged_chunk_attention(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - cudaex.paged_chunk_attention_plain(*args).float()).abs().max().item()
+            if not err <= KERNEL_TOL[dname(dt)]:
+                raise AssertionError(f"paged_chunk_attention {label} {dt}: max abs err {err}")
+            errs.append(err)
+            cases.append({"shape": label, "dtype": dname(dt), "max_abs_err": err})
+            del args, out
+    torch.cuda.empty_cache()
+    F = torch.nn.functional
+    timings = {}
+    for label in ("chunk_start1792", "verify"):
+        qp = CHUNK_POS[label]
+        nbytes, ops = chunk_work(qp)
+        b, by = bound_ms(nbytes, ops, "bfloat16")
+        sets = copies(lambda: chunk_inputs(dev, gen, torch.bfloat16, qp), 2 * 1025 * 16 * 8 * 64 * 2)
+        ms, eager = cuda_ms(cudaex.paged_chunk_attention, sets)
+        plain, plain_eager = cuda_ms(cudaex.paged_chunk_attention_plain, sets[:1], iters=20)
+        pre = []
+        for q, kp, vp, pt, qpos in sets:  # gathered once, outside the timing
+            S = min(int(qpos.max()) + 1, pt.shape[1] * 16)
+            keys = pt.long().repeat_interleave(16, 1)[:, :S]
+            slots = torch.arange(S, device=dev) % 16
+            k = kp[keys, slots].permute(0, 2, 1, 3).contiguous()
+            v = vp[keys, slots].permute(0, 2, 1, 3).contiguous()
+            mask = torch.arange(S, device=dev)[None, None, None, :] <= qpos[:, None, :, None]
+            pre.append((q, k, v, mask))
+        lib, lib_eager = cuda_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=m, enable_gqa=True), pre, iters=50)
+        timings[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by,
+                              eager_ms=eager, plain_eager_ms=plain_eager,
+                              sdpa_pregathered_ms=lib, sdpa_pregathered_eager_ms=lib_eager,
+                              bytes=nbytes, operations=ops)
+        del sets, pre
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="paged_chunk_attention", cases=cases, timing_bf16=timings)
+    return dict(max_abs_err=max(errs), shape="B=1 H=32 Hkv=8 T=256 D=64 ps=16 start 1792 bf16",
+                verify=timings["verify"], **timings["chunk_start1792"])
+
+
 FLASH_SHAPES = {"llama-350m": dict(B=4, H=16, Hkv=16, T=2048, D=64),
                 "llama-1b": dict(B=1, H=16, Hkv=4, T=2048, D=128)}
 
@@ -394,23 +506,22 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
                init_s=t_init, warmup_compile_s=t_warm, launches=launches,
                ops_per_program_call=ops, compiles_during_wave=compiles)
     emit("serve", **out)
-    prof = profile_wave(engine, cfg)
+    prompts = make_prompts(np.random.RandomState(1), 8, 128, 128, cfg.vocab_size)
+    prof = profile_wave(engine, [(p, 32, "interactive") for p in prompts])
     del engine, gpt
     torch.cuda.empty_cache()
     return out, prof
 
 
-def profile_wave(engine, cfg) -> dict:
-    """Device busy share over a decode-heavy wave (8 requests of 128 prompt
-    tokens, 32 new each), and the kernels that took the device time."""
+def profile_wave(engine, specs, phase: str = "profile") -> dict:
+    """Device busy share over a wave of (prompt, max_new_tokens, lane)
+    requests, and the kernels that took the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.RandomState(1)
-    prompts = make_prompts(rng, 8, 128, 128, cfg.vocab_size)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in prompts:
-            engine.submit(p, max_new_tokens=32)
+        for p, n, lane in specs:
+            engine.submit(p, max_new_tokens=n, lane=lane)
         engine.drain()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -424,10 +535,10 @@ def profile_wave(engine, cfg) -> dict:
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    out = dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    out = dict(requests=len(specs), wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                idle_share=(1 - busy_us / wall_us) if busy_us else None,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:10]])
-    emit("profile", **out)
+    emit(phase, **out)
     return out
 
 
@@ -443,26 +554,220 @@ def agreement(cfg, prompts, seed) -> dict:
     solo = GPTInference(gpt, max_seq=2048, dtype=torch.float32)
     report = []
     for p, f in zip(prompts, futs):
-        got = f.result().new_tokens
         out, m = solo.generate(torch.from_numpy(p[None, :]), 64)
-        want = out[0, len(p):].cpu().numpy()
-        diff = np.nonzero(got != want)[0]
-        row = {"prompt_len": len(p), "equal": not len(diff)}
-        if len(diff):
-            step = int(diff[0])
-            gap = float(m.top2_gap[0, step])
-            row.update(first_diff_step=step, solo_top2_gap=gap)
-            if not gap < AGREE_GAP:
-                emit("agreement", rows=report + [row], tolerance=AGREE_GAP)
-                raise AssertionError(f"streams differ at step {step} with top-2 gap {gap}")
+        row = agree_row(f.result().new_tokens, out[0, len(p):].cpu().numpy(), m.top2_gap[0], len(p))
         report.append(row)
+        if not row["equal"] and not row["solo_top2_gap"] < AGREE_GAP:
+            emit("agreement", rows=report, tolerance=AGREE_GAP)
+            raise AssertionError(f"streams differ: {row}")
     out = dict(rows=report, tolerance=AGREE_GAP, tf32=False)
     emit("agreement", **out)
     return out
 
 
+def agree_row(got, want, gaps, prompt_len: int) -> dict:
+    """One stream against its solo stream under the AGREE_GAP rule: equal,
+    or different only after a step whose solo top-2 logit gap is < AGREE_GAP."""
+    diff = np.nonzero(got != want)[0]
+    row = {"prompt_len": prompt_len, "equal": not len(diff)}
+    if len(diff):
+        step = int(diff[0])
+        row.update(first_diff_step=step, solo_top2_gap=float(gaps[step]))
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phases 6-8: train, train_profile, train_agreement
+# phases 6-7: fleet, fleet_agreement
+# ---------------------------------------------------------------------------
+
+FLEET_NEW = 32
+
+
+def mixed_specs(rng, vocab, n, *, shared_len=1024, shared_frac=0.5, long_frac=0.125,
+                chunk_tokens=256, max_seq=2048, new=FLEET_NEW, lo=128, hi=512) -> tuple:
+    """([(prompt, max_new_tokens, lane) per request], counts by kind), drawn as
+    thunder_tpu/benchmarks/benchmark_serving.py:_mixed_specs draws them:
+    shared system prompt + 1-8-token tail (interactive), long prompts of
+    max(chunk+1, long_max//2)..long_max tokens (batch lane), uniform lo..hi
+    background (interactive)."""
+    shared = rng.randint(0, vocab, (shared_len,)).astype(np.int32)
+    long_max = max_seq - new - 1
+    specs, kinds = [], {"shared": 0, "long_batch": 0, "uniform": 0}
+    for _ in range(n):
+        m = int(rng.randint(new, new + 1))
+        u = rng.random_sample()
+        if u < shared_frac:
+            tail = rng.randint(0, vocab, (int(rng.randint(1, 9)),)).astype(np.int32)
+            specs.append((np.concatenate([shared, tail]), m, "interactive"))
+            kinds["shared"] += 1
+        elif u < shared_frac + long_frac:
+            L = int(rng.randint(max(chunk_tokens + 1, long_max // 2), long_max + 1))
+            specs.append((rng.randint(0, vocab, (L,)).astype(np.int32), m, "batch"))
+            kinds["long_batch"] += 1
+        else:
+            L = int(rng.randint(lo, hi + 1))
+            specs.append((rng.randint(0, vocab, (L,)).astype(np.int32), m, "interactive"))
+            kinds["uniform"] += 1
+    return specs, kinds
+
+
+def engine_cfns(engine) -> list:
+    runners = [engine.runner] + ([engine.draft_runner] if engine.draft_runner is not None else [])
+    return [getattr(r, n) for r in runners
+            for n in ("prefill_cfn", "decode_cfn", "chunk_cfn", "verify_cfn")]
+
+
+def run_wave(tt, engine, specs) -> dict:
+    """Replay the wave once with 2 new tokens each (compiles every program
+    it touches, warms the prefix cache: benchmark_serving.py's warm-up),
+    then zero the counters and submit the whole wave at once."""
+    from thunder_tpu_torch.executors import cudaex
+
+    for p, _, lane in specs:
+        engine.submit(p, 2, lane=lane)
+    engine.drain()
+    torch.cuda.synchronize()
+    before = {k: getattr(engine, k) for k in ("decode_steps", "chunk_calls", "verify_calls",
+                                              "prefix_hits", "prefix_tokens_saved",
+                                              "spec_proposed", "spec_accepted")}
+    compiles0 = sum(tt.cache_misses(c) for c in engine_cfns(engine))
+    engine.peak_pages_in_use = engine.cache.allocator.n_used
+    cudaex.rms_norm.launches = 0
+    cudaex.paged_attention.launches = 0
+    cudaex.paged_chunk_attention.launches = 0
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, n, lane=lane) for p, n, lane in specs]
+    engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rms_norm": cudaex.rms_norm.launches,
+                "paged_attention": cudaex.paged_attention.launches,
+                "paged_chunk_attention": cudaex.paged_chunk_attention.launches}
+    results = [f.result() for f in futs]
+    vocab = engine.cfg.padded_vocab_size
+    for r, (_, n, _) in zip(results, specs):
+        if r.n_new_tokens != n or not ((r.new_tokens >= 0) & (r.new_tokens < vocab)).all():
+            raise AssertionError(f"request {r.request_id}: bad stream {r.new_tokens}")
+    cached = len(engine.prefix) if engine.prefix is not None else 0
+    if engine.cache.allocator.n_used != cached:
+        raise AssertionError(f"{engine.cache.allocator.n_used} pages held, the prefix cache "
+                             f"holds {cached}")
+    n_tok = sum(r.n_new_tokens for r in results)
+    counts = {k: getattr(engine, k) - v for k, v in before.items()}
+    return dict(requests=len(results), prompt_tokens=int(sum(len(p) for p, _, _ in specs)),
+                new_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in results])),
+                mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in results])),
+                engine_iterations=counts.pop("decode_steps"), **counts,
+                peak_page_pool_utilization=engine.stats()["peak_page_pool_utilization"],
+                compiles_during_wave=sum(tt.cache_misses(c) for c in engine_cfns(engine)) - compiles0,
+                launches=launches)
+
+
+def fleet(tt, cudaex, cfg, seed) -> dict:
+    """The 32-request mixed wave (shared system prompt, long batch-lane
+    prompts, uniform background; 32 new tokens each) through the fleet
+    engine — prefix sharing, 256-token chunks, the model as its own draft
+    with spec_k=2 (benchmark_serving.py's fleet setting) — and, in the same
+    call for comparison, through the plain engine."""
+    from thunder_tpu_torch.models.litgpt import GPT
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = GPT(cfg, torch.bfloat16, seed=seed)
+    specs, kinds = mixed_specs(np.random.RandomState(seed), cfg.vocab_size, 32)
+    base = dict(max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16)
+
+    plain = ServingEngine(gpt, **base)
+    plain_wave = run_wave(tt, plain, specs)
+    del plain
+    torch.cuda.empty_cache()
+
+    engine = ServingEngine(gpt, prefix_sharing=True, chunk_tokens=256, draft_gpt=gpt, spec_k=2,
+                           **base)
+    wave = run_wave(tt, engine, specs)
+    launches = wave["launches"]
+    want_chunk = (cfg.n_layer * (wave["chunk_calls"] + wave["verify_calls"])
+                  + engine.draft_gpt.cfg.n_layer * wave["chunk_calls"])
+    if not launches["paged_chunk_attention"] == want_chunk > 0:
+        raise AssertionError(f"paged_chunk_attention launched {launches['paged_chunk_attention']} "
+                             f"times, the engine's programs account for {want_chunk}")
+    if not (launches["rms_norm"] and launches["paged_attention"]):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if wave["compiles_during_wave"]:
+        raise AssertionError(f"{wave['compiles_during_wave']} compiles during the timed wave")
+    for cfn in (engine.runner.chunk_cfn, engine.runner.verify_cfn):
+        if not any(b.impl is cudaex._paged_chunk_attention_impl
+                   for b in tt.last_traces(cfn)[-1].bound_symbols):
+            raise AssertionError(f"{cfn.__name__}'s trace does not claim thunder.paged_chunk_attention")
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, dtype="bfloat16", draft="self (the target)",
+               spec_k=2, chunk_tokens=256, kinds=kinds, **wave,
+               spec_accept_rate=wave["spec_accepted"] / max(1, wave["spec_proposed"]),
+               spec_accept_note=("the draft is the target, so 1.0 but for bf16 rounding: the draft "
+                                 "proposes through the decode program, the verify step scores "
+                                 "through the chunk kernel, and near-ties may flip"),
+               chunk_launches_expected=want_chunk, plain_engine_same_wave=plain_wave)
+    emit("fleet", **out)
+    out["profile"] = profile_wave(engine, specs[:8], "fleet_profile")
+    del engine, gpt
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_agreement(cfg, seed) -> dict:
+    """f32, TF32 off, Llama-3-1B at full width and depth with a 2-layer
+    draft of the same width from another seed (so proposals are rejected and
+    rollback runs); prefix sharing and 256-token chunks; a pool of 48 pages,
+    so the long batch-lane request is preempted by the interactive ones and
+    resumed. Every stream must equal the solo dense GPTInference stream,
+    or differ only after a step whose solo top-2 gap is < AGREE_GAP."""
+    from thunder_tpu_torch.inference import GPTInference
+    from thunder_tpu_torch.models.litgpt import GPT, Config
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = GPT(cfg, torch.float32, seed=seed)
+    draft = GPT(Config.from_name(cfg.name, n_layer=2), torch.float32, seed=seed + 1)
+    engine = ServingEngine(gpt, max_batch=4, page_size=16, max_seq=2048, dtype=torch.float32,
+                           n_pages=49, prefix_sharing=True, chunk_tokens=256, draft_gpt=draft,
+                           spec_k=2)
+    rng = np.random.RandomState(seed + 2)
+    tok = lambda n: rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)  # noqa: E731
+    shared = tok(160)
+    long_p = tok(500)  # chunks of 256 + 244; 33 pages reserved of 48
+    inter = [np.concatenate([shared, tok(5)]), np.concatenate([shared, tok(9)]),
+             tok(20), tok(45), tok(60)]
+    new = 24
+    futs = [engine.submit(long_p, new, lane="batch")]
+    while engine.stats()["active"] == 0 and not futs[0].done():  # chunks, then decoding
+        engine._step_once()
+    if futs[0].done():
+        raise AssertionError(f"the batch-lane request ended before decoding: {futs[0].result()}")
+    futs += [engine.submit(p, new) for p in inter]  # the first one needs 16 pages: 15 are free
+    engine.drain()
+    solo = GPTInference(gpt, max_seq=2048, dtype=torch.float32)
+    rows = []
+    for p, f in zip([long_p] + inter, futs):
+        out, m = solo.generate(torch.from_numpy(p[None, :]), new)
+        rows.append(agree_row(f.result().new_tokens, out[0, len(p):].cpu().numpy(),
+                              m.top2_gap[0], len(p)))
+    out = dict(model=f"{cfg.name} f32", draft=f"{cfg.name} n_layer=2 seed {seed + 1}", tf32=False,
+               rows=rows, tolerance=AGREE_GAP, preempted=engine.preempted, resumed=engine.resumed,
+               spec_accepted=engine.spec_accepted, spec_proposed=engine.spec_proposed,
+               prefix_hits=engine.prefix_hits, chunk_calls=engine.chunk_calls,
+               verify_calls=engine.verify_calls)
+    emit("fleet_agreement", **out)
+    bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
+    if bad:
+        raise AssertionError(f"fleet streams differ from solo: {bad}")
+    if not (engine.preempted >= 1 and engine.resumed >= 1 and engine.prefix_hits >= 1
+            and engine.spec_accepted < engine.spec_proposed):
+        raise AssertionError(f"fleet_agreement did not exercise every stage: {out}")
+    del engine, gpt, draft, solo
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: train, train_profile, train_agreement
 # ---------------------------------------------------------------------------
 
 
@@ -773,6 +1078,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rms = check_rms(cudaex, dev, gen)
     paged = check_paged(cudaex, dev, gen)
+    chunk = check_chunk(cudaex, dev, gen)
     flash_fwd, flash_bwd = check_flash(cudaex, dev, gen)
 
     cfg = Config.from_name("Llama-3-1B")
@@ -781,6 +1087,8 @@ def main() -> int:
     served, _ = serve(tt, cudaex, cfg, prompts, args.seed)
     agreement(cfg, prompts[:4], args.seed)
     torch.cuda.empty_cache()
+    fleet_wave = fleet(tt, cudaex, cfg, args.seed)
+    fleet_agreement(cfg, args.seed)
     trained, _ = train(tt, cudaex, args.seed)
     train_agreement(tt, cudaex, args.seed)
 
@@ -790,6 +1098,9 @@ def main() -> int:
              "thunder_tpu/executors/pallasex.py:1245", served["launches"]["rms_norm"]),
             ("paged_attention", paged, "thunder_tpu_torch/csrc/paged_attention.cu",
              "thunder_tpu/executors/pallasex.py:1738", served["launches"]["paged_attention"]),
+            ("paged_chunk_attention", chunk, "thunder_tpu_torch/csrc/paged_chunk_attention.cu",
+             "thunder_tpu/executors/pallasex.py:1882",
+             fleet_wave["launches"]["paged_chunk_attention"]),
             ("flash_rope_fwd", flash_fwd, "thunder_tpu_torch/csrc/flash_rope_fwd.cu",
              "thunder_tpu/executors/pallasex.py:611", trained["launches"]["flash_rope_fwd"]),
             ("flash_rope_bwd", flash_bwd, "thunder_tpu_torch/csrc/flash_rope_bwd.cu",

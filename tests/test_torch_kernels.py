@@ -16,7 +16,10 @@ test_pallas.py's f32 bars, 2e-3 forward and 5e-3 backward; on the card the
 kernels against their plain versions at 1e-4 (f32: exp2 against exp, other
 summation order) and 2e-2 (bf16: the kernels round the probabilities and
 ds to bf16 before their products, as the TPU kernels do), absolute plus
-relative.
+relative. Paged chunk attention at the paged bars: plain against the
+Pallas kernel at f32 1e-5 and bf16 2e-2 (both round p to bf16 before p·v,
+at other running maxima); on the card the kernel against its plain version
+at f32 1e-4 and bf16 2e-2, as paged attention.
 """
 import math
 
@@ -157,6 +160,94 @@ def test_wrappers_run_plain_only_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# Paged chunk attention: plain version against pallasex.paged_chunk_decode
+# ---------------------------------------------------------------------------
+
+
+def _chunk_fixture(rng, B=3, H=4, Hkv=2, T=5, D=16, ps=8, P=14, npm=5):
+    """Ragged per-query positions, shared pages (page 4 in rows 0 and 1),
+    null-page entries past each sequence's pages, and a query past the
+    table's coverage (row 2 reaches position npm * ps)."""
+    k_pages = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    v_pages = rng.randn(P, ps, Hkv, D).astype(np.float32)
+    pt = np.zeros((B, npm), np.int32)
+    pt[0, :2] = [3, 4]
+    pt[1, :4] = [4, 1, 9, 12]
+    pt[2, :5] = [2, 5, 7, 13, 6]
+    start = np.asarray([8, 20, npm * ps - T + 1], np.int32)
+    q_pos = (start[:, None] + np.arange(T, dtype=np.int32)[None, :]).astype(np.int32)
+    q_pos[1] = [20, 21, 22, 2, 3]  # not monotone: each query keeps its own bound
+    q = rng.randn(B, H, T, D).astype(np.float32)
+    return q, k_pages, v_pages, pt, q_pos
+
+
+@pytest.mark.parametrize("Hkv", [4, 2], ids=["g1", "g2"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_paged_chunk_plain_matches_pallas(jax_ref, Hkv, dtype, tol):
+    jnp, pallasex = jax_ref
+    q, kp, vp, pt, qp = _chunk_fixture(np.random.RandomState(Hkv), Hkv=Hkv)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = np.asarray(pallasex.paged_chunk_decode(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt), jnp.asarray(pt),
+        jnp.asarray(qp), interpret=True), dtype=np.float32)
+    out = cudaex.paged_chunk_attention(_torch(q, dtype), _torch(kp, dtype), _torch(vp, dtype),
+                                       _torch(pt), _torch(qp)).float().numpy()
+    np.testing.assert_allclose(out, ref, atol=tol, rtol=tol)
+
+
+def test_paged_chunk_plain_matches_decomposition_and_empty_rows():
+    """Against the ltorch gather decomposition through torchex; a query
+    with no live key (q_pos -1) gives zeros (the kernel's l == 0 guard),
+    where the decomposition gives NaN."""
+    q, kp, vp, pt, qp = _chunk_fixture(np.random.RandomState(11))
+    args = [_torch(a) for a in (q, kp, vp, pt, qp)]
+    decomp = tt.jit(lambda *a: ltorch.paged_chunk_attention(*a), executors=["torch"])
+    np.testing.assert_allclose(cudaex.paged_chunk_attention(*args).numpy(), decomp(*args).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    args[4] = args[4].clone()
+    args[4][0, 1] = -1
+    out = cudaex.paged_chunk_attention(*args)
+    assert not out[0, :, 1].any() and out[0, :, 0].abs().sum() > 0
+    assert torch.isnan(decomp(*args)[0, :, 1]).all()
+
+
+def test_paged_chunk_claim_follows_the_hopper_checker():
+    """Claimed whole for any T and page size with D a multiple of the
+    16-byte vector up to 128; D=136, int q_pos other than int32, or H not a
+    multiple of Hkv run as the decomposition."""
+    from thunder_tpu_torch.core import dtypes
+    from thunder_tpu_torch.core.proxies import TensorProxy
+
+    def ok(B=2, H=4, Hkv=2, T=3, D=64, ps=16, dt=dtypes.bfloat16, pdt=dtypes.int32):
+        p = lambda *s, d=dt: TensorProxy(shape=s, dtype=d, device=tt.devices.cpu)  # noqa: E731
+        return cudaex.paged_chunk_attention_supported(
+            p(B, H, T, D), p(9, ps, Hkv, D), p(9, ps, Hkv, D), p(B, 4, d=dtypes.int32),
+            p(B, T, d=pdt))
+
+    assert ok() and ok(T=256, ps=8) and ok(T=1, D=128) and ok(D=4, dt=dtypes.float32)
+    assert not ok(D=136) and not ok(D=36) and not ok(Hkv=3) and not ok(pdt=dtypes.int64)
+    cfn = tt.jit(lambda *a: ltorch.paged_chunk_attention(*a))
+    q, kp, vp, pt, qp = _chunk_fixture(np.random.RandomState(12))
+    for qpos, claimed in ((_torch(qp), True), (_torch(qp).long(), False)):
+        out = cfn(_torch(q), _torch(kp), _torch(vp), _torch(pt), qpos)
+        ids = {b.sym.id for b in tt.last_traces(cfn)[-1].bound_symbols}
+        assert ("thunder.paged_chunk_attention" in ids) == claimed
+        np.testing.assert_allclose(
+            out.numpy(), cudaex.paged_chunk_attention_plain(
+                *[_torch(a) for a in (q, kp, vp, pt, qp)]).numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_paged_chunk_wrapper_runs_plain_only_on_cpu():
+    n0 = cudaex.paged_chunk_attention.launches
+    args = [_torch(a) for a in _chunk_fixture(np.random.RandomState(13))]
+    cudaex.paged_chunk_attention(*args)
+    assert cudaex.paged_chunk_attention.launches == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        cudaex.paged_chunk_attention(*[a.to("meta") for a in args])
+
+
+# ---------------------------------------------------------------------------
 # Flash attention with RoPE: plain versions against pallasex's kernels
 # ---------------------------------------------------------------------------
 
@@ -267,6 +358,69 @@ def test_paged_kernel_matches_plain(cuda, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+def _chunk_card_inputs(cuda, dtype, B, H, Hkv, T, D, ps, npm, q_pos, seed):
+    """Pools of 1 + B * npm pages; each row's table a random permutation of
+    pool pages covering its largest position, null page 0 past it; rows 0
+    and 1 share their first pages (prefix sharing)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = 1 + B * npm
+    kp = torch.randn(P, ps, Hkv, D, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(P, ps, Hkv, D, device=cuda, generator=g).to(dtype)
+    q = torch.randn(B, H, T, D, device=cuda, generator=g).to(dtype)
+    perm = (torch.randperm(P - 1, device=cuda, generator=g) + 1).to(torch.int32)
+    pt = torch.zeros(B, npm, dtype=torch.int32, device=cuda)
+    used = 0
+    for b in range(B):
+        n = min(npm, int(q_pos[b].max()) // ps + 1)
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    if B > 1:
+        n = int((pt[1] > 0).sum())
+        pt[1, :n // 2] = pt[0, :n // 2]
+    return q, kp, vp, pt, q_pos.to(cuda)
+
+
+CHUNK_CASES = {
+    # (B, H, Hkv, T, D, ps, npm, q_pos)
+    "chunk-start0": (1, 32, 8, 256, 64, 16, 128, torch.arange(256)[None]),
+    "chunk-start1792": (1, 32, 8, 256, 64, 16, 128, 1792 + torch.arange(256)[None]),
+    "chunk-d128-ragged-T": (1, 16, 4, 50, 128, 16, 64, 700 + torch.arange(50)[None]),
+    "verify": (8, 32, 8, 3, 64, 16, 128,
+               torch.tensor([1, 17, 300, 1024, 2046, 16, 777, 1500])[:, None] + torch.arange(3)),
+    "verify-d128": (4, 16, 4, 3, 128, 16, 16,
+                    torch.tensor([0, 90, 254, 41])[:, None] + torch.arange(3)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+def test_paged_chunk_kernel_matches_plain(cuda, case, dtype, tol):
+    """The chunk and verify shapes of Llama-3-1B (one verify query of each
+    verify case past the table's coverage: 2046 + 2 = 2048 of 2048 and
+    254 + 2 = 256 of 256), D=128, and T=50 (g·T = 200 rows: not a multiple
+    of the 64-row tile)."""
+    B, H, Hkv, T, D, ps, npm, qp = CHUNK_CASES[case]
+    args = _chunk_card_inputs(cuda, dtype, B, H, Hkv, T, D, ps, npm, qp.to(torch.int32), seed=T)
+    n0 = cudaex.paged_chunk_attention.launches
+    out = cudaex.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert cudaex.paged_chunk_attention.launches == n0 + 1
+    torch.testing.assert_close(out.float(), cudaex.paged_chunk_attention_plain(*args).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_paged_chunk_kernel_empty_rows_give_zeros(cuda):
+    q, kp, vp, pt, qp = _chunk_card_inputs(cuda, torch.float32, 2, 4, 2, 5, 64, 16, 8,
+                                           torch.tensor([[-1] * 5, [3, 4, -1, 6, 7]],
+                                                        dtype=torch.int32), seed=1)
+    out = cudaex.paged_chunk_attention(q, kp, vp, pt, qp)
+    torch.cuda.synchronize()
+    assert not out[0].any() and not out[1, :, 2].any() and out[1, :, 3].abs().sum() > 0
+
+
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -319,3 +473,15 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         cudaex.rms_norm(x.t().contiguous().t(), torch.ones(4, device=cuda), 1e-6)
     with pytest.raises(ValueError, match="dtype"):
         cudaex.rms_norm(x, torch.ones(256, device=cuda, dtype=torch.bfloat16), 1e-6)
+    q, kp, vp, pt, qp = _chunk_card_inputs(cuda, torch.bfloat16, 2, 4, 2, 3, 64, 16, 4,
+                                           torch.tensor([[0, 1, 2], [5, 6, 7]],
+                                                        dtype=torch.int32), seed=2)
+    with pytest.raises(ValueError, match="int32"):
+        cudaex.paged_chunk_attention(q, kp, vp, pt, qp.long())
+    with pytest.raises(ValueError, match="dtype"):
+        cudaex.paged_chunk_attention(q, kp.float(), vp, pt, qp)
+    with pytest.raises(ValueError, match="head dim"):
+        cudaex.paged_chunk_attention(*(torch.zeros(*t.shape[:-1], 136, dtype=t.dtype, device=cuda)
+                                       for t in (q, kp, vp)), pt, qp)
+    with pytest.raises(ValueError, match="contiguous"):
+        cudaex.paged_chunk_attention(q.transpose(2, 3).contiguous().transpose(2, 3), kp, vp, pt, qp)

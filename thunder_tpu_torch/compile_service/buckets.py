@@ -3,8 +3,9 @@
 Rungs double from ``min_len`` and cap at ``max_len`` (every rung a multiple
 of ``page_size``, so serving prefill page write-out stays aligned);
 ``bucket_for(n)`` is the rounding rule, and per-rung traffic (hits, MRU
-order) is tracked here. The training-side padding and the chunk sub-ladder
-wait for the slices that use them.
+order) is tracked here; ``subladder(max_len)`` is the capped child that
+rounds chunked prefill's final chunk. The training-side padding waits for
+the slice that uses it.
 """
 from __future__ import annotations
 
@@ -68,6 +69,17 @@ class BucketLadder:
         share the id, so they share the stored artifact."""
         return self._rungs.index(self.bucket_for(n))
 
+    def subladder(self, max_len: int) -> "BucketLadder":
+        """A ladder with the same min rung and page alignment but a lower
+        cap — the serving engine's chunked prefill rounds its FINAL chunk
+        with ``subladder(chunk_tokens)`` so chunk programs specialize over
+        strictly fewer rungs than whole-prompt prefill. Traffic stats are
+        not shared: the child tracks its own hits/MRU."""
+        if not (self.min_len <= max_len <= self.max_len):
+            raise ValueError(
+                f"subladder max_len={max_len} must lie within "
+                f"[{self.min_len}, {self.max_len}]")
+        return BucketLadder(self.min_len, max_len, page_size=self.page_size)
 
     def __contains__(self, n: int) -> bool:
         return n in self._rungs

@@ -1,13 +1,15 @@
 """cudaex: hand-written Hopper kernels for the hot ops of the serving and
 training paths.
 
-The port's counterpart of thunder_tpu/executors/pallasex.py. It claims three
+The port's counterpart of thunder_tpu/executors/pallasex.py. It claims four
 composite ltorch symbols whole:
 
 * ``torch.nn.functional.rms_norm`` → ``rms_norm`` (csrc/rms_norm.cu), which
   replaces pallasex.fused_rms_norm;
 * ``thunder.paged_attention`` → ``paged_attention`` (csrc/paged_attention.cu),
   which replaces pallasex.paged_attention_decode;
+* ``thunder.paged_chunk_attention`` → ``paged_chunk_attention``
+  (csrc/paged_chunk_attention.cu), which replaces pallasex.paged_chunk_decode;
 * ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_rope_fwd.cu),
   which replaces pallasex.flash_rope_attention_forward.
 
@@ -120,6 +122,8 @@ def _library():
         lib.tt_rms_norm.restype = i
         lib.tt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.tt_paged_attention.restype = i
+        lib.tt_paged_chunk_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.tt_paged_chunk_attention.restype = i
         lib.tt_flash_rope_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.tt_flash_rope_fwd.restype = i
         lib.tt_flash_rope_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
@@ -301,6 +305,103 @@ def _paged_attention_impl(q, k_pages, v_pages, page_table, seq_lens, scale=None)
 
 ex.register_implementation("thunder.paged_attention", _paged_attention_impl,
                            checker=paged_attention_supported)
+
+
+# ---------------------------------------------------------------------------
+# Paged chunk attention: T queries per sequence (chunked prefill, verify)
+# ---------------------------------------------------------------------------
+
+_CHUNK_MAX_D = 128  # csrc/paged_chunk_attention.cu instantiates padded head dims 32, 64, 128
+
+
+def paged_chunk_attention_plain(q, k_pages, v_pages, page_table, q_pos, scale=None):
+    """The kernel's function in plain PyTorch, in f32: gather each
+    sequence's pages, mask keys past each query's position, softmax with the
+    probabilities rounded to the pool dtype before p·v (l sums the unrounded
+    ones, as the kernel and pallasex do); a row with no live key gives
+    zeros (the kernel's l == 0 guard)."""
+    B, H, T, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    npm = page_table.shape[1]
+    S = npm * ps
+    g = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    pt = page_table.long()
+    k = k_pages[pt].float().reshape(B, S, Hkv, D).permute(0, 2, 1, 3)  # (B, Hkv, S, D)
+    v = v_pages[pt].float().reshape(B, S, Hkv, D).permute(0, 2, 1, 3)
+    qg = q.float().reshape(B, Hkv, g * T, D)  # row j * T + t: query t of head j
+    s = torch.matmul(qg, k.transpose(-1, -2)) * scale  # (B, Hkv, g*T, S)
+    live = torch.arange(S, device=q.device)[None, None, :] <= q_pos.long()[:, :, None]  # (B, T, S)
+    live = live[:, None, None].expand(B, 1, g, T, S).reshape(B, 1, g * T, S)
+    s = torch.where(live, s, float("-inf"))
+    m = torch.where(live.any(-1, keepdim=True), s.amax(-1, keepdim=True), 0.0)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    o = torch.matmul(e.to(q.dtype).float(), v) / torch.where(l == 0, 1.0, l)
+    return o.reshape(B, H, T, D).to(q.dtype)
+
+
+def paged_chunk_attention(q, k_pages, v_pages, page_table, q_pos, scale=None):
+    """q (B, H, T, D) against the paged pools (P, page_size, Hkv, D) through
+    page_table (B, n_pages_max) int32, query (b, ·, t) attending the key
+    positions <= q_pos[b, t] (q_pos (B, T) int32) -> (B, H, T, D). Each
+    query's own k/v is already in its page; page ids must lie in [0, P)."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(q, k_pages, v_pages, page_table, q_pos, scale)
+    B, H, T, D = q.shape
+    P, ps, Hkv, Dk = k_pages.shape
+    npm = page_table.shape[1]
+    _check_cuda("paged_chunk_attention", q, k_pages, v_pages, page_table, q_pos)
+    _require(q.dtype in _DTYPE_CODE and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+             "paged_chunk_attention: q and the pools must share a float dtype")
+    _require(tuple(v_pages.shape) == tuple(k_pages.shape) and Dk == D and H % Hkv == 0,
+             f"paged_chunk_attention: q {tuple(q.shape)} does not fit pools {tuple(k_pages.shape)}")
+    _require(page_table.dtype == torch.int32 and q_pos.dtype == torch.int32
+             and page_table.shape == (B, npm) and q_pos.shape == (B, T),
+             "paged_chunk_attention: page_table (B, n_pages_max) and q_pos (B, T) must be int32")
+    _require(D % _vec(q.dtype) == 0 and D <= _CHUNK_MAX_D,
+             f"paged_chunk_attention: head dim {D} unsupported for {q.dtype}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    if q.numel():
+        _raise_on(_library().tt_paged_chunk_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+            q_pos.data_ptr(), out.data_ptr(), B, H, Hkv, T, D, ps, npm,
+            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "paged_chunk_attention")
+        paged_chunk_attention.launches += 1
+    return out
+
+
+paged_chunk_attention.launches = 0
+
+
+def paged_chunk_attention_supported(q, k_pages, v_pages, page_table, q_pos, scale=None) -> bool:
+    """Hopper's checker: 4-d q and pools of one float dtype, H % Hkv == 0,
+    a head dim that is a multiple of the 16-byte vector and at most 128, and
+    int32 page_table (B, n_pages_max) and q_pos (B, T). Any T and page size:
+    the kernel gathers key rows one by one and masks the ragged edges."""
+    if getattr(q, "ndim", 0) != 4 or getattr(k_pages, "ndim", 0) != 4:
+        return False
+    B, H, T, D = q.shape
+    P, ps, Hkv, Dk = k_pages.shape
+    tdt = to_torch_dtype(q.dtype)
+    return (
+        tdt in _DTYPE_CODE and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype
+        and tuple(v_pages.shape) == tuple(k_pages.shape) and D == Dk and H % Hkv == 0
+        and D % _vec(tdt) == 0 and D <= _CHUNK_MAX_D
+        and page_table.ndim == 2 and page_table.shape[0] == B
+        and to_torch_dtype(page_table.dtype) == torch.int32
+        and tuple(q_pos.shape) == (B, T) and to_torch_dtype(q_pos.dtype) == torch.int32
+    )
+
+
+def _paged_chunk_attention_impl(q, k_pages, v_pages, page_table, q_pos, scale=None):
+    return paged_chunk_attention(q.contiguous(), k_pages, v_pages, page_table.contiguous(),
+                                 q_pos.contiguous(), scale)
+
+
+ex.register_implementation("thunder.paged_chunk_attention", _paged_chunk_attention_impl,
+                           checker=paged_chunk_attention_supported)
 
 
 # ---------------------------------------------------------------------------

@@ -963,8 +963,10 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, q_pos, scale=None):
     and the SPECULATIVE-DECODING verify step (T=k+1 proposed tokens per
     packed sequence). Shared (copy-on-write) page tables need nothing
     special here — shared pages simply repeat across rows of `page_table`.
-    This decomposition is the gather reference path; the paged chunk
-    kernel is a later slice of the port."""
+    The decomposition below is the gather reference path (shapes the
+    kernel's checker declines; a row with no live key gives NaN here); the
+    cuda executor claims the symbol whole with a hand-written paged chunk
+    kernel (executors/cudaex.py:paged_chunk_attention)."""
     B, H, T, D = q.shape
     P, ps, Hkv, _ = k_pages.shape
     npm = page_table.shape[1]
