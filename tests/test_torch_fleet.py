@@ -505,10 +505,10 @@ def test_mixed_wave_replay_never_recompiles(gpt, draft):
 
 def test_unported_arguments_raise(gpt, draft):
     kw = dict(max_batch=2, page_size=PS, max_seq=MAX_SEQ, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="slo=.*slice 7"):
+    with pytest.raises(NotImplementedError, match="slo=.*slice 8"):
         ServingEngine(gpt, slo=object(), **kw)
-    with pytest.raises(NotImplementedError, match="quantize='int8'.*slice 4"):
-        ServingEngine(gpt, quantize="int8", **kw)
+    with pytest.raises(ValueError, match="unknown serving quantization mode: 'fp8'"):
+        ServingEngine(gpt, quantize="fp8", **kw)
     with pytest.raises(ValueError, match="spec_k"):
         ServingEngine(gpt, spec_k=2, **kw)
     with pytest.raises(ValueError, match="chunk_tokens"):

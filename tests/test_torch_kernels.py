@@ -19,7 +19,11 @@ ds to bf16 before their products, as the TPU kernels do), absolute plus
 relative. Paged chunk attention at the paged bars: plain against the
 Pallas kernel at f32 1e-5 and bf16 2e-2 (both round p to bf16 before p·v,
 at other running maxima); on the card the kernel against its plain version
-at f32 1e-4 and bf16 2e-2, as paged attention.
+at f32 1e-4 and bf16 2e-2, as paged attention. The weight-only int8 and
+NF4 linears (plain versions against pallasex in tests/test_torch_quant.py)
+against their plain versions on the card at f32 1e-4 (FMAs in another
+summation order) and bf16 2e-2 (one rounding of f32 sums taken in another
+order: an ulp, 2^-8 relative).
 """
 import math
 
@@ -485,3 +489,109 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
                                        for t in (q, kp, vp)), pt, qp)
     with pytest.raises(ValueError, match="contiguous"):
         cudaex.paged_chunk_attention(q.transpose(2, 3).contiguous().transpose(2, 3), kp, vp, pt, qp)
+
+
+# ---------------------------------------------------------------------------
+# Weight-only quantized linears on the card: int8 and NF4
+# ---------------------------------------------------------------------------
+
+QUANT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _int8_card_inputs(cuda, dtype, M, N, K, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, device=cuda, generator=g).to(dtype)
+    q = torch.randint(-127, 128, (N, K), device=cuda, generator=g, dtype=torch.int8)
+    s = torch.rand(N, device=cuda, generator=g) * 5e-4 + 1e-4
+    return x, q, s
+
+
+def _nf4_card_inputs(cuda, dtype, M, N, K, seed):
+    from thunder_tpu_torch.transforms.quantization import pack_nf4_kernel_layout, quantize_nf4
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, device=cuda, generator=g).to(dtype)
+    w = torch.randn(N, K, device=cuda, generator=g) * 0.02
+    return (x, *pack_nf4_kernel_layout(*quantize_nf4(w), (N, K)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 512])
+@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 2064), (96, 8192)],
+                         ids=["2048x2048", "N200-ragged-K2064", "96x8192"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_linear_kernel_matches_plain(cuda, M, N, K, dtype):
+    """Decode (M 1, 8) and a prefill bucket (512: the 64-row blocks); N not a
+    multiple of the 16-column block, and K = 2064 ends in a partial 64-k
+    chunk (its last 16-byte groups masked)."""
+    x, q, s = _int8_card_inputs(cuda, dtype, M, N, K, seed=M + K)
+    n0 = cudaex.int8_linear.launches
+    out = cudaex.int8_linear(x, q, s)
+    torch.cuda.synchronize()
+    assert cudaex.int8_linear.launches == n0 + 1 and out.dtype == dtype
+    tol = QUANT_TOL[dtype]
+    torch.testing.assert_close(out.float(), cudaex.int8_linear_plain(x, q, s).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 512])
+@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 768), (128, 8192)],
+                         ids=["2048x2048", "N200-slice256", "128x8192"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_nf4_linear_kernel_matches_plain(cuda, M, N, K, dtype):
+    """Slice widths 512 (K 2048, 8192) and 256 (K 768); N not a multiple of
+    the block. NF4's K is a multiple of 256, so it has no ragged tail."""
+    x, pk, ak = _nf4_card_inputs(cuda, dtype, M, N, K, seed=M + K)
+    n0 = cudaex.nf4_linear.launches
+    out = cudaex.nf4_linear(x, pk, ak)
+    torch.cuda.synchronize()
+    assert cudaex.nf4_linear.launches == n0 + 1 and out.dtype == dtype
+    tol = QUANT_TOL[dtype]
+    torch.testing.assert_close(out.float(), cudaex.nf4_linear_plain(x, pk, ak).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+def test_quant_declined_shape_runs_the_decomposition(cuda, kind):
+    """More than 512 rows on the card: the checker declines, the trace
+    holds the torchex decomposition (bf16 weights, one torch.matmul) and no
+    kernel launches; the plain version is never taken on a CUDA tensor."""
+    from thunder_tpu_torch.executors import torchex
+    from thunder_tpu_torch.transforms import quantization as tq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "int8":
+        x, q, s = _int8_card_inputs(cuda, torch.bfloat16, 600, 256, 512, seed=1)
+        cfn = tt.jit(lambda x, q, s: tq.quantized_linear(x, q, s))
+        args, decomp, counter = (x, q, s), torchex._quantized_linear_impl, cudaex.int8_linear
+    else:
+        x, pk, ak = _nf4_card_inputs(cuda, torch.bfloat16, 600, 256, 512, seed=2)
+        cfn = tt.jit(lambda x, p, a: tq.nf4_linear_kl(x, p, a, 256, 512, 64))
+        args, counter = (x, pk, ak), cudaex.nf4_linear
+        decomp = lambda x, p, a: torchex._nf4_linear_kl_impl(x, p, a, 256, 512, 64)  # noqa: E731
+    n0 = counter.launches
+    out = cfn(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == n0
+    impls = {b.impl for b in tt.last_traces(cfn)[-1].bound_symbols if str(b.sym.id).startswith("quant.")}
+    assert impls and not impls & {cudaex._int8_linear_impl, cudaex._nf4_kl_impl}
+    torch.testing.assert_close(out, decomp(*args), atol=0, rtol=0)
+    small = cfn(*(a[:8] if a is args[0] else a for a in args))
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1 and small.shape[0] == 8
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_refuse_bad_inputs(cuda):
+    x, q, s = _int8_card_inputs(cuda, torch.bfloat16, 8, 64, 256, seed=3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cudaex.int8_linear(x[:, :40].contiguous(), q[:, :40].contiguous(), s)
+    with pytest.raises(ValueError, match="int8"):
+        cudaex.int8_linear(x, q.view(torch.uint8), s)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        cudaex.int8_linear(x.half(), q, s)
+    xn, pk, ak = _nf4_card_inputs(cuda, torch.bfloat16, 4, 128, 512, seed=4)
+    with pytest.raises(ValueError, match="no kernel layout"):
+        cudaex.nf4_linear(xn[:, :448].contiguous(), pk, ak)
+    with pytest.raises(ValueError, match="absmax f32"):
+        cudaex.nf4_linear(xn, pk, ak.to(torch.bfloat16))

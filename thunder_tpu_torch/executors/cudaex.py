@@ -2,7 +2,7 @@
 training paths.
 
 The port's counterpart of thunder_tpu/executors/pallasex.py. It claims four
-composite ltorch symbols whole:
+composite ltorch symbols whole and two quantized-linear prims:
 
 * ``torch.nn.functional.rms_norm`` → ``rms_norm`` (csrc/rms_norm.cu), which
   replaces pallasex.fused_rms_norm;
@@ -11,7 +11,11 @@ composite ltorch symbols whole:
 * ``thunder.paged_chunk_attention`` → ``paged_chunk_attention``
   (csrc/paged_chunk_attention.cu), which replaces pallasex.paged_chunk_decode;
 * ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_rope_fwd.cu),
-  which replaces pallasex.flash_rope_attention_forward.
+  which replaces pallasex.flash_rope_attention_forward;
+* ``quant.linear_int8`` → ``int8_linear`` (csrc/int8_linear.cu), which
+  replaces pallasex.int8_linear;
+* ``quant.linear_nf4_kl`` → ``nf4_linear`` (csrc/nf4_linear.cu), which
+  replaces pallasex.nf4_linear.
 
 and registers the grad rule of ``thunder.rope_sdpa`` as pallasex does: the
 augmented forward records ``cuda.rope_flash_fwd`` (the forward kernel, which
@@ -48,6 +52,7 @@ from ..core.dtypes import to_torch_dtype
 from ..core.proxies import TensorProxy
 from ..extend import OperatorExecutor, register_executor
 from ..transforms.autodiff import VJPResult, register_augmented_forward, register_backward
+from ..transforms.quantization import dequantize_nf4_kl, nf4_kernel_block_k
 
 ex = OperatorExecutor("cuda")
 register_executor(ex)
@@ -129,6 +134,10 @@ def _library():
         lib.tt_flash_rope_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, f, f, i, p]
         lib.tt_flash_rope_bwd.restype = i
+        lib.tt_int8_linear.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.tt_int8_linear.restype = i
+        lib.tt_nf4_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.tt_nf4_linear.restype = i
         _lib = lib
     return _lib
 
@@ -637,3 +646,141 @@ class FlashRopeAttention(torch.autograd.Function):
         dq, dk, dv = flash_rope_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(),
                                                    o, lse, cos, sin, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Weight-only quantized linears: int8 and NF4 (transforms/quantization.py)
+# ---------------------------------------------------------------------------
+
+# Rows of x (tokens) the checkers claim: the decode steps (M = the batch) and
+# prefill buckets up to 512, pallasex's bound. Larger M runs as the
+# decomposition: dequantized bf16 weights and one torch.matmul.
+QUANT_MAX_M = 512
+_QUANT_X_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rows(shape) -> int:
+    return math.prod(int(d) for d in shape[:-1])
+
+
+def int8_linear_plain(x, qweight, scale):
+    """The kernel's function in plain PyTorch: the int8 weights widened, the
+    product summed in f32, the f32 per-row scale applied to the sum, one
+    cast to x's dtype (pallasex._int8_linear_kernel's order)."""
+    acc = torch.matmul(x.float(), qweight.float().t())
+    return (acc * scale.float()).to(x.dtype)
+
+
+def int8_linear(x, qweight, scale):
+    """x (..., K) f32 or bf16, qweight (N, K) int8, scale (N,) f32 -> (..., N)
+    in x's dtype: (x · qweightᵀ) · scale."""
+    if x.device.type == "cpu":
+        return int8_linear_plain(x, qweight, scale)
+    N, K = qweight.shape
+    _require(x.shape[-1] == K, f"int8_linear: x {tuple(x.shape)} does not fit weights {tuple(qweight.shape)}")
+    x2 = x.reshape(-1, K).contiguous()
+    _check_cuda("int8_linear", x2, qweight, scale)
+    _require(x.dtype in _QUANT_X_DTYPES, f"int8_linear: x dtype {x.dtype} is not f32 or bf16")
+    _require(qweight.dtype == torch.int8 and scale.dtype == torch.float32 and tuple(scale.shape) == (N,),
+             "int8_linear: weights must be int8 (N, K) and scale f32 (N,)")
+    _require(K % 16 == 0, f"int8_linear: K={K} is not a multiple of 16")
+    M = x2.shape[0]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M and N:
+        _raise_on(_library().tt_int8_linear(x2.data_ptr(), qweight.data_ptr(), scale.data_ptr(),
+                                            y.data_ptr(), M, N, K, _DTYPE_CODE[x.dtype], _stream(x)),
+                  "int8_linear")
+        int8_linear.launches += 1
+    return y.reshape(*x.shape[:-1], N)
+
+
+int8_linear.launches = 0
+
+
+def int8_linear_supported(x, qweight, scale, bias=None) -> bool:
+    """Hopper's checker: int8 weights (uint8 would be read as signed), f32 or
+    bf16 x, K a multiple of 16 (every lane's weight load is 16 bytes), f32
+    scale (N,), any N, and at most QUANT_MAX_M rows of x. pallasex's N and K
+    % 128 rules are TPU tiling, and its TPU-only gate a CPU speed choice."""
+    if getattr(qweight, "ndim", 0) != 2 or getattr(x, "ndim", 0) < 1:
+        return False
+    N, K = qweight.shape
+    return (
+        to_torch_dtype(qweight.dtype) == torch.int8
+        and to_torch_dtype(x.dtype) in _QUANT_X_DTYPES and x.shape[-1] == K and K % 16 == 0
+        and tuple(scale.shape) == (N,) and to_torch_dtype(scale.dtype) == torch.float32
+        and _rows(x.shape) <= QUANT_MAX_M
+    )
+
+
+def _int8_linear_impl(x, qweight, scale, bias=None):
+    out = int8_linear(x, qweight, scale)
+    return out if bias is None else out + bias
+
+
+ex.register_implementation("quant.linear_int8", _int8_linear_impl, checker=int8_linear_supported)
+
+
+def nf4_linear_plain(x, packed_kl, absmax_kl, block_size: int = 64):
+    """The kernel's function in plain PyTorch: W = NF4_CODE[code] · absmax
+    in f32, rounded to x's dtype, the product summed in f32, one cast."""
+    w = dequantize_nf4_kl(packed_kl, absmax_kl, (packed_kl.shape[0], x.shape[-1]), block_size)
+    return torch.matmul(x.float(), w.to(x.dtype).float().t()).to(x.dtype)
+
+
+def nf4_linear(x, packed_kl, absmax_kl, block_size: int = 64):
+    """x (..., K) f32 or bf16 against kernel-layout NF4 weights (packed
+    (N, K/2) uint8, absmax (N, K/64) f32; transforms/quantization.py:
+    pack_nf4_kernel_layout) -> (..., N) in x's dtype."""
+    if x.device.type == "cpu":
+        return nf4_linear_plain(x, packed_kl, absmax_kl, block_size)
+    K = x.shape[-1]
+    N = packed_kl.shape[0]
+    bk = nf4_kernel_block_k(K, block_size)
+    _require(block_size == 64 and bk is not None,
+             f"nf4_linear: no kernel layout for K={K}, block_size={block_size}")
+    x2 = x.reshape(-1, K).contiguous()
+    _check_cuda("nf4_linear", x2, packed_kl, absmax_kl)
+    _require(x.dtype in _QUANT_X_DTYPES, f"nf4_linear: x dtype {x.dtype} is not f32 or bf16")
+    _require(packed_kl.dtype == torch.uint8 and tuple(packed_kl.shape) == (N, K // 2)
+             and absmax_kl.dtype == torch.float32 and tuple(absmax_kl.shape) == (N, K // 64),
+             f"nf4_linear: packed must be uint8 ({N}, {K // 2}) and absmax f32 ({N}, {K // 64})")
+    M = x2.shape[0]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M and N:
+        _raise_on(_library().tt_nf4_linear(x2.data_ptr(), packed_kl.data_ptr(), absmax_kl.data_ptr(),
+                                           y.data_ptr(), M, N, K, bk, _DTYPE_CODE[x.dtype], _stream(x)),
+                  "nf4_linear")
+        nf4_linear.launches += 1
+    return y.reshape(*x.shape[:-1], N)
+
+
+nf4_linear.launches = 0
+
+
+def nf4_linear_supported(x, packed_kl, absmax_kl, out_features, in_features, block_size=64,
+                         bias=None) -> bool:
+    """Hopper's checker: block_size 64 with a kernel slice width for K,
+    f32 or bf16 x, uint8 (N, K/2) codes and f32 (N, K/64) absmax, any N, and
+    at most QUANT_MAX_M rows of x."""
+    try:
+        N, K, bs = int(out_features), int(in_features), int(block_size)
+    except (TypeError, ValueError):
+        return False
+    if getattr(x, "ndim", 0) < 1 or getattr(packed_kl, "ndim", 0) != 2:
+        return False
+    return (
+        bs == 64 and nf4_kernel_block_k(K, bs) is not None
+        and to_torch_dtype(x.dtype) in _QUANT_X_DTYPES and x.shape[-1] == K
+        and to_torch_dtype(packed_kl.dtype) == torch.uint8 and tuple(packed_kl.shape) == (N, K // 2)
+        and to_torch_dtype(absmax_kl.dtype) == torch.float32 and tuple(absmax_kl.shape) == (N, K // 64)
+        and _rows(x.shape) <= QUANT_MAX_M
+    )
+
+
+def _nf4_kl_impl(x, packed_kl, absmax_kl, out_features, in_features, block_size=64, bias=None):
+    out = nf4_linear(x, packed_kl, absmax_kl, int(block_size))
+    return out if bias is None else out + bias
+
+
+ex.register_implementation("quant.linear_nf4_kl", _nf4_kl_impl, checker=nf4_linear_supported)

@@ -304,6 +304,43 @@ def _index_put_supported(a, indices, values, accumulate=False):
 ex.register_implementation("torch.index_put", index_put_out_of_place, checker=_index_put_supported)
 
 
+# ---- weight-only quantized linears (transforms/quantization.py) ----
+# As thunder_tpu's jax impls compute them: the weights are dequantized and
+# rounded to bf16 BEFORE the product, whatever x's dtype (the kernels of
+# executors/cudaex.py differ: int8 scales after the f32 sum, NF4 rounds to
+# x's dtype). The product accumulates in f32 and rounds once to x's dtype.
+from ..transforms.quantization import dequantize_nf4, dequantize_nf4_kl  # noqa: E402
+
+
+def _dequant_linear(x, w, bias):
+    out = torch.matmul(x, w.t().to(x.dtype))
+    return out if bias is None else out + bias
+
+
+def _quantized_linear_impl(x, qweight, scale, bias=None):
+    w = qweight.to(torch.bfloat16) * scale.to(torch.bfloat16)[:, None]
+    return _dequant_linear(x, w, bias)
+
+
+def _nf4_linear_impl(x, packed, absmax, out_features, in_features, block_size=64, bias=None):
+    w = dequantize_nf4(packed, absmax, (out_features, in_features), block_size).to(torch.bfloat16)
+    return _dequant_linear(x, w, bias)
+
+
+def _nf4_linear_kl_impl(x, packed_kl, absmax_kl, out_features, in_features, block_size=64, bias=None):
+    w = dequantize_nf4_kl(packed_kl, absmax_kl, (out_features, in_features), block_size)
+    return _dequant_linear(x, w.to(torch.bfloat16), bias)
+
+
+_reg("quant.linear_int8", _quantized_linear_impl)
+_reg("quant.linear_nf4", _nf4_linear_impl)
+_reg("quant.linear_nf4_kl", _nf4_linear_kl_impl)
+_reg("quant.nf4_dequant", lambda packed, absmax, o, i, block_size=64: dequantize_nf4(
+    packed, absmax, (o, i), block_size))
+_reg("quant.nf4_dequant_kl", lambda packed_kl, absmax_kl, o, i, block_size=64: dequantize_nf4_kl(
+    packed_kl, absmax_kl, (o, i), block_size))
+
+
 # ---------------------------------------------------------------------------
 # eager escape hatch: execute a symbol on concrete values by tracing it
 # ---------------------------------------------------------------------------

@@ -323,7 +323,10 @@ def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
     GPTForCausalLM whose names carry the ``gpt.`` prefix): ``params`` is
     ``{name: np.asarray(p.data)}`` over the JAX model's ``named_parameters()``.
     Both packages use the same names and the (out, in) Linear layout; the
-    rope buffers are rebuilt by each model, not copied."""
+    rope buffers are rebuilt by each model, not copied. A quantized model
+    (the same transform applied on both sides) carries its int8 or uint8
+    codes and f32 scales as they are. Each value must have its parameter's
+    dtype and shape: a mismatch raises, nothing is cast."""
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -331,10 +334,14 @@ def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
         raise KeyError(f"parameter names differ: missing {missing}, unexpected {extra}")
     with torch.no_grad():
         for name, p in own.items():
-            # via f32: numpy has no bfloat16 of its own
-            v = torch.tensor(np.asarray(params[name], dtype=np.float32))
-            if tuple(v.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(v.shape)} vs {tuple(p.shape)}")
+            a = np.asarray(params[name])
+            want = str(p.dtype).replace("torch.", "")
+            if a.dtype.name != want:
+                raise ValueError(f"{name}: dtype {a.dtype.name} vs {want}")
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} vs {tuple(p.shape)}")
+            # numpy has no bfloat16 of its own: bf16 goes through f32, exactly
+            v = torch.tensor(a.astype(np.float32) if want == "bfloat16" else a)
             p.copy_(v.to(device=p.device, dtype=p.dtype))
 
 

@@ -6,7 +6,13 @@ models are ``torch.nn.Module``s holding ``torch.nn.Parameter``s, and their
 records ltorch bound symbols. ``functional_params`` swaps proxies in for the
 parameters and buffers while a program is traced, so the computation trace
 takes them as explicit inputs (thunder_tpu/nn/module.py:functional_params).
-``ThunderModule`` is the compiled wrapper ``jit(module)`` returns."""
+``ThunderModule`` is the compiled wrapper ``jit(module)`` returns.
+
+What thunder_tpu's Module adds for its transforms, torch's has already:
+``register_parameter`` appends a parameter after the existing ones, so
+``named_parameters`` lists it in thunder_tpu's order, and an instance
+``forward`` set by a transform (transforms/quantization.py) is the one
+``__call__`` runs."""
 from __future__ import annotations
 
 from contextlib import contextmanager

@@ -1,5 +1,6 @@
 """Paged model programs: bucketed prefill, the packed decode step, chunked
-prefill and the speculative verify step.
+prefill and the speculative verify step; and the weight-only quantization
+applied before they are traced (``quantize_for_serving``).
 
 The port of thunder_tpu/serving/runner.py: the GPT module structure is
 reused and the blocks run manually under the port's jit, with the KV state
@@ -33,9 +34,29 @@ Python ints, so no position recompiles or syncs.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from ..core import dtypes, prims
 from ..inference import block_mix, cached_sdpa, split_qkv_rope
 from ..ops import clang, ltorch
+from ..transforms.quantization import QuantizeInt8Transform
+
+
+def quantize_for_serving(gpt, mode: Optional[str]):
+    """Apply weight-only quantization to a GPT before its paged programs are
+    traced. ``mode``: None/``"none"`` is a no-op; ``"int8"`` swaps every
+    Linear's weights for symmetric per-output-channel int8 + f32 scales
+    (transforms/quantization.py), so the decode step's linears run the
+    int8 kernel (csrc/int8_linear.cu) with the weights int8 in device memory.
+
+    Must run BEFORE PagedGPTRunner traces the programs and before the engine
+    snapshots ``named_parameters``: both see the quantized module."""
+    if mode in (None, "none"):
+        return gpt
+    if mode != "int8":
+        raise ValueError(f"unknown serving quantization mode: {mode!r}")
+    QuantizeInt8Transform().transform_module(gpt)
+    return gpt
 
 
 class PagedGPTRunner:

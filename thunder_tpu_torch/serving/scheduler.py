@@ -38,9 +38,10 @@ Decoding is greedy, so every accept rule on the path (prefix hit,
 speculative verify, preemption and resume) is exact: a request's stream is
 the one it would produce alone. thunder_tpu samples with position-keyed jax
 threefry keys, which torch cannot reproduce, so a request with temperature
-> 0 is refused. Not ported: the SLO policy and its monitor (``slo=``, the
-observability slice) with the SLO-burn preemption it drives, int8 weights
-(``quantize=``, the quantization slice), and the serve.* observability bus.
+> 0 is refused. ``quantize="int8"`` serves int8 weights
+(runner.quantize_for_serving). Not ported: the SLO policy and its monitor
+(``slo=``, the observability slice) with the SLO-burn preemption it drives,
+and the serve.* observability bus.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ import torch
 from ..compile_service.buckets import BucketLadder
 from ..core.devices import resolve_device
 from .kv_pages import PagedKVCache, PrefixCache
-from .runner import PagedGPTRunner
+from .runner import PagedGPTRunner, quantize_for_serving
 
 
 @dataclass
@@ -122,6 +123,8 @@ class ServingEngine:
                     draft, 0 without)
     preemption      allow spilling batch-lane sequences for a page-starved
                     interactive admission (on; only bites with lanes in use)
+    quantize        weight-only quantization applied to ``gpt`` in place
+                    before tracing: None/"none" or "int8"
     """
 
     def __init__(self, gpt, *, max_batch: int = 8, page_size: int = 16,
@@ -134,11 +137,10 @@ class ServingEngine:
         if slo is not None:
             raise NotImplementedError(
                 "ServingEngine(slo=) is not ported: SLOPolicy and SLOMonitor come with the "
-                "observability slice (slice 7)")
-        if quantize not in (None, "none"):
-            raise NotImplementedError(
-                f"ServingEngine(quantize={quantize!r}) is not ported: int8 serving comes with "
-                "the quantization slice (slice 4)")
+                "observability slice (slice 8)")
+        # weight-only quantization must precede BOTH the program tracing and
+        # the named_parameters snapshot below (runner.quantize_for_serving)
+        gpt = quantize_for_serving(gpt, quantize)
         cfg = gpt.cfg
         self.device = resolve_device(device)
         if gpt.device != self.device:
