@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
-quantized serving, fleet-serve, train, agree.
+quantized serving, fleet-serve, train, fp8-train, LoRA, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -91,6 +91,29 @@ Phases, each printing one JSON line:
                autograd, AdamW written out as thunder_tpu/optim.py does) from
                the same weights and batch. Losses within LOSS_RTOL; the
                parameters within PARAM_ATOL.
+11. fp8_train — the train phase's step with [AutocastTransform(),
+               FP8TrainingTransform()] (bench.py's BENCH_FP8 row): every
+               linear (5 a layer + lm_head: 121, counted in the trace)
+               through fp8_linear, the backward's products through
+               torch._scaled_mm; first call timed as compile, 2 warm-up and
+               10 timed steps, the counters zeroed just before: fp8_linear
+               121 x 10, flash 24 x 10 each; losses finite and falling, every
+               amax history filled; beside the bf16 train phase's ms a step
+               and peak memory. fp8_train_profile: as train_profile.
+               The kernels phase runs fp8_linear at the five llama-350m
+               shapes (M=8192, x bf16 and f32; codes and amaxes equal to the
+               plain version's, y within FP8_TOL, which a K sweep 1024 /
+               2816 / 4096 prints), beside a bf16 matmul and
+               torch._scaled_mm on operands quantized beforehand.
+12. fp8_train_agreement — phase 10's setup with FP8TrainingTransform, against
+               the reference step with ReferenceFP8Linear (the delayed-scaling
+               linear written out in this script) on every linear: losses
+               within FP8_LOSS_RTOL, histories within FP8_HIST_RTOL and the
+               first step's weight amaxes equal, parameters within
+               FP8_PARAM_ATOL.
+13. lora_train — llama-350m with [AutocastTransform(), LORATransform(r=8,
+               lora_alpha=16)], every base parameter frozen, 10 steps: only
+               the 242 adapter parameters may change; losses fall.
 
 Then the kernels line, the card's name and power limit, and the final
 {"ok": true, ...} line. Any failure exits non-zero without the final line;
@@ -127,7 +150,8 @@ LOSS_RTOL = 1e-4
 TRAIN_LR = 1e-4
 PARAM_ATOL = 2 * TRAIN_LR * 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM (NVIDIA data sheet)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; f32 non-tensor
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,  # dense bf16 tensor; f32 non-tensor
+            "float8": 1979e12}  # dense fp8 tensor
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -576,6 +600,113 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
     N, K = QUANT_SHAPES["fc_1"]
     return dict(max_abs_err=max(errs), shape=f"fc_1 M={M0} N={N} K={K} bf16 (Llama-3-1B decode)",
                 lm_head=timings["lm_head"], **timings["fc_1"])
+
+
+# llama-350m's linears (N, K) at the train path's M = B·T = 8192 rows: the
+# attention's qkv and proj, the MLP's fc_1 (fc_2 has its shape) and proj, and
+# lm_head. Under bf16 autocast x reaches them in f32 (after an f32 norm or the
+# f32 MLP product), all but proj (the attention's bf16 output); the master
+# weights in f32. FP8_SWEEP_K: the K sweep (N = 1024) the y tolerance rests on.
+FP8_M = 8192
+FP8_SHAPES = {"attn": (3072, 1024), "proj": (1024, 1024), "fc_1": (2816, 1024),
+              "mlp_proj": (1024, 2816), "lm_head": (32000, 1024)}
+FP8_PATH_X = {"attn": torch.float32, "proj": torch.bfloat16, "fc_1": torch.float32,
+              "mlp_proj": torch.float32, "lm_head": torch.float32}
+FP8_SWEEP_K = (1024, 2816, 4096)
+# y of the fp8 kernel against its plain version, |err| / max(1, |plain|). Both
+# sum the same exact e4m3 products in f32, in another order (the kernel adds
+# each 32-deep tensor-core product into its f32 sums): f32 y differs by f32
+# rounding, 7.7e-7 of |y| at K = 2816 and 1.1e-6 at K = 4096 on an H100 (the
+# sweep prints each K); 1e-5 leaves room. bf16 y: one rounding to bf16, one ulp
+# (2^-8 relative) where the f32 sums straddle a rounding boundary.
+FP8_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+
+
+def fp8_inputs(dev, gen, dt, M, N, K):
+    """x (M, K) in dt, an f32 master weight w (N, K) at llama's init scale,
+    and delayed scales from the operands' amaxes (f32 scalars on the card)."""
+    x = torch.randn(M, K, device=dev, generator=gen).to(dt)
+    w = torch.randn(N, K, device=dev, generator=gen) * 0.02
+    sx = torch.full((), 448.0, device=dev) / x.float().abs().amax()
+    sw = torch.full((), 448.0, device=dev) / w.abs().amax()
+    return x, w, sx, sw
+
+
+def fp8_work(M: int, N: int, K: int, x_itemsize: int) -> tuple[float, float]:
+    """(bytes, operations) of one fp8 linear on the training path: x and the
+    f32 w read once, y (x's dtype) and the e4m3 codes xq, wq written once;
+    2·M·N·K operations at the fp8 rate."""
+    return (M * K * x_itemsize + N * K * 4 + M * N * x_itemsize + M * K + N * K), 2.0 * M * N * K
+
+
+def check_fp8(cudaex, dev, gen) -> dict:
+    """fp8_linear against its plain version at llama-350m's five linear
+    shapes and the K sweep, x in bf16 and f32: the codes and amaxes must be
+    equal, y within FP8_TOL. Then timed at every shape and dtype beside its
+    bound, its plain version and two side yardsticks (no one PyTorch call
+    quantizes, multiplies and reduces the amaxes): a bf16 torch.matmul of x
+    and w, and torch._scaled_mm on operands quantized beforehand. The
+    backward's two products (transforms/fp8_training.py:_fp8_mm, the route
+    the path runs) are timed at each shape too."""
+    from thunder_tpu_torch.transforms import fp8_training as fp8
+
+    shapes = dict(FP8_SHAPES, sweep_k4096=(1024, 4096))
+    cases, errs, sweep = [], [], {}
+    for label, (N, K) in shapes.items():
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, sx, sw = fp8_inputs(dev, gen, dt, FP8_M, N, K)
+            y, xq, wq, ax, aw = cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+            torch.cuda.synchronize()
+            ry, rxq, rwq, rax, raw = cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True)
+            codes = (torch.equal(xq.view(torch.uint8), rxq.view(torch.uint8))
+                     and torch.equal(wq.view(torch.uint8), rwq.view(torch.uint8)))
+            amax = ax.item() == rax.item() and aw.item() == raw.item()
+            err, scaled = flash_err(y, ry)
+            errs.append(err)
+            cases.append({"shape": label, "M": FP8_M, "N": N, "K": K, "x": dname(dt), "codes_equal": codes,
+                          "amax_equal": amax, "max_abs_err": err, "max_err_over_max1": scaled})
+            if N == 1024:
+                sweep.setdefault(K, {})[dname(dt)] = scaled
+            if not (codes and amax and scaled <= FP8_TOL[dname(dt)]):
+                raise AssertionError(f"fp8_linear {label} {dt}: codes {codes}, amax {amax}, error {scaled}")
+            del x, w, y, xq, wq, ry, rxq, rwq
+            torch.cuda.empty_cache()
+
+    timing = {}
+    for label, (N, K) in FP8_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            M = FP8_M
+            nbytes, ops = fp8_work(M, N, K, dt.itemsize)
+            b, by = bound_ms(nbytes, ops, "float8")
+            sets = copies(lambda: fp8_inputs(dev, gen, dt, M, N, K), M * K * dt.itemsize + N * K * 4)
+            ms, eager = cuda_ms(lambda *a: cudaex.fp8_linear(*a, save_quantized=True), sets, iters=50)
+            plain_ms, _ = cuda_ms(lambda *a: cudaex.fp8_linear_plain(*a, save_quantized=True), sets[:1],
+                                  iters=5)
+            # side yardsticks on operands prepared beforehand
+            q = [cudaex.fp8_linear(*a, save_quantized=True) for a in sets]
+            pre = [(xq, wq, 1.0 / sx, 1.0 / sw) for (x, w, sx, sw), (_, xq, wq, _, _) in zip(sets, q)]
+            smm_ms, _ = cuda_ms(lambda xq, wq, isx, isw: torch._scaled_mm(
+                xq, wq.t(), scale_a=isx, scale_b=isw, out_dtype=dt, use_fast_accum=False), pre)
+            mm_sets = [(x.to(torch.bfloat16), w.to(torch.bfloat16)) for x, w, _, _ in sets]
+            mm_ms, _ = cuda_ms(lambda x, w: torch.matmul(x, w.t()), mm_sets)
+            del mm_sets
+            gq = [(torch.randn(M, N, device=dev, generator=gen) * 1e-3).to(torch.float8_e5m2) for _ in pre]
+            dx_ms, _ = cuda_ms(fp8._fp8_mm, [(g, wq) for g, (_, wq, _, _) in zip(gq, pre)], iters=50)
+            dw_ms, _ = cuda_ms(lambda g, xq: fp8._fp8_mm(g.t(), xq),
+                               [(g, xq) for g, (xq, _, _, _) in zip(gq, pre)], iters=50)
+            timing.setdefault(label, {})[dname(dt)] = dict(
+                M=M, N=N, K=K, ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None, fraction_of_bound=b / ms, bytes=nbytes, operations=ops,
+                scaled_mm_prequantized_ms=smm_ms, bf16_matmul_ms=mm_ms,
+                backward_dx_ms=dx_ms, backward_dw_ms=dw_ms)
+            del sets, q, pre, gq
+            torch.cuda.empty_cache()
+    emit("kernels", kernel="fp8_linear", cases=cases, k_sweep=sweep, tolerance=FP8_TOL, timing=timing,
+         library="none: no one PyTorch call quantizes, multiplies and reduces the amaxes",
+         backward_route="torch._scaled_mm (e5m2 x e4m3, f32 out, unit scales, no fast accumulation)")
+    N, K = FP8_SHAPES["attn"]
+    return dict(max_abs_err=max(errs), shape=f"attn M={FP8_M} N={N} K={K} x f32, w f32 (llama-350m)",
+                timing=timing, **timing["attn"]["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -1167,11 +1298,12 @@ def train_batch(cfg, B, T, seed):
     return idx, tgt
 
 
-def reference_loss(params: dict, cfg, idx, tgt, attention):
+def reference_loss(params: dict, cfg, idx, tgt, attention, linear=None):
     """The llama loss written out in plain torch ops over GPTForCausalLM's
     parameter dict — the module math of models/litgpt.py, independent of
     the port's trace compiler. ``attention(q, k, v)`` takes roped (B, H, T,
-    hs) q and (B, Hkv, T, hs) k, v."""
+    hs) q and (B, Hkv, T, hs) k, v; ``linear(x, name)`` applies the weight
+    of that name (default: F.linear)."""
     from thunder_tpu_torch.models.litgpt import build_rope_cache
 
     F = torch.nn.functional
@@ -1189,20 +1321,21 @@ def reference_loss(params: dict, cfg, idx, tgt, attention):
         rot = torch.cat([-xf[..., hs // 2:], xf[..., :hs // 2]], -1)
         return (xf * cos + rot * sin).to(x.dtype)
 
+    lin = linear or (lambda x, name: F.linear(x, params[name]))
     x = F.embedding(idx.long(), params["gpt.wte.weight"])
     for i in range(cfg.n_layer):
         w = lambda n: params[f"gpt.h.{i}.{n}"]  # noqa: E731
-        qkv = F.linear(rms(x, w("norm_1.weight")), w("attn.attn.weight"))
+        wl = lambda y, n: lin(y, f"gpt.h.{i}.{n}.weight")  # noqa: E731
+        qkv = wl(rms(x, w("norm_1.weight")), "attn.attn")
         qkv = qkv.view(B, T, ng, nh // ng + 2, hs)
         q = qkv[:, :, :, :nh // ng].reshape(B, T, nh, hs).transpose(1, 2)
         k = qkv[:, :, :, nh // ng].transpose(1, 2)
         v = qkv[:, :, :, nh // ng + 1].transpose(1, 2)
         y = attention(rope(q), rope(k), v).transpose(1, 2).reshape(B, T, nh * hs)
-        x = x + F.linear(y, w("attn.proj.weight"))
+        x = x + wl(y, "attn.proj")
         h = rms(x, w("norm_2.weight"))
-        x = x + F.linear(F.silu(F.linear(h, w("mlp.fc_1.weight"))) * F.linear(h, w("mlp.fc_2.weight")),
-                         w("mlp.proj.weight"))
-    logits = F.linear(rms(x, params["gpt.ln_f.weight"]), params["gpt.lm_head.weight"])
+        x = x + wl(F.silu(wl(h, "mlp.fc_1")) * wl(h, "mlp.fc_2"), "mlp.proj")
+    logits = lin(rms(x, params["gpt.ln_f.weight"]), "gpt.lm_head.weight")
     return F.cross_entropy(logits.reshape(B * T, -1).float(), tgt.reshape(-1).long())
 
 
@@ -1249,9 +1382,10 @@ class ReferenceAdamW:
             p.copy_(q)
 
 
-def reference_step(params: dict, opt: ReferenceAdamW, cfg, idx, tgt, attention, autocast: bool):
+def reference_step(params: dict, opt: ReferenceAdamW, cfg, idx, tgt, attention, autocast: bool,
+                   linear=None):
     with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
-        loss = reference_loss(params, cfg, idx, tgt, attention)
+        loss = reference_loss(params, cfg, idx, tgt, attention, linear)
     grads = torch.autograd.grad(loss, opt.params)
     opt.step(grads)
     return loss.detach()
@@ -1342,6 +1476,7 @@ def train(tt, cudaex, seed) -> dict:
 # mark wins.
 KERNEL_KINDS = (
     ("attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("fp8_linear", ("fp8_linear_kernel",)),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel",)),
@@ -1350,7 +1485,7 @@ KERNEL_KINDS = (
 )
 
 
-def train_profile(step, idx, tgt) -> dict:
+def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
     """Device busy share over 2 steps, the kernels that took the time (by
     name and by kind, per step), and the kernel launches a step."""
     from torch.profiler import ProfilerActivity, profile
@@ -1380,7 +1515,7 @@ def train_profile(step, idx, tgt) -> dict:
                kernel_launches_per_step=sum(r[2] for r in rows) / 2,
                device_ms_per_step_by_kind=by_kind,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]])
-    emit("train_profile", **out)
+    emit(phase, **out)
     return out
 
 
@@ -1440,6 +1575,264 @@ def train_agreement(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: fp8 training, its agreement, LoRA
+# ---------------------------------------------------------------------------
+
+# The f32 fp8 step against the hand-written fp8 reference. Both quantize
+# with the same scales, but an activation or gradient that the port computes
+# in another summation order can land on the other side of an e4m3 or e5m2
+# rounding boundary (e5m2 keeps 2 mantissa bits: one code is 25 % of an
+# element), and the port's backward products run through cuBLAS's fp8 GEMM.
+# So many gradient elements near 0 flip sign, and each flip moves a weight
+# apart by the most two AdamW steps can: the bias-corrected m̂/√v̂ averages g
+# and g² with slightly different weights, so |m̂/√v̂| reaches 1, 1.0013 and
+# 1.0036 at steps 1-3 (Cauchy-Schwarz): FP8_PARAM_ATOL = 2 lr (1 + 1.0013 +
+# 1.0036), where 2 lr·3 (PARAM_ATOL) is not quite enough (5.96e-4 measured
+# on an H100). The losses: within FP8_LOSS_RTOL (4.7e-5 on the CPU at width
+# 256, 1.7e-5 on an H100).
+# The histories: the weights' amaxes of the first step are the same maxima of
+# the same weights and must be equal; every entry is held to FP8_HIST_RTOL,
+# the relative move of a weight amax by PARAM_ATOL at llama-350m's smallest
+# init bound (1/sqrt(2816) = 0.019: 3.2e-2); the activations' amaxes move
+# with the weights.
+FP8_LOSS_RTOL = 5e-4
+FP8_HIST_RTOL = 5e-2
+FP8_PARAM_ATOL = 2 * TRAIN_LR * (1 + 1.0013 + 1.0036)
+
+
+def fp8_q(x, scale, fmt_max: float, dtype):
+    return torch.clamp(x.float() * scale, -fmt_max, fmt_max).to(dtype)
+
+
+def fp8_scale(hist, fmt_max: float = 448.0):
+    """Delayed scale from an amax history: fmt_max / max(history), 1 while
+    the history is empty (one rounded division, as jnp divides)."""
+    amax = hist.max().float()
+    return torch.where(amax > 0, torch.full_like(amax, fmt_max) / amax.clamp_min(1e-12), 1.0)
+
+
+class ReferenceFP8Linear(torch.autograd.Function):
+    """thunder_tpu/transforms/fp8_training.py's delayed-scaling linear written
+    out in plain torch, independent of the port: e4m3 codes of x and w from
+    the history scales, the f32 product of the codes over sx·sw; backward:
+    the gradient quantized to e5m2 with current scaling, f32 products of the
+    codes."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx, sw):
+        xq, wq = fp8_q(x, sx, 448.0, torch.float8_e4m3fn), fp8_q(w, sw, 448.0, torch.float8_e4m3fn)
+        ctx.save_for_backward(xq, wq, sx, sw)
+        return (torch.matmul(xq.float(), wq.float().t()) / (sx * sw)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq, sx, sw = ctx.saved_tensors
+        amax = g.abs().max().float().clamp_min(1e-12)
+        sg = torch.full_like(amax, 57344.0) / amax
+        gq = fp8_q(g, sg, 57344.0, torch.float8_e5m2).float()
+        dx = torch.matmul(gq, wq.float()) / (sg * sw)
+        dw = torch.matmul(gq.t(), xq.float()) / (sg * sx)
+        return dx.to(g.dtype), dw.to(g.dtype), None, None
+
+
+class ReferenceFP8Linears:
+    """The amax histories of every linear (by weight name, newest amax at
+    slot 0) and the linear that reads them for its scales and rolls them."""
+
+    def __init__(self, names, device, length: int = 16):
+        self.hist = {n: (torch.zeros(length, device=device), torch.zeros(length, device=device))
+                     for n in names}
+        self.params = None
+
+    def __call__(self, x, name):
+        hx, hw = self.hist[name]
+        w = self.params[name]
+        x2 = x.reshape(-1, x.shape[-1])
+        y = ReferenceFP8Linear.apply(x2, w, fp8_scale(hx), fp8_scale(hw))
+        with torch.no_grad():
+            self.hist[name] = (torch.cat([x2.abs().max().float().reshape(1), hx[:-1]]),
+                               torch.cat([w.abs().max().float().reshape(1), hw[:-1]]))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def fp8_histories(model) -> dict:
+    return {k: b for k, b in model.named_buffers() if "fp8_amax" in k}
+
+
+def fp8_train(tt, cudaex, seed, bf16: dict) -> dict:
+    """The train phase's step with FP8TrainingTransform after autocast:
+    every linear through fp8_linear (5 a layer + lm_head), the backward's
+    products through torch._scaled_mm."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms import fp8_training as fp8
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = 4, 2048, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform(), fp8.FP8TrainingTransform()]),
+                     optim.AdamW(lr=TRAIN_LR))
+    idx, tgt = train_batch(cfg, B, T, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    cudaex.fp8_linear.launches = 0
+    cudaex.flash_rope_attention.launches = 0
+    cudaex.flash_rope_attention_backward.launches = 0
+    for k in fp8.BACKWARD_ROUTES:
+        fp8.BACKWARD_ROUTES[k] = 0
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    launches = {"fp8_linear": cudaex.fp8_linear.launches,
+                "flash_rope_fwd": cudaex.flash_rope_attention.launches,
+                "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches}
+    routes = dict(fp8.BACKWARD_ROUTES)
+    fwd = [b for b in tt.last_traces(step)[-1].bound_symbols if b.sym.id == "fp8_train_ex.train_linear_aug"]
+    n_fp8 = len(fwd)
+    arriving: dict = {}
+    for b in fwd:
+        x, w = b.args[0], b.args[1]
+        key = f"M={x.shape[0]} N={w.shape[0]} K={w.shape[1]} x {x.dtype.name} w {w.dtype.name}"
+        arriving[key] = arriving.get(key, 0) + 1
+    if n_fp8 != 5 * cfg.n_layer + 1:
+        raise AssertionError(f"the forward trace holds {n_fp8} fp8 linears, want {5 * cfg.n_layer + 1}")
+    want = {"fp8_linear": n_fp8 * n_steps, "flash_rope_fwd": cfg.n_layer * n_steps,
+            "flash_rope_bwd": cfg.n_layer * n_steps}
+    if launches != want or routes != {"scaled_mm": 2 * n_fp8 * n_steps, "f32": 0}:
+        raise AssertionError(f"launches {launches}, backward routes {routes}; want {want}")
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fp8 train losses {losses}")
+    hists = fp8_histories(model)
+    n_filled = min(3 + n_steps, 16)
+    empty = [k for k, h in hists.items() if not bool((h[:n_filled] > 0).all())]
+    if len(hists) != 2 * n_fp8 or empty:
+        raise AssertionError(f"{len(hists)} amax histories, not filled: {empty[:4]}")
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T,
+               dtype="bf16 autocast, fp8 linears (e4m3 fwd, e5m2 grads), f32 master", steps=n_steps,
+               ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s, compile_s=compile_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               bf16_ms_per_step=bf16["ms_per_step"], bf16_peak_memory_gb=bf16["peak_memory_gb"],
+               losses=losses, launches=launches, fp8_linears_per_step=n_fp8, backward_routes=routes,
+               arriving=arriving, histories=len(hists),
+               lm_head_x_hist=hists["gpt.lm_head.fp8_amax_x_hist"][:4].tolist())
+    emit("fp8_train", **out)
+    out["profile"] = train_profile(step, idx, tgt, "fp8_train_profile")
+    del step, model, hists
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp8_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off: the port's fp8 TrainStep against the hand-written
+    reference step with ReferenceFP8Linear on every linear, from the same
+    weights and batch, 3 steps."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.fp8_training import FP8TrainingTransform
+
+    B, T, n_steps = 1, 2048, 3
+    cfg = Config.from_name("llama-350m", n_layer=2, block_size=T)
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    ref = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    names = [k for k, p in ref.items() if p.ndim == 2 and "wte" not in k]
+    lin = ReferenceFP8Linears(names, ref[names[0]].device)
+    lin.params = ref
+    idx, tgt = train_batch(cfg, B, T, seed)
+    step = TrainStep(tt.jit(model, transforms=[FP8TrainingTransform()]), optim.AdamW(lr=TRAIN_LR))
+    opt = ReferenceAdamW(list(ref.values()), TRAIN_LR)
+    n0 = cudaex.fp8_linear.launches
+    got = [float(step(idx, tgt)) for _ in range(n_steps)]
+    want = [float(reference_step(ref, opt, cfg, idx, tgt, plain_attention, False, lin))
+            for _ in range(n_steps)]
+    if cudaex.fp8_linear.launches - n0 != len(names) * n_steps:
+        raise AssertionError("the f32 fp8 step did not run the fp8 kernel on every linear")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    hists = fp8_histories(model)
+    hist_rel, n_equal, n_all, first_w_equal = 0.0, 0, 0, True
+    for name in names:
+        for r, h_ref in zip("xw", lin.hist[name]):
+            h = hists[name.replace("weight", f"fp8_amax_{r}_hist")]
+            hist_rel = max(hist_rel, ((h - h_ref).abs() / h_ref.abs().clamp_min(1e-30)).max().item())
+            n_equal += int((h == h_ref).sum())
+            n_all += h.numel()
+            if r == "w":  # slot n_steps - 1 holds the first step's amax
+                first_w_equal &= bool(h[n_steps - 1] == h_ref[n_steps - 1])
+    diffs = torch.cat([(p.detach() - ref[k].detach()).abs().flatten() for k, p in model.named_parameters()])
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False, losses=got,
+               reference_losses=want, loss_max_rel=loss_rel, loss_rtol=FP8_LOSS_RTOL,
+               hist_max_rel=hist_rel, hist_rtol=FP8_HIST_RTOL, hist_entries_equal=n_equal,
+               hist_entries=n_all, first_step_weight_amax_equal=first_w_equal,
+               param_max_abs=diffs.max().item(), param_atol=FP8_PARAM_ATOL)
+    emit("fp8_train_agreement", **out)
+    if not (loss_rel <= FP8_LOSS_RTOL and hist_rel <= FP8_HIST_RTOL and first_w_equal
+            and out["param_max_abs"] <= FP8_PARAM_ATOL):
+        raise AssertionError(f"fp8 train agreement: losses {loss_rel}, histories {hist_rel}, "
+                             f"params {out['param_max_abs']}")
+    del step, model, ref, opt, lin
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_train(tt, cudaex, seed) -> dict:
+    """llama-350m with LORATransform(r=8, lora_alpha=16) after bf16
+    autocast, every base parameter frozen (the transform freezes the Linears
+    it adapts; the embedding and norms are frozen here, as a LoRA user
+    does): only the adapters may change."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+    from thunder_tpu_torch.transforms.lora import LORATransform
+
+    B, T, n_steps = 4, 2048, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    tmod = tt.jit(model, transforms=[AutocastTransform(), LORATransform(r=8, lora_alpha=16)])
+    for k, p in model.named_parameters():
+        if "lora_" not in k:
+            p.requires_grad_(False)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = TrainStep(tmod, optim.AdamW(lr=TRAIN_LR))
+    idx, tgt = train_batch(cfg, B, T, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    n0 = cudaex.flash_rope_attention.launches
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps - 1)
+    losses = [first] + losses
+    adapters = [k for k in before if "lora_" in k]
+    changed = [k for k, p in model.named_parameters() if not torch.equal(p.detach(), before[k])]
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, r=8, lora_alpha=16,
+               dtype="bf16 autocast, f32 master", steps=n_steps, ms_per_step=step_s * 1e3,
+               tokens_per_s=B * T / step_s, compile_s=compile_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+               adapters=len(adapters), adapter_params=sum(before[k].numel() for k in adapters),
+               params=sum(p.numel() for p in before.values()), changed=len(changed),
+               flash_rope_fwd_launches=cudaex.flash_rope_attention.launches - n0)
+    emit("lora_train", **out)
+    if len(adapters) != 2 * (5 * cfg.n_layer + 1) or sorted(changed) != sorted(adapters):
+        raise AssertionError(f"lora: {len(adapters)} adapters; changed {len(changed)}, "
+                             f"base changed {sorted(set(changed) - set(adapters))[:4]}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lora losses {losses}")
+    if out["flash_rope_fwd_launches"] != cfg.n_layer * (n_steps - 1):
+        raise AssertionError("the LoRA step did not run the flash kernels")
+    del step, tmod, model, before
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1471,6 +1864,7 @@ def main() -> int:
     flash_fwd, flash_bwd = check_flash(cudaex, dev, gen)
     int8 = check_quant(cudaex, dev, gen, "int8")
     nf4 = check_quant(cudaex, dev, gen, "nf4")
+    fp8 = check_fp8(cudaex, dev, gen)
 
     cfg = Config.from_name("Llama-3-1B")
     rng = np.random.RandomState(args.seed)
@@ -1489,6 +1883,9 @@ def main() -> int:
     fleet_agreement(cfg, args.seed)
     trained, _ = train(tt, cudaex, args.seed)
     train_agreement(tt, cudaex, args.seed)
+    fp8_trained = fp8_train(tt, cudaex, args.seed, trained)
+    fp8_train_agreement(tt, cudaex, args.seed)
+    lora_train(tt, cudaex, args.seed)
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -1506,7 +1903,9 @@ def main() -> int:
             ("int8_linear", int8, "thunder_tpu_torch/csrc/int8_linear.cu",
              "thunder_tpu/executors/pallasex.py:1318", quant_served["int8_linear_launches"]),
             ("nf4_linear", nf4, "thunder_tpu_torch/csrc/nf4_linear.cu",
-             "thunder_tpu/executors/pallasex.py:1605", nf4_run["nf4_linear_launches"])):
+             "thunder_tpu/executors/pallasex.py:1605", nf4_run["nf4_linear_launches"]),
+            ("fp8_linear", fp8, "thunder_tpu_torch/csrc/fp8_linear.cu",
+             "thunder_tpu/executors/pallasex.py:1447", fp8_trained["launches"]["fp8_linear"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

@@ -129,6 +129,16 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_thunder_tpu():
     files = sorted((ROOT / "thunder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"thunder_tpu_torch/transforms/fp8_training.py", "thunder_tpu_torch/transforms/lora.py",
+            "thunder_tpu_torch/extend.py", "thunder_tpu_torch/common.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "thunder_tpu")]
     assert not bad, bad
+
+
+def test_unregistered_tensor_method_names_the_ports_ops():
+    from thunder_tpu_torch.core.proxies import get_method
+
+    with pytest.raises(AttributeError, match=r"import thunder_tpu_torch\.ops first"):
+        get_method("no_such_method")

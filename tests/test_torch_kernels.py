@@ -595,3 +595,118 @@ def test_quant_wrappers_refuse_bad_inputs(cuda):
         cudaex.nf4_linear(xn[:, :448].contiguous(), pk, ak)
     with pytest.raises(ValueError, match="absmax f32"):
         cudaex.nf4_linear(xn, pk, ak.to(torch.bfloat16))
+
+
+# fp8_linear (plain version against pallasex in tests/test_torch_fp8.py): the
+# codes and amaxes equal the plain version's; y to |err| / max(1, |plain|) at
+# f32 1e-5 (the same exact e4m3 products summed in f32 in another order) and
+# bf16 2e-2 (one rounding to bf16 of those sums: an ulp).
+FP8_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _fp8_card_inputs(cuda, x_dtype, w_dtype, M, N, K, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, device=cuda, generator=g).to(x_dtype)
+    w = (torch.randn(N, K, device=cuda, generator=g) * 0.02).to(w_dtype)
+    sx = torch.full((), 448.0, device=cuda) / x.float().abs().amax() / 2
+    sw = torch.full((), 448.0, device=cuda) / w.float().abs().amax()
+    return x, w, sx, sw
+
+
+def _fp8_check(out, ref, x_dtype):
+    assert torch.equal(out[1].view(torch.uint8), ref[1].view(torch.uint8))
+    assert torch.equal(out[2].view(torch.uint8), ref[2].view(torch.uint8))
+    assert out[3].item() == ref[3].item() and out[4].item() == ref[4].item()
+    d = (out[0].float() - ref[0].float()).abs() / ref[0].float().abs().clamp(min=1.0)
+    assert out[0].dtype == x_dtype and d.max().item() <= FP8_TOL[x_dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(100, 40, 64), (256, 128, 1024), (300, 264, 4096), (1, 8, 32)],
+                         ids=["ragged", "tiles", "deep_ragged", "one_row"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16], ids=["w_f32", "w_bf16"])
+def test_fp8_linear_kernel_matches_plain(cuda, M, N, K, x_dtype, w_dtype):
+    x, w, sx, sw = _fp8_card_inputs(cuda, x_dtype, w_dtype, M, N, K, seed=M + K)
+    n0 = cudaex.fp8_linear.launches
+    out = cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    torch.cuda.synchronize()
+    assert cudaex.fp8_linear.launches == n0 + 1
+    _fp8_check(out, cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True), x_dtype)
+    y, ax, aw = cudaex.fp8_linear(x, w, sx, sw)
+    assert torch.equal(y, out[0]) and ax.item() == out[3].item() and aw.item() == out[4].item()
+
+
+@pytest.mark.gpu
+def test_fp8_linear_in_a_cuda_graph(cuda):
+    """The wrapper zeroes the amaxes on the stream, so a replayed graph
+    reduces them afresh."""
+    x, w, sx, sw = _fp8_card_inputs(cuda, torch.bfloat16, torch.float32, 256, 256, 512, seed=9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    for scale in (1.0, 0.5):
+        x.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        _fp8_check(out, cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_fp8_declined_shape_runs_the_unfused_route(cuda):
+    """N = 36 is not whole 8-column slices: the stateful operator's forward
+    runs the unfused torch route, launches nothing, and agrees with it."""
+    from thunder_tpu_torch.transforms import fp8_training as tfp8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, _, _ = _fp8_card_inputs(cuda, torch.float32, torch.float32, 64, 36, 64, seed=4)
+    hx = torch.full((16,), 3.0, device=cuda)
+    hw = torch.full((16,), 0.05, device=cuda)
+    assert not cudaex.fp8_linear_supported(x, w)
+    n0 = cudaex.fp8_linear.launches
+    y, xq, wq, sx, sw, ax, aw = tfp8._forward(x, w, None, hx, hw, 0, True)
+    torch.cuda.synchronize()
+    assert cudaex.fp8_linear.launches == n0
+    want = cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True)
+    assert torch.equal(xq.view(torch.uint8), want[1].view(torch.uint8)) and ax.item() == want[3].item()
+    torch.testing.assert_close(y, want[0], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fp8_backward_products_on_the_card(cuda):
+    """The backward's products go to torch._scaled_mm where every dimension
+    is a multiple of 16, else to the f32 product of the widened codes.
+    cuBLAS's fp8 GEMM keeps fewer bits in its sums than f32: within 1e-3 of
+    the largest |sum|."""
+    from thunder_tpu_torch.transforms import fp8_training as tfp8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(256, 512, device=cuda, generator=g).to(torch.float8_e5m2)
+    b = torch.randn(512, 128, device=cuda, generator=g).to(torch.float8_e4m3fn)
+    routes = dict(tfp8.BACKWARD_ROUTES)
+    got = tfp8._fp8_mm(a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert tfp8.BACKWARD_ROUTES["scaled_mm"] == routes["scaled_mm"] + 1
+    assert got.dtype == torch.float32 and (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    odd = tfp8._fp8_mm(a[:, :40], b[:40])
+    assert tfp8.BACKWARD_ROUTES["f32"] == routes["f32"] + 1
+    torch.testing.assert_close(odd, torch.matmul(a[:, :40].float(), b[:40].float()), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_fp8_wrapper_refuses_bad_inputs(cuda):
+    x, w, sx, sw = _fp8_card_inputs(cuda, torch.bfloat16, torch.float32, 16, 64, 96, seed=6)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cudaex.fp8_linear(x[:, :80].contiguous(), w[:, :80].contiguous(), sx, sw)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        cudaex.fp8_linear(x.half(), w, sx, sw)
+    with pytest.raises(ValueError, match="f32 scalars"):
+        cudaex.fp8_linear(x, w, sx.double(), sw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cudaex.fp8_linear(x, w.cpu(), sx, sw)

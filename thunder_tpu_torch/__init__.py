@@ -27,7 +27,7 @@ from .core.proxies import Proxy, TensorProxy, proxy_from_torch
 from .core.pytree import tree_flatten, tree_unflatten
 from .core.trace import TraceCtx, tracectx
 from .core.transform_common import cse, dce
-from .common import CacheEntry, CompileData, CompileStats
+from .common import CacheEntry, CompileData, CompileStats, apply_effects
 from .extend import get_default_executors, resolve_executors, set_default_executors
 
 # importing executors registers them
@@ -53,7 +53,9 @@ def _is_tensor_like(x) -> bool:
 def acquire_trace(fn: Callable, args, kwargs, grad_mask: Sequence[bool] | None = None) -> TraceCtx:
     """Trace fn by calling it with proxies for its tensor leaves. The
     trace's device is its first tensor input's. ``grad_mask`` (one flag per
-    leaf) marks the proxies autodiff differentiates."""
+    leaf) marks the proxies autodiff differentiates. When fn writes buffers
+    (nn.update_buffer), the trace returns ``(result, effect values)``, the
+    values in the order of ``trace.side_effects``."""
     leaves, treedef = tree_flatten((args, kwargs))
     trc = TraceCtx(fn)
     tensor_mask = [_is_tensor_like(leaf) for leaf in leaves]
@@ -66,7 +68,11 @@ def acquire_trace(fn: Callable, args, kwargs, grad_mask: Sequence[bool] | None =
                         for leaf, m, g in zip(leaves, tensor_mask, grad_mask)]
         trc.args = tuple(p for p, m in zip(proxy_leaves, tensor_mask) if m)
         pargs, pkwargs = tree_unflatten(proxy_leaves, treedef)
-        prims.python_return(fn(*pargs, **pkwargs))
+        result = fn(*pargs, **pkwargs)
+        if trc.side_effects:
+            prims.python_return((result, tuple(p for _, _, p in trc.side_effects)))
+        else:
+            prims.python_return(result)
     return trc
 
 
@@ -120,7 +126,9 @@ def _cache_key(leaves, tensor_mask) -> tuple:
 
 
 class ThunderCompiledFunction:
-    """The callable returned by jit()."""
+    """The callable returned by jit(). A program that writes buffers returns
+    their new values beside its result; the call replays them onto their
+    owners (common.py:apply_effects)."""
 
     def __init__(self, cd: CompileData):
         self._cd = cd
@@ -146,7 +154,8 @@ class ThunderCompiledFunction:
         cs.last_traces = traces + [dce_trc, ex_trc]
         cs.last_prologue_traces = [pro]
         entry = CacheEntry(prologue_fn=pro.python_callable(),
-                           computation_fn=ex_trc.python_callable())
+                           computation_fn=ex_trc.python_callable(),
+                           effect_keys=tuple((owner, name) for owner, name, _ in trc.side_effects))
         self._cache[key] = entry
         return entry
 
@@ -163,7 +172,11 @@ class ThunderCompiledFunction:
             cs.cache_hits.add()
         with torch.no_grad():
             flat_inputs = entry.prologue_fn(*[l for l, m in zip(leaves, tensor_mask) if m])
-            return entry.computation_fn(*flat_inputs)
+            out = entry.computation_fn(*flat_inputs)
+        if entry.effect_keys:
+            out, effects = out
+            apply_effects(entry.effect_keys, effects)
+        return out
 
     @property
     def cache_hits(self) -> int:

@@ -1,8 +1,7 @@
-"""CompileData / CompileStats / CacheEntry for jit.
+"""CompileData / CompileStats / CacheEntry and the effect epilogue for jit.
 
 The bookkeeping of thunder_tpu/common.py, without the distributed state
-and the buffer-mutation epilogue (they wait for the slices that need
-them)."""
+(it waits for the slice that needs it)."""
 from __future__ import annotations
 
 import threading
@@ -45,10 +44,19 @@ class CompileData:
         self.transforms = tuple(transforms)
 
 
-class CacheEntry:
-    """One compiled specialization."""
+def apply_effects(effect_keys, effects) -> None:
+    """The epilogue of a program that writes buffers (thunder_tpu/common.py:
+    EpilogueMixin.apply_effects): each ``(owner, name)`` buffer is rebound
+    to the value the program computed."""
+    for (owner, name), value in zip(effect_keys, effects):
+        owner._buffers[name] = value
 
-    __slots__ = ("prologue_fn", "computation_fn")
+
+class CacheEntry:
+    """One compiled specialization; ``effect_keys`` are the ``(owner,
+    name)`` buffers its program writes, in the order of its effect values."""
+
+    __slots__ = ("prologue_fn", "computation_fn", "effect_keys")
 
     def __init__(self, **kw):
         for s in self.__slots__:

@@ -20,7 +20,7 @@ from .baseutils import ProxyInterface, check
 
 
 # ---------------------------------------------------------------------------
-# method registry (populated by thunder_tpu.ops at import time)
+# method registry (populated by thunder_tpu_torch.ops at import time)
 # ---------------------------------------------------------------------------
 
 _tensor_methods: dict[str, Callable] = {}
@@ -34,7 +34,7 @@ def get_method(name: str) -> Callable:
     fn = _tensor_methods.get(name)
     if fn is None:
         raise AttributeError(
-            f"TensorProxy method '{name}' is not registered; import thunder_tpu.ops first"
+            f"TensorProxy method '{name}' is not registered; import thunder_tpu_torch.ops first"
         )
     return fn
 

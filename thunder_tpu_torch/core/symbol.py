@@ -46,6 +46,7 @@ class Symbol(SymbolInterface):
         module: str | None = None,
         tags: Sequence[str] = (),
         print_override: Callable | None = None,
+        executor=None,
         _bind_postprocess: Callable | None = None,
     ):
         self.name = name
@@ -56,6 +57,8 @@ class Symbol(SymbolInterface):
         self.module = module
         self.tags = frozenset(tags)
         self.print_override = print_override
+        # the executor that owns an operator symbol (extend.py:register_operator)
+        self.executor = executor
         self._bind_postprocess = _bind_postprocess
 
     def __repr__(self) -> str:

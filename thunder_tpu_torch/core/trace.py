@@ -5,7 +5,10 @@ ordered list of BoundSymbols; it prints to real Python source and compiles
 to a callable whose ops are bound executor implementations — here one torch
 call (or hand-written kernel launch) per bound symbol. ``device`` is the
 device of the program's tensor inputs: proxies and factories made without a
-device take it, so constants land where the program runs."""
+device take it, so constants land where the program runs. ``side_effects``
+lists the buffer writes recorded while tracing (nn/module.py:update_buffer),
+as ``(owner, name, proxy)`` in program order; jit returns their values
+beside the result and replays them onto the owners after the call."""
 from __future__ import annotations
 
 from contextlib import contextmanager
@@ -54,6 +57,7 @@ class TraceCtx(baseutils.TraceInterface):
         self._provenance: TraceProvenance | None = None
         self.is_prologue = prologue
         self.device = None
+        self.side_effects: list = []
 
     # ---- naming ----
     def make_name(self, prefix: str = "t") -> str:
@@ -158,4 +162,5 @@ def from_trace(trace: TraceCtx) -> TraceCtx:
     t._counters = dict(trace._counters)
     t._name = trace._name
     t.device = trace.device
+    t.side_effects = list(trace.side_effects)
     return t

@@ -2,8 +2,8 @@
 trace, substituting or expanding chosen bsyms.
 
 The TraceSubstitutionProcessor of thunder_tpu/core/trace_interpreter.py —
-the engine under autocast. The port records no side effects yet, so none
-are carried over."""
+the engine under autocast. Recorded buffer writes are carried over with
+their proxies renamed as the re-recorded trace names them."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -67,5 +67,7 @@ class TraceSubstitutionProcessor:
                 replaced = self.visitor(bsym, margs, mkwargs)
                 out = bsym.sym(*margs, **mkwargs) if replaced is None else replaced
                 self.map_out(bsym.output, out)
+        new_trace.side_effects = [(owner, name, self.lookup(p))
+                                  for owner, name, p in self.trace.side_effects]
         return new_trace
 

@@ -17,6 +17,10 @@ composite ltorch symbols whole and two quantized-linear prims:
 * ``quant.linear_nf4_kl`` → ``nf4_linear`` (csrc/nf4_linear.cu), which
   replaces pallasex.nf4_linear.
 
+It also holds ``fp8_linear`` (csrc/fp8_linear.cu), which replaces
+pallasex.fp8_linear_fused; transforms/fp8_training.py's stateful operators
+call it at run time, where its checker claims the shape.
+
 and registers the grad rule of ``thunder.rope_sdpa`` as pallasex does: the
 augmented forward records ``cuda.rope_flash_fwd`` (the forward kernel, which
 also returns the softmax's lse) and the backward ``cuda.rope_flash_bwd``
@@ -138,6 +142,8 @@ def _library():
         lib.tt_int8_linear.restype = i
         lib.tt_nf4_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.tt_nf4_linear.restype = i
+        lib.tt_fp8_linear.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.tt_fp8_linear.restype = i
         _lib = lib
     return _lib
 
@@ -784,3 +790,71 @@ def _nf4_kl_impl(x, packed_kl, absmax_kl, out_features, in_features, block_size=
 
 
 ex.register_implementation("quant.linear_nf4_kl", _nf4_kl_impl, checker=nf4_linear_supported)
+
+
+# ---------------------------------------------------------------------------
+# Delayed-scaling fp8 linear (transforms/fp8_training.py)
+# ---------------------------------------------------------------------------
+
+_FP8_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fp8_linear_plain(x, w, sx, sw, *, fmt_max: float = 448.0, save_quantized: bool = False):
+    """The kernel's function in plain PyTorch: both operands scaled in f32,
+    clipped to ±fmt_max and cast to e4m3; the codes widened and multiplied
+    in f32; the sum divided by sx·sw and cast once to x's dtype; the amaxes
+    of the unquantized operands (pallasex._fp8_matmul_kernel's order)."""
+    xq = torch.clamp(x.float() * sx, -fmt_max, fmt_max).to(torch.float8_e4m3fn)
+    wq = torch.clamp(w.float() * sw, -fmt_max, fmt_max).to(torch.float8_e4m3fn)
+    y = (torch.matmul(xq.float(), wq.float().t()) / (sx * sw)).to(x.dtype)
+    ax, aw = x.abs().max().float(), w.abs().max().float()
+    return (y, xq, wq, ax, aw) if save_quantized else (y, ax, aw)
+
+
+def fp8_linear(x, w, sx, sw, *, fmt_max: float = 448.0, save_quantized: bool = False):
+    """x (M, K) and w (N, K), f32 or bf16, with the delayed scales sx, sw
+    (0-d f32 tensors on x's device: no host sync) -> (y (M, N) in x's dtype,
+    amax_x, amax_w), or (y, xq, wq, amax_x, amax_w) with ``save_quantized``
+    (the e4m3 codes of x and w)."""
+    if x.device.type == "cpu":
+        return fp8_linear_plain(x, w, sx, sw, fmt_max=fmt_max, save_quantized=save_quantized)
+    _require(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[1],
+             f"fp8_linear: x {tuple(x.shape)} does not fit w {tuple(w.shape)}")
+    M, K = x.shape
+    N = w.shape[0]
+    _check_cuda("fp8_linear", x, w, sx, sw)
+    _require(x.dtype in _FP8_DTYPES and w.dtype in _FP8_DTYPES,
+             f"fp8_linear: x and w must be f32 or bf16, got {x.dtype} and {w.dtype}")
+    _require(sx.dtype == torch.float32 and sw.dtype == torch.float32 and sx.numel() == 1 and sw.numel() == 1,
+             "fp8_linear: the scales must be f32 scalars")
+    _require(K % 32 == 0 and N % 8 == 0, f"fp8_linear: K={K} must be a multiple of 32 and N={N} of 8")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    amax = torch.zeros(2, dtype=torch.float32, device=x.device)
+    xq = wq = None
+    if save_quantized:
+        xq = torch.empty((M, K), dtype=torch.float8_e4m3fn, device=x.device)
+        wq = torch.empty((N, K), dtype=torch.float8_e4m3fn, device=x.device)
+    if M and N:
+        _raise_on(_library().tt_fp8_linear(
+            x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(), y.data_ptr(),
+            None if xq is None else xq.data_ptr(), None if wq is None else wq.data_ptr(), amax.data_ptr(),
+            M, N, K, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], float(fmt_max), _stream(x)), "fp8_linear")
+        fp8_linear.launches += 1
+    ax, aw = amax[0], amax[1]
+    return (y, xq, wq, ax, aw) if save_quantized else (y, ax, aw)
+
+
+fp8_linear.launches = 0
+
+
+def fp8_linear_supported(x, w) -> bool:
+    """Hopper's checker: 2-d x (M, K) and w (N, K), each f32 or bf16, K a
+    multiple of 32 (one e4m3 product's depth; it also keeps rows 16-byte
+    aligned) and N of 8 (whole 8-column slices), M and N not 0. pallasex's
+    K and N % 128 rules are TPU tiling."""
+    if getattr(x, "ndim", 0) != 2 or getattr(w, "ndim", 0) != 2:
+        return False
+    M, K = x.shape
+    N = w.shape[0]
+    return (to_torch_dtype(x.dtype) in _FP8_DTYPES and to_torch_dtype(w.dtype) in _FP8_DTYPES
+            and w.shape[1] == K and K % 32 == 0 and N % 8 == 0 and M > 0 and N > 0)

@@ -1,8 +1,9 @@
 """Execution passes: executor claiming and in-place writes.
 
-The claim pass of thunder_tpu/executors/passes.py: priority-order claiming
-(executor impl at the bsym's level → descend into subsymbols → error on
-unclaimed prims), then eager frees. There is no
+The claim pass of thunder_tpu/executors/passes.py: an operator symbol is
+run by the executor that owns it; everything else is claimed in priority
+order (executor impl at the bsym's level → descend into subsymbols → error
+on unclaimed prims), then eager frees. There is no
 fusion pass yet: every claimed bsym runs as its own torch call or kernel.
 
 One pass is new: ``write_dead_inputs_in_place``. JAX's arrays are immutable,
@@ -43,7 +44,7 @@ def transform_for_execution(trace: TraceCtx, executors: Sequence[OperatorExecuto
             # pure-python symbols (prologue checks) execute directly
             out_bsyms.append(bsym.with_impl(bsym.sym.python_impl))
             return
-        for ex in executors:
+        for ex in ([bsym.sym.executor] if bsym.sym.executor is not None else executors):
             impl = ex.claim(bsym)
             if impl is not None:
                 out_bsyms.append(bsym.with_impl(impl))

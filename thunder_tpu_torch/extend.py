@@ -4,8 +4,10 @@ The registry of thunder_tpu/extend.py. Executors claim BoundSymbols at any
 level of the hierarchy: OperatorExecutors provide concrete implementations
 per symbol id, with an optional checker that decides whether a bound symbol
 is claimed, and operator symbols of their own (register_operator) that grad
-rules record. Execution transforms and fusion executors wait for the slices
-that need them."""
+rules record and that only their executor runs, listed or not.
+StatefulExecutors thread a persistent state object into their operators.
+Execution transforms and fusion executors wait for the slices that need
+them."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence
@@ -28,7 +30,7 @@ class OperatorExecutor:
     def register_operator(self, name: str, *, meta: Callable, fn: Callable) -> Symbol:
         """A prim-level Symbol ``<executor>.<name>`` that only this executor
         runs (thunder_tpu/extend.py:OperatorExecutor.register_operator)."""
-        sym = Symbol(name, meta, id=f"{self.name}.{name}", is_prim=True, module=self.name)
+        sym = Symbol(name, meta, id=f"{self.name}.{name}", is_prim=True, module=self.name, executor=self)
         self.implmap[sym.id] = (fn, None)
         return sym
 
@@ -46,6 +48,32 @@ class OperatorExecutor:
             return fn if checker(*bsym.args, **bsym.kwargs) else None
         except Exception:
             return None
+
+
+class StatefulExecutor(OperatorExecutor):
+    """An executor whose operators carry a persistent state object across
+    calls (thunder_tpu/extend.py:StatefulExecutor; TransformerEngine's fp8
+    recipe state). ``register_stateful_operator`` binds a state factory; the
+    state is made at the operator's first call, kept in ``_states`` under
+    the symbol id, and passed as the implementation's first argument."""
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self._state_factories: dict = {}
+        self._states: dict = {}
+
+    def register_stateful_operator(self, name: str, state_factory: Callable, *, meta: Callable,
+                                   fn: Callable) -> Symbol:
+        sid = f"{self.name}.{name}"
+        self._state_factories[sid] = state_factory
+
+        def bound(*args, **kwargs):
+            state = self._states.get(sid)
+            if state is None:
+                state = self._states[sid] = self._state_factories[sid]()
+            return fn(state, *args, **kwargs)
+
+        return self.register_operator(name, meta=meta, fn=bound)
 
 
 # ---------------------------------------------------------------------------

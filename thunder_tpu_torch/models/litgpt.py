@@ -325,9 +325,14 @@ def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
     Both packages use the same names and the (out, in) Linear layout; the
     rope buffers are rebuilt by each model, not copied. A quantized model
     (the same transform applied on both sides) carries its int8 or uint8
-    codes and f32 scales as they are. Each value must have its parameter's
-    dtype and shape: a mismatch raises, nothing is cast."""
+    codes and f32 scales as they are; a LoRA model its ``lora_A`` and
+    ``lora_B`` adapters (parameters). After FP8TrainingTransform, ``params``
+    also holds the ``fp8_amax_x_hist`` / ``fp8_amax_w_hist`` buffers, from
+    the JAX model's ``named_buffers()``. Each value must have its
+    parameter's (buffer's) dtype and shape: a mismatch raises, nothing is
+    cast."""
     own = dict(model.named_parameters())
+    own.update((k, b) for k, b in model.named_buffers() if k.rsplit(".", 1)[-1].startswith("fp8_amax_"))
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

@@ -12,7 +12,9 @@ What thunder_tpu's Module adds for its transforms, torch's has already:
 ``register_parameter`` appends a parameter after the existing ones, so
 ``named_parameters`` lists it in thunder_tpu's order, and an instance
 ``forward`` set by a transform (transforms/quantization.py) is the one
-``__call__`` runs."""
+``__call__`` runs. What it lacks is ``Module.update_buffer``, the traced
+buffer write: here it is the function ``update_buffer(module, name,
+value)``."""
 from __future__ import annotations
 
 from contextlib import contextmanager
@@ -22,6 +24,22 @@ import torch
 Module = torch.nn.Module
 Parameter = torch.nn.Parameter
 ModuleList = torch.nn.ModuleList
+
+
+def update_buffer(module: torch.nn.Module, name: str, value) -> None:
+    """Write a module buffer (thunder_tpu/nn/module.py:Module.update_buffer).
+    Inside a trace, a proxy value is recorded as the side effect ``(module,
+    name, value)``, which jit replays onto the module after the call, and is
+    also what later reads of the buffer in the same trace see
+    (functional_params restores the original when tracing ends). Outside a
+    trace it rebinds the buffer."""
+    from ..core.proxies import Proxy
+    from ..core.trace import get_tracectx
+
+    trc = get_tracectx()
+    if trc is not None and isinstance(value, Proxy):
+        trc.side_effects.append((module, name, value))
+    module._buffers[name] = value
 
 
 @contextmanager
@@ -50,7 +68,8 @@ class ThunderModule:
     The traced program takes ``(params, args, kwargs)``: every parameter and
     buffer, by qualified name, is an explicit input, pulled fresh from the
     module on every call — an optimizer's in-place updates take effect
-    without retracing as long as the metadata matches."""
+    without retracing as long as the metadata matches. Buffers the forward
+    writes (update_buffer) are rebound on the module after the call."""
 
     def __init__(self, module: torch.nn.Module, *, executors=None, transforms=None):
         from .. import jit as _jit

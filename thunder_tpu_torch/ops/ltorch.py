@@ -1027,6 +1027,17 @@ def grouped_mlp(bins, w_gate, w_up, w_down, group_sizes):
     return prims.matmul(h, w_down)   # (E, cap, D)
 
 
+@torchsymbol(name="mse_loss", id="torch.nn.functional.mse_loss")
+def mse_loss(input, target, reduction="mean"):
+    d = clang.sub(input, target)
+    sq = clang.mul(d, d)
+    if reduction == "none":
+        return sq
+    if reduction == "sum":
+        return clang.sum_(sq)
+    return clang.mean(sq)
+
+
 @torchsymbol(name="cross_entropy", id="torch.nn.functional.cross_entropy")
 def cross_entropy(logits, target, weight=None, ignore_index=-100, reduction="mean", label_smoothing=0.0):
     """Composite cross-entropy over class dim 1 / last for 2D (logits (N, C))."""

@@ -6,8 +6,11 @@ whole step — prologue-checked forward, backward, optimizer update — into one
 the step runs op by op: the forward and backward programs that autodiff
 builds (transforms/autodiff.py), then the optimizer's in-place update
 (optim.py). The parameters live in the module and are written in place, so
-``step(*batch) -> loss`` leaves the module trained. Capturing the step in a
-CUDA graph (the counterpart of the jit) is later work.
+``step(*batch) -> loss`` leaves the module trained. Buffers the forward
+writes (fp8 amax histories) are replayed onto the module after the update,
+as thunder_tpu replays the step's effect outputs; buffers ride in the frozen
+argument, read fresh each step. Capturing the step in a CUDA graph (the
+counterpart of the jit) is later work.
 
 Not ported yet: distributed plans (``mesh_plan``), the step guard, SLO
 monitoring, bucketed lowering, the AOT executable cache and no_sync
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .common import apply_effects
 from .nn.module import ThunderModule
 
 
@@ -84,6 +88,7 @@ class TrainStep:
         cd = self.tmodule._cd
         self._vag = ThunderValueAndGrad(traced_split, argnums=0, transforms=cd.transforms,
                                         executors=cd.executors)
+        self._vag.defer_effects = True  # replayed by __call__ after the update
 
     def __call__(self, *args, **kwargs):
         tparams, frozen = self._split()
@@ -93,6 +98,9 @@ class TrainStep:
             self._build()
         loss, grads = self._vag(tparams, frozen, args, kwargs)
         self.optimizer.update(tparams, grads[0][0], self.opt_state)
+        pending = self._vag.consume_pending_effects()
+        if pending is not None:
+            apply_effects(*pending)
         self._step_count += 1
         return loss
 

@@ -19,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
+from ..common import apply_effects
 from ..core import dtypes, prims
 from ..core.prims import PrimIDs
 from ..core.proxies import AnyProxy, NumberProxy, Proxy, TensorProxy
@@ -914,6 +915,10 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
     diff: set[str] = set(grad_arg_names)
     tape: list[TapeEntry] = []
     fwd_output = None
+    # buffer writes (trace.side_effects): the trace returns (result, effect
+    # values); only the result is differentiated, the values ride along
+    has_effects = bool(trace.side_effects)
+    fwd_effects: tuple = ()
 
     def lookup(x):
         if isinstance(x, Proxy):
@@ -937,9 +942,14 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 map_out(old[k], new[k])
 
     def process(bsym):
-        nonlocal fwd_output
+        nonlocal fwd_output, fwd_effects
         if bsym.sym.id == PrimIDs.RETURN:
-            fwd_output = lookup(bsym.args[0] if len(bsym.args) == 1 else bsym.args)
+            ret = bsym.args[0] if len(bsym.args) == 1 else bsym.args
+            if has_effects:
+                ret, effects = ret
+                assert len(effects) == len(trace.side_effects), "effect values do not match side_effects"
+                fwd_effects = tuple(lookup(e) for e in effects)
+            fwd_output = lookup(ret)
             return
         if bsym.sym.id in (PrimIDs.DEL, PrimIDs.COMMENT, PrimIDs.UNPACK_TRIVIAL):
             return
@@ -991,7 +1001,7 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 if isinstance(r, Proxy) and r.name not in seen:
                     seen.add(r.name)
                     saved.append(r)
-        prims.python_return((fwd_output, tuple(saved)))
+        prims.python_return(((fwd_output, fwd_effects) if has_effects else fwd_output, tuple(saved)))
 
     fwd_out_tensors = _flat_tensors(fwd_output)
 
@@ -1084,6 +1094,7 @@ class _VAGEntry(NamedTuple):
     fwd_fn: Callable
     bwd_fn: Callable
     grad_leaf_positions: tuple  # positions (within tensor leaves) receiving grads
+    effect_keys: tuple = ()  # (owner, name) of the buffers the forward writes
 
 
 class ThunderValueAndGrad:
@@ -1092,7 +1103,14 @@ class ThunderValueAndGrad:
 
     thunder_tpu/transforms/autodiff.py:ThunderValueAndGrad: the API is
     functional — no torch autograd tape is recorded; both programs run under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``. Buffer writes of the forward come back beside its
+    output, ``((output, effects), saved)``, and are replayed after the
+    forward — or, with ``defer_effects`` set, kept for the caller to take
+    with ``consume_pending_effects()`` and replay itself (TrainStep does,
+    after its optimizer update, so a step's writes land together)."""
+
+    defer_effects = False
+    _pending_effects = None
 
     def __init__(self, fn: Callable, argnums=None, transforms: Sequence = (), executors=None):
         from ..common import CompileStats
@@ -1141,7 +1159,8 @@ class ThunderValueAndGrad:
         self._cs.last_backward_traces = [bwd_trc, bwd_claimed]
         arg_pos = {p.name: i for i, p in enumerate(trc.args)}
         entry = _VAGEntry(fwd_claimed.python_callable(), bwd_claimed.python_callable(),
-                          tuple(arg_pos[n] for n in fb.grad_arg_names))
+                          tuple(arg_pos[n] for n in fb.grad_arg_names),
+                          tuple((owner, name) for owner, name, _ in trc.side_effects))
         self._cache[key] = entry
         return entry
 
@@ -1162,6 +1181,12 @@ class ThunderValueAndGrad:
         tensor_leaves = [leaf for leaf, m in zip(leaves, tensor_mask) if m]
         with torch.no_grad():
             out, saved = entry.fwd_fn(*tensor_leaves)
+            if entry.effect_keys:
+                out, effects = out
+                if self.defer_effects:
+                    self._pending_effects = (entry.effect_keys, effects)
+                else:
+                    apply_effects(entry.effect_keys, effects)
             # cotangent: scalar loss -> 1
             cot = torch.ones((), dtype=out.dtype, device=out.device)
             grads_flat = entry.bwd_fn(*saved, cot)
@@ -1176,6 +1201,12 @@ class ThunderValueAndGrad:
             else:
                 grad_leaves.append(None)
         return out, tree_unflatten(grad_leaves, treedef)
+
+
+    def consume_pending_effects(self):
+        """The deferred ``(effect_keys, effects)`` of the last call, or None."""
+        out, self._pending_effects = self._pending_effects, None
+        return out
 
 
 def value_and_grad(fn, argnums=None):
