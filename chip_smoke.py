@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
-quantized serving, fleet-serve, train, fp8-train, LoRA, agree.
+quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
+eval, remat, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -18,7 +19,12 @@ Phases, each printing one JSON line:
                Python, as the op-by-op paths issue them. The flash-RoPE
                forward and backward run at llama-350m's shape (B=4, H=16,
                T=2048, D=64) and llama-1b's GQA shape (B=1, H=16, Hkv=4,
-               T=2048, D=128). Paged chunk attention runs at the fleet
+               T=2048, D=128); the RoPE-free flash pair (sdpa's claim) at
+               NanoGPT-124M's (B=8, H=12, T=1024, D=64, causal) and
+               llama-1b's GQA heads, causal and full, beside SDPA and its
+               autograd backward. The fused cross-entropy runs on (8192,
+               50304) logits in bf16 and f32 and (8192, 32000) in bf16,
+               every 97th row at ignore_index, beside F.cross_entropy. Paged chunk attention runs at the fleet
                path's chunk shape (B=1, T=256 from positions 0, 1024, 1792)
                and verify shape (B=8, T=3, ragged, one query past the
                table), Llama-3-1B heads (H=32, Hkv=8, D=64), page 16. The
@@ -114,6 +120,27 @@ Phases, each printing one JSON line:
 13. lora_train — llama-350m with [AutocastTransform(), LORATransform(r=8,
                lora_alpha=16)], every base parameter frozen, 10 steps: only
                the 242 adapter parameters may change; losses fall.
+14. nano_train — TrainStep(jit(NanoGPT(gpt2), [AutocastTransform()]),
+               AdamW(lr=1e-4)) at bench.py's nanogpt-124m shape (B=8,
+               T=1024), full width and depth: compile, 2 warm-up and 10 timed
+               steps, flash_fwd and flash_bwd counted 12 x 10 each between
+               zeroed counters; nano_train_profile over 2 steps; and the
+               hand-written baseline (F.scaled_dot_product_attention,
+               F.layer_norm, F.gelu(approximate="tanh")) in the same call.
+15. nano_eval — jit(model)(idx, targets) with no gradient under autocast at
+               the same shape: cross_entropy must launch once on the bf16
+               logits, its loss within NANO_EVAL_RTOL of F.cross_entropy on
+               the same logits.
+16. nano_train_agreement — f32, TF32 off, gpt2 width at 2 layers, B=1,
+               T=256: 3 steps against the hand-written step, as phase 10.
+17. remat_train — GPTForCausalLM(llama-1b) at full width and depth, B=1,
+               T=2048, bf16 autocast, AdamW (bench.py's llama-1b:1:2048 rows),
+               with activation_checkpoint off and then on: ms a step, peak
+               memory from a clean start, saved-for-backward tensors, and
+               flash_rope_fwd launches a step against the count the traces
+               plan (the backward replays each checkpointed layer's
+               forward). Then f32 losses over 3 steps at 2 layers, with and
+               without remat, within REMAT_RTOL.
 
 Then the kernels line, the card's name and power limit, and the final
 {"ok": true, ...} line. Any failure exits non-zero without the final line;
@@ -383,6 +410,11 @@ def check_chunk(cudaex, dev, gen) -> dict:
 
 FLASH_SHAPES = {"llama-350m": dict(B=4, H=16, Hkv=16, T=2048, D=64),
                 "llama-1b": dict(B=1, H=16, Hkv=4, T=2048, D=128)}
+# The RoPE-free kernels (sdpa's claim): NanoGPT-124M's attention at the
+# nano_train shape, and llama-1b's GQA heads, causal and full.
+PLAIN_FLASH_ROWS = {"nanogpt-124m": (dict(B=8, H=12, Hkv=12, T=1024, D=64), True),
+                    "llama-1b": (dict(B=1, H=16, Hkv=4, T=2048, D=128), True),
+                    "llama-1b-full": (dict(B=1, H=16, Hkv=4, T=2048, D=128), False)}
 
 
 def flash_inputs(dev, gen, dt, B, H, Hkv, T, D):
@@ -402,21 +434,67 @@ def flash_err(got, want) -> tuple[float, float]:
     return d.max().item(), (d / want.float().abs().clamp(min=1.0)).max().item()
 
 
-def check_flash(cudaex, dev, gen) -> tuple[dict, dict]:
-    """flash_rope_fwd (o, lse) and flash_rope_bwd (dq, dk, dv) against their
-    plain versions in bf16 and f32 at both shapes, then timed in bf16."""
+class FlashKernels:
+    """One flash pair's calls over flash_inputs' tuple (q, k, v, cos, sin,
+    do): with RoPE, flash_rope_attention(_backward); without, the sdpa
+    claim's flash_attention(_backward), which take no cos/sin."""
+
+    def __init__(self, cudaex, rope: bool, causal: bool):
+        self.c, self.rope, self.causal = cudaex, rope, causal
+
+    def fwd_args(self, a):
+        return a[:5] if self.rope else a[:3]
+
+    def bwd_args(self, a, o, lse):
+        q, k, v, cos, sin, do = a
+        return (q, k, v, o, lse, cos, sin, do) if self.rope else (q, k, v, o, lse, do)
+
+    def fwd(self, *a):
+        f = self.c.flash_rope_attention if self.rope else self.c.flash_attention
+        return f(*a, self.causal)
+
+    def fwd_plain(self, *a):
+        f = self.c.flash_rope_attention_plain if self.rope else self.c.flash_attention_plain
+        return f(*a, self.causal)
+
+    def bwd(self, *a):
+        f = self.c.flash_rope_attention_backward if self.rope else self.c.flash_attention_backward
+        return f(*a, self.causal)
+
+    def bwd_plain(self, *a):
+        f = (self.c.flash_rope_attention_backward_plain if self.rope
+             else self.c.flash_attention_backward_plain)
+        return f(*a, self.causal)
+
+    def library_inputs(self, a):
+        """SDPA's inputs: q and k roped beforehand for the RoPE pair."""
+        q, k, v, cos, sin, do = a
+        if self.rope:
+            q = self.c._rope_plain(q.float(), cos, sin).to(q.dtype)
+            k = self.c._rope_plain(k.float(), cos, sin).to(k.dtype)
+        return q.clone().requires_grad_(), k.clone().requires_grad_(), v.clone().requires_grad_(), do
+
+
+def check_flash(cudaex, dev, gen, rope: bool = True) -> tuple[dict, dict]:
+    """The flash pair (with RoPE: flash_rope_fwd/bwd at FLASH_SHAPES, causal;
+    without: flash_fwd/bwd at PLAIN_FLASH_ROWS) against its plain versions
+    in bf16 and f32, then timed in bf16 beside SDPA and its autograd
+    backward."""
+    name = "flash_rope" if rope else "flash"
+    rows = ({label: (shp, True) for label, shp in FLASH_SHAPES.items()} if rope else PLAIN_FLASH_ROWS)
     res = {"fwd": {"errs": [], "cases": [], "timing": {}},
            "bwd": {"errs": [], "cases": [], "timing": {}}}
-    for label, shp in FLASH_SHAPES.items():
+    for label, (shp, causal) in rows.items():
+        fk = FlashKernels(cudaex, rope, causal)
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v, cos, sin, do = flash_inputs(dev, gen, dt, **shp)
-            o, lse = cudaex.flash_rope_attention(q, k, v, cos, sin, True)
-            grads = cudaex.flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, True)
+            a = flash_inputs(dev, gen, dt, **shp)
+            o, lse = fk.fwd(*fk.fwd_args(a))
+            grads = fk.bwd(*fk.bwd_args(a, o, lse))
             torch.cuda.synchronize()
-            ro, rlse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, True)
+            ro, rlse = fk.fwd_plain(*fk.fwd_args(a))
             fwd = [flash_err(o, ro), flash_err(lse, rlse)]
             del ro, rlse
-            ref = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, True)
+            ref = fk.bwd_plain(*fk.bwd_args(a, o, lse))
             bwd = [flash_err(g, r) for g, r in zip(grads, ref)]
             del ref, grads
             torch.cuda.empty_cache()
@@ -427,36 +505,31 @@ def check_flash(cudaex, dev, gen) -> tuple[dict, dict]:
                 res[kind]["cases"].append({"shape": label, "dtype": dname(dt), "max_abs_err": err,
                                            "max_err_over_max1": scaled})
                 if not scaled <= KERNEL_TOL[dname(dt)]:
-                    raise AssertionError(f"flash_rope_{kind} {label} {dt}: error {scaled}")
-    for label, shp in FLASH_SHAPES.items():
+                    raise AssertionError(f"{name}_{kind} {label} {dt}: error {scaled}")
+    for label, (shp, causal) in rows.items():
+        fk = FlashKernels(cudaex, rope, causal)
         B, H, Hkv, T, D = (shp[x] for x in ("B", "H", "Hkv", "T", "D"))
         qb, kvb = B * H * T * D * 2, B * Hkv * T * D * 2
-        fwd_ops = 4 * B * H * T * T * D / 2
-        fwd_bytes = 2 * qb + 2 * kvb + B * H * T * 4 + 2 * T * D * 4
-        bwd_bytes = 4 * qb + 4 * kvb + B * H * T * 4 + 2 * T * D * 4
+        fwd_ops = 4 * B * H * T * T * D / (2 if causal else 1)
+        cs_bytes = 2 * T * D * 4 if rope else 0
+        fwd_bytes = 2 * qb + 2 * kvb + B * H * T * 4 + cs_bytes
+        bwd_bytes = 4 * qb + 4 * kvb + B * H * T * 4 + cs_bytes
         sets = copies(lambda: flash_inputs(dev, gen, torch.bfloat16, **shp), 2 * qb + 2 * kvb)
-        outs = [cudaex.flash_rope_attention(*a[:5], True) for a in sets]
-        bsets = [(q, k, v, o, lse, cos, sin, do) for (q, k, v, cos, sin, do), (o, lse) in zip(sets, outs)]
-        pre = []  # the library's inputs: pre-roped q and k
-        for q, k, v, cos, sin, do in sets:
-            qr = cudaex._rope_plain(q.float(), cos, sin).to(q.dtype)
-            kr = cudaex._rope_plain(k.float(), cos, sin).to(k.dtype)
-            pre.append((qr.requires_grad_(), kr.requires_grad_(), v.clone().requires_grad_(), do))
+        outs = [fk.fwd(*fk.fwd_args(a)) for a in sets]
+        bsets = [fk.bwd_args(a, o, lse) for a, (o, lse) in zip(sets, outs)]
+        pre = [fk.library_inputs(a) for a in sets]
         gqa = H != Hkv
 
         def lib_fwd(q, k, v, do):
-            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                                     enable_gqa=gqa)
 
         def lib_fwd_bwd(q, k, v, do):
             return torch.autograd.grad(lib_fwd(q, k, v, do), (q, k, v), do)
 
         for kind, ops, nbytes, fn, plain, bs in (
-                ("fwd", fwd_ops, fwd_bytes, lambda *a: cudaex.flash_rope_attention(*a, True),
-                 lambda *a: cudaex.flash_rope_attention_plain(*a, True), [a[:5] for a in sets]),
-                ("bwd", 2.5 * fwd_ops, bwd_bytes,
-                 lambda *a: cudaex.flash_rope_attention_backward(*a, True),
-                 lambda *a: cudaex.flash_rope_attention_backward_plain(*a, True), bsets)):
+                ("fwd", fwd_ops, fwd_bytes, fk.fwd, fk.fwd_plain, [fk.fwd_args(a) for a in sets]),
+                ("bwd", 2.5 * fwd_ops, bwd_bytes, fk.bwd, fk.bwd_plain, bsets)):
             b, by = bound_ms(nbytes, ops, "bfloat16")
             ms, eager = cuda_ms(fn, bs, iters=50)
             plain_ms, plain_eager = cuda_ms(plain, bs[:1], iters=5)
@@ -471,14 +544,64 @@ def check_flash(cudaex, dev, gen) -> tuple[dict, dict]:
                                            library_eager_ms=lfb_eager - lf_eager)
         del sets, outs, bsets, pre
         torch.cuda.empty_cache()
+    main = "llama-350m" if rope else "nanogpt-124m"
+    shape = ("B=4 H=16 T=2048 D=64 causal bf16 (llama-350m)" if rope
+             else "B=8 H=12 T=1024 D=64 causal bf16 (nanogpt-124m)")
     out = {}
     for kind in ("fwd", "bwd"):
-        emit("kernels", kernel=f"flash_rope_{kind}", cases=res[kind]["cases"],
+        emit("kernels", kernel=f"{name}_{kind}", cases=res[kind]["cases"],
              timing_bf16=res[kind]["timing"])
-        out[kind] = dict(max_abs_err=max(res[kind]["errs"]),
-                         shape="B=4 H=16 T=2048 D=64 causal bf16 (llama-350m)",
-                         **res[kind]["timing"]["llama-350m"])
+        out[kind] = dict(max_abs_err=max(res[kind]["errs"]), shape=shape, **res[kind]["timing"][main])
     return out["fwd"], out["bwd"]
+
+
+# Fused cross-entropy: NanoGPT-124M's LM head at the nano_eval shape (B·T =
+# 8192 rows of V = 50304) in bf16 (autocast's logits) and f32, and llama's
+# (V = 32000) in bf16; every 97th row at ignore_index.
+XENT_SHAPES = {"nanogpt-124m": (8192, 50304, (torch.bfloat16, torch.float32)),
+               "llama": (8192, 32000, (torch.bfloat16,))}
+
+
+def xent_inputs(dev, gen, dt, N, V):
+    logits = (2 * torch.randn(N, V, device=dev, generator=gen)).to(dt)
+    tgt = torch.randint(0, V, (N,), device=dev, generator=gen)
+    tgt[::97] = -100
+    return logits, tgt
+
+
+def check_xent(cudaex, dev, gen) -> dict:
+    """cross_entropy (loss and lse, f32) against its plain version, then
+    timed beside F.cross_entropy(reduction="none") on the same logits."""
+    cases, timing = [], {}
+    F = torch.nn.functional
+    for label, (N, V, dts) in XENT_SHAPES.items():
+        for dt in dts:
+            logits, tgt = xent_inputs(dev, gen, dt, N, V)
+            loss, lse = cudaex.cross_entropy(logits, tgt)
+            torch.cuda.synchronize()
+            rloss, rlse = cudaex.cross_entropy_plain(logits, tgt)
+            errs = [flash_err(loss, rloss), flash_err(lse, rlse)]
+            del logits, rloss, rlse
+            torch.cuda.empty_cache()
+            err, scaled = max(e[0] for e in errs), max(e[1] for e in errs)
+            key = f"{label} {dname(dt)}"
+            cases.append({"shape": f"N={N} V={V}", "case": key, "max_abs_err": err,
+                          "max_err_over_max1": scaled})
+            if not scaled <= KERNEL_TOL["float32"]:
+                raise AssertionError(f"cross_entropy {key}: error {scaled}")
+            nbytes = N * V * dt.itemsize + N * 8 + 2 * N * 4
+            b, by = bound_ms(nbytes, 5 * N * V, "float32")  # scale, max, subtract, exp2, add
+            sets = copies(lambda: xent_inputs(dev, gen, dt, N, V), N * V * dt.itemsize)
+            ms, eager = cuda_ms(cudaex.cross_entropy, sets, iters=50)
+            plain_ms, plain_eager = cuda_ms(cudaex.cross_entropy_plain, sets[:1], iters=5)
+            lib_ms, lib_eager = cuda_ms(lambda lg, t: F.cross_entropy(lg, t, reduction="none"), sets, iters=50)
+            timing[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, eager_ms=eager,
+                               plain_eager_ms=plain_eager, library_ms=lib_ms, library_eager_ms=lib_eager)
+            del sets
+            torch.cuda.empty_cache()
+    emit("kernels", kernel="cross_entropy", cases=cases, timing=timing)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                shape="N=8192 V=50304 bf16 (nanogpt-124m)", **timing["nanogpt-124m bfloat16"])
 
 
 # Llama-3-1B's decode linears (N, K): the attention's qkv and proj, the MLP's
@@ -1383,9 +1506,9 @@ class ReferenceAdamW:
 
 
 def reference_step(params: dict, opt: ReferenceAdamW, cfg, idx, tgt, attention, autocast: bool,
-                   linear=None):
+                   linear=None, loss_fn=reference_loss):
     with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
-        loss = reference_loss(params, cfg, idx, tgt, attention, linear)
+        loss = loss_fn(params, cfg, idx, tgt, attention, linear)
     grads = torch.autograd.grad(loss, opt.params)
     opt.step(grads)
     return loss.detach()
@@ -1598,7 +1721,8 @@ def train_agreement(tt, cudaex, seed) -> dict:
 # with the weights.
 FP8_LOSS_RTOL = 5e-4
 FP8_HIST_RTOL = 5e-2
-FP8_PARAM_ATOL = 2 * TRAIN_LR * (1 + 1.0013 + 1.0036)
+ADAMW_FLIP_ATOL = 2 * TRAIN_LR * (1 + 1.0013 + 1.0036)
+FP8_PARAM_ATOL = ADAMW_FLIP_ATOL
 
 
 def fp8_q(x, scale, fmt_max: float, dtype):
@@ -1833,6 +1957,328 @@ def lora_train(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: NanoGPT training, its forward loss and agreement; remat
+# ---------------------------------------------------------------------------
+
+
+def nano_reference_loss(params: dict, cfg, idx, tgt, attention, linear=None):
+    """NanoGPT's loss written out in plain torch ops over NanoGPT's parameter
+    dict (models/nanogpt.py's module math): learned positions, LayerNorm
+    with bias, tanh GELU, ``attention(q, k, v)`` on (B, H, T, hs) heads.
+    ``linear(x, name)`` applies the weight of that name (default:
+    F.linear); the biases are added after it."""
+    F = torch.nn.functional
+    B, T = idx.shape
+    C, nh = cfg.n_embd, cfg.n_head
+    lin = linear or (lambda x, name: F.linear(x, params[name]))
+
+    def dense(x, name):
+        return lin(x, f"{name}.weight") + params[f"{name}.bias"]
+
+    def ln(x, name):
+        return F.layer_norm(x, (C,), params[f"{name}.weight"], params[f"{name}.bias"], 1e-5)
+
+    x = F.embedding(idx.long(), params["wte.weight"]) + params["wpe.weight"][:T]
+    for i in range(cfg.n_layer):
+        q, k, v = dense(ln(x, f"h.{i}.ln_1"), f"h.{i}.attn.c_attn").split(C, -1)
+        q, k, v = (t.reshape(B, T, nh, C // nh).transpose(1, 2) for t in (q, k, v))
+        y = attention(q, k, v).transpose(1, 2).reshape(B, T, C)
+        x = x + dense(y, f"h.{i}.attn.c_proj")
+        h = F.gelu(dense(ln(x, f"h.{i}.ln_2"), f"h.{i}.mlp.c_fc"), approximate="tanh")
+        x = x + dense(h, f"h.{i}.mlp.c_proj")
+    logits = lin(ln(x, "ln_f"), "lm_head.weight")
+    return F.cross_entropy(logits.reshape(B * T, -1).float(), tgt.reshape(-1).long())
+
+
+def nano_bound(model, cfg, B, T) -> dict:
+    """step_bound for NanoGPT: 6 operations per matmul weight per token, plus
+    causal attention's 3.5 x 4·B·H·T²·hs/2 (forward and backward); bytes:
+    f32 parameters and AdamW moments read and written once."""
+    n_mm = sum(p.numel() for name, p in model.named_parameters() if p.ndim == 2 and "wte" not in name
+               and "wpe" not in name)
+    n_all = sum(p.numel() for p in model.parameters())
+    hs = cfg.n_embd // cfg.n_head
+    ops = 6 * n_mm * B * T + 3.5 * cfg.n_layer * 4 * B * cfg.n_head * T * T * hs / 2
+    b, by = bound_ms(2 * 3 * 4 * n_all + 2 * B * T * 4, ops, "bfloat16")
+    return dict(model_ops_per_step=ops, bound_ms=b, bound_by=by)
+
+
+def nano_train(tt, cudaex, seed) -> dict:
+    """TrainStep(jit(NanoGPT(gpt2), [AutocastTransform()]), AdamW) at
+    bench.py's nanogpt-124m shape (B=8, T=1024), full width and depth: the
+    first call timed as compile, 2 warm-up and 10 timed steps; the flash
+    counters zeroed just before the timed steps must read 12 x 10 each. Then
+    its profile and the hand-written baseline in the same call."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.nanogpt import NanoGPT, configs
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = 8, 1024, 10
+    cfg = configs["gpt2"]
+    reset_peak_memory()
+    model = NanoGPT(cfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), optim.AdamW(lr=TRAIN_LR))
+    idx, tgt = train_batch(cfg, B, T, seed)
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    cudaex.flash_attention.launches = 0
+    cudaex.flash_attention_backward.launches = 0
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    launches = {"flash_fwd": cudaex.flash_attention.launches,
+                "flash_bwd": cudaex.flash_attention_backward.launches}
+    want = cfg.n_layer * n_steps
+    if launches["flash_fwd"] != want or launches["flash_bwd"] != want:
+        raise AssertionError(f"nano flash launches {launches} over {n_steps} steps, want {want} each")
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"nano train losses {losses}")
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    claims = {"forward": sum(b.impl is cudaex._flash_fwd_impl for b in fwd),
+              "backward": sum(b.impl is cudaex._flash_bwd_impl for b in bwd)}
+    if claims != {"forward": cfg.n_layer, "backward": cfg.n_layer}:
+        raise AssertionError(f"the nano step's flash claims are {claims}")
+    bound = nano_bound(model, cfg, B, T)
+    out = dict(model="gpt2 (NanoGPT-124M)", n_layer=cfg.n_layer, B=B, T=T,
+               dtype="bf16 autocast, f32 master", steps=n_steps, ms_per_step=step_s * 1e3,
+               tokens_per_s=B * T / step_s, mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"],
+               **bound, compile_s=compile_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses, launches=launches, claims=claims,
+               ops_per_step={name: sum(1 for b in t if b.sym.name not in ("python_del", "python_return"))
+                             for name, t in (("forward", fwd), ("backward", bwd))})
+    emit("nano_train", **out)
+    out["profile"] = train_profile(step, idx, tgt, "nano_train_profile")
+    del step
+    torch.cuda.empty_cache()
+    out["baseline"] = nano_baseline(cfg, B, T, n_steps, seed, bound["model_ops_per_step"])
+    return out, model
+
+
+def nano_baseline(cfg, B, T, n_steps, seed, model_ops) -> dict:
+    """The hand-written plain-PyTorch NanoGPT step at nano_train's shape:
+    bf16 autocast, F.scaled_dot_product_attention, F.layer_norm,
+    F.gelu(approximate="tanh"), the reference AdamW."""
+    from thunder_tpu_torch.models.nanogpt import NanoGPT
+
+    model = NanoGPT(cfg, torch.float32, seed=seed)
+    params = {k: p.detach().requires_grad_() for k, p in model.named_parameters()}
+    opt = ReferenceAdamW(list(params.values()), TRAIN_LR)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    reset_peak_memory()
+    step_s, losses = timed_steps(lambda: reference_step(params, opt, cfg, idx, tgt, sdpa_attention, True,
+                                                        loss_fn=nano_reference_loss), 2, n_steps)
+    out = dict(ms_per_step=step_s * 1e3, baseline_tokens_per_s=B * T / step_s,
+               mfu=model_ops / step_s / PEAK_OPS["bfloat16"], losses=losses,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("nano_train_baseline", **out)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+NANO_EVAL_RTOL = 1e-3
+
+
+def nano_eval(tt, cudaex, model, seed) -> dict:
+    """The forward loss with no gradient, ``jit(model)(idx, targets)`` under
+    autocast at nano_train's shape: cross_entropy is claimed whole and
+    launches its kernel on the (8192, 50304) bf16 logits. Its loss must be
+    within NANO_EVAL_RTOL of F.cross_entropy on the same logits (the same
+    program without targets)."""
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T = 8, 1024
+    cfg = model.cfg
+    idx, tgt = train_batch(cfg, B, T, seed + 1)
+    fn = tt.jit(model, transforms=[AutocastTransform()])
+    logits = tt.jit(model, transforms=[AutocastTransform()])(idx)
+    want = torch.nn.functional.cross_entropy(logits.reshape(B * T, -1).float(), tgt.reshape(-1).long()).item()
+    del logits
+    fn(idx, tgt)  # compile
+    torch.cuda.synchronize()
+    cudaex.cross_entropy.launches = 0
+    cudaex.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    loss = fn(idx, tgt).item()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"cross_entropy": cudaex.cross_entropy.launches, "flash_fwd": cudaex.flash_attention.launches}
+    claimed = [b for b in tt.last_traces(fn)[-1].bound_symbols if b.impl is cudaex._cross_entropy_impl]
+    out = dict(model="gpt2 (NanoGPT-124M)", B=B, T=T, dtype="bf16 autocast", ms=ms, loss=loss,
+               f_cross_entropy=want, rel_err=abs(loss - want) / abs(want), rtol=NANO_EVAL_RTOL,
+               launches=launches, logits_dtype=str(claimed[0].args[0].dtype) if claimed else None)
+    emit("nano_eval", **out)
+    if launches != {"cross_entropy": 1, "flash_fwd": cfg.n_layer} or not claimed:
+        raise AssertionError(f"nano eval launches {launches}, claimed {len(claimed)}")
+    if not out["rel_err"] <= NANO_EVAL_RTOL:
+        raise AssertionError(f"nano eval loss {loss} vs F.cross_entropy {want}")
+    return out
+
+
+def nano_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, gpt2 width at 2 layers, B=1, T=256: 3 steps of the
+    port's TrainStep against the hand-written step (nano_reference_loss with
+    written-out attention, torch autograd, the reference AdamW) from the
+    same weights and batch. Losses within LOSS_RTOL; parameters within
+    PARAM_ATOL, but for the keys' third of each c_attn.bias: adding a
+    constant to every key shifts each score row by a constant, which the
+    softmax ignores, so that gradient is 0 up to rounding and AdamW steps
+    each element by ±lr on the rounding's sign in each run: those elements
+    are held to ADAMW_FLIP_ATOL, the most 3 steps can move them apart."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.nanogpt import NanoGPT, configs
+    from thunder_tpu_torch.training import TrainStep
+
+    B, T, n_steps = 1, 256, 3
+    cfg = replace(configs["gpt2"], n_layer=2)
+    model = NanoGPT(cfg, torch.float32, seed=seed)
+    ref = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    idx, tgt = train_batch(cfg, B, T, seed)
+    step = TrainStep(tt.jit(model), optim.AdamW(lr=TRAIN_LR))
+    opt = ReferenceAdamW(list(ref.values()), TRAIN_LR)
+    n0 = cudaex.flash_attention.launches
+    got = [float(step(idx, tgt)) for _ in range(n_steps)]
+    want = [float(reference_step(ref, opt, cfg, idx, tgt, plain_attention, False,
+                                 loss_fn=nano_reference_loss)) for _ in range(n_steps)]
+    if cudaex.flash_attention.launches - n0 != cfg.n_layer * n_steps:
+        raise AssertionError("the f32 nano step did not run the flash kernels")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    C = cfg.n_embd
+    diffs, key_bias = [], []
+    for k, p in model.named_parameters():
+        d = (p.detach() - ref[k].detach()).abs()
+        if k.endswith("attn.c_attn.bias"):
+            key_bias.append(d[C:2 * C])
+            d = torch.cat([d[:C], d[2 * C:]])
+        diffs.append(d.flatten())
+    diffs, key_bias = torch.cat(diffs), torch.cat(key_bias)
+    out = dict(model="gpt2 n_layer=2", B=B, T=T, steps=n_steps, tf32=False, losses=got,
+               reference_losses=want, loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               param_max_abs=diffs.max().item(), param_atol=PARAM_ATOL,
+               key_bias_max_abs=key_bias.max().item(), key_bias_atol=ADAMW_FLIP_ATOL)
+    emit("nano_train_agreement", **out)
+    if (not loss_rel <= LOSS_RTOL or not out["param_max_abs"] <= PARAM_ATOL
+            or not out["key_bias_max_abs"] <= ADAMW_FLIP_ATOL):
+        raise AssertionError(f"nano train agreement: losses {loss_rel}, params {out['param_max_abs']}, "
+                             f"key bias {out['key_bias_max_abs']}")
+    del step, model, ref, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def saved_bytes(step, tt) -> tuple[int, int]:
+    """(count, bytes) of the tensors the step's forward saves for backward."""
+    saved = tt.last_traces(step)[1].bound_symbols[-1].args[0][1]
+    tensors = [p for p in saved if hasattr(p, "shape")]
+    return len(tensors), sum(math.prod(p.shape) * p.dtype.bytes for p in tensors)
+
+
+REMAT_RTOL = 1e-5  # thunder_tpu's tests/test_remat.py: remat changes no loss
+
+
+def remat_run(tt, cudaex, seed, ckpt: bool, B=1, T=2048, n_steps=5) -> dict:
+    """llama-1b at full width and depth, bf16 autocast, AdamW, with
+    ``activation_checkpoint`` set or not: first call timed as compile, 2
+    warm-up and n_steps timed steps. Peak memory from a clean start, over
+    whole steps and over the forward and backward programs alone (read as
+    the optimizer update starts: AdamW's param-sized temporaries come after
+    the programs have freed their tensors)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    cfg = Config.from_name("llama-1b", block_size=T, activation_checkpoint=ckpt)
+    reset_peak_memory()
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    opt = optim.AdamW(lr=TRAIN_LR)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), opt)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    peaks = {"programs": 0, "update": 0}
+    update = opt.update
+
+    def measured_update(*a, **k):
+        peaks["programs"] = max(peaks["programs"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = update(*a, **k)
+        peaks["update"] = max(peaks["update"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    opt.update = measured_update
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    cudaex.flash_rope_attention.launches = 0
+    cudaex.flash_rope_attention_backward.launches = 0
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    planned = sum(b.sym.id == "cuda.rope_flash_fwd" for b in fwd) + sum(
+        b.sym.id == "cuda.rope_flash_fwd" for b in bwd)
+    n_saved, nbytes = saved_bytes(step, tt)
+    out = dict(activation_checkpoint=ckpt, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s,
+               compile_s=compile_s, peak_memory_gb=max(peaks.values()) / 1e9,
+               programs_peak_memory_gb=peaks["programs"] / 1e9, update_peak_memory_gb=peaks["update"] / 1e9,
+               saved_for_backward=n_saved, saved_for_backward_gb=nbytes / 1e9, losses=[first] + losses,
+               flash_rope_fwd_per_step=cudaex.flash_rope_attention.launches / n_steps,
+               flash_rope_bwd_per_step=cudaex.flash_rope_attention_backward.launches / n_steps,
+               flash_rope_fwd_planned_per_step=planned)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_train(tt, cudaex, seed) -> dict:
+    """bench.py's llama-1b:1:2048 rows, without and with ckpt, in this order
+    in one call; then the f32 losses of 3 steps with and without remat at 2
+    layers, which must agree to REMAT_RTOL."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+
+    runs = {name: remat_run(tt, cudaex, seed, ckpt) for name, ckpt in (("plain", False), ("ckpt", True))}
+    n_layer = Config.from_name("llama-1b").n_layer
+    out = dict(model="llama-1b", n_layer=n_layer, B=1, T=2048, dtype="bf16 autocast, f32 master", **runs)
+    losses = {}
+    for name, ckpt in (("plain", False), ("ckpt", True)):
+        cfg = Config.from_name("llama-1b", n_layer=2, block_size=2048, activation_checkpoint=ckpt)
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        step = TrainStep(tt.jit(model), optim.AdamW(lr=TRAIN_LR))
+        idx, tgt = train_batch(cfg, 1, 2048, seed)
+        losses[name] = [float(step(idx, tgt)) for _ in range(3)]
+        del step, model
+    out["f32_losses"] = losses
+    out["f32_loss_max_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses["ckpt"], losses["plain"]))
+    emit("remat_train", **out)
+    if runs["plain"]["flash_rope_fwd_per_step"] != n_layer:
+        raise AssertionError(f"remat_train: {runs['plain']['flash_rope_fwd_per_step']} flash forwards a "
+                             f"step without remat, want {n_layer}")
+    for name, run in runs.items():
+        if run["flash_rope_fwd_per_step"] != run["flash_rope_fwd_planned_per_step"] or \
+                run["flash_rope_bwd_per_step"] != n_layer:
+            raise AssertionError(f"remat_train {name}: launches a step differ from the plan: {run}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"remat_train {name} losses {run['losses']}")
+    if not runs["ckpt"]["saved_for_backward_gb"] < runs["plain"]["saved_for_backward_gb"]:
+        raise AssertionError("remat_train: activation_checkpoint saved no memory for the backward")
+    if not out["f32_loss_max_rel"] <= REMAT_RTOL:
+        raise AssertionError(f"remat_train: f32 losses {losses}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1862,6 +2308,8 @@ def main() -> int:
     paged = check_paged(cudaex, dev, gen)
     chunk = check_chunk(cudaex, dev, gen)
     flash_fwd, flash_bwd = check_flash(cudaex, dev, gen)
+    plain_fwd, plain_bwd = check_flash(cudaex, dev, gen, rope=False)
+    xent = check_xent(cudaex, dev, gen)
     int8 = check_quant(cudaex, dev, gen, "int8")
     nf4 = check_quant(cudaex, dev, gen, "nf4")
     fp8 = check_fp8(cudaex, dev, gen)
@@ -1886,6 +2334,11 @@ def main() -> int:
     fp8_trained = fp8_train(tt, cudaex, args.seed, trained)
     fp8_train_agreement(tt, cudaex, args.seed)
     lora_train(tt, cudaex, args.seed)
+    nano, nano_model = nano_train(tt, cudaex, args.seed)
+    nano_evaluated = nano_eval(tt, cudaex, nano_model, args.seed)
+    del nano_model
+    nano_train_agreement(tt, cudaex, args.seed)
+    remat_train(tt, cudaex, args.seed)
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -1905,7 +2358,13 @@ def main() -> int:
             ("nf4_linear", nf4, "thunder_tpu_torch/csrc/nf4_linear.cu",
              "thunder_tpu/executors/pallasex.py:1605", nf4_run["nf4_linear_launches"]),
             ("fp8_linear", fp8, "thunder_tpu_torch/csrc/fp8_linear.cu",
-             "thunder_tpu/executors/pallasex.py:1447", fp8_trained["launches"]["fp8_linear"])):
+             "thunder_tpu/executors/pallasex.py:1447", fp8_trained["launches"]["fp8_linear"]),
+            ("flash_fwd", plain_fwd, "thunder_tpu_torch/csrc/flash_rope_fwd.cu",
+             "thunder_tpu/executors/pallasex.py:134", nano["launches"]["flash_fwd"]),
+            ("flash_bwd", plain_bwd, "thunder_tpu_torch/csrc/flash_rope_bwd.cu",
+             "thunder_tpu/executors/pallasex.py:423", nano["launches"]["flash_bwd"]),
+            ("cross_entropy", xent, "thunder_tpu_torch/csrc/cross_entropy.cu",
+             "thunder_tpu/executors/pallasex.py:1179", nano_evaluated["launches"]["cross_entropy"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

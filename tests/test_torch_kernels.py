@@ -471,6 +471,121 @@ def test_flash_rope_autograd_matches_autograd_through_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
+    (2, 4, 4, 200, 64, True), (1, 8, 2, 256, 128, True), (1, 4, 2, 77, 32, False),
+    (1, 2, 1, 64, 16, True), (1, 4, 2, 33, 24, True), (2, 12, 12, 128, 64, True)],
+    ids=["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24", "nanogpt-heads"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
+    """The RoPE-free flash kernels (sdpa's claim) against their plain
+    versions, at FLASH_TOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _, _, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    n0 = (cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches)
+    o, lse = cudaex.flash_attention(q, k, v, causal)
+    grads = cudaex.flash_attention_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    tol = FLASH_TOL[dtype]
+    ro, rlse = cudaex.flash_attention_plain(q, k, v, causal)
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    ref = cudaex.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_matches_autograd_through_plain(cuda):
+    """FlashAttention (both RoPE-free kernels) against torch.autograd through
+    the plain forward, in f32, GQA."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _, _, do = (_torch(a).to(cuda) for a in _flash_inputs(2, 4, 2, 150, 64, seed=6))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = cudaex.FlashAttention.apply(*leaves, True, None)
+    out.backward(do)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    rout = cudaex.flash_attention_plain(*ref, True, None)[0]
+    rout.backward(do)
+    torch.testing.assert_close(out, rout, atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+XENT_TOL = 1e-5  # f32 sums of exp2 against logsumexp, in another order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,V", [(64, 50304), (37, 32000), (16, 200), (5, 77)],
+                         ids=["gpt2-vocab", "llama-vocab", "v200", "v77-unvectorized"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_cross_entropy_kernel_matches_plain(cuda, N, V, dtype):
+    """Rows 1 and 3 at ignore_index (-100) and row 2 past V: their picked
+    logit is 0; V = 77 is not a whole number of 16-byte vectors."""
+    g = torch.Generator(device=cuda).manual_seed(V)
+    logits = (3 * torch.randn(N, V, device=cuda, generator=g)).to(dtype)
+    tgt = torch.randint(0, V, (N,), device=cuda, generator=g)
+    tgt[1], tgt[3], tgt[2] = -100, -100, V + 3
+    n0 = cudaex.cross_entropy.launches
+    loss, lse = cudaex.cross_entropy(logits, tgt.to(torch.int32))
+    torch.cuda.synchronize()
+    assert cudaex.cross_entropy.launches == n0 + 1
+    rloss, rlse = cudaex.cross_entropy_plain(logits, tgt)
+    torch.testing.assert_close(lse, rlse, atol=XENT_TOL, rtol=XENT_TOL)
+    torch.testing.assert_close(loss, rloss, atol=XENT_TOL, rtol=XENT_TOL)
+    assert torch.equal(loss[[1, 2, 3]], lse[[1, 2, 3]])
+    tgt = tgt.where(tgt != V + 3, -100)  # the mean below counts ignore_index rows only
+    lib = torch.nn.functional.cross_entropy(logits.float(), tgt)
+    torch.testing.assert_close(cudaex._cross_entropy_impl(logits, tgt), lib, atol=XENT_TOL, rtol=XENT_TOL)
+
+
+@pytest.mark.gpu
+def test_nanogpt_on_the_card_launches_its_kernels(cuda):
+    """NanoGPT's test config on the card: a forward loss launches the flash
+    forward (one a layer) and the cross-entropy kernel; a TrainStep step the
+    flash forward and backward (the loss trains through the composite)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models import nanogpt
+    from thunder_tpu_torch.training import TrainStep
+
+    cfg = nanogpt.configs["test"]
+    model = nanogpt.NanoGPT(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    idx, tgt = (torch.randint(0, cfg.vocab_size, (2, 64), device=cuda, generator=g) for _ in range(2))
+    n0 = (cudaex.flash_attention.launches, cudaex.cross_entropy.launches)
+    with torch.no_grad():
+        loss = tt.jit(model)(idx, tgt)
+    ref = torch.nn.functional.cross_entropy(tt.jit(model)(idx).reshape(-1, cfg.vocab_size), tgt.reshape(-1))
+    torch.testing.assert_close(loss, ref, atol=1e-5, rtol=1e-5)
+    assert (cudaex.flash_attention.launches, cudaex.cross_entropy.launches) == (n0[0] + 4, n0[1] + 1)
+    step = TrainStep(tt.jit(model), optim.AdamW(lr=1e-3))
+    n0 = (cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches)
+    assert math.isfinite(float(step(idx, tgt)))
+    assert (cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches) == (
+        n0[0] + 2, n0[1] + 2)
+
+
+@pytest.mark.gpu
+def test_flash_and_xent_wrappers_refuse_bad_inputs(cuda):
+    q = torch.randn(1, 2, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        cudaex.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 2, 16, 136, device=cuda)
+        cudaex.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="does not fit"):
+        cudaex.flash_attention(q, q[:, :, :8].contiguous(), q[:, :, :8].contiguous())
+    with pytest.raises(ValueError, match="float"):
+        cudaex.cross_entropy(torch.zeros(4, 8, dtype=torch.int32, device=cuda),
+                             torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="targets"):
+        cudaex.cross_entropy(torch.zeros(4, 8, device=cuda), torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     x = torch.randn(4, 256, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

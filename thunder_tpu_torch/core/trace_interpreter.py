@@ -3,7 +3,8 @@ trace, substituting or expanding chosen bsyms.
 
 The TraceSubstitutionProcessor of thunder_tpu/core/trace_interpreter.py —
 the engine under autocast. Recorded buffer writes are carried over with
-their proxies renamed as the re-recorded trace names them."""
+their proxies renamed as the re-recorded trace names them, and a bsym's
+tags (RECOMPUTE_IN_BACKWARD) onto every bsym that replaces it."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -64,8 +65,14 @@ class TraceSubstitutionProcessor:
                     continue
                 margs = self.lookup(bsym.args)
                 mkwargs = self.lookup(bsym.kwargs)
+                scope_start = len(new_trace.bound_symbols)
                 replaced = self.visitor(bsym, margs, mkwargs)
                 out = bsym.sym(*margs, **mkwargs) if replaced is None else replaced
+                if bsym.tags:
+                    # tags survive the rewrite: losing RECOMPUTE_IN_BACKWARD
+                    # would silently disable activation checkpointing
+                    for nb in new_trace.bound_symbols[scope_start:]:
+                        nb.tags |= bsym.tags
                 self.map_out(bsym.output, out)
         new_trace.side_effects = [(owner, name, self.lookup(p))
                                   for owner, name, p in self.trace.side_effects]

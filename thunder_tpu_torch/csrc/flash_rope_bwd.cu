@@ -1,9 +1,15 @@
-// Flash attention backward with RoPE applied in the kernel, for Hopper (sm_90a).
+// Flash attention backward, with or without RoPE applied in the kernel, for
+// Hopper (sm_90a).
 //
-// Replaces thunder_tpu/executors/pallasex.py:flash_rope_attention_backward
-// and the single-pass _flash_rope_backward_fused it runs by default (kernel
-// bodies _flash_rope_bwd_dq_kernel, _flash_rope_bwd_dkv_kernel(_mha),
-// _flash_rope_bwd_fused_kernel): from pre-RoPE q, k, v, the forward's lse,
+// tt_flash_rope_bwd replaces thunder_tpu/executors/pallasex.py:
+// flash_rope_attention_backward and the single-pass
+// _flash_rope_backward_fused it runs by default (kernel bodies
+// _flash_rope_bwd_dq_kernel, _flash_rope_bwd_dkv_kernel(_mha),
+// _flash_rope_bwd_fused_kernel). tt_flash_bwd replaces
+// pallasex.py:flash_attention_backward and _flash_backward_fused (kernel
+// bodies _flash_bwd_dq_kernel, _flash_bwd_dkv_kernel(_mha),
+// _flash_bwd_fused_kernel): the same two kernels with RoPE compiled out,
+// reading no cos/sin. From pre-RoPE q, k, v, the forward's lse,
 // delta = rowsum(do·o) (taken in f32 by the wrapper, outside the kernels,
 // as pallasex takes it outside its pallas_call) and do, it recomputes the
 // probabilities tile by tile and returns dq, dk, dv with the RoPE VJP
@@ -51,20 +57,20 @@ template <typename T> struct Warps { static constexpr int N = sizeof(T) == 4 ? 4
 // accumulators per warp leave room for only 32-column score tiles.
 template <int DP> struct DkvRows { static constexpr int N = DP <= 64 ? 64 : 32; };
 
-template <typename T, int DP>
+template <typename T, int DP, bool ROPE>
 size_t dq_smem_bytes() {
   constexpr int BQ = 16 * Warps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
-  // q, do, raw k and v stages, roped k, ds
-  return sizeof(T) * ((2 * BQ + 2 * ST * kBK + kBK) * LD + BQ * (kBK + Pad<T>::N));
+  // q, do, raw k and v stages, roped k (with RoPE only), ds
+  return sizeof(T) * ((2 * BQ + 2 * ST * kBK + (ROPE ? kBK : 0)) * LD + BQ * (kBK + Pad<T>::N));
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ROPE>
 size_t dkv_smem_bytes() {
   constexpr int BK = 16 * Warps<T>::N, BQ = DkvRows<DP>::N, LD = DP + Pad<T>::N;
   constexpr int ST = Stages<T>::N;
-  // lse2 and delta; k, v, raw q and do stages, roped q, p / ds
+  // lse2 and delta; k, v, raw q and do stages, roped q (with RoPE only), p / ds
   return sizeof(float) * 2 * BQ +
-         sizeof(T) * ((2 * BK + 2 * ST * BQ + BQ) * LD + BK * (BQ + Pad<T>::N));
+         sizeof(T) * ((2 * BK + 2 * ST * BQ + (ROPE ? BQ : 0)) * LD + BK * (BQ + Pad<T>::N));
 }
 
 template <typename T, int DP, bool ROPE>
@@ -86,8 +92,8 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   T* do_s = q_s + BQ * LD;
   T* kraw_s = do_s + BQ * LD;        // ST stages of raw k, then ST stages of v
   T* v_s = kraw_s + ST * kBK * LD;
-  T* k_s = v_s + ST * kBK * LD;      // the roped k tile
-  T* ds_s = k_s + kBK * LD;
+  T* k_s = v_s + ST * kBK * LD;      // the roped k tile (with RoPE only)
+  T* ds_s = k_s + (ROPE ? kBK * LD : 0);
   float* dq_s = reinterpret_cast<float*>(kraw_s);  // BQ x (DP + 1), after the loop
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -201,8 +207,8 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   T* v_s = k_s + BK * LD;
   T* qraw_s = v_s + BK * LD;         // ST stages of raw q, then ST stages of do
   T* do_s = qraw_s + ST * BQ * LD;
-  T* q_s = do_s + ST * BQ * LD;      // the roped q tile
-  T* p_s = q_s + BQ * LD;
+  T* q_s = do_s + ST * BQ * LD;      // the roped q tile (with RoPE only)
+  T* p_s = q_s + (ROPE ? BQ * LD : 0);
   float* dk_s = reinterpret_cast<float*>(k_s);  // BK x (DP + 1), after the loop
 
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -307,7 +313,7 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   store_rows<T, ROPE>(dk + koff, dkw, DP + 1, w0, T_, D, cos, sin);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ROPE>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, const float* cos, const float* sin, void* dq, void* dk, void* dv,
            int B, int H, int Hkv, int T_, int D, int causal, float scale, float scale_log2e,
@@ -318,8 +324,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const T* dot = static_cast<const T*>(dout);
   constexpr int W = Warps<T>::N, BQ = 16 * W;
 
-  auto dq_kernel = flash_bwd_dq_kernel<T, DP, true>;
-  const size_t dq_smem = dq_smem_bytes<T, DP>();
+  auto dq_kernel = flash_bwd_dq_kernel<T, DP, ROPE>;
+  const size_t dq_smem = dq_smem_bytes<T, DP, ROPE>();
   cudaError_t e = allow_smem(dq_kernel, dq_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dq_kernel<<<dim3((T_ + BQ - 1) / BQ, H, B), 2 * BQ, dq_smem, stream>>>(
@@ -328,8 +334,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, true>;
-  const size_t dkv_smem = dkv_smem_bytes<T, DP>();
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, ROPE>;
+  const size_t dkv_smem = dkv_smem_bytes<T, DP, ROPE>();
   e = allow_smem(dkv_kernel, dkv_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dkv_kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), Hkv, B), 32 * W, dkv_smem, stream>>>(
@@ -338,21 +344,47 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
              const float* delta, const float* cos, const float* sin, void* dq, void* dk,
              void* dv, int B, int H, int Hkv, int T_, int D, int causal, float scale,
              float scale_log2e, cudaStream_t s) {
   switch (padded_head_dim(D)) {
     case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
-                           causal, scale, scale_log2e, s);
+      return launch<T, 32, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_,
+                                 D, causal, scale, scale_log2e, s);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
-                           causal, scale, scale_log2e, s);
+      return launch<T, 64, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_,
+                                 D, causal, scale, scale_log2e, s);
     default:
-      return launch<T, 128>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
-                            causal, scale, scale_log2e, s);
+      return launch<T, 128, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv,
+                                  T_, D, causal, scale, scale_log2e, s);
+  }
+}
+
+template <bool ROPE>
+int backward(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, const void* cos, const void* sin, void* dq, void* dk, void* dv,
+             int B, int H, int Hkv, int T, int D, int causal, float scale, float scale_log2e,
+             int dtype, void* stream) {
+  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const float* c = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  switch (dtype) {
+    case tt::kF32:
+      return dispatch<float, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D,
+                                   causal, scale, scale_log2e, s);
+    case tt::kBF16:
+      return dispatch<__nv_bfloat16, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T,
+                                           D, causal, scale, scale_log2e, s);
+    case tt::kF16:
+      return dispatch<__half, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D,
+                                    causal, scale, scale_log2e, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -367,23 +399,15 @@ extern "C" int tt_flash_rope_bwd(const void* q, const void* k, const void* v, co
                                  const void* sin, void* dq, void* dk, void* dv, int B, int H,
                                  int Hkv, int T, int D, int causal, float scale,
                                  float scale_log2e, int dtype, void* stream) {
-  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const float* c = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D, causal,
-                             scale, scale_log2e, s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D,
-                                     causal, scale, scale_log2e, s);
-    case tt::kF16:
-      return dispatch<__half>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D, causal,
-                              scale, scale_log2e, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return backward<true>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T, D, causal,
+                        scale, scale_log2e, dtype, stream);
+}
+
+// The same without RoPE: the plain flash-attention backward, no cos/sin.
+extern "C" int tt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                            int B, int H, int Hkv, int T, int D, int causal, float scale,
+                            float scale_log2e, int dtype, void* stream) {
+  return backward<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dq, dk, dv, B, H, Hkv, T, D,
+                         causal, scale, scale_log2e, dtype, stream);
 }

@@ -1,10 +1,15 @@
-// Flash attention forward with RoPE applied in the kernel, for Hopper (sm_90a).
+// Flash attention forward, with or without RoPE applied in the kernel, for
+// Hopper (sm_90a).
 //
-// Replaces thunder_tpu/executors/pallasex.py:flash_rope_attention_forward
-// (kernel body _flash_rope_fwd_kernel): q, k, v (B, H | Hkv, T, D) pre-RoPE,
-// cos/sin (T, D) f32 duplicated-half caches -> o (B, H, T, D) and the
-// natural-log lse (B, H, T) f32 that the backward reads. kv head = q head //
-// (H / Hkv). Causal or full.
+// tt_flash_rope_fwd replaces thunder_tpu/executors/pallasex.py:
+// flash_rope_attention_forward (kernel body _flash_rope_fwd_kernel): q, k, v
+// (B, H | Hkv, T, D) pre-RoPE, cos/sin (T, D) f32 duplicated-half caches ->
+// o (B, H, T, D) and the natural-log lse (B, H, T) f32 that the backward
+// reads. kv head = q head // (H / Hkv). Causal or full.
+// tt_flash_fwd replaces pallasex.py:flash_attention_forward (kernel body
+// _flash_fwd_kernel): the same kernel with RoPE compiled out; it reads no
+// cos/sin. The causal mask keeps key <= query from position 0 of both
+// (T == Tk, as the reference checker requires).
 //
 // What bounds it: the products. Causal attention does 4·B·H·T²·D/2 flops
 // against about 4·B·H·T·D·2 bytes of q, k, v and o; at llama-350m's shape
@@ -38,11 +43,11 @@ constexpr int kBK = 64;  // keys per k/v tile
 // Warps of a block: 8 (a 128-row q tile) for 16-bit types, 4 for f32.
 template <typename T> struct FwdWarps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
 
-template <typename T, int DP>
+template <typename T, int DP, bool ROPE>
 size_t fwd_smem_bytes() {
   constexpr int BQ = 16 * FwdWarps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
-  // q, raw k and v stages, roped k, probabilities
-  return sizeof(T) * ((BQ + 2 * ST * kBK + kBK) * LD + BQ * (kBK + Pad<T>::N));
+  // q, raw k and v stages, roped k (with RoPE only), probabilities
+  return sizeof(T) * ((BQ + 2 * ST * kBK + (ROPE ? kBK : 0)) * LD + BQ * (kBK + Pad<T>::N));
 }
 
 template <typename T, int DP, bool ROPE>
@@ -60,8 +65,8 @@ __global__ void __launch_bounds__(32 * FwdWarps<T>::N)
   T* q_s = reinterpret_cast<T*>(smem);
   T* kraw_s = q_s + BQ * LD;           // ST stages of raw k
   T* v_s = kraw_s + ST * kBK * LD;     // ST stages of v
-  T* k_s = v_s + ST * kBK * LD;        // the roped k tile
-  T* p_s = k_s + kBK * LD;
+  T* k_s = v_s + ST * kBK * LD;        // the roped k tile (with RoPE only)
+  T* p_s = k_s + (ROPE ? kBK * LD : 0);
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -172,13 +177,13 @@ __global__ void __launch_bounds__(32 * FwdWarps<T>::N)
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool ROPE>
 int launch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
            void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
            float scale_log2e, cudaStream_t stream) {
   constexpr int W = FwdWarps<T>::N;
-  auto kernel = flash_fwd_kernel<T, DP, true>;
-  const size_t smem = fwd_smem_bytes<T, DP>();
+  auto kernel = flash_fwd_kernel<T, DP, ROPE>;
+  const size_t smem = fwd_smem_bytes<T, DP, ROPE>();
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), H, B), 32 * W, smem, stream>>>(
@@ -187,17 +192,44 @@ int launch(const void* q, const void* k, const void* v, const float* cos, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool ROPE>
 int dispatch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
              void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
              float scale_log2e, cudaStream_t s) {
   switch (padded_head_dim(D)) {
     case 32:
-      return launch<T, 32>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+      return launch<T, 32, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
+                                 scale_log2e, s);
     case 64:
-      return launch<T, 64>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+      return launch<T, 64, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
+                                 scale_log2e, s);
     default:
-      return launch<T, 128>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
+      return launch<T, 128, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
+                                  scale_log2e, s);
+  }
+}
+
+template <bool ROPE>
+int forward(const void* q, const void* k, const void* v, const void* cos, const void* sin,
+            void* o, void* lse, int B, int H, int Hkv, int T, int D, int causal,
+            float scale_log2e, int dtype, void* stream) {
+  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  float* l = static_cast<float*>(lse);
+  switch (dtype) {
+    case tt::kF32:
+      return dispatch<float, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
+                                   s);
+    case tt::kBF16:
+      return dispatch<__nv_bfloat16, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal,
+                                           scale_log2e, s);
+    case tt::kF16:
+      return dispatch<__half, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
+                                    s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -210,20 +242,14 @@ extern "C" int tt_flash_rope_fwd(const void* q, const void* k, const void* v, co
                                  const void* sin, void* o, void* lse, int B, int H, int Hkv,
                                  int T, int D, int causal, float scale_log2e, int dtype,
                                  void* stream) {
-  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
-  float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e, s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
-                                     s);
-    case tt::kF16:
-      return dispatch<__half>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward<true>(q, k, v, cos, sin, o, lse, B, H, Hkv, T, D, causal, scale_log2e, dtype,
+                       stream);
+}
+
+// The same without RoPE: plain flash attention, no cos/sin.
+extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int B, int H, int Hkv, int T, int D, int causal, float scale_log2e,
+                            int dtype, void* stream) {
+  return forward<false>(q, k, v, nullptr, nullptr, o, lse, B, H, Hkv, T, D, causal, scale_log2e,
+                        dtype, stream);
 }

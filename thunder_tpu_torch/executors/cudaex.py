@@ -1,7 +1,7 @@
 """cudaex: hand-written Hopper kernels for the hot ops of the serving and
 training paths.
 
-The port's counterpart of thunder_tpu/executors/pallasex.py. It claims four
+The port's counterpart of thunder_tpu/executors/pallasex.py. It claims six
 composite ltorch symbols whole and two quantized-linear prims:
 
 * ``torch.nn.functional.rms_norm`` → ``rms_norm`` (csrc/rms_norm.cu), which
@@ -12,6 +12,12 @@ composite ltorch symbols whole and two quantized-linear prims:
   (csrc/paged_chunk_attention.cu), which replaces pallasex.paged_chunk_decode;
 * ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_rope_fwd.cu),
   which replaces pallasex.flash_rope_attention_forward;
+* ``torch.nn.functional.scaled_dot_product_attention`` → ``flash_attention``
+  (the same kernel with RoPE compiled out), which replaces
+  pallasex.flash_attention_forward;
+* ``torch.nn.functional.cross_entropy`` (forward only: training takes the
+  composite grad rule, as in thunder_tpu) → ``cross_entropy``
+  (csrc/cross_entropy.cu), which replaces pallasex.fused_cross_entropy_forward;
 * ``quant.linear_int8`` → ``int8_linear`` (csrc/int8_linear.cu), which
   replaces pallasex.int8_linear;
 * ``quant.linear_nf4_kl`` → ``nf4_linear`` (csrc/nf4_linear.cu), which
@@ -21,12 +27,15 @@ It also holds ``fp8_linear`` (csrc/fp8_linear.cu), which replaces
 pallasex.fp8_linear_fused; transforms/fp8_training.py's stateful operators
 call it at run time, where its checker claims the shape.
 
-and registers the grad rule of ``thunder.rope_sdpa`` as pallasex does: the
-augmented forward records ``cuda.rope_flash_fwd`` (the forward kernel, which
-also returns the softmax's lse) and the backward ``cuda.rope_flash_bwd``
-(``flash_rope_attention_backward``, csrc/flash_rope_bwd.cu), which replaces
-pallasex.flash_rope_attention_backward and its fused single pass.
-``FlashRopeAttention`` is the same pair as a ``torch.autograd.Function``.
+It registers the grad rules of ``thunder.rope_sdpa`` and of sdpa as pallasex
+does: the augmented forward records ``cuda.rope_flash_fwd``
+(``cuda.flash_attention_fwd``), the forward kernel, which also returns the
+softmax's lse, and the backward ``cuda.rope_flash_bwd``
+(``cuda.flash_attention_bwd``): ``flash_rope_attention_backward``
+(``flash_attention_backward``, csrc/flash_rope_bwd.cu), which replaces
+pallasex.flash_rope_attention_backward (flash_attention_backward) and its
+fused single pass. ``FlashRopeAttention`` and ``FlashAttention`` are the same
+pairs as ``torch.autograd.Function``s.
 
 The kernels are CUDA C++ for sm_90a with a plain C interface, compiled by
 ``nvcc`` at first use into one shared library under ``build/thunder_tpu_torch/``
@@ -138,6 +147,12 @@ def _library():
         lib.tt_flash_rope_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, f, f, i, p]
         lib.tt_flash_rope_bwd.restype = i
+        lib.tt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.tt_flash_fwd.restype = i
+        lib.tt_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+        lib.tt_flash_bwd.restype = i
+        lib.tt_cross_entropy.argtypes = [p, p, p, p, i, i, i, p]
+        lib.tt_cross_entropy.restype = i
         lib.tt_int8_linear.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.tt_int8_linear.restype = i
         lib.tt_nf4_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
@@ -441,12 +456,16 @@ def _rope_vjp_plain(dxr, cos, sin):
 
 def _flash_plain_scores(q, k, cos, sin, causal, scale):
     """Roped q/k (in f32, rounded to the input dtype as the kernels round
-    them), k repeated over the GQA group, and the masked scores."""
+    them; q/k as they are when cos is None), k repeated over the GQA group,
+    and the masked scores."""
     B, H, T, D = q.shape
     g = H // k.shape[1]
-    cos, sin = cos.float(), sin.float()
-    qr = _rope_plain(q.float(), cos, sin).to(q.dtype).float()
-    kr = _rope_plain(k.float(), cos, sin).to(k.dtype).float()
+    if cos is None:
+        qr, kr = q.float(), k.float()
+    else:
+        cos, sin = cos.float(), sin.float()
+        qr = _rope_plain(q.float(), cos, sin).to(q.dtype).float()
+        kr = _rope_plain(k.float(), cos, sin).to(k.dtype).float()
     kr = kr.repeat_interleave(g, 1)
     s = torch.matmul(qr, kr.transpose(-1, -2)) * scale
     if causal:
@@ -471,7 +490,8 @@ def flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal=Tr
     """The backward kernels' function in plain PyTorch, f32 step by step:
     P from the saved lse, dP = dO·Vᵀ, dS = P·(dP − delta)·scale with delta =
     rowsum(dO·O), dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO (summed over the GQA
-    group), then the RoPE VJP on dQ and dK. -> (dq, dk, dv)."""
+    group), then the RoPE VJP on dQ and dK (none when cos is None).
+    -> (dq, dk, dv)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     B, H, T, D = q.shape
     Hkv = k.shape[1]
@@ -485,14 +505,15 @@ def flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal=Tr
     dqr = torch.matmul(ds, kr)
     dkr = torch.matmul(ds.transpose(-1, -2), qr).reshape(B, Hkv, g, T, D).sum(2)
     dv = torch.matmul(p.transpose(-1, -2), do).reshape(B, Hkv, g, T, D).sum(2)
-    cos, sin = cos.float(), sin.float()
-    return (_rope_vjp_plain(dqr, cos, sin).to(q.dtype), _rope_vjp_plain(dkr, cos, sin).to(k.dtype),
-            dv.to(v.dtype))
+    if cos is not None:
+        cos, sin = cos.float(), sin.float()
+        dqr, dkr = _rope_vjp_plain(dqr, cos, sin), _rope_vjp_plain(dkr, cos, sin)
+    return dqr.to(q.dtype), dkr.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_flash(name, q, k, v, cos, sin) -> None:
+def _check_flash(name, q, k, v, cos=None, sin=None) -> None:
     B, H, T, D = q.shape
-    _check_cuda(name, q, k, v, cos, sin)
+    _check_cuda(name, q, k, v, *(() if cos is None else (cos, sin)))
     _require(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype,
              f"{name}: q, k and v must share a float dtype")
     _require(k.ndim == 4 and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B
@@ -500,9 +521,17 @@ def _check_flash(name, q, k, v, cos, sin) -> None:
              f"{name}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
     _require(D % 2 == 0 and D % _vec(q.dtype) == 0 and D <= _FLASH_MAX_D,
              f"{name}: head dim {D} unsupported for {q.dtype}")
-    _require(cos.dtype == torch.float32 and tuple(cos.shape) == (T, D)
-             and tuple(sin.shape) == (T, D) and sin.dtype == torch.float32,
+    _require(cos is None or (cos.dtype == torch.float32 and tuple(cos.shape) == (T, D)
+                             and tuple(sin.shape) == (T, D) and sin.dtype == torch.float32),
              f"{name}: cos/sin must be f32 ({T}, {D})")
+
+
+def _check_flash_backward(name, q, k, v, o, lse, do, cos=None, sin=None) -> None:
+    _check_flash(name, q, k, v, cos, sin)
+    _check_cuda(name, q, o, lse, do)
+    _require(tuple(o.shape) == tuple(q.shape) and tuple(do.shape) == tuple(q.shape)
+             and tuple(lse.shape) == tuple(q.shape[:3]) and lse.dtype == torch.float32,
+             f"{name}: o/do must be q's shape and lse f32 (B, H, T)")
 
 
 def flash_rope_attention(q, k, v, cos, sin, causal=True, scale=None):
@@ -540,11 +569,7 @@ def flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, causal=True, sc
         return flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal, scale)
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
     do = do.contiguous()
-    _check_flash("flash_rope_attention_backward", q, k, v, cos, sin)
-    _check_cuda("flash_rope_attention_backward", q, o, lse, do)
-    _require(tuple(o.shape) == tuple(q.shape) and tuple(do.shape) == tuple(q.shape)
-             and tuple(lse.shape) == tuple(q.shape[:3]) and lse.dtype == torch.float32,
-             "flash_rope_attention_backward: o/do must be q's shape and lse f32 (B, H, T)")
+    _check_flash_backward("flash_rope_attention_backward", q, k, v, o, lse, do, cos, sin)
     B, H, T, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     delta = (do.float() * o.float()).sum(-1)
@@ -563,23 +588,14 @@ flash_rope_attention_backward.launches = 0
 
 
 def rope_sdpa_supported(q, k, v, cos, sin, is_causal=True, scale=None) -> bool:
-    """Hopper's checker: 4-d q/k/v of one float dtype, k and v of one shape,
-    H % Hkv == 0, one T, an even D that is a multiple of the 16-byte vector
-    and at most 128, cos/sin (T, D) of a float dtype. Any T: the kernels
-    mask the ragged edge (the TPU's T >= 1024 and % 512 rules are TPU
-    tiling heuristics)."""
-    if getattr(q, "ndim", 0) != 4 or getattr(k, "ndim", 0) != 4 or getattr(v, "ndim", 0) != 4:
+    """Hopper's checker: the q/k/v that flash_attention_supported claims,
+    and cos/sin (T, D) of a float dtype (pallasex.rope_sdpa_supported
+    builds on its sdpa checker the same way)."""
+    if not flash_attention_supported(q, k, v):
         return False
-    B, H, T, D = q.shape
-    tdt = to_torch_dtype(q.dtype)
-    return (
-        tdt in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype
-        and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B and k.shape[2] == T
-        and k.shape[3] == D and H % k.shape[1] == 0
-        and D % 2 == 0 and D % _vec(tdt) == 0 and D <= _FLASH_MAX_D
-        and tuple(cos.shape) == (T, D) and tuple(sin.shape) == (T, D)
-        and cos.dtype.is_float and sin.dtype.is_float
-    )
+    T, D = q.shape[2], q.shape[3]
+    return (tuple(cos.shape) == (T, D) and tuple(sin.shape) == (T, D)
+            and cos.dtype.is_float and sin.dtype.is_float)
 
 
 def _rope_sdpa_impl(q, k, v, cos, sin, is_causal=True, scale=None):
@@ -652,6 +668,235 @@ class FlashRopeAttention(torch.autograd.Function):
         dq, dk, dv = flash_rope_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(),
                                                    o, lse, cos, sin, do, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# Flash attention without RoPE (scaled_dot_product_attention): forward and
+# backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_plain(q, k, v, causal=True, scale=None):
+    """The forward kernel's function in plain PyTorch, f32 step by step:
+    masked softmax, natural-log lse. -> (o in q's dtype, lse f32)."""
+    return flash_rope_attention_plain(q, k, v, None, None, causal, scale)
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, causal=True, scale=None):
+    """The backward kernels' function in plain PyTorch (the RoPE-free case
+    of flash_rope_attention_backward_plain). -> (dq, dk, dv)."""
+    return flash_rope_attention_backward_plain(q, k, v, o, lse, None, None, do, causal, scale)
+
+
+def flash_attention(q, k, v, causal=True, scale=None):
+    """q (B, H, T, D), k/v (B, Hkv, T, D) -> (o (B, H, T, D) in q's dtype,
+    lse (B, H, T) f32, natural log). kv head = q head // (H // Hkv); the
+    causal mask keeps key <= query from position 0 of both."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale)
+    _check_flash("flash_attention", q, k, v)
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if q.numel():
+        _raise_on(_library().tt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
+            k.shape[1], T, D, int(bool(causal)), float(scale * LOG2E), _DTYPE_CODE[q.dtype],
+            _stream(q)), "flash_attention")
+        flash_attention.launches += 1
+    return o, lse
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=None):
+    """dq, dk, dv of flash_attention for the cotangent do of o; dk/dv are
+    summed over the GQA group. A wider cotangent (f32 under autocast) is
+    cast to q's dtype first, and delta = rowsum(do·o) is taken in f32 here,
+    outside the kernels, as pallasex.flash_attention_backward does."""
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do, causal, scale)
+    do = do.contiguous()
+    _check_flash_backward("flash_attention_backward", q, k, v, o, lse, do)
+    B, H, T, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    delta = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        _raise_on(_library().tt_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], T,
+            D, int(bool(causal)), float(scale), float(scale * LOG2E), _DTYPE_CODE[q.dtype],
+            _stream(q)), "flash_attention_backward")
+        flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+def flash_attention_supported(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None,
+                              enable_gqa=False) -> bool:
+    """Hopper's checker for scaled_dot_product_attention: no mask and no
+    dropout; 4-d q/k/v of one float dtype, k and v of one shape, T == Tk
+    (pallasex.flash_attention_supported's rule), H % Hkv == 0, an even D that
+    is a multiple of the 16-byte vector and at most 128; causal or full. Any
+    T: the kernels mask the ragged edge (the TPU's T >= 1024 and % 512 rules
+    are its launch amortization and tiling). Everything else runs as the
+    ltorch decomposition."""
+    if attn_mask is not None or dropout_p:
+        return False
+    if getattr(q, "ndim", 0) != 4 or getattr(k, "ndim", 0) != 4 or getattr(v, "ndim", 0) != 4:
+        return False
+    B, H, T, D = q.shape
+    tdt = to_torch_dtype(q.dtype)
+    return (
+        tdt in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype
+        and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B and k.shape[2] == T
+        and k.shape[3] == D and H % k.shape[1] == 0
+        and D % 2 == 0 and D % _vec(tdt) == 0 and D <= _FLASH_MAX_D
+    )
+
+
+def _sdpa_impl(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None, enable_gqa=False):
+    o, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), is_causal, scale)
+    return o
+
+
+def _flash_fwd_impl(q, k, v, causal, scale):
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal, scale)
+
+
+def _flash_bwd_impl(q, k, v, o, lse, causal, scale, do):
+    return flash_attention_backward(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do,
+                                    causal, scale)
+
+
+ex.register_implementation("torch.nn.functional.scaled_dot_product_attention", _sdpa_impl,
+                           checker=flash_attention_supported)
+
+flash_attention_fwd = ex.register_operator(
+    "flash_attention_fwd",
+    meta=lambda q, k, v, causal, scale: (
+        TensorProxy(shape=q.shape, dtype=q.dtype, device=q.device),
+        TensorProxy(shape=q.shape[:-1], dtype=dtypes.float32, device=q.device),
+    ),
+    fn=_flash_fwd_impl,
+)
+flash_attention_bwd = ex.register_operator(
+    "flash_attention_bwd",
+    meta=lambda q, k, v, o, lse, causal, scale, do: (
+        TensorProxy(shape=q.shape, dtype=q.dtype, device=q.device),
+        TensorProxy(shape=k.shape, dtype=k.dtype, device=k.device),
+        TensorProxy(shape=v.shape, dtype=v.dtype, device=v.device),
+    ),
+    fn=_flash_bwd_impl,
+)
+
+
+@register_augmented_forward("torch.nn.functional.scaled_dot_product_attention")
+def _sdpa_aug(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None, enable_gqa=False):
+    if not flash_attention_supported(q, k, v, attn_mask, dropout_p, is_causal, scale):
+        return NotImplemented  # decompose: the composite sdpa rules apply
+    o, lse = flash_attention_fwd(q, k, v, bool(is_causal), scale)
+    return VJPResult(o, (q, k, v, o, lse, bool(is_causal), scale))
+
+
+@register_backward("torch.nn.functional.scaled_dot_product_attention")
+def _sdpa_bwd(q, k, v, o, lse, causal, scale, g):
+    return flash_attention_bwd(q, k, v, o, lse, causal, scale, g)
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with flash_attention_backward as its gradient, for
+    tensor-level use: ``FlashAttention.apply(q, k, v, causal, scale)`` -> o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, scale=None):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# Fused cross-entropy forward
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_plain(logits, targets):
+    """The kernel's function in plain PyTorch, in f32: per row lse and lse −
+    logits[target]; a target outside [0, V) picks 0 (pallasex._xent_kernel's
+    one-hot). -> (loss (N,) f32, lse (N,) f32)."""
+    lg = logits.float()
+    V = lg.shape[1]
+    lse = torch.logsumexp(lg, 1)
+    t = targets.long()
+    valid = (t >= 0) & (t < V)
+    picked = torch.where(valid, lg.gather(1, t.clamp(0, V - 1)[:, None])[:, 0], 0.0)
+    return lse - picked, lse
+
+
+def cross_entropy(logits, targets):
+    """logits (N, V) f32, bf16 or f16 and integer targets (N,) -> (loss,
+    lse), both f32 (N,)."""
+    if logits.device.type == "cpu":
+        return cross_entropy_plain(logits, targets)
+    N, V = logits.shape
+    targets = targets.to(torch.int64).contiguous()
+    _check_cuda("cross_entropy", logits, targets)
+    _require(logits.dtype in _DTYPE_CODE, f"cross_entropy: logits dtype {logits.dtype} is not a float")
+    _require(tuple(targets.shape) == (N,), f"cross_entropy: targets {tuple(targets.shape)} must be ({N},)")
+    loss = torch.empty(N, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(N, dtype=torch.float32, device=logits.device)
+    if N and V:
+        _raise_on(_library().tt_cross_entropy(logits.data_ptr(), targets.data_ptr(), loss.data_ptr(),
+                                              lse.data_ptr(), N, V, _DTYPE_CODE[logits.dtype],
+                                              _stream(logits)), "cross_entropy")
+        cross_entropy.launches += 1
+    return loss, lse
+
+
+cross_entropy.launches = 0
+
+
+def cross_entropy_supported(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                            label_smoothing=0.0) -> bool:
+    """Hopper's checker: 2-d float logits (N, V), integer targets (N,), no
+    weight, no smoothing, the mean. Any N and V: pallasex's N % 8 and
+    V % 128 rules are TPU tiling (GPT-2's V = 50304 and Llama's 32000 both
+    pass)."""
+    if weight is not None or label_smoothing or reduction != "mean":
+        return False
+    if getattr(logits, "ndim", 0) != 2 or getattr(target, "ndim", 0) != 1:
+        return False
+    return (to_torch_dtype(logits.dtype) in _DTYPE_CODE and not target.dtype.is_inexact
+            and target.shape[0] == logits.shape[0])
+
+
+def _cross_entropy_impl(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                        label_smoothing=0.0):
+    """pallasex._xent_impl: the kernel's per-row loss, ignore_index masked,
+    the mean over the valid rows (f32)."""
+    loss, _ = cross_entropy(logits.contiguous(), target)
+    valid = target != ignore_index
+    loss = torch.where(valid, loss, 0.0)
+    return loss.sum() / valid.sum().float().clamp(min=1.0)
+
+
+ex.register_implementation("torch.nn.functional.cross_entropy", _cross_entropy_impl,
+                           checker=cross_entropy_supported)
 
 
 # ---------------------------------------------------------------------------

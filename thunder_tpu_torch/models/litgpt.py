@@ -23,6 +23,7 @@ import torch
 from .. import nn
 from ..core.devices import resolve_device
 from ..ops import ltorch
+from ..transforms import remat
 
 
 @dataclass
@@ -46,8 +47,8 @@ class Config:
     rope_base: int = 10000
     lm_head_bias: bool = False
     shared_embedding: bool = False
-    # thunder_tpu's remat switch; the port has no remat yet, so it is
-    # carried for config parity and read by nothing
+    # recompute each block in the backward instead of saving its
+    # activations (GPT.forward wraps the blocks in remat.checkpoint)
     activation_checkpoint: bool = False
 
     def __post_init__(self):
@@ -284,7 +285,10 @@ class GPT(nn.Module):
         cos, sin = self.cos[:T], self.sin[:T]
         x = self.wte(idx)
         for block in self.h:
-            x = block(x, cos, sin)
+            if self.cfg.activation_checkpoint:
+                x = remat.checkpoint(block)(x, cos, sin)
+            else:
+                x = block(x, cos, sin)
         x = self.ln_f(x)
         return self.lm_head(x)
 

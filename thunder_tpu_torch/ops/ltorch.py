@@ -863,8 +863,10 @@ def rope_sdpa(q, k, v, cos, sin, is_causal=True, scale=None):
 
 @torchsymbol(name="sdpa", id="torch.nn.functional.scaled_dot_product_attention")
 def sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False, scale=None, enable_gqa=False):
-    """Scaled dot-product attention (composite; the flash-attention kernel
-    that claims it whole is a later slice of the port)."""
+    """Scaled dot-product attention (composite). The cuda executor claims it
+    whole with the flash-attention kernels and registers its grad rule
+    (executors/cudaex.py); a shape its checker declines runs this
+    decomposition."""
     check(q.shape[-1] == k.shape[-1],
           lambda: f"sdpa: q head dim {q.shape[-1]} must match k head dim {k.shape[-1]}")
     check(k.shape[-2] == v.shape[-2],

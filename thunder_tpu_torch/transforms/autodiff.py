@@ -9,6 +9,14 @@ result is two traces — augmented forward (returns outputs + saved-for-
 backward) and backward (saved + cotangents → input grads) — each claimed by
 the executors and run op by op.
 
+Activation checkpointing (transforms/remat.py:checkpoint,
+``Config.activation_checkpoint``) tags bsyms RECOMPUTE_IN_BACKWARD. Every
+proxy the augmented forward produces for a tagged bsym may be re-derived in
+the backward instead of saved: ``_plan_recompute`` swaps the tagged
+residuals for the minimal forward subgraph that re-derives them (saving its
+external inputs instead), and the backward replays that subgraph lazily,
+right before the first grad rule that reads one of its outputs.
+
 Ops whose gradient thunder_tpu takes from ``jax.vjp`` (VJP_FALLBACK_OPS
 below) raise NotImplementedError here. There is no interpreter frontend yet:
 programs are acquired by direct proxy tracing."""
@@ -23,6 +31,7 @@ from ..common import apply_effects
 from ..core import dtypes, prims
 from ..core.prims import PrimIDs
 from ..core.proxies import AnyProxy, NumberProxy, Proxy, TensorProxy
+from ..core.symbol import OpTags
 from ..core.trace import TraceCtx, tracectx
 from ..core.transform_common import dce
 from ..ops import clang
@@ -865,12 +874,6 @@ def _linear_bwd(a, w, g):
 # ---------------------------------------------------------------------------
 
 
-
-# ---------------------------------------------------------------------------
-# the transform itself
-# ---------------------------------------------------------------------------
-
-
 class TapeEntry(NamedTuple):
     sym_id: Any
     inputs: tuple  # mapped (aug-fwd) flat tensor input proxies
@@ -886,6 +889,79 @@ def _flat_tensors(x) -> tuple:
 
 def _is_diff_dtype(p) -> bool:
     return isinstance(p, TensorProxy) and p.dtype.is_inexact
+
+
+def _plan_recompute(fwd: TraceCtx, saved: list, recompute_names: set):
+    """Shrink the saved-for-backward list by re-deriving tagged residuals
+    (thunder_tpu/transforms/autodiff.py:_plan_recompute).
+
+    Returns (kept_saved, subgraph): subgraph is the minimal ordered list of
+    fwd bsyms whose replay in the backward reproduces every dropped residual;
+    the external inputs the subgraph needs are appended to kept_saved
+    (saving a trace argument costs nothing: the tensor is alive regardless)."""
+    if not recompute_names:
+        return saved, []
+    produced: dict[str, Any] = {}
+    for b in fwd.bound_symbols:
+        for o in b.flat_proxy_outs():
+            produced[o.name] = b
+
+    targets = {s.name for s in saved
+               if isinstance(s, TensorProxy) and s.name in recompute_names and s.name in produced}
+    if not targets:
+        return saved, []
+
+    need = set(targets)
+    subgraph: list = []
+    for b in reversed(fwd.bound_symbols):
+        outs = [o.name for o in b.flat_proxy_outs()]
+        if not outs or not any(o in need for o in outs):
+            continue
+        if all(o in recompute_names for o in outs):
+            subgraph.append(b)
+            for p in b.flat_proxy_args():
+                need.add(p.name)
+    subgraph.reverse()
+
+    recomputed = {o.name for b in subgraph for o in b.flat_proxy_outs()}
+    # proxies the subgraph consumes but does not itself produce must be saved
+    external = []
+    ext_seen = set()
+    for b in subgraph:
+        for p in b.flat_proxy_args():
+            if p.name not in recomputed and p.name not in ext_seen:
+                ext_seen.add(p.name)
+                external.append(p)
+
+    kept = [s for s in saved if s.name not in targets]
+    kept_names = {s.name for s in kept}
+    for p in external:
+        if p.name not in kept_names:
+            kept_names.add(p.name)
+            kept.append(p)
+    return kept, subgraph
+
+
+def _map_names(x, mirror: dict):
+    """x with every proxy replaced by mirror[its name], where there is one."""
+    if isinstance(x, Proxy):
+        return mirror.get(x.name, x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_names(e, mirror) for e in x)
+    if isinstance(x, dict):
+        return {k: _map_names(v, mirror) for k, v in x.items()}
+    return x
+
+
+def _map_into(old, new, mirror: dict) -> None:
+    if isinstance(old, Proxy):
+        mirror[old.name] = new
+    elif isinstance(old, (tuple, list)) and isinstance(new, (tuple, list)):
+        for o, n in zip(old, new):
+            _map_into(o, n, mirror)
+    elif isinstance(old, dict) and isinstance(new, dict):
+        for k in old:
+            _map_into(old[k], new[k], mirror)
 
 
 class ForwardBackwardTraces(NamedTuple):
@@ -919,29 +995,25 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
     # values); only the result is differentiated, the values ride along
     has_effects = bool(trace.side_effects)
     fwd_effects: tuple = ()
+    # proxies produced while processing RECOMPUTE_IN_BACKWARD-tagged bsyms:
+    # eligible to be re-derived in the backward instead of saved
+    recompute_names: set[str] = set()
 
     def lookup(x):
-        if isinstance(x, Proxy):
-            return env.get(x.name, x)
-        if isinstance(x, (tuple, list)):
-            return type(x)(lookup(e) for e in x)
-        if isinstance(x, dict):
-            return {k: lookup(v) for k, v in x.items()}
-        return x
+        return _map_names(x, env)
 
     def map_out(old, new):
-        if isinstance(old, Proxy):
-            env[old.name] = new
-            return
-        if isinstance(old, (tuple, list)) and isinstance(new, (tuple, list)):
-            for o, n in zip(old, new):
-                map_out(o, n)
-            return
-        if isinstance(old, dict) and isinstance(new, dict):
-            for k in old:
-                map_out(old[k], new[k])
+        _map_into(old, new, env)
 
-    def process(bsym):
+    def process(bsym, in_recompute: bool = False):
+        tagged = in_recompute or OpTags.RECOMPUTE_IN_BACKWARD in bsym.tags
+        scope_start = len(fwd.bound_symbols)
+        _process_inner(bsym, tagged)
+        if tagged:
+            for nb in fwd.bound_symbols[scope_start:]:
+                recompute_names.update(o.name for o in nb.flat_proxy_outs())
+
+    def _process_inner(bsym, in_recompute: bool):
         nonlocal fwd_output, fwd_effects
         if bsym.sym.id == PrimIDs.RETURN:
             ret = bsym.args[0] if len(bsym.args) == 1 else bsym.args
@@ -975,7 +1047,7 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 f"from jax.vjp, which the port has no counterpart of yet")
         if needs_grad and out_is_diff and bsym.subsymbols:
             for sub in bsym.subsymbols:
-                process(sub)
+                process(sub, in_recompute)
             # subsymbol processing populated env for the proxies the composite returns
             map_out(bsym.output, lookup(bsym.output))
             return
@@ -1001,6 +1073,7 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 if isinstance(r, Proxy) and r.name not in seen:
                     seen.add(r.name)
                     saved.append(r)
+        saved, recompute_subgraph = _plan_recompute(fwd, saved, recompute_names)
         prims.python_return(((fwd_output, fwd_effects) if has_effects else fwd_output, tuple(saved)))
 
     fwd_out_tensors = _flat_tensors(fwd_output)
@@ -1029,14 +1102,25 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 bwd_args.append(c)
         bwd.args = tuple(bwd_args)
 
-        grad_map: dict[str, Proxy] = dict(cot_map)
+        # lazy replay of checkpointed segments: each tagged residual is
+        # re-derived right before its first consuming grad rule
+        recompute_producer: dict[str, Any] = {}
+        for rb in recompute_subgraph:
+            for o in rb.flat_proxy_outs():
+                recompute_producer[o.name] = rb
+        replayed: set = set()
 
-        def res_lookup(r):
-            if isinstance(r, Proxy) and r.name in saved_mirror:
-                return saved_mirror[r.name]
-            if isinstance(r, (tuple, list)):
-                return type(r)(res_lookup(e) for e in r)
-            return r
+        def materialize(name: str):
+            rb = recompute_producer.get(name)
+            if rb is None or id(rb) in replayed or name in saved_mirror:
+                return
+            replayed.add(id(rb))
+            for p in rb.flat_proxy_args():
+                materialize(p.name)
+            new_out = rb.sym(*_map_names(rb.args, saved_mirror), **_map_names(rb.kwargs, saved_mirror))
+            _map_into(rb.output, new_out, saved_mirror)
+
+        grad_map: dict[str, Proxy] = dict(cot_map)
 
         def accumulate(p: TensorProxy, g):
             if g is None:
@@ -1062,7 +1146,10 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 continue
             # fill missing cotangents with zeros for multi-output rules
             cots = [c for c, o in zip(cots, entry.outputs) if _is_diff_dtype(o) or c is not None]
-            res = tuple(res_lookup(r) for r in entry.residuals)
+            for r in entry.residuals:
+                if isinstance(r, Proxy):
+                    materialize(r.name)
+            res = tuple(_map_names(r, saved_mirror) for r in entry.residuals)
             grads = backward_impls[entry.sym_id](*res, *cots)
             if not isinstance(grads, tuple):
                 grads = (grads,)
