@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
-eval, remat, agree.
+eval, remat, MoE serve and train, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -141,6 +141,33 @@ Phases, each printing one JSON line:
                plan (the backward replays each checkpointed layer's
                forward). Then f32 losses over 3 steps at 2 layers, with and
                without remat, within REMAT_RTOL.
+18. moe_serve — ServingEngine over MoEGPT: Llama-3-1B with every MLP
+               replaced by 8 SwiGLU experts of width 1024, top-2, drop-free
+               (benchmark_inference.py --moe), bf16: the serve phase's 16
+               requests after one warm-up replay of them; grouped_mlp must
+               launch n_layer times each prefill and decode call the engine
+               counts, with 0 compiles; beside the dense serve wave of the
+               same call. moe_serve_profile: as profile.
+19. moe_agreement — f32, TF32 off: 4 MoE streams through the engine and solo
+               GPTInference, under the AGREE_GAP rule.
+20. moe_train — TrainStep(jit(MoEGPT(..., capacity_factor=1.0),
+               [AutocastTransform()]), AdamW(lr=1e-4)) at B=1, T=2048 (bench.py's
+               MoE row at Llama-3-1B widths): compile, 2 warm-up and 10 timed
+               steps, grouped_mlp and the flash-RoPE pair n_layer x 10 each
+               between zeroed counters (the kernel runs f32 here: autocast
+               leaves grouped_mlp and rms_norm in f32); losses falling;
+               moe_train_profile over 2 steps.
+21. moe_train_agreement — f32, TF32 off, 2 layers, B=1, T=256: 3 steps on the
+               grouped road (kernel and claimed grad rule) against the dense
+               road (no kernel) from the same weights, losses within
+               LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL and
+               parameters within MOE_PARAM_ATOL (flip-prone elements,
+               whose gradient is near 0 and below 10x the roads' gap,
+               within ADAMW_FLIP_ATOL).
+The kernels phase also holds grouped_mlp against its plain version at the
+paths' shapes (decode cap 8 and prefill cap 1024 in bf16, train cap 512 in
+f32, a cap of 200), timed beside its bound, its plain version and the
+torch.bmm chain of the decomposition.
 
 Then the kernels line, the card's name and power limit, and the final
 {"ok": true, ...} line. Any failure exits non-zero without the final line;
@@ -830,6 +857,100 @@ def check_fp8(cudaex, dev, gen) -> dict:
     N, K = FP8_SHAPES["attn"]
     return dict(max_abs_err=max(errs), shape=f"attn M={FP8_M} N={N} K={K} x f32, w f32 (llama-350m)",
                 timing=timing, **timing["attn"]["float32"])
+
+
+# The grouped expert MLP at the MoE paths' shapes: E = 8 experts of width
+# H = 1024 over Llama-3-1B's D = 2048, top-2. (cap, dtype, group_sizes): the
+# engine's decode step (8 slots, drop-free: cap = 8, 16 assignments, one
+# expert empty), a 1024-token prefill bucket (cap = 1024, 2048 assignments),
+# the train step (N = 2048 at capacity factor 1.0: cap = 512, f32 under
+# autocast; experts over capacity are cut to 512, the rest end inside a
+# 64-row block), and a cap of 200, which is not a multiple of the kernel's
+# 64-row block.
+GROUPED_E, GROUPED_D, GROUPED_H = 8, 2048, 1024
+# The outputs are far below 1 (max ~0.2, RMS ~0.04 at these init scales), so
+# the kernel is held to max |kernel - plain| <= GROUPED_TOL · max |plain|. f32:
+# FFMAs against cuBLAS's f32 GEMM, another summation order. bf16: both round
+# h and y to bf16 from f32 sums taken in another order, so an output moves by
+# at most its own ulp, at most 2^-7 of the largest output; the limit is two
+# such ulps (one was measured: 9.8e-4 at a max of ~0.19 on an H100).
+GROUPED_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+GROUPED_SHAPES = {
+    "decode": (8, torch.bfloat16, [3, 0, 2, 4, 1, 2, 3, 1]),
+    "prefill": (1024, torch.bfloat16, [310, 250, 190, 280, 262, 240, 270, 246]),
+    "train": (512, torch.float32, [512, 512, 433, 512, 470, 512, 379, 512]),
+    "ragged_cap": (200, torch.bfloat16, [200, 151, 64, 0, 199, 1, 100, 37]),
+}
+
+
+def grouped_inputs(dev, gen, dt, cap, gs):
+    """Bins with rows past group_sizes zero (the dispatch scatter's fill) and
+    panels at MoEMLP's init scale."""
+    E, D, H = GROUPED_E, GROUPED_D, GROUPED_H
+    bins = torch.randn(E, cap, D, device=dev, generator=gen)
+    bins[torch.arange(cap, device=dev)[None, :] >= torch.tensor(gs, device=dev)[:, None]] = 0.0
+    s = 1.0 / math.sqrt(D)
+    wg = (torch.rand(E, D, H, device=dev, generator=gen) * 2 - 1) * s
+    wu = (torch.rand(E, D, H, device=dev, generator=gen) * 2 - 1) * s
+    wd = (torch.rand(E, H, D, device=dev, generator=gen) * 2 - 1) * (s / 2)
+    return (bins.to(dt), wg.to(dt), wu.to(dt), wd.to(dt),
+            torch.tensor(gs, dtype=torch.int64, device=dev))
+
+
+def grouped_work(cap, gs, itemsize) -> tuple[float, float]:
+    """(bytes, operations) of one grouped MLP call: the live rows of the
+    bins and the live experts' three panels read once, y (all cap rows)
+    written once; 6·D·H operations a live row (three products)."""
+    D, H = GROUPED_D, GROUPED_H
+    live = sum(min(n, cap) for n in gs)
+    experts = sum(1 for n in gs if n > 0)
+    return itemsize * (live * D + experts * 3 * D * H + GROUPED_E * cap * D), 6.0 * live * D * H
+
+
+def bmm_chain(bins, wg, wu, wd, gs):
+    """The side yardstick: the decomposition's library GEMMs over the same
+    bins, every row of every bin (it ignores group_sizes)."""
+    return torch.bmm(torch.nn.functional.silu(torch.bmm(bins, wg)) * torch.bmm(bins, wu), wd)
+
+
+def check_grouped(cudaex, dev, gen) -> dict:
+    """grouped_mlp against its plain version at GROUPED_SHAPES (max abs
+    error within GROUPED_TOL · max |plain|), then timed beside its bound,
+    its plain version and the bmm chain."""
+    cases, timing = [], {}
+    for label, (cap, dt, gs) in GROUPED_SHAPES.items():
+        args = grouped_inputs(dev, gen, dt, cap, gs)
+        out = cudaex.grouped_mlp(*args)
+        torch.cuda.synchronize()
+        want = cudaex.grouped_mlp_plain(*args)
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        zero_tail = all(not out[e, n:].any() for e, n in enumerate(gs))
+        cases.append({"shape": label, "cap": cap, "dtype": dname(dt), "group_sizes": gs,
+                      "max_abs_err": err, "max_abs_plain": scale, "err_over_max_plain": err / scale,
+                      "tolerance_over_max_plain": GROUPED_TOL[dname(dt)], "rows_past_group_sizes_zero": zero_tail})
+        if not err <= GROUPED_TOL[dname(dt)] * scale or not zero_tail:
+            raise AssertionError(f"grouped_mlp {label}: {cases[-1]}")
+        del args, out, want
+        nbytes, ops = grouped_work(cap, gs, dt.itemsize)
+        b, by = bound_ms(nbytes, ops, dname(dt))
+        sets = copies(lambda: grouped_inputs(dev, gen, dt, cap, gs), nbytes)
+        ms, eager = cuda_ms(cudaex.grouped_mlp, sets)
+        plain_ms, plain_eager = cuda_ms(cudaex.grouped_mlp_plain, sets, iters=20)
+        bmm_ms, bmm_eager = cuda_ms(bmm_chain, sets, iters=50)
+        timing[label] = dict(cap=cap, dtype=dname(dt), ms=ms, plain_ms=plain_ms, library_ms=None,
+                             bound_ms=b, bound_by=by, eager_ms=eager, plain_eager_ms=plain_eager,
+                             bmm_chain_ms=bmm_ms, bmm_chain_eager_ms=bmm_eager, bytes=nbytes,
+                             operations=ops, fraction_of_bound=b / ms)
+        del sets
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="grouped_mlp", E=GROUPED_E, D=GROUPED_D, H=GROUPED_H, cases=cases, timing=timing,
+         library="none: no one PyTorch call computes the grouped SwiGLU MLP; bmm_chain_ms is the "
+                 "decomposition's torch.bmm chain over every bin row, a side yardstick",
+         peak_ops="bf16 at 989 TFLOP/s (mma.sync tensor cores); f32 at 67 TFLOP/s (FFMA)")
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                shape=f"decode E=8 cap=8 D=2048 H=1024 bf16 group_sizes {GROUPED_SHAPES['decode'][2]}",
+                timing=timing, **timing["decode"])
 
 
 # ---------------------------------------------------------------------------
@@ -1600,6 +1721,8 @@ def train(tt, cudaex, seed) -> dict:
 KERNEL_KINDS = (
     ("attention", ("flash_fwd_kernel", "flash_bwd_")),
     ("fp8_linear", ("fp8_linear_kernel",)),
+    ("grouped_mlp", ("grouped_kernel",)),
+    ("scan", ("scan_outer_dim", "scan_innermost_dim")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel",)),
@@ -2279,6 +2402,301 @@ def remat_train(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 18-21: MoE serving and training
+# ---------------------------------------------------------------------------
+
+
+def moe_config(cfg, capacity_factor=None, dispatch="grouped"):
+    """benchmark_inference.py --moe's experts over a GPT config: 8 SwiGLU
+    experts of width max(128, intermediate_size // 8) (1024 at Llama-3-1B),
+    top-2; drop-free unless a capacity factor is given."""
+    from thunder_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(n_embd=cfg.n_embd, intermediate_size=max(128, cfg.intermediate_size // 8), n_expert=8,
+                     n_expert_per_token=2, capacity_factor=capacity_factor, dispatch=dispatch)
+
+
+def prefill_calls(engine) -> int:
+    return sum(engine.ladder.hits().values())
+
+
+def moe_serve(tt, cudaex, cfg, prompts, seed, dense_wave: dict) -> dict:
+    """ServingEngine over MoEGPT(Llama-3-1B, 8 experts of 1024, top-2,
+    drop-free) in bf16: the serve phase's 16 requests after one warm-up
+    replay of the wave (2 new tokens each). grouped_mlp must launch n_layer
+    times a program call (the engine's prefill and decode calls), with 0
+    compiles; the dense serve wave's numbers from the same call beside."""
+    from thunder_tpu_torch.models.moe import MoEGPT
+    from thunder_tpu_torch.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    gpt = MoEGPT(cfg, moe_config(cfg), torch.bfloat16, seed=seed)
+    engine = ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in prompts:
+        engine.submit(p, max_new_tokens=2)
+    engine.drain()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+
+    reset_peak_memory()
+    cfns = (engine.runner.prefill_cfn, engine.runner.decode_cfn)
+    steps0, prefills0 = engine.decode_steps, prefill_calls(engine)
+    compiles0 = sum(tt.cache_misses(c) for c in cfns)
+    cudaex.grouped_mlp.launches = 0
+    cudaex.rms_norm.launches = 0
+    cudaex.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, max_new_tokens=64) for p in prompts]
+    engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"grouped_mlp": cudaex.grouped_mlp.launches, "rms_norm": cudaex.rms_norm.launches,
+                "paged_attention": cudaex.paged_attention.launches}
+    calls = {"prefill": prefill_calls(engine) - prefills0, "decode": engine.decode_steps - steps0}
+    compiles = sum(tt.cache_misses(c) for c in cfns) - compiles0
+    results = [f.result() for f in futs]
+    for r in results:
+        if r.n_new_tokens != 64 or not ((r.new_tokens >= 0) & (r.new_tokens < cfg.padded_vocab_size)).all():
+            raise AssertionError(f"request {r.request_id}: bad stream {r.new_tokens}")
+    want = cfg.n_layer * (calls["prefill"] + calls["decode"])
+    if launches["grouped_mlp"] != want or not (launches["rms_norm"] and launches["paged_attention"]):
+        raise AssertionError(f"moe_serve launches {launches}, want grouped_mlp {cfg.n_layer} x {calls} = {want}")
+    if compiles:
+        raise AssertionError(f"{compiles} compiles during the MoE wave")
+    for cfn in cfns:
+        n = sum(b.impl is cudaex._grouped_mlp_impl for b in tt.last_traces(cfn)[-1].bound_symbols)
+        if n != cfg.n_layer:
+            raise AssertionError(f"{cfn.__name__}'s trace claims thunder.grouped_mlp {n} times")
+    ops = {name: sum(1 for b in tt.last_traces(cfn)[-1].bound_symbols
+                     if b.sym.name not in ("python_del", "python_return"))
+           for name, cfn in (("prefill", cfns[0]), ("decode", cfns[1]))}
+    n_tok = sum(r.n_new_tokens for r in results)
+    m = gpt.h[0].moe.cfg
+    out = dict(model=f"{cfg.name} + MoE (E={m.n_expert}, H={m.intermediate_size}, "
+                     f"top-{m.n_expert_per_token}, drop-free)", n_layer=cfg.n_layer,
+               dtype="bfloat16", params=sum(p.numel() for p in gpt.parameters()), requests=len(results),
+               new_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+               mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in results])),
+               mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in results])),
+               program_calls=calls, launches=launches, grouped_mlp_launches_expected=want,
+               compiles_during_wave=compiles, ops_per_program_call=ops,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, init_s=t_init, warmup_s=t_warm,
+               dense_wave_same_call={k: dense_wave[k] for k in ("tokens_per_s", "mean_ttft_ms", "mean_tbot_ms",
+                                                                "decode_steps", "ops_per_program_call")})
+    emit("moe_serve", **out)
+    short = make_prompts(np.random.RandomState(1), 8, 128, 128, cfg.vocab_size)
+    out["profile"] = profile_wave(engine, [(p, 32, "interactive") for p in short], "moe_serve_profile")
+    del engine, gpt
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_agreement(cfg, prompts, seed) -> dict:
+    """f32, TF32 off: the MoE engine's greedy streams against solo
+    GPTInference over the same MoEGPT, under the AGREE_GAP rule."""
+    from thunder_tpu_torch.inference import GPTInference
+    from thunder_tpu_torch.models.moe import MoEGPT
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = MoEGPT(cfg, moe_config(cfg), torch.float32, seed=seed)
+    engine = ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048, dtype=torch.float32)
+    futs = [engine.submit(p, max_new_tokens=64) for p in prompts]
+    engine.drain()
+    solo = GPTInference(gpt, max_seq=2048, dtype=torch.float32)
+    rows = []
+    for p, f in zip(prompts, futs):
+        out, m = solo.generate(torch.from_numpy(p[None, :]), 64)
+        rows.append(agree_row(f.result().new_tokens, out[0, len(p):].cpu().numpy(), m.top2_gap[0], len(p)))
+    out = dict(model=f"{cfg.name} + MoE f32", rows=rows, tolerance=AGREE_GAP, tf32=False)
+    emit("moe_agreement", **out)
+    bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
+    if bad:
+        raise AssertionError(f"MoE streams differ from solo: {bad}")
+    del engine, gpt, solo
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_step_bound(model, cfg, moe_cfg, B, T) -> dict:
+    """step_bound for MoEGPT: 6 operations per weight of every 2-d matmul
+    per token, plus the experts' 3·D·H weights 6 times for each of the B·T·K
+    routed rows (an upper bound: rows over capacity are dropped), plus
+    causal attention; bytes as step_bound."""
+    n_mm = sum(p.numel() for name, p in model.named_parameters() if p.ndim == 2 and "wte" not in name)
+    n_all = sum(p.numel() for p in model.parameters())
+    expert = 6 * B * T * moe_cfg.n_expert_per_token * 3 * cfg.n_embd * moe_cfg.intermediate_size * cfg.n_layer
+    ops = 6 * n_mm * B * T + expert + 3.5 * cfg.n_layer * 4 * B * cfg.n_head * T * T * cfg.head_size / 2
+    b, by = bound_ms(2 * 3 * 4 * n_all + 2 * B * T * 4, ops, "bfloat16")
+    return dict(model_ops_per_step=ops, bound_ms=b, bound_by=by)
+
+
+def moe_train(tt, cudaex, seed) -> dict:
+    """TrainStep(jit(MoEGPT(Llama-3-1B, 8 experts of 1024, top-2, capacity
+    factor 1.0), [AutocastTransform()]), AdamW(lr=1e-4)), f32 master
+    weights, B=1, T=2048: the first call timed as compile, 2 warm-up and 10
+    timed steps between zeroed counters (grouped_mlp and the flash-RoPE pair
+    n_layer x 10 each); losses finite and falling; then 2 steps profiled."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config
+    from thunder_tpu_torch.models.moe import MoEGPT
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = 1, 2048, 10
+    cfg = Config.from_name("Llama-3-1B", block_size=T)
+    mcfg = moe_config(cfg, capacity_factor=1.0)
+    reset_peak_memory()
+    t0 = time.perf_counter()
+    model = MoEGPT(cfg, mcfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), optim.AdamW(lr=TRAIN_LR))
+    idx, tgt = train_batch(cfg, B, T, seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    cudaex.grouped_mlp.launches = 0
+    cudaex.flash_rope_attention.launches = 0
+    cudaex.flash_rope_attention_backward.launches = 0
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    launches = {"grouped_mlp": cudaex.grouped_mlp.launches,
+                "flash_rope_fwd": cudaex.flash_rope_attention.launches,
+                "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches}
+    want = cfg.n_layer * n_steps
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"moe_train launches {launches} over {n_steps} steps, want {want} each")
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe_train losses {losses}")
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    claimed = [b for b in fwd if b.sym.id == "cuda.grouped_mlp_fwd"]
+    kernel_dtypes = sorted({str(a.dtype.name) for b in claimed for a in b.args[:4]})
+    bound = moe_step_bound(model, cfg, mcfg, B, T)
+    out = dict(model=f"{cfg.name} + MoE (E={mcfg.n_expert}, H={mcfg.intermediate_size}, "
+                     f"top-{mcfg.n_expert_per_token}, capacity factor {mcfg.capacity_factor})", n_layer=cfg.n_layer,
+               B=B, T=T, dtype="bf16 autocast, f32 master", params=sum(p.numel() for p in model.parameters()),
+               capacity=model.h[0].moe.capacity(B * T), steps=n_steps, ms_per_step=step_s * 1e3,
+               tokens_per_s=B * T / step_s, mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"],
+               **bound, compile_s=compile_s, init_s=t_init,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses, launches=launches,
+               grouped_mlp_operand_dtypes=kernel_dtypes)
+    emit("moe_train", **out)
+    out["profile"] = train_profile(step, idx, tgt, "moe_train_profile")
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# The MoE roads differ only in summation order, so in f32 their gradients
+# agree to rounding: each tensor's step-1 gradients within MOE_GRAD_RTOL of
+# its largest (4.3e-7 measured on an H100). A parameter moves apart only
+# where AdamW's ±lr step follows a gradient whose sign the order can flip:
+# elements whose dense-road gradient, at some step, is both within
+# MOE_NEAR_ZERO of its tensor's largest and smaller than MOE_FLIP_MARGIN
+# times the roads' gap are held to ADAMW_FLIP_ATOL, the rest to
+# MOE_PARAM_ATOL (1.2e-6 measured over every element; a missing or swapped
+# expert gradient moves a weight by ~lr a step).
+MOE_GRAD_RTOL = 1e-4
+MOE_NEAR_ZERO = 1e-4
+MOE_FLIP_MARGIN = 10.0
+MOE_PARAM_ATOL = 1e-5
+
+
+class GradRecorder:
+    """Wraps an optimizer and keeps every step's gradients. Given the
+    recorder of another run (``against``), it keeps only the first step's
+    and marks, over every step, the flip-prone elements: |g| within
+    MOE_NEAR_ZERO of the tensor's largest and below MOE_FLIP_MARGIN times
+    the gap to that run's gradient of the same step."""
+
+    def __init__(self, inner, against=None):
+        self.inner, self.against, self.steps, self.flip_prone, self.n = inner, against, [], {}, 0
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, params, grads, state):
+        grads = {k: g.detach() for k, g in grads.items() if g is not None}
+        if self.against is None or not self.steps:
+            self.steps.append({k: g.clone() for k, g in grads.items()})
+        if self.against is not None:
+            other = self.against.steps[self.n]
+            for k, g in grads.items():
+                prone = ((g.abs() <= MOE_NEAR_ZERO * g.abs().max())
+                         & (g.abs() < MOE_FLIP_MARGIN * (other[k] - g).abs()))
+                self.flip_prone[k] = prone | self.flip_prone[k] if k in self.flip_prone else prone
+        self.n += 1
+        return self.inner.update(params, grads, state)
+
+
+def moe_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, the MoE model at 2 layers, B=1, T=256 (capacity factor
+    1.0: cap 64, so tokens are dropped): 3 TrainSteps on the grouped road
+    (the kernel and its claimed grad rule) against the dense road (every
+    expert over every token, no kernel) from the same weights. Losses within
+    LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL, parameters within
+    MOE_PARAM_ATOL but flip-prone elements within ADAMW_FLIP_ATOL:
+    the two roads sum in other orders (the same split as thunder_tpu's
+    grouped-vs-dense tests)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config
+    from thunder_tpu_torch.models.moe import MoEGPT
+    from thunder_tpu_torch.training import TrainStep
+
+    B, T, n_steps = 1, 256, 3
+    cfg = Config.from_name("Llama-3-1B", n_layer=2, block_size=T)
+    runs = {}
+    for road in ("grouped", "dense"):
+        model = MoEGPT(cfg, moe_config(cfg, 1.0, road), torch.float32, seed=seed)
+        rec = GradRecorder(optim.AdamW(lr=TRAIN_LR), runs["grouped"]["rec"] if runs else None)
+        step = TrainStep(tt.jit(model), rec)
+        idx, tgt = train_batch(cfg, B, T, seed)
+        n0 = cudaex.grouped_mlp.launches
+        losses = [float(step(idx, tgt)) for _ in range(n_steps)]
+        runs[road] = dict(losses=losses, launches=cudaex.grouped_mlp.launches - n0, rec=rec,
+                          params={k: p.detach() for k, p in model.named_parameters()})
+        del step
+    g, d = runs["grouped"], runs["dense"]
+    if g["launches"] != cfg.n_layer * n_steps or d["launches"]:
+        raise AssertionError(f"grouped_mlp launches: grouped road {g['launches']}, dense road {d['launches']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], d["losses"]))
+    g1, d1 = g["rec"].steps[0], d["rec"].steps[0]
+    if g1.keys() != d1.keys() or g1.keys() != g["params"].keys():
+        raise AssertionError(f"gradients for {sorted(g1)} and {sorted(d1)}, parameters {sorted(g['params'])}")
+    grad_rel = {k: ((g1[k] - d1[k]).abs().max() / d1[k].abs().max().clamp(min=1e-30)).item() for k in d1}
+    prone = d["rec"].flip_prone
+    tight, flip = [], []
+    for k in g["params"]:
+        diff = (g["params"][k] - d["params"][k]).abs()
+        tight.append(diff[~prone[k]])
+        flip.append(diff[prone[k]])
+    tight, flip = torch.cat(tight), torch.cat(flip)
+    out = dict(model=f"{cfg.name} + MoE n_layer=2", B=B, T=T, steps=n_steps, tf32=False,
+               grouped_losses=g["losses"], dense_losses=d["losses"], loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               grad_max_rel=max(grad_rel.values()), grad_rtol=MOE_GRAD_RTOL,
+               param_max_abs=tight.max().item(), param_atol=MOE_PARAM_ATOL,
+               flip_prone_elements=flip.numel(), elements=tight.numel() + flip.numel(),
+               flip_prone_max_abs=flip.max().item() if flip.numel() else 0.0, flip_prone_atol=ADAMW_FLIP_ATOL,
+               grouped_mlp_launches=g["launches"])
+    emit("moe_train_agreement", **out)
+    if (not loss_rel <= LOSS_RTOL or not out["grad_max_rel"] <= MOE_GRAD_RTOL
+            or not out["param_max_abs"] <= MOE_PARAM_ATOL or not out["flip_prone_max_abs"] <= ADAMW_FLIP_ATOL):
+        raise AssertionError(f"moe train agreement: losses {loss_rel}, gradients "
+                             f"{ {k: v for k, v in grad_rel.items() if not v <= MOE_GRAD_RTOL} }, "
+                             f"params {out['param_max_abs']}, flip-prone params {out['flip_prone_max_abs']}")
+    del runs, g, d, tight, flip
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2313,6 +2731,7 @@ def main() -> int:
     int8 = check_quant(cudaex, dev, gen, "int8")
     nf4 = check_quant(cudaex, dev, gen, "nf4")
     fp8 = check_fp8(cudaex, dev, gen)
+    grouped = check_grouped(cudaex, dev, gen)
 
     cfg = Config.from_name("Llama-3-1B")
     rng = np.random.RandomState(args.seed)
@@ -2339,6 +2758,10 @@ def main() -> int:
     del nano_model
     nano_train_agreement(tt, cudaex, args.seed)
     remat_train(tt, cudaex, args.seed)
+    moe_served = moe_serve(tt, cudaex, cfg, prompts, args.seed, served)
+    moe_agreement(cfg, prompts[:4], args.seed)
+    moe_train(tt, cudaex, args.seed)
+    moe_train_agreement(tt, cudaex, args.seed)
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -2364,7 +2787,9 @@ def main() -> int:
             ("flash_bwd", plain_bwd, "thunder_tpu_torch/csrc/flash_rope_bwd.cu",
              "thunder_tpu/executors/pallasex.py:423", nano["launches"]["flash_bwd"]),
             ("cross_entropy", xent, "thunder_tpu_torch/csrc/cross_entropy.cu",
-             "thunder_tpu/executors/pallasex.py:1179", nano_evaluated["launches"]["cross_entropy"])):
+             "thunder_tpu/executors/pallasex.py:1179", nano_evaluated["launches"]["cross_entropy"]),
+            ("grouped_mlp", grouped, "thunder_tpu_torch/csrc/grouped_mlp.cu",
+             "thunder_tpu/executors/pallasex.py:2004", moe_served["launches"]["grouped_mlp"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

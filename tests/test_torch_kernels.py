@@ -825,3 +825,121 @@ def test_fp8_wrapper_refuses_bad_inputs(cuda):
         cudaex.fp8_linear(x, w, sx.double(), sw)
     with pytest.raises(ValueError, match="CUDA device"):
         cudaex.fp8_linear(x, w.cpu(), sx, sw)
+
+
+# grouped_mlp (plain version against pallasex in tests/test_torch_moe.py)
+# against its plain version on the card, max |kernel - plain| within
+# GROUPED_TOL · max |plain|: the outputs are far below 1, so the limit follows
+# their own scale. f32 to 1e-4 (FFMAs against cuBLAS's f32 GEMM: another
+# summation order over D and H), bf16 to 2^-6, two bf16 ulps of the largest
+# output (both round h and y to bf16 from f32 sums taken in another order: an
+# output moves by at most its own ulp, which is at most 2^-7 of the largest).
+GROUPED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _assert_grouped_close(out, want, dtype):
+    err = (out.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= GROUPED_TOL[dtype] * scale, (err, scale)
+
+
+GROUPED_CASES = {
+    # (E, cap, D, H, group_sizes)
+    "decode": (8, 8, 256, 128, [3, 0, 8, 1, 2, 0, 1, 1]),  # cap below one mma tile, empty experts
+    "partial-block": (4, 128, 128, 64, [128, 70, 0, 64]),
+    "ragged-cap": (3, 100, 64, 96, [100, 37, 99]),
+    "narrow": (2, 20, 40, 24, [20, 5]),  # D, H not multiples of the 64-column tile
+}
+
+
+def _grouped_card_inputs(cuda, dtype, E, cap, D, H, gs, seed):
+    """Bins with nonzero rows past group_sizes: the kernel and the plain
+    version must give zeros there whatever the bins hold."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bins = torch.randn(E, cap, D, device=cuda, generator=g).to(dtype)
+    s = 1.0 / math.sqrt(D)
+    wg = (torch.rand(E, D, H, device=cuda, generator=g) * 2 - 1).mul(s).to(dtype)
+    wu = (torch.rand(E, D, H, device=cuda, generator=g) * 2 - 1).mul(s).to(dtype)
+    wd = (torch.rand(E, H, D, device=cuda, generator=g) * 2 - 1).mul(s / 2).to(dtype)
+    return bins, wg, wu, wd, torch.tensor(gs, dtype=torch.int64, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_mlp_kernel_matches_plain(cuda, case, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, cap, D, H, gs = GROUPED_CASES[case]
+    args = _grouped_card_inputs(cuda, dtype, E, cap, D, H, gs, seed=cap + D)
+    n0 = cudaex.grouped_mlp.launches
+    out = cudaex.grouped_mlp(*args)
+    torch.cuda.synchronize()
+    assert cudaex.grouped_mlp.launches == n0 + 1 and out.dtype == dtype
+    _assert_grouped_close(out, cudaex.grouped_mlp_plain(*args), dtype)
+    for e, n in enumerate(gs):
+        assert not out[e, n:].any()
+
+
+@pytest.mark.gpu
+def test_grouped_mlp_cuda_never_takes_the_plain_route(cuda, monkeypatch):
+    args = _grouped_card_inputs(cuda, torch.bfloat16, *GROUPED_CASES["decode"], seed=1)
+
+    def refuse(*a):
+        raise AssertionError("the plain route ran on a CUDA tensor")
+
+    monkeypatch.setattr(cudaex, "grouped_mlp_plain", refuse)
+    n0 = cudaex.grouped_mlp.launches
+    cudaex.grouped_mlp(*args)
+    torch.cuda.synchronize()
+    assert cudaex.grouped_mlp.launches == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_mlp_rows_are_independent_of_their_block(cuda, dtype):
+    """A row's output is bit-equal whatever the other rows of its block hold
+    and however many of them are live: the engine's batched decode must
+    equal solo decoding."""
+    bins, wg, wu, wd, _ = _grouped_card_inputs(cuda, dtype, 2, 64, 128, 64, [64, 64], seed=3)
+    full = cudaex.grouped_mlp(bins, wg, wu, wd, torch.tensor([64, 64], device=cuda))
+    other = bins.clone()
+    other[:, 1:] = torch.randn_like(other[:, 1:].float()).to(dtype)
+    alone = cudaex.grouped_mlp(other[:, :8].contiguous(), wg, wu, wd, torch.tensor([1, 1], device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, 0], alone[:, 0]) and not alone[:, 1:].any()
+
+
+@pytest.mark.gpu
+def test_grouped_mlp_in_a_cuda_graph(cuda):
+    """group_sizes is read on the device: a replayed graph follows new
+    sizes written into the same tensor."""
+    bins, wg, wu, wd, gs = _grouped_card_inputs(cuda, torch.bfloat16, *GROUPED_CASES["partial-block"], seed=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cudaex.grouped_mlp(bins, wg, wu, wd, gs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cudaex.grouped_mlp(bins, wg, wu, wd, gs)
+    for sizes in ([128, 70, 0, 64], [1, 0, 128, 65]):
+        gs.copy_(torch.tensor(sizes, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_grouped_close(out, cudaex.grouped_mlp_plain(bins, wg, wu, wd, gs), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_grouped_mlp_wrapper_refuses_bad_inputs(cuda):
+    bins, wg, wu, wd, gs = _grouped_card_inputs(cuda, torch.bfloat16, *GROUPED_CASES["narrow"], seed=5)
+    with pytest.raises(ValueError, match=r"unsupported inputs .*w_gate \(2, 40, 24\) torch.float32"):
+        cudaex.grouped_mlp(bins, wg.float(), wu, wd, gs)
+    with pytest.raises(ValueError, match=r"unsupported inputs bins \(2, 20, 40\) torch.float16"):
+        cudaex.grouped_mlp(*(t.half() for t in (bins, wg, wu, wd)), gs)
+    with pytest.raises(ValueError, match=r"unsupported inputs .*w_down \(2, 8, 40\)"):
+        cudaex.grouped_mlp(bins, wg, wu, wd[:, :8].contiguous(), gs)
+    with pytest.raises(ValueError, match=r"unsupported inputs bins \(2, 20, 36\)"):
+        cudaex.grouped_mlp(bins[..., :36].contiguous(), wg[:, :36].contiguous(), wu[:, :36].contiguous(),
+                           wd[..., :36].contiguous(), gs)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cudaex.grouped_mlp(bins, wg, wu, wd, gs.cpu())

@@ -1,7 +1,7 @@
 """cudaex: hand-written Hopper kernels for the hot ops of the serving and
 training paths.
 
-The port's counterpart of thunder_tpu/executors/pallasex.py. It claims six
+The port's counterpart of thunder_tpu/executors/pallasex.py. It claims seven
 composite ltorch symbols whole and two quantized-linear prims:
 
 * ``torch.nn.functional.rms_norm`` → ``rms_norm`` (csrc/rms_norm.cu), which
@@ -18,6 +18,8 @@ composite ltorch symbols whole and two quantized-linear prims:
 * ``torch.nn.functional.cross_entropy`` (forward only: training takes the
   composite grad rule, as in thunder_tpu) → ``cross_entropy``
   (csrc/cross_entropy.cu), which replaces pallasex.fused_cross_entropy_forward;
+* ``thunder.grouped_mlp`` → ``grouped_mlp`` (csrc/grouped_mlp.cu), which
+  replaces pallasex.grouped_mlp_fused;
 * ``quant.linear_int8`` → ``int8_linear`` (csrc/int8_linear.cu), which
   replaces pallasex.int8_linear;
 * ``quant.linear_nf4_kl`` → ``nf4_linear`` (csrc/nf4_linear.cu), which
@@ -35,7 +37,10 @@ softmax's lse, and the backward ``cuda.rope_flash_bwd``
 (``flash_attention_backward``, csrc/flash_rope_bwd.cu), which replaces
 pallasex.flash_rope_attention_backward (flash_attention_backward) and its
 fused single pass. ``FlashRopeAttention`` and ``FlashAttention`` are the same
-pairs as ``torch.autograd.Function``s.
+pairs as ``torch.autograd.Function``s. The grad rule of
+``thunder.grouped_mlp`` records ``cuda.grouped_mlp_fwd`` (the kernel) and
+``cuda.grouped_mlp_bwd``: the SwiGLU chain rule as batched products, as
+pallasex's rule takes it outside any kernel.
 
 The kernels are CUDA C++ for sm_90a with a plain C interface, compiled by
 ``nvcc`` at first use into one shared library under ``build/thunder_tpu_torch/``
@@ -159,6 +164,8 @@ def _library():
         lib.tt_nf4_linear.restype = i
         lib.tt_fp8_linear.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.tt_fp8_linear.restype = i
+        lib.tt_grouped_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.tt_grouped_mlp.restype = i
         _lib = lib
     return _lib
 
@@ -1103,3 +1110,136 @@ def fp8_linear_supported(x, w) -> bool:
     N = w.shape[0]
     return (to_torch_dtype(x.dtype) in _FP8_DTYPES and to_torch_dtype(w.dtype) in _FP8_DTYPES
             and w.shape[1] == K and K % 32 == 0 and N % 8 == 0 and M > 0 and N > 0)
+
+
+# ---------------------------------------------------------------------------
+# Grouped-expert SwiGLU MLP (models/moe.py's grouped road)
+# ---------------------------------------------------------------------------
+
+_GROUPED_DTYPES = (torch.float32, torch.bfloat16)
+_GROUPED_BM = 64  # csrc/grouped_mlp.cu: rows a block
+_GRID_MAX = 65535  # a grid's y and z extents
+
+
+def grouped_mlp_plain(bins, w_gate, w_up, w_down, group_sizes):
+    """The kernel's function in plain PyTorch: per expert, g = x·Wg and u =
+    x·Wu summed in f32, h = (g · 1/(1 + exp(−g))) · u in f32 rounded to the
+    weights' dtype, y = h·Wd summed in f32 and rounded to the bins' dtype;
+    rows at or past group_sizes[e] are zeros (pallasex._grouped_mlp_kernel's
+    order)."""
+    x = bins.float()
+    g = torch.bmm(x, w_gate.float())
+    u = torch.bmm(x, w_up.float())
+    h = (g * (1.0 / (1.0 + torch.exp(-g))) * u).to(w_down.dtype).float()
+    y = torch.bmm(h, w_down.float())
+    rows = torch.arange(bins.shape[1], device=bins.device)
+    live = rows[None, :] < group_sizes.to(bins.device, torch.int64)[:, None]
+    return torch.where(live[..., None], y, 0.0).to(bins.dtype)
+
+
+def grouped_mlp(bins, w_gate, w_up, w_down, group_sizes):
+    """bins (E, cap, D), w_gate and w_up (E, D, H), w_down (E, H, D), all f32
+    or all bf16, integer group_sizes (E,) on the same device -> y (E, cap,
+    D): each expert's SwiGLU MLP over its first group_sizes[e] bin rows,
+    zeros below them. group_sizes is read on the device: no host sync."""
+    if bins.device.type == "cpu":
+        return grouped_mlp_plain(bins, w_gate, w_up, w_down, group_sizes)
+    args = {"bins": bins, "w_gate": w_gate, "w_up": w_up, "w_down": w_down, "group_sizes": group_sizes}
+    _require(grouped_mlp_supported(bins, w_gate, w_up, w_down, group_sizes),
+             "grouped_mlp: unsupported inputs "
+             + ", ".join(f"{k} {tuple(t.shape)} {t.dtype}" for k, t in args.items())
+             + ": it takes bins (E, cap, D) and panels (E, D, H), (E, D, H), (E, H, D) of one dtype, f32 or "
+             "bf16, D and H multiples of the 16-byte vector, and integer group_sizes (E,)")
+    E, cap, D = bins.shape
+    H = w_gate.shape[-1]
+    gs = group_sizes.to(torch.int32).contiguous()
+    _check_cuda("grouped_mlp", bins, w_gate, w_up, w_down, gs)
+    y = torch.empty_like(bins)
+    if E and cap:
+        h = torch.empty((E, cap, H), dtype=bins.dtype, device=bins.device)
+        _raise_on(_library().tt_grouped_mlp(
+            bins.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), gs.data_ptr(),
+            h.data_ptr(), y.data_ptr(), E, cap, D, H, _DTYPE_CODE[bins.dtype], _stream(bins)), "grouped_mlp")
+        grouped_mlp.launches += 1
+    return y
+
+
+grouped_mlp.launches = 0
+
+
+def grouped_mlp_supported(bins, w_gate, w_up, w_down, group_sizes) -> bool:
+    """Hopper's checker: 3-d bins (E, cap, D) and panels (E, D, H), (E, D,
+    H), (E, H, D) of one float dtype (f32 or bf16), integer
+    group_sizes (E,), D and H multiples of the 16-byte vector. Any cap: the
+    kernel masks a ragged one (pallasex's cap % 8 rule is the TPU's sublane
+    tile, its VMEM budget the TPU's scratch)."""
+    if any(getattr(t, "ndim", 0) != 3 for t in (bins, w_gate, w_up, w_down)):
+        return False
+    E, cap, D = bins.shape
+    H = w_gate.shape[-1]
+    tdt, gdt = to_torch_dtype(bins.dtype), to_torch_dtype(group_sizes.dtype)
+    return (
+        tdt in _GROUPED_DTYPES and all(w.dtype == bins.dtype for w in (w_gate, w_up, w_down))
+        and tuple(w_gate.shape) == (E, D, H) and tuple(w_up.shape) == (E, D, H)
+        and tuple(w_down.shape) == (E, H, D)
+        and getattr(group_sizes, "ndim", 0) == 1 and group_sizes.shape[0] == E
+        and not gdt.is_floating_point and not gdt.is_complex and gdt != torch.bool
+        and D > 0 and H > 0 and D % _vec(tdt) == 0 and H % _vec(tdt) == 0
+        and E <= _GRID_MAX and -(-cap // _GROUPED_BM) <= _GRID_MAX
+    )
+
+
+def _grouped_mlp_impl(bins, w_gate, w_up, w_down, group_sizes):
+    return grouped_mlp(bins.contiguous(), w_gate.contiguous(), w_up.contiguous(), w_down.contiguous(),
+                       group_sizes)
+
+
+def grouped_mlp_backward(bins, w_gate, w_up, w_down, group_sizes, do):
+    """d(bins), d(w_gate), d(w_up), d(w_down) of grouped_mlp for the
+    cotangent do: pallasex's bwd_impl, the SwiGLU chain rule over the same
+    bins as batched products (the zero rows past group_sizes add nothing to
+    any weight's gradient), each cast to its input's dtype. A cotangent of
+    another dtype is cast to the bins' first."""
+    do = do.to(bins.dtype)
+    g = torch.bmm(bins, w_gate)
+    u = torch.bmm(bins, w_up)
+    sg = torch.sigmoid(g)
+    h = g * sg * u
+    dh = torch.bmm(do, w_down.transpose(1, 2))
+    dwd = torch.bmm(h.transpose(1, 2), do)
+    du = dh * (g * sg)
+    dg = dh * u * (sg * (1.0 + g * (1.0 - sg)))
+    dbins = torch.bmm(dg, w_gate.transpose(1, 2)) + torch.bmm(du, w_up.transpose(1, 2))
+    dwg = torch.bmm(bins.transpose(1, 2), dg)
+    dwu = torch.bmm(bins.transpose(1, 2), du)
+    return (dbins.to(bins.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype), dwd.to(w_down.dtype))
+
+
+ex.register_implementation("thunder.grouped_mlp", _grouped_mlp_impl, checker=grouped_mlp_supported)
+
+grouped_mlp_fwd = ex.register_operator(
+    "grouped_mlp_fwd",
+    meta=lambda bins, w_gate, w_up, w_down, group_sizes: TensorProxy(
+        shape=bins.shape, dtype=bins.dtype, device=bins.device),
+    fn=_grouped_mlp_impl,
+)
+grouped_mlp_bwd = ex.register_operator(
+    "grouped_mlp_bwd",
+    meta=lambda bins, w_gate, w_up, w_down, group_sizes, do: tuple(
+        TensorProxy(shape=t.shape, dtype=t.dtype, device=t.device) for t in (bins, w_gate, w_up, w_down)),
+    fn=grouped_mlp_backward,
+)
+
+
+@register_augmented_forward("thunder.grouped_mlp")
+def _grouped_mlp_aug(bins, w_gate, w_up, w_down, group_sizes):
+    if not grouped_mlp_supported(bins, w_gate, w_up, w_down, group_sizes):
+        return NotImplemented  # decompose: the batched-matmul grad rules apply
+    out = grouped_mlp_fwd(bins, w_gate, w_up, w_down, group_sizes)
+    return VJPResult(out, (bins, w_gate, w_up, w_down, group_sizes))
+
+
+@register_backward("thunder.grouped_mlp")
+def _grouped_mlp_bwd(bins, w_gate, w_up, w_down, group_sizes, g):
+    dbins, dwg, dwu, dwd = grouped_mlp_bwd(bins, w_gate, w_up, w_down, group_sizes, g)
+    return dbins, dwg, dwu, dwd, None

@@ -254,8 +254,11 @@ _reg(PrimIDs.CUMPROD, lambda a, dim: torch.cumprod(a, dim, dtype=a.dtype))
 
 
 def _topk(a, k, dim):
-    v, i = torch.topk(a, k, dim)
-    return v, i.to(torch.int32)
+    """lax.top_k's order: values descending, equal values lowest index
+    first (torch.topk leaves ties in no set order). A stable descending
+    sort keeps it, on the CPU and on the card, with no host sync."""
+    v, i = torch.sort(a, dim=dim, descending=True, stable=True)
+    return v.narrow(dim, 0, k), i.narrow(dim, 0, k).to(torch.int32)
 
 
 _reg(PrimIDs.TOPK, _topk)

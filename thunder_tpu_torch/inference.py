@@ -94,19 +94,24 @@ def split_qkv_rope(block, cfg, x_n, cos, sin):
 
 
 def block_mix(block, cfg, x, h):
-    """Residual + MLP tail of one block (the other half of the shared
-    plumbing; see split_qkv_rope)."""
-    if cfg.parallel_residual:
-        return x + h + block.mlp(block.norm_2(x))
+    """Residual + MLP (or MoE) tail of one block (the other half of the
+    shared plumbing; see split_qkv_rope). A models.moe.MoEBlock is always a
+    sequential residual, whatever cfg.parallel_residual says."""
+    mlp = getattr(block, "mlp", None)
+    if mlp is None:
+        mlp = block.moe
+    elif cfg.parallel_residual:
+        return x + h + mlp(block.norm_2(x))
     x = x + h
-    return x + block.mlp(block.norm_2(x))
+    return x + mlp(block.norm_2(x))
 
 
 class GPTInference:
-    """Greedy generation over a models.litgpt.GPT with a dense KV cache, on
-    the model's device. The blocks run manually so attention reads the
-    cache; prefill and decode are two compiled programs, and decode takes
-    its position as a 0-d int32 tensor so one program serves every step."""
+    """Greedy generation over a models.litgpt.GPT or a models.moe.MoEGPT
+    with a dense KV cache, on the model's device. The blocks run manually
+    so attention reads the cache; prefill and decode are two compiled
+    programs, and decode takes its position as a 0-d int32 tensor so one
+    program serves every step."""
 
     def __init__(self, gpt, *, max_seq: Optional[int] = None, dtype=torch.bfloat16):
         from . import jit

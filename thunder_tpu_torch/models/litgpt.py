@@ -323,11 +323,15 @@ def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000, dtype=torch.f
 
 
 def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
-    """Load thunder_tpu's weights into the port's model (a GPT, or a
-    GPTForCausalLM whose names carry the ``gpt.`` prefix): ``params`` is
-    ``{name: np.asarray(p.data)}`` over the JAX model's ``named_parameters()``.
-    Both packages use the same names and the (out, in) Linear layout; the
-    rope buffers are rebuilt by each model, not copied. A quantized model
+    """Load thunder_tpu's weights into the port's model (a GPT, a
+    GPTForCausalLM whose names carry the ``gpt.`` prefix, a models.moe.MoEGPT
+    or MoEMLP): ``params`` is ``{name: np.asarray(p.data)}`` over the JAX
+    model's ``named_parameters()``. Both packages use the same names and the
+    (out, in) Linear layout (an MoE layer's router ``moe.gate.weight`` and
+    its expert panels ``moe.w_gate`` / ``moe.w_up`` (E, D, H) and
+    ``moe.w_down`` (E, H, D) too); the rope buffers are rebuilt by each
+    model, not copied, and the MoE routing-health buffers start at zero on
+    both sides. A quantized model
     (the same transform applied on both sides) carries its int8 or uint8
     codes and f32 scales as they are; a LoRA model its ``lora_A`` and
     ``lora_B`` adapters (parameters). After FP8TrainingTransform, ``params``

@@ -1011,7 +1011,8 @@ def grouped_mlp(bins, w_gate, w_up, w_down, group_sizes):
                  ignores it (zero rows already produce zero outputs)
 
     The decomposition below is the batched-matmul reference path; the
-    grouped expert kernel is a later slice of the port."""
+    cuda executor claims the symbol with its grouped expert kernel
+    (executors/cudaex.py:grouped_mlp)."""
     check(bins.ndim == 3, lambda: f"grouped_mlp: bins must be (E, cap, D), got {bins.shape}")
     E, cap, D = bins.shape
     check(tuple(w_gate.shape) == (E, D, w_gate.shape[-1]),

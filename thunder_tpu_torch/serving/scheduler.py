@@ -99,7 +99,8 @@ class _Request:
 
 
 class ServingEngine:
-    """Continuous-batching greedy inference over a models.litgpt.GPT.
+    """Continuous-batching greedy inference over a models.litgpt.GPT or a
+    models.moe.MoEGPT.
 
     max_batch   decode slots (sequences packed into one decode step)
     page_size   tokens per KV page
