@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
-eval, remat, MoE serve and train, agree.
+eval, remat, MoE serve and train, context-parallel train, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -164,6 +164,37 @@ Phases, each printing one JSON line:
                parameters within MOE_PARAM_ATOL (flip-prone elements,
                whose gradient is near 0 and below 10x the roads' gap,
                within ADAMW_FLIP_ATOL).
+22. check_ring — the ring attention step kernels (ring_flash_fwd replaces
+               pallasex.ring_flash_step, ring_flash_bwd pallasex.ring_flash_bwd_step):
+               one process steps every rank's four-step ring over an
+               8,192-token context (T_blk=2048), diagonal first, at
+               llama-350m's heads (H=16, D=64), a GQA case (H=16, Hkv=4,
+               D=128) and a full (non-causal) case, bf16 and f32: each step
+               against the plain version (RING_TOL), the whole ring's out,
+               lse, dq, dk, dv against the flash kernels on the whole
+               sequence, each tensor within RING_TOL on max |err| / max
+               |ref| and ||err|| / ||ref||; at cp_train's shape (the one
+               diagonal step of T=8192) the kernels against the plain
+               versions (RING_TOL); then timed (CUDA graph, inputs rotated
+               past L2, and eager) there and at T_blk=2048 for a diagonal, a
+               past and a future step, beside bound_ms, the plain versions,
+               SDPA and the flash forward kernel on the same (q, shard) pair.
+23. cp_train — TrainStep over context_parallel(jit(GPTForCausalLM(llama-350m,
+               block_size=8192), [AutocastTransform()]), make_mesh({"sp": 1}))
+               on a one-rank NCCL process group (opened once for phases
+               23-24 and destroyed after them), AdamW(lr=1e-4), B=1, T=8192:
+               3 untimed steps and 10 timed ones between zeroed counters;
+               ring_flash_fwd and ring_flash_bwd must read 24 x 10 each and
+               the flash-RoPE pair 0; losses finite and falling; 2 steps
+               profiled (the NCCL all-reduces of the loss and of every
+               gradient: their device time and host calls). Beside it, the
+               plain TrainStep (flash-RoPE kernels) on the same batch.
+24. cp_train_agreement — f32, TF32 off, llama-350m at 2 layers, B=1, T=1024:
+               3 AdamW steps of the sp=1 context-parallel step against the
+               plain TrainStep from the same weights: losses within
+               LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL, parameters
+               within MOE_PARAM_ATOL (flip-prone elements within
+               ADAMW_FLIP_ATOL), as moe_train_agreement.
 The kernels phase also holds grouped_mlp against its plain version at the
 paths' shapes (decode cap 8 and prefill cap 1024 in bf16, train cap 512 in
 f32, a cap of 200), timed beside its bound, its plain version and the
@@ -1719,7 +1750,8 @@ def train(tt, cudaex, seed) -> dict:
 # Device kernels by what they do, by name: the first kind with a matching
 # mark wins.
 KERNEL_KINDS = (
-    ("attention", ("flash_fwd_kernel", "flash_bwd_")),
+    ("collective", ("nccl",)),
+    ("attention", ("flash_fwd_kernel", "flash_bwd_", "ring_bwd_")),
     ("fp8_linear", ("fp8_linear_kernel",)),
     ("grouped_mlp", ("grouped_kernel",)),
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
@@ -1743,13 +1775,15 @@ def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
             step(idx, tgt)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, nccl_host = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
         if str(e.device_type).endswith("CUDA") and dev_us > 0:
             rows.append((dev_us, e.key, e.count))
+        elif e.key.startswith("nccl:"):
+            nccl_host.append((e.key, e.count, e.cpu_time_total))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     by_kind: dict = {}
@@ -1761,6 +1795,12 @@ def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
                kernel_launches_per_step=sum(r[2] for r in rows) / 2,
                device_ms_per_step_by_kind=by_kind,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]])
+    if nccl_host or "collective" in by_kind:
+        out["nccl"] = dict(
+            device_ms_per_step=by_kind.get("collective", 0.0),
+            device_kernels_per_step=sum(c for _, k, c in rows if "nccl" in k) / 2,
+            host_calls_per_step={k: c / 2 for k, c, _ in nccl_host},
+            host_ms_per_step=sum(us for _, _, us in nccl_host) / 1e3 / 2)
     emit(phase, **out)
     return out
 
@@ -2697,6 +2737,394 @@ def moe_train_agreement(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: context parallelism — the ring kernels, cp_train and its
+# agreement
+# ---------------------------------------------------------------------------
+
+# The four-shard ring that check_ring steps in one process: an 8,192-token
+# context over sp=4, so each rank holds T_blk = 2048 positions: llama-350m's
+# heads, a GQA case (16 q heads over 4 kv heads, D=128) and one full
+# (non-causal) case. Each compared tensor — a step's o/l, m, l and dq, dk,
+# dv against the plain version; the whole ring's out, lse, dq, dk, dv
+# against the flash kernels B1/B2 on the whole sequence — is held on two
+# measures, max |err| / max |ref| and ||err||_2 / ||ref||_2, each within
+# RING_TOL. The second measure is
+# there because |o/l| and dq are ~4 in the first causal rows but ~0.03 in
+# the rows that see hundreds of keys: a bar scaled by the largest value
+# alone is as large as a typical one. A future step's backward writes
+# zeros, so its reference is 0 and any nonzero output fails. In bf16 the
+# kernels round p and ds to bf16 before their products (the plain versions
+# do not) and the flash kernels do so at other running maxima: an H100 read
+# at most 3.7e-3 for a step and 6.0e-3 for the whole ring, so RING_TOL is
+# 2^-6 (8 bf16 ulps, GROUPED_TOL's bar); f32 read at most 1.0e-5.
+RING_CTX, RING_N = 8192, 4
+RING_SHAPES = {"llama-350m": (dict(B=1, H=16, Hkv=16, D=64), True),
+               "gqa-d128": (dict(B=1, H=16, Hkv=4, D=128), True),
+               "llama-350m-full": (dict(B=1, H=16, Hkv=16, D=64), False)}
+RING_TOL = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+
+
+def ring_work(kind: str, B, H, Hkv, T, D, causal=True, fwd=True) -> tuple[float, float]:
+    """(bytes, operations) one ring step must move and do at bf16: q, the
+    shard (k, v) read once; forward: the f32 o, m, l read and written;
+    backward: do read, lse and delta read, f32 dq, dk, dv written; the
+    causal operations of the step's kind (a future shard: none; the
+    forward leaves its accumulators unread, the backward writes zeros)."""
+    qb, kvb, rows = B * H * T * D, B * Hkv * T * D, B * H * T
+    full_ops = 4 * B * H * T * T * D
+    ops = {"diagonal": full_ops / 2 if causal else full_ops, "past": full_ops, "future": 0.0}[kind]
+    if fwd:
+        nbytes = 0.0 if kind == "future" else 2 * qb + 2 * 2 * kvb + 2 * 4 * (qb + 2 * rows)
+        return nbytes, ops
+    out_bytes = 4 * qb + 2 * 4 * kvb
+    nbytes = out_bytes if kind == "future" else 2 * 2 * qb + 2 * 2 * kvb + 2 * 4 * rows + out_bytes
+    return nbytes, 2.5 * ops
+
+
+def ring_inputs(dev, gen, dt, B, H, Hkv, D, T=RING_CTX):
+    q = torch.randn(B, H, T, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, Hkv, T, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, Hkv, T, D, device=dev, generator=gen).to(dt)
+    do = torch.randn(B, H, T, D, device=dev, generator=gen).to(dt)
+    return q, k, v, do
+
+
+def ring_state(q):
+    B, H, T, D = q.shape
+    return (torch.zeros(B, H, T, D, device=q.device),
+            torch.full((B, H, T, 1), -1e30, device=q.device),
+            torch.zeros(B, H, T, 1, device=q.device))
+
+
+def rel_err(got, want) -> list[float]:
+    """[max |err|, max |err| / max |want|, ||err||_2 / ||want||_2] in f32; a
+    zero reference makes any error infinite."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    tiny = torch.finfo(torch.float32).tiny
+    return [d.max().item(), (d.max() / w.abs().max().clamp(min=tiny)).item(),
+            (d.norm() / w.norm().clamp(min=tiny)).item()]
+
+
+def ring_failures(errs: dict, tol: float) -> dict:
+    """The tensors of {name: rel_err} whose relative measures exceed tol."""
+    return {name: e for name, e in errs.items() if not max(e[1], e[2]) <= tol}
+
+
+def step_ring(cudaex, q, k, v, do, causal, n=RING_N) -> tuple[dict, tuple]:
+    """Every rank's ring, diagonal first, in one process: per step the
+    kernel (in place) against the plain version on the same carried state
+    (o/l, m and l); then the backward ring from the kernels' lse. -> ({"fwd":
+    {tensor: rel_err}, "bwd": ...}, the worst over steps of each measure;
+    (out, lse, dq, dk, dv) on the whole sequence)."""
+    T = q.shape[2] // n
+    blk = lambda t, r: t[:, :, r * T:(r + 1) * T].contiguous()  # noqa: E731
+    errs = {"fwd": {}, "bwd": {}}
+
+    def note(kind, names, got, want):
+        for name, g, w in zip(names, got, want):
+            e = rel_err(g, w)
+            errs[kind][name] = [max(a, b) for a, b in zip(errs[kind].get(name, e), e)]
+
+    outs, lses = [], []
+    for r in range(n):
+        qr = blk(q, r)
+        o, m, l = ring_state(qr)
+        for i in range(n):
+            src = (r - i) % n
+            kb, vb = blk(k, src), blk(v, src)
+            want = cudaex.ring_flash_step_plain(qr, kb, vb, o.clone(), m.clone(), l.clone(),
+                                                r * T, src * T, causal)
+            o, m, l = cudaex.ring_flash_step(qr, kb, vb, o, m, l, r * T, src * T, causal)
+            # o is held normalized: its absolute error grows with l (the kernel
+            # rounds p to bf16 for p·v), the output's does not
+            note("fwd", ("o/l", "m", "l"), (o / l, m, l), (want[0] / want[2], want[1], want[2]))
+            del want
+        l1 = l[..., 0]
+        outs.append((o / l1[..., None]).to(q.dtype))
+        lses.append((m[..., 0] + torch.log2(l1)) * cudaex.LN2)
+    out, lse = torch.cat(outs, 2), torch.cat(lses, 2)
+    dq, dk, dv = torch.zeros(q.shape, device=q.device), torch.zeros(k.shape, device=q.device), \
+        torch.zeros(k.shape, device=q.device)
+    for r in range(n):
+        qr, dor = blk(q, r), blk(do, r)
+        lse1 = blk(lse, r)[..., None].contiguous()
+        delta = (dor.float() * blk(out, r).float()).sum(-1, keepdim=True)
+        for i in range(n):
+            src = (r - i) % n
+            kb, vb = blk(k, src), blk(v, src)
+            got = cudaex.ring_flash_bwd_step(qr, kb, vb, dor, lse1, delta, r * T, src * T, causal)
+            note("bwd", ("dq", "dk", "dv"), got,
+                 cudaex.ring_flash_bwd_step_plain(qr, kb, vb, dor, lse1, delta, r * T, src * T, causal))
+            dq[:, :, r * T:(r + 1) * T] += got[0]
+            dk[:, :, src * T:(src + 1) * T] += got[1]
+            dv[:, :, src * T:(src + 1) * T] += got[2]
+    return errs, (out, lse, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def time_ring_steps(cudaex, dev, gen, shp, causal, T, kinds) -> dict:
+    """Device and eager ms of the forward and backward step kernels for each
+    step kind at block T (bf16), beside bound_ms, the plain versions and, as
+    side yardsticks (library_ms is none: no one PyTorch call folds a shard
+    into carried accumulators), SDPA and the B1 flash kernel on the same
+    (q, shard) pair."""
+    B, H, Hkv, D = (shp[x] for x in ("B", "H", "Hkv", "D"))
+    gqa = H != Hkv
+    out = {}
+    for kind in kinds:
+        q_off, k_off = {"diagonal": (T, T), "past": (T, 0), "future": (0, T)}[kind]
+
+        def make():
+            q, k, v, do = ring_inputs(dev, gen, torch.bfloat16, B, H, Hkv, D, T)
+            o, m, l = cudaex.ring_flash_step_plain(q, k, v, *ring_state(q), T, T, causal)
+            lse = ((m + torch.log2(l)) * cudaex.LN2).contiguous()
+            delta = (do.float() * (o / l)).sum(-1, keepdim=True)
+            return q, k, v, do, o.contiguous(), m.contiguous(), l.contiguous(), lse, delta
+
+        fbytes, fops = ring_work(kind, B, H, Hkv, T, D, causal, fwd=True)
+        sets = copies(make, int(fbytes + 8 * B * H * T * D + 1))
+        fwd_args = [(q, k, v, o, m, l, q_off, k_off, causal) for q, k, v, do, o, m, l, _, _ in sets]
+        bwd_args = [(q, k, v, do, lse, delta, q_off, k_off, causal)
+                    for q, k, v, do, _, _, _, lse, delta in sets]
+        row = {}
+        for name, fn, plain, args, fwd in (
+                ("fwd", cudaex.ring_flash_step, cudaex.ring_flash_step_plain, fwd_args, True),
+                ("bwd", cudaex.ring_flash_bwd_step, cudaex.ring_flash_bwd_step_plain, bwd_args, False)):
+            nbytes, ops = ring_work(kind, B, H, Hkv, T, D, causal, fwd)
+            b, by = bound_ms(nbytes, ops, "bfloat16")
+            ms, eager = cuda_ms(fn, args, iters=50)
+            if kind == "future" and causal and fwd:
+                # the plain version returns at once: no device work to time
+                plain_ms = plain_eager = None
+            else:
+                plain_ms, plain_eager = cuda_ms(plain, args[:1], iters=3)
+            row[name] = dict(ms=ms, eager_ms=eager, bound_ms=b, bound_by=by, plain_ms=plain_ms,
+                             plain_eager_ms=plain_eager, library_ms=None)
+        if kind != "future":
+            pairs = [(q, k, v) for q, k, v, *_ in sets]
+            sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal and kind == "diagonal", enable_gqa=gqa)
+            b1 = lambda q, k, v: cudaex.flash_attention(q, k, v, causal and kind == "diagonal")  # noqa: E731
+            row["fwd"]["sdpa_ms"] = cuda_ms(sdpa, pairs, iters=50)[0]
+            row["fwd"]["flash_fwd_ms"] = cuda_ms(b1, pairs, iters=50)[0]
+        out[kind] = row
+        del sets, fwd_args, bwd_args
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_ring(cudaex, dev, gen) -> tuple[dict, dict]:
+    """The ring step kernels: every rank's four-step ring over an 8,192-token
+    context (T_blk=2048), diagonal first, at RING_SHAPES in bf16 and f32,
+    each step against the plain version and the whole ring against the
+    flash kernels on the whole sequence (RING_TOL); at
+    cp_train's shape (B=1, H=16, T=8192, D=64, bf16, the one diagonal step
+    of a one-rank ring) the kernels against the plain versions (RING_TOL);
+    then timed there and at T_blk=2048 for a diagonal, a past and a future
+    step. Every reading is printed before a failure raises."""
+    cases, whole, failed = {"fwd": [], "bwd": []}, [], []
+    n0 = (cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches)
+    for label, (shp, causal) in RING_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = ring_inputs(dev, gen, dt, **shp)
+            errs, (out, lse, dq, dk, dv) = step_ring(cudaex, q, k, v, do, causal)
+            for kind in ("fwd", "bwd"):
+                cases[kind].append({"shape": label, "dtype": dname(dt), "errs": errs[kind]})
+                bad = ring_failures(errs[kind], RING_TOL[dname(dt)])
+                if bad:
+                    failed.append(f"ring_flash_{kind} {label} {dname(dt)} steps: {bad}")
+            ro, rlse = cudaex.flash_attention(q, k, v, causal)
+            ref = cudaex.flash_attention_backward(q, k, v, ro, rlse, do, causal)
+            w = {name: rel_err(g, r) for name, g, r in
+                 zip(("out", "lse", "dq", "dk", "dv"), (out, lse, dq, dk, dv), (ro, rlse, *ref))}
+            whole.append({"shape": label, "dtype": dname(dt), "vs_flash": w})
+            bad = ring_failures(w, RING_TOL[dname(dt)])
+            if bad:
+                failed.append(f"ring {label} {dname(dt)} against flash on the whole sequence: {bad}")
+            del q, k, v, do, out, lse, dq, dk, dv, ro, rlse, ref
+            torch.cuda.empty_cache()
+    cudaex.flash_attention.launches, cudaex.flash_attention_backward.launches = n0
+    # at cp_train's shape: the kernels against their plain versions, then timed
+    shp = RING_SHAPES["llama-350m"][0]
+    q, k, v, do = ring_inputs(dev, gen, torch.bfloat16, **shp)
+    main_errs, _ = step_ring(cudaex, q, k, v, do, True, n=1)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for kind in ("fwd", "bwd"):
+        bad = ring_failures(main_errs[kind], RING_TOL["bfloat16"])
+        if bad:
+            failed.append(f"ring_flash_{kind} at cp_train's shape: {bad}")
+    timing = {"cp_train T=8192": time_ring_steps(cudaex, dev, gen, shp, True, RING_CTX, ["diagonal"]),
+              f"T_blk={RING_CTX // RING_N}": time_ring_steps(cudaex, dev, gen, shp, True,
+                                                             RING_CTX // RING_N,
+                                                             ["diagonal", "past", "future"]),
+              f"gqa-d128 T_blk={RING_CTX // RING_N}": time_ring_steps(cudaex, dev, gen, RING_SHAPES["gqa-d128"][0],
+                                                     True, RING_CTX // RING_N, ["diagonal"])}
+    res = {}
+    for kind in ("fwd", "bwd"):
+        emit("kernels", kernel=f"ring_flash_{kind}", errs_are="[max abs, max/max|ref|, l2/l2 ref]",
+             tol=RING_TOL, cases=cases[kind], cp_train_shape_errs=main_errs[kind],
+             whole_ring=whole if kind == "bwd" else None,
+             timing_bf16={lbl: {k2: r[kind] | ({} if kind == "bwd" else
+                                               {x: r["fwd"].get(x) for x in ("sdpa_ms", "flash_fwd_ms")})
+                                for k2, r in t.items()}
+                          for lbl, t in timing.items()})
+        main = timing["cp_train T=8192"]["diagonal"][kind]
+        res[kind] = dict(max_abs_err=max(e[0] for e in main_errs[kind].values()),
+                         shape="B=1 H=16 T=8192 D=64 causal bf16, the diagonal step (cp_train)",
+                         **{x: main[x] for x in ("ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")})
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return res["fwd"], res["bwd"]
+
+
+def cp_step(tt, model, autocast: bool, sp: bool, opt=None):
+    """TrainStep over jit(model) with opt (default AdamW(lr=TRAIN_LR)),
+    autocast or not; with sp, context_parallel over a one-rank mesh of the
+    process group."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.parallel import context_parallel, make_mesh
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    tm = tt.jit(model, transforms=[AutocastTransform()] if autocast else None)
+    if sp:
+        context_parallel(tm, make_mesh({"sp": 1}))
+    return TrainStep(tm, opt if opt is not None else optim.AdamW(lr=TRAIN_LR))
+
+
+def cp_train(tt, cudaex, seed) -> dict:
+    """TrainStep over context_parallel(jit(GPTForCausalLM(llama-350m,
+    block_size=8192), [AutocastTransform()]), make_mesh({"sp": 1})) on a
+    one-rank NCCL group, AdamW(lr=1e-4), B=1, T=8192: 3 untimed steps (the
+    first timed as compile) and 10 timed ones between zeroed counters —
+    ring_flash_fwd and ring_flash_bwd 24 x 10 each, the flash-RoPE pair 0;
+    losses finite and falling; 2 steps profiled, with the NCCL all-reduces
+    of the loss and of every gradient. Beside it, the plain TrainStep
+    (flash-RoPE kernels) on the same batch in the same call."""
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T, n_steps = 1, RING_CTX, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    runs = {}
+    for name, sp in (("cp", True), ("plain", False)):
+        reset_peak_memory()
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        step = cp_step(tt, model, True, sp)
+        t0 = time.perf_counter()
+        first = float(step(idx, tgt))
+        compile_s = time.perf_counter() - t0
+        for _ in range(2):
+            step(idx, tgt)
+        torch.cuda.synchronize()
+        counters = (cudaex.ring_flash_step, cudaex.ring_flash_bwd_step,
+                    cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward)
+        for c in counters:
+            c.launches = 0
+        step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+        launches = dict(zip(("ring_flash_fwd", "ring_flash_bwd", "flash_rope_fwd", "flash_rope_bwd"),
+                            (c.launches for c in counters)))
+        want = cfg.n_layer * n_steps
+        expect = ({"ring_flash_fwd": want, "ring_flash_bwd": want, "flash_rope_fwd": 0,
+                   "flash_rope_bwd": 0} if sp else
+                  {"ring_flash_fwd": 0, "ring_flash_bwd": 0, "flash_rope_fwd": want,
+                   "flash_rope_bwd": want})
+        if launches != expect:
+            raise AssertionError(f"cp_train ({name}) launches {launches} over {n_steps} steps, "
+                                 f"want {expect}")
+        losses = [first] + losses
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"cp_train ({name}) losses {losses}")
+        fwd = tt.last_traces(step)[-1].bound_symbols
+        bwd = tt.last_backward_traces(step)[-1].bound_symbols
+        bound = step_bound(model, cfg, B, T)
+        out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 autocast, f32 master",
+                   plan="context_parallel sp=1 (one-rank NCCL group)" if sp else "none",
+                   steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s,
+                   mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"], **bound,
+                   compile_s=compile_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses=losses, launches=launches,
+                   ops_per_step={"forward": len(fwd), "backward": len(bwd)})
+        if sp:
+            claims = {"forward": sorted({b.sym.id for b in fwd if b.impl is cudaex._ring_flash_fwd_impl}),
+                      "backward": sorted({b.sym.id for b in bwd if b.impl is cudaex._ring_flash_bwd_impl})}
+            if claims != {"forward": ["dist.ring_attention_fwd"], "backward": ["dist.ring_attention_bwd"]}:
+                raise AssertionError(f"cp_train's cuda claims are {claims}")
+            out["claims"] = claims
+            out["collectives_per_step"] = {
+                "forward": sum(b.sym.id == "dist.all_reduce" for b in fwd),
+                "backward": sum(b.sym.id == "dist.all_reduce" for b in bwd)}
+        emit("cp_train" if sp else "cp_train_plain", **out)
+        out["profile"] = train_profile(step, idx, tgt, "cp_train_profile" if sp else "cp_train_plain_profile")
+        runs[name] = out
+        del step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs["cp"], runs["plain"]
+
+
+def cp_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off: llama-350m at 2 layers, B=1, T=1024, from the same
+    weights: 3 AdamW steps of the sp=1 context-parallel step (the ring
+    kernels, the synchronize and all_reduce prims over the NCCL group)
+    against the plain TrainStep (the flash-RoPE kernels). The two differ in
+    summation order only, so they are held as moe_train_agreement holds its
+    roads: losses within LOSS_RTOL (the bar of thunder_tpu's
+    test_context_parallel_gpt_exact), step-1 gradients within MOE_GRAD_RTOL
+    of each tensor's largest, parameters within MOE_PARAM_ATOL but
+    flip-prone elements within ADAMW_FLIP_ATOL."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T, n_steps = 1, 1024, 3
+    cfg = Config.from_name("llama-350m", n_layer=2, block_size=T)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    runs = {}
+    for road in ("plain", "cp"):
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        rec = GradRecorder(optim.AdamW(lr=TRAIN_LR), runs["plain"]["rec"] if runs else None)
+        step = cp_step(tt, model, False, road == "cp", rec)
+        n0 = cudaex.ring_flash_step.launches, cudaex.ring_flash_bwd_step.launches
+        losses = [float(step(idx, tgt)) for _ in range(n_steps)]
+        runs[road] = dict(losses=losses, rec=rec, params={k: p.detach() for k, p in model.named_parameters()},
+                          ring=(cudaex.ring_flash_step.launches - n0[0],
+                                cudaex.ring_flash_bwd_step.launches - n0[1]))
+        del step
+    cp, ref = runs["cp"], runs["plain"]
+    if cp["ring"] != (cfg.n_layer * n_steps,) * 2 or ref["ring"] != (0, 0):
+        raise AssertionError(f"ring kernel launches: CP step {cp['ring']}, plain step {ref['ring']}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cp["losses"], ref["losses"]))
+    g1, r1 = cp["rec"].steps[0], ref["rec"].steps[0]
+    if g1.keys() != r1.keys() or g1.keys() != cp["params"].keys():
+        raise AssertionError(f"gradients for {sorted(g1)} and {sorted(r1)}, parameters {sorted(cp['params'])}")
+    grad_rel = {k: ((g1[k] - r1[k]).abs().max() / r1[k].abs().max().clamp(min=1e-30)).item() for k in r1}
+    prone = cp["rec"].flip_prone
+    tight, flip = [], []
+    for k in cp["params"]:
+        diff = (cp["params"][k] - ref["params"][k]).abs()
+        tight.append(diff[~prone[k]])
+        flip.append(diff[prone[k]])
+    tight, flip = torch.cat(tight), torch.cat(flip)
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False,
+               losses=cp["losses"], plain_losses=ref["losses"], loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               grad_max_rel=max(grad_rel.values()), grad_rtol=MOE_GRAD_RTOL,
+               param_max_abs=tight.max().item(), param_atol=MOE_PARAM_ATOL,
+               flip_prone_elements=flip.numel(), elements=tight.numel() + flip.numel(),
+               flip_prone_max_abs=flip.max().item() if flip.numel() else 0.0, flip_prone_atol=ADAMW_FLIP_ATOL)
+    emit("cp_train_agreement", **out)
+    if (not loss_rel <= LOSS_RTOL or not out["grad_max_rel"] <= MOE_GRAD_RTOL
+            or not out["param_max_abs"] <= MOE_PARAM_ATOL or not out["flip_prone_max_abs"] <= ADAMW_FLIP_ATOL):
+        raise AssertionError(f"cp train agreement: losses {loss_rel}, gradients "
+                             f"{ {k: v for k, v in grad_rel.items() if not v <= MOE_GRAD_RTOL} }, "
+                             f"params {out['param_max_abs']}, flip-prone params {out['flip_prone_max_abs']}")
+    del runs, cp, ref, tight, flip
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2707,6 +3135,7 @@ def main() -> int:
     import thunder_tpu_torch as tt
     from thunder_tpu_torch.executors import cudaex
     from thunder_tpu_torch.models.litgpt import Config
+    from thunder_tpu_torch.parallel import multiprocess
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2762,6 +3191,14 @@ def main() -> int:
     moe_agreement(cfg, prompts[:4], args.seed)
     moe_train(tt, cudaex, args.seed)
     moe_train_agreement(tt, cudaex, args.seed)
+    ring_fwd, ring_bwd = check_ring(cudaex, dev, gen)
+    # one process group for both CP phases, destroyed after them
+    multiprocess.initialize(f"tcp://localhost:{multiprocess.free_port()}", 1, 0)
+    try:
+        cp_trained, _ = cp_train(tt, cudaex, args.seed)
+        cp_train_agreement(tt, cudaex, args.seed)
+    finally:
+        multiprocess.destroy()
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -2789,7 +3226,11 @@ def main() -> int:
             ("cross_entropy", xent, "thunder_tpu_torch/csrc/cross_entropy.cu",
              "thunder_tpu/executors/pallasex.py:1179", nano_evaluated["launches"]["cross_entropy"]),
             ("grouped_mlp", grouped, "thunder_tpu_torch/csrc/grouped_mlp.cu",
-             "thunder_tpu/executors/pallasex.py:2004", moe_served["launches"]["grouped_mlp"])):
+             "thunder_tpu/executors/pallasex.py:2004", moe_served["launches"]["grouped_mlp"]),
+            ("ring_flash_fwd", ring_fwd, "thunder_tpu_torch/csrc/ring_flash_fwd.cu",
+             "thunder_tpu/executors/pallasex.py:2205", cp_trained["launches"]["ring_flash_fwd"]),
+            ("ring_flash_bwd", ring_bwd, "thunder_tpu_torch/csrc/ring_flash_bwd.cu",
+             "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

@@ -943,3 +943,119 @@ def test_grouped_mlp_wrapper_refuses_bad_inputs(cuda):
                            wd[..., :36].contiguous(), gs)
     with pytest.raises(ValueError, match="CUDA device"):
         cudaex.grouped_mlp(bins, wg, wu, wd, gs.cpu())
+
+
+# ---------------------------------------------------------------------------
+# Ring attention's step kernels on the card (plain versions against
+# pallasex's interpret kernels in tests/test_torch_parallel.py)
+# ---------------------------------------------------------------------------
+
+RING_CASES = {"mha-ragged": (1, 4, 4, 200, 64), "gqa-d128": (1, 8, 2, 256, 128),
+              "gqa-ragged-d32": (2, 4, 2, 77, 32), "mqa-d16": (1, 2, 1, 64, 16)}
+# (q_off, k_off) in units of T: the step kinds of a rank's ring
+RING_STEPS = {"diagonal": (1, 1), "past": (1, 0), "future": (0, 1)}
+# chip_smoke.py's RING_TOL: each tensor within tol on max |err| / max |ref|
+# and on ||err|| / ||ref|| (|o/l| and dq span ~0.03 to ~4 across rows, so a
+# bar scaled by the largest value alone is as large as a typical one); a
+# zero reference (a future step's backward) admits no error.
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _assert_ring_close(got, want, dtype, name):
+    d = (got.float() - want.float()).abs()
+    w = want.float()
+    tol = RING_TOL[dtype]
+    assert d.max() <= tol * w.abs().max() and d.norm() <= tol * w.norm(), (
+        name, d.max().item(), w.abs().max().item(), d.norm().item(), w.norm().item())
+
+
+def _ring_card_inputs(cuda, dtype, B, H, Hkv, T, D, seed):
+    """q, kb, vb, do in dtype, and the (o, m, l) a diagonal step leaves from
+    the empty state (plain version, f32): the state a later step finds."""
+    q, kb, vb, _, _, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=seed))
+    q, kb, vb, do = (t.to(dtype) for t in (q, kb, vb, do))
+    o = torch.zeros(B, H, T, D, device=cuda)
+    m = torch.full((B, H, T, 1), cudaex.NEG_INF, device=cuda)
+    l = torch.zeros(B, H, T, 1, device=cuda)
+    o, m, l = cudaex.ring_flash_step_plain(q, kb, vb, o, m, l, T, T, True)
+    return q, kb, vb, do, o.contiguous(), m.contiguous(), l.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("step", list(RING_STEPS))
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_step_kernels_match_plain(cuda, case, step, causal, dtype):
+    """Both ring kernels against their plain versions within RING_TOL (o/l,
+    m, l; dq, dk, dv), from the state a diagonal step leaves, with GQA,
+    ragged T and each step kind."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Hkv, T, D = RING_CASES[case]
+    q, kb, vb, do, o, m, l = _ring_card_inputs(cuda, dtype, B, H, Hkv, T, D, seed=T + D)
+    q_off, k_off = (T * x for x in RING_STEPS[step])
+    want = cudaex.ring_flash_step_plain(q, kb, vb, o, m, l, q_off, k_off, causal)
+    n0 = (cudaex.ring_flash_step.launches, cudaex.ring_flash_bwd_step.launches)
+    got = cudaex.ring_flash_step(q, kb, vb, o.clone(), m.clone(), l.clone(), q_off, k_off, causal)
+    # the global lse of the carried state after this step, and delta
+    lse = (want[1] + torch.log2(want[2])) * cudaex.LN2
+    delta = (do.float() * (want[0] / want[2])).sum(-1, keepdim=True)
+    grads = cudaex.ring_flash_bwd_step(q, kb, vb, do, lse, delta, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    assert (cudaex.ring_flash_step.launches, cudaex.ring_flash_bwd_step.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    for name, g, w in zip(("o/l", "m", "l"), (got[0] / got[2], got[1], got[2]),
+                          (want[0] / want[2], want[1], want[2])):
+        _assert_ring_close(g, w, dtype, name)
+    ref = cudaex.ring_flash_bwd_step_plain(q, kb, vb, do, lse, delta, q_off, k_off, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.float32
+        _assert_ring_close(g, w, dtype, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_future_step_leaves_accumulators_bit_unchanged(cuda, dtype):
+    q, kb, vb, do, o, m, l = _ring_card_inputs(cuda, dtype, *RING_CASES["gqa-ragged-d32"], seed=1)
+    before = [t.clone() for t in (o, m, l)]
+    T = q.shape[2]
+    out = cudaex.ring_flash_step(q, kb, vb, o, m, l, 0, T, True)
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(out, (o, m, l)))  # updated in place
+    for a, b in zip((o, m, l), before):
+        assert torch.equal(a, b)
+    lse = torch.zeros_like(m)
+    for g in cudaex.ring_flash_bwd_step(q, kb, vb, do, lse, lse, 0, T, True):
+        assert not g.any()
+
+
+@pytest.mark.gpu
+def test_ring_wrappers_never_take_the_plain_route_on_the_card(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(cudaex, "ring_flash_step_plain", refuse)
+    monkeypatch.setattr(cudaex, "ring_flash_bwd_step_plain", refuse)
+    q = torch.randn(1, 2, 64, 32, device=cuda)
+    o, m, l = torch.zeros_like(q), torch.full((1, 2, 64, 1), -1e30, device=cuda), torch.zeros(1, 2, 64, 1, device=cuda)
+    n0 = cudaex.ring_flash_step.launches
+    cudaex.ring_flash_step(q, q, q, o, m, l, 0, 0, True)
+    cudaex.ring_flash_bwd_step(q, q, q, q, l, l, 0, 0, True)
+    torch.cuda.synchronize()
+    assert cudaex.ring_flash_step.launches == n0 + 1
+    with pytest.raises(ValueError, match="f32"):
+        cudaex.ring_flash_step(q, q, q, o.bfloat16(), m, l, 0, 0, True)
+    with pytest.raises(ValueError, match="does not fit"):
+        cudaex.ring_flash_step(q, q[:, :, :32].contiguous(), q[:, :, :32].contiguous(), o, m, l, 0, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros(1, 2, 64, 136, device=cuda)
+        cudaex.ring_flash_step(z, z, z, z, m, l, 0, 0)
+
+
+@pytest.mark.gpu
+def test_ring_checker_on_card_tensors(cuda):
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, dtype=dt, device=cuda)  # noqa: E731
+    assert cudaex.ring_flash_supported(z(1, 16, 2048, 64), z(1, 16, 2048, 64), z(1, 16, 2048, 64))
+    assert cudaex.ring_flash_supported(z(1, 16, 2048, 128), z(1, 4, 2048, 128), z(1, 4, 2048, 128))
+    assert not cudaex.ring_flash_supported(z(1, 16, 2048, 64), z(1, 16, 1024, 64), z(1, 16, 1024, 64))
+    assert not cudaex.ring_flash_supported(z(1, 16, 64, 256), z(1, 16, 64, 256), z(1, 16, 64, 256))

@@ -11,7 +11,9 @@ The serving slice brought ``jit`` and ``last_traces`` here, ``nn``,
 ``models.litgpt``, ``inference`` and ``serving``; the training slice brings
 ``value_and_grad``/``grad`` (transforms/autodiff.py), ``AutocastTransform``
 (transforms/autocast.py), ``jit(module, transforms=...)`` returning a
-``ThunderModule``, ``optim`` and ``training.TrainStep``. A program runs where
+``ThunderModule``, ``optim`` and ``training.TrainStep``; the distributed
+slice brings ``parallel`` (a mesh over torch.distributed process groups,
+``ddp`` and ring-attention ``context_parallel``). A program runs where
 its tensor inputs live; model and engine constructors take ``device`` and
 default to the card (raising when there is none).
 """

@@ -1,7 +1,7 @@
 """CompileData / CompileStats / CacheEntry and the effect epilogue for jit.
 
-The bookkeeping of thunder_tpu/common.py, without the distributed state
-(it waits for the slice that needs it)."""
+The bookkeeping of thunder_tpu/common.py, without the distributed state:
+a distributed plan rides on the ThunderModule (parallel/transforms.py)."""
 from __future__ import annotations
 
 import threading

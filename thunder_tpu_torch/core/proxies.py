@@ -2,9 +2,10 @@
 
 The proxy zoo of thunder_tpu/core/proxies.py — TensorProxy
 (shape/dtype/device/requires_grad), NumberProxy, CollectionProxy — with
-torch tensors as the runtime values. The distributed annotations
-(DistParallelType, sharding, FutureTensorProxy) wait for the port's
-distributed slice.
+torch tensors as the runtime values. The distributed annotations that only
+sharded parameters and asynchronous collectives need (DistParallelType,
+sharding, FutureTensorProxy) are not ported yet: replicated data and
+context parallelism (parallel/) need none of them.
 
 Method/operator dispatch on TensorProxy resolves through a method registry the
 op namespaces populate at import time (the reference routes this through

@@ -25,6 +25,15 @@ composite ltorch symbols whole and two quantized-linear prims:
 * ``quant.linear_nf4_kl`` → ``nf4_linear`` (csrc/nf4_linear.cu), which
   replaces pallasex.nf4_linear.
 
+It claims the three ``dist.*`` operators of ring-attention context
+parallelism (parallel/context_parallel.py) — ``dist.ring_attention`` and
+the ``dist.ring_attention_fwd``/``_bwd`` pair its grad rule records — and
+runs their rings (``_ring_flash_fwd_impl``, ``_ring_flash_bwd_impl``: that
+module's ring driver, the loops of pallasex's ring with
+``torch.distributed`` point-to-point transfers) through ``ring_flash_step`` (csrc/ring_flash_fwd.cu), which
+replaces pallasex.ring_flash_step, and ``ring_flash_bwd_step``
+(csrc/ring_flash_bwd.cu), which replaces pallasex.ring_flash_bwd_step.
+
 It also holds ``fp8_linear`` (csrc/fp8_linear.cu), which replaces
 pallasex.fp8_linear_fused; transforms/fp8_training.py's stateful operators
 call it at run time, where its checker claims the shape.
@@ -166,6 +175,11 @@ def _library():
         lib.tt_fp8_linear.restype = i
         lib.tt_grouped_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.tt_grouped_mlp.restype = i
+        lib.tt_ring_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+        lib.tt_ring_flash_fwd.restype = i
+        lib.tt_ring_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f,
+                                          i, p]
+        lib.tt_ring_flash_bwd.restype = i
         _lib = lib
     return _lib
 
@@ -1243,3 +1257,185 @@ def _grouped_mlp_aug(bins, w_gate, w_up, w_down, group_sizes):
 def _grouped_mlp_bwd(bins, w_gate, w_up, w_down, group_sizes, g):
     dbins, dwg, dwu, dwd = grouped_mlp_bwd(bins, w_gate, w_up, w_down, group_sizes, g)
     return dbins, dwg, dwu, dwd, None
+
+
+# ---------------------------------------------------------------------------
+# Ring attention (context parallelism): the forward and backward ring steps
+# and the ring loops
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # csrc/flash_common.cuh kNegInf: the TPU kernels' finite sentinel
+LN2 = 0.6931471805599453
+
+
+def _ring_scores2(q, kb, q_off, k_off, causal, scale):
+    """q·kbᵀ·scale·log2(e) in f32 (kb repeated over the GQA group), NEG_INF
+    where the global causal mask hides a key."""
+    T, Tk = q.shape[2], kb.shape[2]
+    g = q.shape[1] // kb.shape[1]
+    s = torch.matmul(q.float(), kb.float().repeat_interleave(g, 1).transpose(-1, -2)) * (scale * LOG2E)
+    if causal:
+        qp = q_off + torch.arange(T, device=q.device)
+        kp = k_off + torch.arange(Tk, device=q.device)
+        s = torch.where(kp[None, :] <= qp[:, None], s, NEG_INF)
+    return s
+
+
+def ring_flash_step_plain(q, kb, vb, o, m, l, q_off, k_off, causal=True, scale=None):
+    """The forward step kernel's function in plain PyTorch, f32, in the same
+    log2 units: fold the shard kb/vb into (o, m, l) with the online softmax
+    (m_new = max(m, rowmax s), p = exp2(s − m_new), l·exp2(m − m_new) + Σp,
+    o·exp2(m − m_new) + p·v) -> new (o, m, l). A shard wholly in the
+    future under the causal mask returns the accumulators as they are, as
+    the kernel leaves them."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if causal and k_off > q_off + q.shape[2] - 1:
+        return o, m, l
+    g = q.shape[1] // kb.shape[1]
+    s = _ring_scores2(q, kb, q_off, k_off, causal, scale)
+    m_new = torch.maximum(m[..., 0], s.amax(-1))
+    p = torch.exp2(s - m_new[..., None])
+    corr = torch.exp2(m[..., 0] - m_new)
+    l_new = l[..., 0] * corr + p.sum(-1)
+    o_new = o * corr[..., None] + torch.matmul(p, vb.float().repeat_interleave(g, 1))
+    return o_new, m_new[..., None], l_new[..., None]
+
+
+def ring_flash_bwd_step_plain(q, kb, vb, do, lse, delta, q_off, k_off, causal=True, scale=None):
+    """The backward step kernels' function in plain PyTorch, f32: p from the
+    global lse (B, H, T, 1, natural log), ds = p·(dp − delta)·scale ->
+    (dq (B, H, T, D), dk, dv (B, Hkv, Tk, D)) f32, dk/dv summed over the
+    GQA group."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    B, H, T, D = q.shape
+    Hkv, Tk = kb.shape[1], kb.shape[2]
+    g = H // Hkv
+    s = _ring_scores2(q, kb, q_off, k_off, causal, scale)
+    p = torch.exp2(s - lse.float() * LOG2E)
+    dof = do.float()
+    kr, vr = kb.float().repeat_interleave(g, 1), vb.float().repeat_interleave(g, 1)
+    ds = p * (torch.matmul(dof, vr.transpose(-1, -2)) - delta.float()) * scale
+    dq = torch.matmul(ds, kr)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).reshape(B, Hkv, g, Tk, D).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).reshape(B, Hkv, g, Tk, D).sum(2)
+    return dq, dk, dv
+
+
+def _check_ring(name, q, kb, vb, *f32) -> None:
+    B, H, T, D = q.shape
+    _check_cuda(name, q, kb, vb, *f32)
+    _require(q.dtype in _DTYPE_CODE and kb.dtype == q.dtype and vb.dtype == q.dtype,
+             f"{name}: q, kb and vb must share a float dtype")
+    _require(kb.ndim == 4 and tuple(kb.shape) == tuple(vb.shape) and kb.shape[0] == B
+             and kb.shape[2] == T and kb.shape[3] == D and H % kb.shape[1] == 0,
+             f"{name}: q {tuple(q.shape)} does not fit the shard {tuple(kb.shape)} "
+             f"(equal shards: T == T_blk)")
+    _require(D % 2 == 0 and D % _vec(q.dtype) == 0 and D <= _FLASH_MAX_D,
+             f"{name}: head dim {D} unsupported for {q.dtype}")
+    _require(all(t.dtype == torch.float32 for t in f32), f"{name}: the accumulators must be f32")
+
+
+def ring_flash_step(q, kb, vb, o, m, l, q_off, k_off, causal=True, scale=None):
+    """One forward ring step: fold the arriving K/V shard kb/vb (B, Hkv, T,
+    D) into the carried f32 accumulators o (B, H, T, D), m and l (B, H, T,
+    1) — log2 units, o unnormalized — for local queries q (B, H, T, D).
+    q_off and k_off are the global positions of the queries' and the
+    shard's first rows. On the card the kernel updates o, m and l IN PLACE
+    and returns them; a shard wholly in the future leaves them untouched."""
+    if q.device.type == "cpu":
+        return ring_flash_step_plain(q, kb, vb, o, m, l, q_off, k_off, causal, scale)
+    _check_ring("ring_flash_step", q, kb, vb, o, m, l)
+    B, H, T, D = q.shape
+    _require(tuple(o.shape) == (B, H, T, D) and tuple(m.shape) == (B, H, T, 1)
+             and tuple(l.shape) == (B, H, T, 1),
+             "ring_flash_step: o must be (B, H, T, D), m and l (B, H, T, 1)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.numel():
+        _raise_on(_library().tt_ring_flash_fwd(
+            q.data_ptr(), kb.data_ptr(), vb.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            B, H, kb.shape[1], T, D, int(q_off), int(k_off), int(bool(causal)),
+            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "ring_flash_step")
+        ring_flash_step.launches += 1
+    return o, m, l
+
+
+ring_flash_step.launches = 0
+
+
+def ring_flash_bwd_step(q, kb, vb, do, lse, delta, q_off, k_off, causal=True, scale=None):
+    """One backward ring step: the local queries' f32 dq contribution (B, H,
+    T, D) and the shard's f32 dk/dv contributions (B, Hkv, T, D), summed
+    over the GQA group, from the global lse and delta (B, H, T, 1) f32 and
+    do in q's dtype. One launch count covers the kernel's two passes."""
+    if q.device.type == "cpu":
+        return ring_flash_bwd_step_plain(q, kb, vb, do, lse, delta, q_off, k_off, causal, scale)
+    _check_ring("ring_flash_bwd_step", q, kb, vb, lse, delta)
+    _check_cuda("ring_flash_bwd_step", q, do)
+    B, H, T, D = q.shape
+    _require(do.dtype == q.dtype and tuple(do.shape) == tuple(q.shape)
+             and tuple(lse.shape) == (B, H, T, 1) and tuple(delta.shape) == (B, H, T, 1),
+             "ring_flash_bwd_step: do must be q's dtype and shape, lse and delta (B, H, T, 1)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dq = torch.empty((B, H, T, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty(kb.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(kb.shape, dtype=torch.float32, device=q.device)
+    if q.numel():
+        _raise_on(_library().tt_ring_flash_bwd(
+            q.data_ptr(), kb.data_ptr(), vb.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, kb.shape[1], T,
+            D, int(q_off), int(k_off), int(bool(causal)), float(scale), float(scale * LOG2E),
+            _DTYPE_CODE[q.dtype], _stream(q)), "ring_flash_bwd_step")
+        ring_flash_bwd_step.launches += 1
+    return dq, dk, dv
+
+
+ring_flash_bwd_step.launches = 0
+
+
+def ring_flash_supported(q, k, v, *args, **kwargs) -> bool:
+    """Hopper's checker for the ring kernels (in place of pallasex's VMEM
+    budget): 4-d q/k/v of one float dtype, k and v of one shape, equal
+    shards (T == T_blk, as the TPU rule has), H % Hkv == 0, an even D that
+    is a multiple of the 16-byte vector and at most 128. Any T: the kernels
+    mask the ragged edge. Everything else runs parallel/context_parallel.py's
+    ring over the plain steps on the torch executor."""
+    if getattr(q, "ndim", 0) != 4 or getattr(k, "ndim", 0) != 4 or getattr(v, "ndim", 0) != 4:
+        return False
+    B, H, T, D = q.shape
+    tdt = to_torch_dtype(q.dtype)
+    return (
+        tdt in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype
+        and tuple(k.shape) == tuple(v.shape) and k.shape[0] == B and k.shape[2] == T
+        and k.shape[3] == D and H % k.shape[1] == 0
+        and D % 2 == 0 and D % _vec(tdt) == 0 and D <= _FLASH_MAX_D
+    )
+
+
+def _ring_flash_fwd_impl(q, k, v, **kw):
+    """The forward ring of parallel/context_parallel.py through the step
+    kernel (pallasex._ring_flash_fwd_impl)."""
+    from ..parallel.context_parallel import ring_attention_forward
+
+    return ring_attention_forward(q, k, v, step=ring_flash_step, **kw)
+
+
+def _ring_flash_bwd_impl(q, k, v, out, lse, do, **kw):
+    """The backward ring of parallel/context_parallel.py through the
+    backward step kernels (pallasex._ring_flash_bwd_impl)."""
+    from ..parallel.context_parallel import ring_attention_backward
+
+    return ring_attention_backward(q, k, v, out, lse, do, step=ring_flash_bwd_step, **kw)
+
+
+def _ring_attention_impl(q, k, v, **kw):
+    return _ring_flash_fwd_impl(q, k, v, **kw)[0]
+
+
+# dist.ring_attention (no gradient) and the two operators of its grad rule
+# (parallel/context_parallel.py): a declined shape runs the ring over the
+# plain steps
+ex.register_implementation("dist.ring_attention", _ring_attention_impl, checker=ring_flash_supported)
+ex.register_implementation("dist.ring_attention_fwd", _ring_flash_fwd_impl,
+                           checker=ring_flash_supported)
+ex.register_implementation("dist.ring_attention_bwd", _ring_flash_bwd_impl,
+                           checker=ring_flash_supported)

@@ -8,8 +8,11 @@ LLaMA (SwiGLU) MLPs and parallel residuals.
 Weights are random, made on the model's device from ``seed``;
 ``load_jax_params`` loads thunder_tpu's weights instead. The attention of
 ``GPT.forward`` (``ltorch.rope_sdpa``) is claimed by the flash-RoPE kernels
-(executors/cudaex.py); serving runs the blocks itself (inference.py,
-serving/runner.py). ``GPTForCausalLM`` adds the shifted-target loss that
+(executors/cudaex.py); traced under context parallelism
+(parallel/context_parallel.py) it takes RoPE outside and plain ``sdpa``,
+which the transform rewrites into ring attention, and ``rope_slice`` gives
+each rank's tokens their global positions. Serving runs the blocks itself
+(inference.py, serving/runner.py). ``GPTForCausalLM`` adds the shifted-target loss that
 ``training.TrainStep`` minimizes."""
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from .. import nn
 from ..core.devices import resolve_device
 from ..ops import ltorch
+from ..parallel.context_parallel import current_seq_parallel_ctx
 from ..transforms import remat
 
 
@@ -195,9 +199,12 @@ class CausalSelfAttention(nn.Module):
         v = ltorch.permute(v, (0, 2, 1, 3))
 
         n_elem = cfg.rope_n_elem
-        if n_elem == hs and hs % 2 == 0:
+        if n_elem == hs and hs % 2 == 0 and current_seq_parallel_ctx() is None:
             # fused rope+attention symbol (GQA included), as thunder_tpu
-            # traces it; it runs decomposed until its kernel is ported
+            # traces it: the cuda executor claims it with the flash-RoPE
+            # kernels (csrc/flash_rope_*.cu); ring-attention context
+            # parallelism rewrites plain sdpa bsyms, so it takes the
+            # decomposed path
             y = ltorch.rope_sdpa(q, k, v, cos, sin, is_causal=True,
                                  scale=1.0 / math.sqrt(hs))
         else:
@@ -282,7 +289,7 @@ class GPT(nn.Module):
 
     def forward(self, idx):
         B, T = idx.shape
-        cos, sin = self.cos[:T], self.sin[:T]
+        cos, sin = rope_slice(self.cos, self.sin, T)
         x = self.wte(idx)
         for block in self.h:
             if self.cfg.activation_checkpoint:
@@ -307,6 +314,24 @@ class GPTForCausalLM(nn.Module):
         B, T, V = logits.shape
         return ltorch.cross_entropy(
             ltorch.reshape(logits, (B * T, V)), ltorch.reshape(targets, (B * T,)))
+
+
+def rope_slice(cos_full, sin_full, T: int):
+    """Positions [0, T) normally; under context-parallel tracing the rank's
+    sequence block [idx*T, (idx+1)*T) — local tokens carry global positions."""
+    ctx = current_seq_parallel_ctx()
+    if ctx is None:
+        return cos_full[:T], sin_full[:T]
+    from ..core import prims
+    from ..ops import clang
+    from ..parallel import prims as dist_prims
+
+    axis, _ = ctx
+    n_elem = cos_full.shape[-1]
+    offset = dist_prims.axis_index(axis) * T
+    cos = prims.dynamic_slice(clang.ensure_proxy(cos_full), (offset, 0), (T, n_elem))
+    sin = prims.dynamic_slice(clang.ensure_proxy(sin_full), (offset, 0), (T, n_elem))
+    return cos, sin
 
 
 def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000, dtype=torch.float32,

@@ -73,7 +73,10 @@ def has_grad_rule(sym_id) -> bool:
 
 # ops whose gradient thunder_tpu takes from jax.vjp of their jax impl
 # (JAX_VJP_FALLBACK there). The port has no counterpart yet: differentiating
-# one raises NotImplementedError naming it.
+# one raises NotImplementedError naming it. dist.ring_attention, which is in
+# thunder_tpu's JAX_VJP_FALLBACK, has an explicit grad rule in the port
+# (parallel/context_parallel.py: the backward ring over the plain backward
+# step, or over the ring kernels where the cuda executor claims it).
 VJP_FALLBACK_OPS: set = {
     PrimIDs.CONVOLUTION, PrimIDs.GROUPED_MM, PrimIDs.ATAN2, PrimIDs.CUMSUM,
     PrimIDs.CUMPROD, PrimIDs.REDUCE_WINDOW, PrimIDs.CONV_TRANSPOSE, PrimIDs.EINSUM,
