@@ -425,16 +425,128 @@ def test_paged_chunk_kernel_empty_rows_give_zeros(cuda):
     assert not out[0].any() and not out[1, :, 2].any() and out[1, :, 3].abs().sum() > 0
 
 
-FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# fp16 at bf16's bar: the kernels round p and ds to fp16, whose 3 more
+# mantissa bits keep its error well below bf16's.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+# The backward's dq, dk and dv are held on three measures, each within
+# FLASH_GRAD_TOL: max |err| / max |ref| and ||err||_2 / ||ref||_2, as the
+# ring steps are (RING_TOL), and the worst row's ||err||_2 / ||ref||_2, which
+# a kernel that drops some keys' share of a few rows cannot pass: a
+# gradient is ~4 in the first causal rows and ~0.03 past a few hundred keys,
+# so a bar scaled by the tensor alone is as large as a late row. FLASH_TOL's
+# |err| <= tol·max(1, |ref|) is an absolute 2e-2 below 1. 2^-6 is 8 bf16
+# ulps: the kernels round p and ds to the input dtype before their products,
+# the plain versions do not; on the CPU that rounding reads at most 6.9e-3
+# (bf16) and 9e-4 (fp16) on any measure at FLASH_BWD_CASES' shapes. A
+# reference (or row) whose largest element (or rms) is below
+# FLASH_GRAD_FLOOR is held at that scale: where one key carries almost all
+# of a row's P, dS = P·(dP - delta) is a difference of f32 sums of size ~8,
+# ~1e-6 apart in any two summation orders (a causal row 0, one key, is only
+# that); at a floor of 2^-10 an H100 read such f32 rows at up to 2.6e-4, and
+# T = 1 at 4.4e-4. Late rows' gradients are ~0.03 to 0.05, above the floor.
+# FLASH_TOL's elementwise bar holds as well.
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -6}
+FLASH_GRAD_FLOOR = 2.0 ** -6
+
+
+def _grad_errors(got, want):
+    """(max |err| / max |ref|, ||err||_2 / ||ref||_2, the worst row's
+    ||err||_2 / ||ref||_2), the reference's max and rms (of the tensor or
+    the row) taken as at least FLASH_GRAD_FLOOR."""
+    if not want.numel():
+        return 0.0, 0.0, 0.0
+    d, w = got.float() - want.float(), want.float()
+    root = math.sqrt(w.shape[-1])
+    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp(min=FLASH_GRAD_FLOOR * root)
+    return (d.abs().max().item() / max(w.abs().max().item(), FLASH_GRAD_FLOOR),
+            d.norm().item() / max(w.norm().item(), FLASH_GRAD_FLOOR * math.sqrt(w.numel())),
+            rows.max().item())
+
+
+def _assert_grads_close(got, want, dtype):
+    """dq, dk, dv within FLASH_GRAD_TOL on all three measures."""
+    tol = FLASH_GRAD_TOL[dtype]
+    errs = {n: _grad_errors(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    assert all(max(e) <= tol for e in errs.values()), (tol, errs)
+
+
+def _planted_backward(q, k, v, o, lse, cos, sin, do, fault):
+    """The bf16 backward as the card computes it, in plain PyTorch on the
+    CPU (causal): roped q/k rounded to bf16, p and ds rounded to bf16 before
+    their products; with one fault planted: ``skip_keys`` drops 32 keys'
+    share of dq (half a warpgroup's reduce-add) in the last 128 rows;
+    ``dq_tile`` drops a 128-key tile's share of dq in those rows;
+    ``dv_rows`` drops the last 64 queries' share of dv; ``vjp_sign`` flips
+    sin in dk's RoPE VJP; ``rope_sign`` ropes q the wrong way round in the
+    prologue."""
+    B, H, T, D = q.shape
+    g = H // k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qsin = -sin if fault == "rope_sign" else sin
+    qr = cudaex._rope_plain(q.float(), cos, qsin).to(q.dtype).float()
+    kr = cudaex._rope_plain(k.float(), cos, sin).to(k.dtype).float().repeat_interleave(g, 1)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)
+    s = torch.matmul(qr, kr.transpose(-1, -2)) * scale
+    s = torch.where(torch.ones(T, T, dtype=torch.bool).tril(), s, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dof, v.float().repeat_interleave(g, 1).transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    p = p.to(q.dtype).float()
+    ds_q = ds.clone()
+    if fault == "skip_keys":
+        ds_q[..., T - 128:, 96:128] = 0
+    if fault == "dq_tile":
+        ds_q[..., T - 128:, 128:256] = 0
+    if fault == "dv_rows":
+        p[..., T - 64:, :] = 0
+    dq = torch.matmul(ds_q, kr)
+    dk = torch.matmul(ds.transpose(-1, -2), qr).reshape(B, -1, g, T, D).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).reshape(B, -1, g, T, D).sum(2)
+    dq = cudaex._rope_vjp_plain(dq, cos, sin)
+    dk = cudaex._rope_vjp_plain(dk, cos, -sin if fault == "vjp_sign" else sin)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("fault", [None, "skip_keys", "dq_tile", "dv_rows", "vjp_sign",
+                                   "rope_sign"])
+def test_grad_bar_passes_the_roundings_and_fails_each_planted_fault(fault):
+    """The card tests' and chip_smoke.py's bar for the backward, on the CPU
+    plain versions at a GQA shape with RoPE, bf16 (T = 512, D = 64): the
+    kernels' own roundings (p and ds to bf16) pass it; each planted fault
+    fails it."""
+    dt = torch.bfloat16
+    q, k, v, cos, sin, do = (_torch(a) for a in _flash_inputs(1, 4, 2, 512, 64, seed=7))
+    q, k, v, do = (t.to(dt) for t in (q, k, v, do))
+    o, lse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, True)
+    want = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, True)
+    got = _planted_backward(q, k, v, o, lse, cos, sin, do, fault)
+    if fault is None:
+        _assert_grads_close(got, want, dt)
+    else:
+        with pytest.raises(AssertionError):
+            _assert_grads_close(got, want, dt)
+FLASH_DTYPES = dict(argnames="dtype", argvalues=[torch.float32, torch.bfloat16, torch.float16],
+                    ids=["f32", "bf16", "f16"])
+# The backward's shapes: D of 16, 24, 32, 64, 96, 128; GQA groups of 1, 2,
+# 4, 8; T of 1, 33, 64, 77, 200, 256, 1000 (ragged against the core's 64-
+# and 128-row tiles); causal and full; B of 1 to 3.
+FLASH_BWD_CASES = [
+    (2, 4, 4, 200, 64, True), (1, 8, 2, 256, 128, True), (1, 4, 2, 77, 32, False),
+    (1, 2, 1, 64, 16, True), (1, 4, 2, 33, 24, True), (1, 8, 1, 1000, 96, False),
+    (2, 8, 2, 77, 128, True), (1, 8, 8, 1, 64, True), (3, 4, 2, 1000, 16, False),
+    (1, 8, 2, 200, 96, True)]
+FLASH_BWD_IDS = ["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24",
+                 "g8-full-d96-t1000", "g4-d128-t77-b2", "mha-t1", "g2-full-d16-t1000-b3",
+                 "g4-d96-t200"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
-    (2, 4, 4, 200, 64, True), (1, 8, 2, 256, 128, True), (1, 4, 2, 77, 32, False),
-    (1, 2, 1, 64, 16, True), (1, 4, 2, 33, 24, True)],
-    ids=["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", FLASH_BWD_CASES, ids=FLASH_BWD_IDS)
+@pytest.mark.parametrize(**FLASH_DTYPES)
 def test_flash_rope_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
+    """The RoPE flash kernels against their plain versions: o and lse at
+    FLASH_TOL, the gradients at FLASH_TOL and FLASH_GRAD_TOL."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, cos, sin, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -451,6 +563,7 @@ def test_flash_rope_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     ref = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+    _assert_grads_close(grads, ref, dtype)
 
 
 @pytest.mark.gpu
@@ -471,14 +584,13 @@ def test_flash_rope_autograd_matches_autograd_through_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,Hkv,T,D,causal", [
-    (2, 4, 4, 200, 64, True), (1, 8, 2, 256, 128, True), (1, 4, 2, 77, 32, False),
-    (1, 2, 1, 64, 16, True), (1, 4, 2, 33, 24, True), (2, 12, 12, 128, 64, True)],
-    ids=["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24", "nanogpt-heads"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,causal", FLASH_BWD_CASES + [(2, 12, 12, 128, 64, True)],
+                         ids=FLASH_BWD_IDS + ["nanogpt-heads"])
+@pytest.mark.parametrize(**FLASH_DTYPES)
 def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     """The RoPE-free flash kernels (sdpa's claim) against their plain
-    versions, at FLASH_TOL."""
+    versions: o and lse at FLASH_TOL, the gradients at FLASH_TOL and
+    FLASH_GRAD_TOL."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, _, _, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -495,6 +607,7 @@ def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     ref = cudaex.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+    _assert_grads_close(grads, ref, dtype)
 
 
 @pytest.mark.gpu
@@ -512,6 +625,60 @@ def test_flash_autograd_matches_autograd_through_plain(cuda):
     torch.testing.assert_close(out, rout, atol=1e-4, rtol=1e-4)
     for a, b in zip(leaves, ref):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (2^(floor(log2 |x|) - 7)), 0 where x is 0."""
+    m = x.abs()
+    return torch.where(m > 0, torch.exp2(torch.floor(torch.log2(m.clamp(min=1e-38))) - 7),
+                       torch.zeros_like(m))
+
+
+def _flash_backward_twice(cuda, dtype, rope, B, H, Hkv, T, D):
+    q, k, v, cos, sin, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    if rope:
+        o, lse = cudaex.flash_rope_attention(q, k, v, cos, sin, True)
+        run = lambda: cudaex.flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, True)  # noqa: E731
+    else:
+        o, lse = cudaex.flash_attention(q, k, v, True)
+        run = lambda: cudaex.flash_attention_backward(q, k, v, o, lse, do, True)  # noqa: E731
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    return first, second
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "plain"])
+@pytest.mark.parametrize("B,H,Hkv,T,D", [(1, 16, 4, 1000, 128), (2, 8, 8, 1000, 64)],
+                         ids=["gqa-d128", "mha-d64"])
+def test_flash_backward_bf16_runs_differ_by_at_most_an_ulp(cuda, rope, B, H, Hkv, T, D):
+    """dq (and dk, dv with GQA) are sums of f32 reduce-adds whose order
+    changes from run to run, so two runs on the same inputs may round an
+    element to neighbouring bf16 values: at most one ulp of its magnitude,
+    the magnitude taken as at least 2^-16 of the tensor's largest. Below
+    that the f32 sums' own reorder error (2^-24 of their terms) is the
+    spread. Measured on an H100 80GB HBM3 (700 W), five pairs of runs at
+    these shapes and at T=2048: up to 4.6e-5 of the elements differ, by one
+    ulp where |x| > 1e-6; elements near 1e-7, where their f32 sums cancel,
+    by up to 16 ulps of their own magnitude, which is at most 2.5e-9 of
+    the tensor's largest element."""
+    first, second = _flash_backward_twice(cuda, torch.bfloat16, rope, B, H, Hkv, T, D)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        a, b = a.float(), b.float()
+        m = torch.maximum(a.abs(), b.abs())
+        bound = _bf16_ulp(m.clamp(min=2.0 ** -16 * m.max().item()))
+        assert ((a - b).abs() <= bound).all(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "plain"])
+def test_flash_backward_f32_is_bit_reproducible(cuda, rope):
+    """The f32 route (the two-pass kernels) adds nothing atomically."""
+    first, second = _flash_backward_twice(cuda, torch.float32, rope, 2, 8, 2, 300, 64)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 XENT_TOL = 1e-5  # f32 sums of exp2 against logsumexp, in another order
@@ -578,11 +745,36 @@ def test_flash_and_xent_wrappers_refuse_bad_inputs(cuda):
         cudaex.flash_attention(z, z, z)
     with pytest.raises(ValueError, match="does not fit"):
         cudaex.flash_attention(q, q[:, :, :8].contiguous(), q[:, :, :8].contiguous())
+    qb = q.bfloat16()
+    o, lse = cudaex.flash_attention(qb, qb, qb)
+    with pytest.raises(ValueError, match="o must be q's dtype"):  # the prologue reads o as q's dtype
+        cudaex.flash_attention_backward(qb, qb, qb, o.float(), lse, qb)
     with pytest.raises(ValueError, match="float"):
         cudaex.cross_entropy(torch.zeros(4, 8, dtype=torch.int32, device=cuda),
                              torch.zeros(4, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="targets"):
         cudaex.cross_entropy(torch.zeros(4, 8, device=cuda), torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,T,D,short", [(torch.bfloat16, 256, 64, 128), (torch.bfloat16, 200, 64, 56),
+                                             (torch.float32, 77, 64, 1)],
+                         ids=["bf16-short-of-T", "bf16-not-whole-tiles", "f32-not-T"])
+def test_flash_backward_kernels_refuse_a_pitch_they_would_read_past(cuda, monkeypatch, dtype, T, D, short):
+    """flash_backward_plan states the scratch's row pitch once; the kernels
+    refuse one shorter than T, not a whole number of the core's query tiles
+    (bf16/fp16), or other than T (f32), rather than read past it."""
+    q = torch.randn(1, 2, T, D, device=cuda).to(dtype)
+    o, lse = cudaex.flash_attention(q, q, q)
+    plan = cudaex.flash_backward_plan
+
+    def short_plan(*a, **kw):
+        out = plan(*a, **kw)
+        return {**out, "pitch": out["pitch"] - short}
+
+    monkeypatch.setattr(cudaex, "flash_backward_plan", short_plan)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        cudaex.flash_attention_backward(q, q, q, o, lse, q)
 
 
 @pytest.mark.gpu

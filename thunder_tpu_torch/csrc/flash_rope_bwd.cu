@@ -1,45 +1,39 @@
-// Flash attention backward, with or without RoPE applied in the kernel, for
-// Hopper (sm_90a).
+// Flash attention backward in f32, with or without RoPE applied in the
+// kernel, for Hopper (sm_90a): the f32 route of tt_flash_rope_bwd and
+// tt_flash_bwd (csrc/flash_bwd_sm90.cu, whose bf16/fp16 route is one wgmma
+// pass). f32 is the agreement dtype: wgmma would round its operands to tf32.
 //
-// tt_flash_rope_bwd replaces thunder_tpu/executors/pallasex.py:
+// It replaces, for f32, thunder_tpu/executors/pallasex.py:
 // flash_rope_attention_backward and the single-pass
 // _flash_rope_backward_fused it runs by default (kernel bodies
 // _flash_rope_bwd_dq_kernel, _flash_rope_bwd_dkv_kernel(_mha),
-// _flash_rope_bwd_fused_kernel). tt_flash_bwd replaces
-// pallasex.py:flash_attention_backward and _flash_backward_fused (kernel
-// bodies _flash_bwd_dq_kernel, _flash_bwd_dkv_kernel(_mha),
-// _flash_bwd_fused_kernel): the same two kernels with RoPE compiled out,
-// reading no cos/sin. From pre-RoPE q, k, v, the forward's lse,
-// delta = rowsum(do·o) (taken in f32 by the wrapper, outside the kernels,
-// as pallasex takes it outside its pallas_call) and do, it recomputes the
-// probabilities tile by tile and returns dq, dk, dv with the RoPE VJP
-// dxr·cos + rotate_halfᵀ(dxr·sin) applied to dq and dk before the store.
+// _flash_rope_bwd_fused_kernel), and pallasex.py:flash_attention_backward and
+// _flash_backward_fused (kernel bodies _flash_bwd_dq_kernel,
+// _flash_bwd_dkv_kernel(_mha), _flash_bwd_fused_kernel): the same two kernels
+// with RoPE compiled out, reading no cos/sin. From pre-RoPE q, k, v, the
+// forward's lse, delta = rowsum(do·o) (taken in f32 by flash_bwd_sm90.cu's
+// prologue, as pallasex takes it outside its pallas_call) and do, it
+// recomputes the probabilities tile by tile and returns dq, dk, dv with the
+// RoPE VJP dxr·cos + rotate_halfᵀ(dxr·sin) applied to dq and dk before the
+// store.
 //
-// What bounds it: the products. The backward does 2.5× the forward's causal
-// flops (recomputed q·kᵀ, do·vᵀ, and three products for dq, dk, dv): at
-// llama-350m's shape (B=4, H=16, T=2048, D=64, bf16) 85.9 GFLOP, 86.8 us at
-// the bf16 peak, against 137 MB of q, k, v, o, do, dq, dk, dv (41 us).
+// What bounds it: the products, by plain f32 FMAs (flash_common.cuh's
+// warp_mma for f32).
 //
-// What the design does about that: tensor-core tiles (mma.sync m16n8k16,
-// f32 accumulation) from shared memory, nothing of size T² in device
-// memory, and no atomics. Blocks run in any order and share no state, so
-// the TPU's single pass (dk/dv carried in VMEM scratch across a sequential
-// grid axis) becomes two passes:
-//   - dq: one block per (q tile of 128 rows — 64 in f32 —, head, batch)
-//     loops over the 64-key k tiles up to the causal limit, recomputing p
-//     and ds, and accumulates dq in registers.
-//   - dk/dv: one block per (k tile of 128 keys — 64 in f32 —, kv head,
-//     batch) loops over the g q-heads of its group and over the q tiles at
-//     or past the causal start, in the transposed orientation (rows = keys,
-//     as the TPU's _dkv_tile), and accumulates dk and dv in registers: the
-//     TPU's group-sum of dk/dv is this inner loop.
-// In both, the streamed tile i + 1 is copied with cp.async while tile i is
-// computed, and roped in shared memory once it has landed.
-// p is rounded to do's dtype for dv and ds to q's dtype for dq and dk, as
-// the TPU kernels round them. RoPE is a compile-time switch.
-//
-// Not done yet: the two passes recompute q·kᵀ and do·vᵀ each, and the dk/dv
-// pass ropes every q tile again for every k tile; no wgmma or TMA.
+// What the design does about that: tiles in shared memory, nothing of size T²
+// in device memory, and no atomics, so two runs give the same bits. Blocks
+// run in any order and share no state, so the TPU's single pass (dk/dv
+// carried in VMEM scratch across a sequential grid axis) becomes two passes:
+//   - dq: one block per (q tile of 64 rows, head, batch) loops over the
+//     64-key k tiles up to the causal limit, recomputing p and ds, and
+//     accumulates dq in registers.
+//   - dk/dv: one block per (k tile of 64 keys, kv head, batch) loops over the
+//     g q-heads of its group and over the q tiles at or past the causal
+//     start, in the transposed orientation (rows = keys, as the TPU's
+//     _dkv_tile), and accumulates dk and dv in registers: the TPU's group-sum
+//     of dk/dv is this inner loop.
+// In both, a streamed tile is roped in shared memory once it has landed.
+// RoPE is a compile-time switch.
 
 #include "flash_common.cuh"
 
@@ -47,53 +41,49 @@ namespace {
 
 using namespace tt::flash;
 
-constexpr int kBK = 64;  // keys per streamed k/v tile of the dq pass
-
-// Warps of a block: 8 (a 128-row q tile in the dq pass, 128 keys in the
-// dk/dv pass) for 16-bit types, 4 for f32.
-template <typename T> struct Warps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
+constexpr int kBK = 64;              // keys per streamed k/v tile of the dq pass
+constexpr int kWarps = 4;            // a block: 64 q rows (dq pass) or 64 keys (dk/dv pass)
+constexpr int kPad = Pad<float>::N;  // shared-memory row padding, in elements
 
 // q rows per inner tile of the dk/dv pass: at D = 128 two 16 x D f32
 // accumulators per warp leave room for only 32-column score tiles.
 template <int DP> struct DkvRows { static constexpr int N = DP <= 64 ? 64 : 32; };
 
-template <typename T, int DP, bool ROPE>
+template <int DP, bool ROPE>
 size_t dq_smem_bytes() {
-  constexpr int BQ = 16 * Warps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
-  // q, do, raw k and v stages, roped k (with RoPE only), ds
-  return sizeof(T) * ((2 * BQ + 2 * ST * kBK + (ROPE ? kBK : 0)) * LD + BQ * (kBK + Pad<T>::N));
+  constexpr int BQ = 16 * kWarps, LD = DP + kPad;
+  // q, do, raw k and v, roped k (with RoPE only), ds
+  return sizeof(float) * ((2 * BQ + 2 * kBK + (ROPE ? kBK : 0)) * LD + BQ * (kBK + kPad));
 }
 
-template <typename T, int DP, bool ROPE>
+template <int DP, bool ROPE>
 size_t dkv_smem_bytes() {
-  constexpr int BK = 16 * Warps<T>::N, BQ = DkvRows<DP>::N, LD = DP + Pad<T>::N;
-  constexpr int ST = Stages<T>::N;
-  // lse2 and delta; k, v, raw q and do stages, roped q (with RoPE only), p / ds
-  return sizeof(float) * 2 * BQ +
-         sizeof(T) * ((2 * BK + 2 * ST * BQ + (ROPE ? BQ : 0)) * LD + BK * (BQ + Pad<T>::N));
+  constexpr int BK = 16 * kWarps, BQ = DkvRows<DP>::N, LD = DP + kPad;
+  // lse2 and delta; k, v, raw q and do, roped q (with RoPE only), p / ds
+  return sizeof(float) * (2 * BQ + (2 * BK + 2 * BQ + (ROPE ? BQ : 0)) * LD + BK * (BQ + kPad));
 }
 
-template <typename T, int DP, bool ROPE>
-__global__ void __launch_bounds__(32 * Warps<T>::N)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, const float* __restrict__ cos,
-                        const float* __restrict__ sin, T* __restrict__ dq, int H, int Hkv, int T_,
-                        int D, int causal, float scale, float scale_log2e) {
-  constexpr int W = Warps<T>::N, NT = 32 * W, BQ = 16 * W, ST = Stages<T>::N;
-  constexpr int LD = DP + Pad<T>::N;
-  constexpr int LP = kBK + Pad<T>::N;
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(32 * kWarps)
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ cos, const float* __restrict__ sin,
+                        float* __restrict__ dq, int H, int Hkv, int T_, int D, int causal,
+                        float scale, float scale_log2e) {
+  constexpr int W = kWarps, NT = 32 * W, BQ = 16 * W;
+  constexpr int LD = DP + kPad;
+  constexpr int LP = kBK + kPad;
   constexpr int NS = kBK / 8;
   constexpr int NO = DP / 8;
-  static_assert(sizeof(float) * BQ * (DP + 1) <= sizeof(T) * 2 * ST * kBK * LD,
-                "the dq staging reuses the k/v stages");
+  static_assert(BQ * (DP + 1) <= 2 * kBK * LD, "the dq staging reuses the k and v tiles");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + BQ * LD;
-  T* kraw_s = do_s + BQ * LD;        // ST stages of raw k, then ST stages of v
-  T* v_s = kraw_s + ST * kBK * LD;
-  T* k_s = v_s + ST * kBK * LD;      // the roped k tile (with RoPE only)
-  T* ds_s = k_s + (ROPE ? kBK * LD : 0);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* do_s = q_s + BQ * LD;
+  float* kraw_s = do_s + BQ * LD;  // the raw k tile, then the v tile
+  float* v_s = kraw_s + kBK * LD;
+  float* k_s = v_s + kBK * LD;     // the roped k tile (with RoPE only)
+  float* ds_s = k_s + (ROPE ? kBK * LD : 0);
   float* dq_s = reinterpret_cast<float*>(kraw_s);  // BQ x (DP + 1), after the loop
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -101,22 +91,20 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   const int warp = threadIdx.x >> 5;
   const size_t slab = static_cast<size_t>(T_) * D;
   const size_t qoff = (static_cast<size_t>(b) * H + h) * slab;
-  const T* kb = k + (static_cast<size_t>(b) * Hkv + hk) * slab;
-  const T* vb = v + (static_cast<size_t>(b) * Hkv + hk) * slab;
+  const float* kb = k + (static_cast<size_t>(b) * Hkv + hk) * slab;
+  const float* vb = v + (static_cast<size_t>(b) * Hkv + hk) * slab;
   const size_t row0 = (static_cast<size_t>(b) * H + h) * T_;
   const int q0 = qt * BQ, w0 = q0 + 16 * warp;
 
   int n_kt = (T_ + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + BQ + kBK - 1) / kBK);
   auto fetch = [&](int kt) {
-    const int st = kt % ST;
-    copy_tile_async<T, DP, kBK, NT>(kraw_s + st * kBK * LD, LD, kb, kt * kBK, T_, D);
-    copy_tile_async<T, DP, kBK, NT>(v_s + st * kBK * LD, LD, vb, kt * kBK, T_, D);
+    copy_tile_async<float, DP, kBK, NT>(kraw_s, LD, kb, kt * kBK, T_, D);
+    copy_tile_async<float, DP, kBK, NT>(v_s, LD, vb, kt * kBK, T_, D);
     cp_async_commit();
   };
-  if (ST == 2) fetch(0);
-  load_tile<T, DP, BQ, NT, ROPE>(q_s, LD, q + qoff, q0, T_, D, cos, sin);
-  load_tile<T, DP, BQ, NT, false>(do_s, LD, dout + qoff, q0, T_, D, nullptr, nullptr);
+  load_tile<float, DP, BQ, NT, ROPE>(q_s, LD, q + qoff, q0, T_, D, cos, sin);
+  load_tile<float, DP, BQ, NT, false>(do_s, LD, dout + qoff, q0, T_, D, nullptr, nullptr);
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -124,9 +112,9 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
     lse2[r] = row < T_ ? lse[row0 + row] * 1.4426950408889634f : 0.f;  // natural log -> log2
     dl[r] = row < T_ ? delta[row0 + row] : 0.f;
   }
-  const T* qw = q_s + 16 * warp * LD;
-  const T* dow = do_s + 16 * warp * LD;
-  T* dsw = ds_s + 16 * warp * LP;
+  const float* qw = q_s + 16 * warp * LD;
+  const float* dow = do_s + 16 * warp * LD;
+  float* dsw = ds_s + 16 * warp * LP;
 
   float acc[NO][4];
 #pragma unroll
@@ -134,23 +122,16 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    const T* kr = kraw_s + (kt % ST) * kBK * LD;
-    const T* vs = v_s + (kt % ST) * kBK * LD;
-    if (ST == 1) {
-      fetch(kt);
-      cp_async_wait<0>();
-    } else if (kt + 1 < n_kt) {
-      fetch(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const float* kr = kraw_s;
+    const float* vs = v_s;
+    fetch(kt);
+    cp_async_wait<0>();
     __syncthreads();
     if (ROPE) {
-      rope_tile<T, DP, kBK, NT>(k_s, kr, LD, k0, T_, D, cos, sin);
+      rope_tile<float, DP, kBK, NT>(k_s, kr, LD, k0, T_, D, cos, sin);
       __syncthreads();
     }
-    const T* ks = ROPE ? k_s : kr;
+    const float* ks = ROPE ? k_s : kr;
 
     float s[NS][4], dp[NS][4];
 #pragma unroll
@@ -158,8 +139,8 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     }
-    warp_mma<T, NS, DP, true>(s, qw, LD, ks, LD);   // q·kᵀ
-    warp_mma<T, NS, DP, true>(dp, dow, LD, vs, LD);  // do·vᵀ
+    warp_mma<float, NS, DP, true>(s, qw, LD, ks, LD);   // q·kᵀ
+    warp_mma<float, NS, DP, true>(dp, dow, LD, vs, LD);  // do·vᵀ
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -169,9 +150,9 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
         s[j][e] = exp2f(x - lse2[r]) * (dp[j][e] - dl[r]) * scale;  // ds
       }
     }
-    store_acc<T, NS>(dsw, LP, s);
+    store_acc<float, NS>(dsw, LP, s);
     __syncwarp();
-    warp_mma<T, NO, kBK, false>(acc, dsw, LP, ks, LD);  // dq += ds·k
+    warp_mma<float, NO, kBK, false>(acc, dsw, LP, ks, LD);  // dq += ds·k
     __syncthreads();
   }
 
@@ -182,33 +163,33 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
     for (int e = 0; e < 4; ++e) dqw[acc_row(e) * (DP + 1) + acc_col(j, e)] = acc[j][e];
   }
   __syncwarp();
-  store_rows<T, ROPE>(dq + qoff, dqw, DP + 1, w0, T_, D, cos, sin);
+  store_rows<float, ROPE>(dq + qoff, dqw, DP + 1, w0, T_, D, cos, sin);
 }
 
-template <typename T, int DP, bool ROPE>
-__global__ void __launch_bounds__(32 * Warps<T>::N)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const float* __restrict__ cos,
-                         const float* __restrict__ sin, T* __restrict__ dk, T* __restrict__ dv,
-                         int H, int Hkv, int T_, int D, int causal, float scale, float scale_log2e) {
-  constexpr int W = Warps<T>::N, NT = 32 * W, BK = 16 * W;
-  constexpr int BQ = DkvRows<DP>::N, ST = Stages<T>::N;
-  constexpr int LD = DP + Pad<T>::N;
-  constexpr int LP = BQ + Pad<T>::N;
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(32 * kWarps)
+    flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ cos, const float* __restrict__ sin,
+                         float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int T_,
+                         int D, int causal, float scale, float scale_log2e) {
+  constexpr int W = kWarps, NT = 32 * W, BK = 16 * W;
+  constexpr int BQ = DkvRows<DP>::N;
+  constexpr int LD = DP + kPad;
+  constexpr int LP = BQ + kPad;
   constexpr int NS = BQ / 8;
   constexpr int NO = DP / 8;
-  static_assert(sizeof(float) * BK * (DP + 1) <= sizeof(T) * 2 * BK * LD,
-                "the dk staging reuses the k and v tiles");
+  static_assert(BK * (DP + 1) <= 2 * BK * LD, "the dk staging reuses the k and v tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   float* lse2_s = reinterpret_cast<float*>(smem);  // BQ
   float* dl_s = lse2_s + BQ;                       // BQ
-  T* k_s = reinterpret_cast<T*>(dl_s + BQ);
-  T* v_s = k_s + BK * LD;
-  T* qraw_s = v_s + BK * LD;         // ST stages of raw q, then ST stages of do
-  T* do_s = qraw_s + ST * BQ * LD;
-  T* q_s = do_s + ST * BQ * LD;      // the roped q tile (with RoPE only)
-  T* p_s = q_s + (ROPE ? BQ * LD : 0);
+  float* k_s = reinterpret_cast<float*>(dl_s + BQ);
+  float* v_s = k_s + BK * LD;
+  float* qraw_s = v_s + BK * LD;  // the raw q tile, then the do tile
+  float* do_s = qraw_s + BQ * LD;
+  float* q_s = do_s + BQ * LD;     // the roped q tile (with RoPE only)
+  float* p_s = q_s + (ROPE ? BQ * LD : 0);
   float* dk_s = reinterpret_cast<float*>(k_s);  // BK x (DP + 1), after the loop
 
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -224,18 +205,17 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   const int i0 = causal ? k0 / BQ : 0;  // q tiles wholly before this k tile see none of it
   const int per_head = n_qt - i0, n_it = g * per_head;
   auto fetch = [&](int n) {
-    const int st = n % ST, h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
+    const int h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
     const size_t qoff = (static_cast<size_t>(b) * H + h) * slab;
-    copy_tile_async<T, DP, BQ, NT>(qraw_s + st * BQ * LD, LD, q + qoff, qs, T_, D);
-    copy_tile_async<T, DP, BQ, NT>(do_s + st * BQ * LD, LD, dout + qoff, qs, T_, D);
+    copy_tile_async<float, DP, BQ, NT>(qraw_s, LD, q + qoff, qs, T_, D);
+    copy_tile_async<float, DP, BQ, NT>(do_s, LD, dout + qoff, qs, T_, D);
     cp_async_commit();
   };
-  if (ST == 2 && n_it > 0) fetch(0);
-  load_tile<T, DP, BK, NT, ROPE>(k_s, LD, k + koff, k0, T_, D, cos, sin);
-  load_tile<T, DP, BK, NT, false>(v_s, LD, v + koff, k0, T_, D, nullptr, nullptr);
-  const T* kw = k_s + 16 * warp * LD;
-  const T* vw = v_s + 16 * warp * LD;
-  T* pw = p_s + 16 * warp * LP;
+  load_tile<float, DP, BK, NT, ROPE>(k_s, LD, k + koff, k0, T_, D, cos, sin);
+  load_tile<float, DP, BK, NT, false>(v_s, LD, v + koff, k0, T_, D, nullptr, nullptr);
+  const float* kw = k_s + 16 * warp * LD;
+  const float* vw = v_s + 16 * warp * LD;
+  float* pw = p_s + 16 * warp * LP;
 
   float dk_acc[NO][4], dv_acc[NO][4];
 #pragma unroll
@@ -247,17 +227,10 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   for (int n = 0; n < n_it; ++n) {
     const int h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
     const size_t row0 = (static_cast<size_t>(b) * H + h) * T_;
-    const T* qr = qraw_s + (n % ST) * BQ * LD;
-    const T* dos = do_s + (n % ST) * BQ * LD;
-    if (ST == 1) {
-      fetch(n);
-      cp_async_wait<0>();
-    } else if (n + 1 < n_it) {
-      fetch(n + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const float* qr = qraw_s;
+    const float* dos = do_s;
+    fetch(n);
+    cp_async_wait<0>();
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = qs + i;
       lse2_s[i] = t < T_ ? lse[row0 + t] * 1.4426950408889634f : 0.f;
@@ -265,10 +238,10 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
     }
     __syncthreads();
     if (ROPE) {
-      rope_tile<T, DP, BQ, NT>(q_s, qr, LD, qs, T_, D, cos, sin);
+      rope_tile<float, DP, BQ, NT>(q_s, qr, LD, qs, T_, D, cos, sin);
       __syncthreads();
     }
-    const T* qsm = ROPE ? q_s : qr;
+    const float* qsm = ROPE ? q_s : qr;
 
     float st[NS][4], dpt[NS][4];
 #pragma unroll
@@ -276,8 +249,8 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
     }
-    warp_mma<T, NS, DP, true>(st, kw, LD, qsm, LD);   // k·qᵀ
-    warp_mma<T, NS, DP, true>(dpt, vw, LD, dos, LD);  // v·doᵀ
+    warp_mma<float, NS, DP, true>(st, kw, LD, qsm, LD);   // k·qᵀ
+    warp_mma<float, NS, DP, true>(dpt, vw, LD, dos, LD);  // v·doᵀ
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
 #pragma unroll
@@ -289,13 +262,13 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
         st[j][e] = p;
       }
     }
-    store_acc<T, NS>(pw, LP, st);
+    store_acc<float, NS>(pw, LP, st);
     __syncwarp();
-    warp_mma<T, NO, BQ, false>(dv_acc, pw, LP, dos, LD);  // dv += pᵀ·do
+    warp_mma<float, NO, BQ, false>(dv_acc, pw, LP, dos, LD);  // dv += pᵀ·do
     __syncwarp();
-    store_acc<T, NS>(pw, LP, dpt);
+    store_acc<float, NS>(pw, LP, dpt);
     __syncwarp();
-    warp_mma<T, NO, BQ, false>(dk_acc, pw, LP, qsm, LD);  // dk += dsᵀ·q
+    warp_mma<float, NO, BQ, false>(dk_acc, pw, LP, qsm, LD);  // dk += dsᵀ·q
     __syncthreads();  // every warp is done with this stage, q_s and lse2/delta
   }
 
@@ -306,108 +279,73 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
     for (int e = 0; e < 4; ++e) {
       dkw[acc_row(e) * (DP + 1) + acc_col(j, e)] = dk_acc[j][e];
       const int key = w0 + acc_row(e), col = acc_col(j, e);
-      if (key < T_ && col < D) dv[koff + static_cast<size_t>(key) * D + col] = tt::from_f32<T>(dv_acc[j][e]);
+      if (key < T_ && col < D) dv[koff + static_cast<size_t>(key) * D + col] = dv_acc[j][e];
     }
   }
   __syncwarp();
-  store_rows<T, ROPE>(dk + koff, dkw, DP + 1, w0, T_, D, cos, sin);
+  store_rows<float, ROPE>(dk + koff, dkw, DP + 1, w0, T_, D, cos, sin);
 }
 
-template <typename T, int DP, bool ROPE>
-int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, const float* cos, const float* sin, void* dq, void* dk, void* dv,
+template <int DP, bool ROPE>
+int launch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+           const float* delta, const float* cos, const float* sin, float* dq, float* dk, float* dv,
            int B, int H, int Hkv, int T_, int D, int causal, float scale, float scale_log2e,
            cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  constexpr int W = Warps<T>::N, BQ = 16 * W;
+  constexpr int BQ = 16 * kWarps, BK = 16 * kWarps;  // q rows / keys a block
 
-  auto dq_kernel = flash_bwd_dq_kernel<T, DP, ROPE>;
-  const size_t dq_smem = dq_smem_bytes<T, DP, ROPE>();
+  auto dq_kernel = flash_bwd_dq_kernel<DP, ROPE>;
+  const size_t dq_smem = dq_smem_bytes<DP, ROPE>();
   cudaError_t e = allow_smem(dq_kernel, dq_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dq_kernel<<<dim3((T_ + BQ - 1) / BQ, H, B), 2 * BQ, dq_smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, cos, sin, static_cast<T*>(dq), H, Hkv, T_, D, causal, scale,
-      scale_log2e);
+      q, k, v, dout, lse, delta, cos, sin, dq, H, Hkv, T_, D, causal, scale, scale_log2e);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, DP, ROPE>;
-  const size_t dkv_smem = dkv_smem_bytes<T, DP, ROPE>();
+  auto dkv_kernel = flash_bwd_dkv_kernel<DP, ROPE>;
+  const size_t dkv_smem = dkv_smem_bytes<DP, ROPE>();
   e = allow_smem(dkv_kernel, dkv_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dkv_kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), Hkv, B), 32 * W, dkv_smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, cos, sin, static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv,
-      T_, D, causal, scale, scale_log2e);
+  dkv_kernel<<<dim3((T_ + BK - 1) / BK, Hkv, B), 32 * kWarps, dkv_smem, stream>>>(
+      q, k, v, dout, lse, delta, cos, sin, dk, dv, H, Hkv, T_, D, causal, scale, scale_log2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool ROPE>
-int dispatch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-             const float* delta, const float* cos, const float* sin, void* dq, void* dk,
-             void* dv, int B, int H, int Hkv, int T_, int D, int causal, float scale,
+template <bool ROPE>
+int dispatch(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+             const float* delta, const float* cos, const float* sin, float* dq, float* dk,
+             float* dv, int B, int H, int Hkv, int T_, int D, int causal, float scale,
              float scale_log2e, cudaStream_t s) {
   switch (padded_head_dim(D)) {
     case 32:
-      return launch<T, 32, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_,
-                                 D, causal, scale, scale_log2e, s);
+      return launch<32, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
+                              causal, scale, scale_log2e, s);
     case 64:
-      return launch<T, 64, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_,
-                                 D, causal, scale, scale_log2e, s);
+      return launch<64, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
+                              causal, scale, scale_log2e, s);
     default:
-      return launch<T, 128, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv,
-                                  T_, D, causal, scale, scale_log2e, s);
-  }
-}
-
-template <bool ROPE>
-int backward(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-             const void* delta, const void* cos, const void* sin, void* dq, void* dk, void* dv,
-             int B, int H, int Hkv, int T, int D, int causal, float scale, float scale_log2e,
-             int dtype, void* stream) {
-  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const float* c = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D,
-                                   causal, scale, scale_log2e, s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T,
-                                           D, causal, scale, scale_log2e, s);
-    case tt::kF16:
-      return dispatch<__half, ROPE>(q, k, v, dout, l, dl, c, sn, dq, dk, dv, B, H, Hkv, T, D,
-                                    causal, scale, scale_log2e, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<128, ROPE>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T_, D,
+                               causal, scale, scale_log2e, s);
   }
 }
 
 }  // namespace
 
-// All tensors contiguous; q, k, v, do, dq, dk, dv of one dtype; lse and
-// delta f32 (B, H, T); cos/sin f32 (T, D); D even, a multiple of the
-// 16-byte vector and at most 128; H % Hkv == 0. Launches the dq pass, then
+// The f32 backward (tt_flash_rope_bwd and tt_flash_bwd of flash_bwd_sm90.cu
+// call it after their prologue has taken delta): all tensors contiguous f32;
+// lse and delta (B, H, T); cos/sin (T, D), or null for no RoPE; D even, a
+// multiple of 4 and at most 128; H % Hkv == 0. Launches the dq pass, then
 // the dk/dv pass, on `stream`. Returns the first CUDA error.
-extern "C" int tt_flash_rope_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, const void* cos,
-                                 const void* sin, void* dq, void* dk, void* dv, int B, int H,
-                                 int Hkv, int T, int D, int causal, float scale,
-                                 float scale_log2e, int dtype, void* stream) {
-  return backward<true>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T, D, causal,
-                        scale, scale_log2e, dtype, stream);
-}
-
-// The same without RoPE: the plain flash-attention backward, no cos/sin.
-extern "C" int tt_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                            int B, int H, int Hkv, int T, int D, int causal, float scale,
-                            float scale_log2e, int dtype, void* stream) {
-  return backward<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dq, dk, dv, B, H, Hkv, T, D,
-                         causal, scale, scale_log2e, dtype, stream);
+extern "C" int tt_flash_bwd_f32_two_pass(const float* q, const float* k, const float* v,
+                                         const float* dout, const float* lse, const float* delta,
+                                         const float* cos, const float* sin, float* dq, float* dk,
+                                         float* dv, int B, int H, int Hkv, int T, int D,
+                                         int causal, float scale, float scale_log2e,
+                                         cudaStream_t stream) {
+  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (cos != nullptr)
+    return dispatch<true>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, B, H, Hkv, T, D, causal,
+                          scale, scale_log2e, stream);
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dq, dk, dv, B, H, Hkv, T, D,
+                         causal, scale, scale_log2e, stream);
 }

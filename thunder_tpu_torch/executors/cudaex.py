@@ -43,10 +43,12 @@ does: the augmented forward records ``cuda.rope_flash_fwd``
 (``cuda.flash_attention_fwd``), the forward kernel, which also returns the
 softmax's lse, and the backward ``cuda.rope_flash_bwd``
 (``cuda.flash_attention_bwd``): ``flash_rope_attention_backward``
-(``flash_attention_backward``, csrc/flash_rope_bwd.cu), which replaces
+(``flash_attention_backward``), which replaces
 pallasex.flash_rope_attention_backward (flash_attention_backward) and its
-fused single pass. ``FlashRopeAttention`` and ``FlashAttention`` are the same
-pairs as ``torch.autograd.Function``s. The grad rule of
+fused single pass: in bf16 and fp16 one wgmma pass
+(csrc/flash_bwd_sm90.cu) between a prologue and an epilogue kernel, in f32
+the two-pass kernels of csrc/flash_rope_bwd.cu. ``FlashRopeAttention`` and
+``FlashAttention`` are the same pairs as ``torch.autograd.Function``s. The grad rule of
 ``thunder.grouped_mlp`` records ``cuda.grouped_mlp_fwd`` (the kernel) and
 ``cuda.grouped_mlp_bwd``: the SwiGLU chain rule as batched products, as
 pallasex's rule takes it outside any kernel.
@@ -158,12 +160,11 @@ def _library():
         lib.tt_paged_chunk_attention.restype = i
         lib.tt_flash_rope_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.tt_flash_rope_fwd.restype = i
-        lib.tt_flash_rope_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, f, f, i, p]
+        lib.tt_flash_rope_bwd.argtypes = [p] * 19 + [i] * 7 + [f, i, i, p]
         lib.tt_flash_rope_bwd.restype = i
         lib.tt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.tt_flash_fwd.restype = i
-        lib.tt_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+        lib.tt_flash_bwd.argtypes = [p] * 15 + [i] * 7 + [f, i, i, p]
         lib.tt_flash_bwd.restype = i
         lib.tt_cross_entropy.argtypes = [p, p, p, p, i, i, i, p]
         lib.tt_cross_entropy.restype = i
@@ -514,22 +515,141 @@ def flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal=Tr
     group), then the RoPE VJP on dQ and dK (none when cos is None).
     -> (dq, dk, dv)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    B, H, T, D = q.shape
-    Hkv = k.shape[1]
-    g = H // Hkv
     do = do.to(q.dtype).float()
     qr, kr, s = _flash_plain_scores(q, k, cos, sin, causal, scale)
-    p = torch.exp(s - lse.float()[..., None])
     delta = (do * o.float()).sum(-1)
+    dqr, dkr, dv = _flash_backward_f32(qr, kr, v, lse, do, delta, s, scale)
+    if cos is not None:
+        cos, sin = cos.float(), sin.float()
+        dqr, dkr = _rope_vjp_plain(dqr, cos, sin), _rope_vjp_plain(dkr, cos, sin)
+    return dqr.to(q.dtype), dkr.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward_f32(qr, kr, v, lse, do, delta, s, scale):
+    """The products of the backward in f32 from the (roped) q and the (roped,
+    group-repeated) k, both f32, the masked scores s and delta: -> (dq, dk,
+    dv) in f32 before any RoPE VJP, dk and dv summed over the GQA group."""
+    B, H, T, D = qr.shape
+    Hkv = v.shape[1]
+    g = H // Hkv
+    p = torch.exp(s - lse.float()[..., None])
     dp = torch.matmul(do, v.float().repeat_interleave(g, 1).transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * scale
     dqr = torch.matmul(ds, kr)
     dkr = torch.matmul(ds.transpose(-1, -2), qr).reshape(B, Hkv, g, T, D).sum(2)
     dv = torch.matmul(p.transpose(-1, -2), do).reshape(B, Hkv, g, T, D).sum(2)
+    return dqr, dkr, dv
+
+
+def flash_backward_prologue_plain(q, k, o, do, cos=None, sin=None):
+    """The backward prologue kernel's function (csrc/flash_bwd_sm90.cu,
+    flash_bwd_prologue) in plain PyTorch: -> (q and k roped in f32 and
+    rounded to their dtype (as they are without cos), do rounded to q's
+    dtype, delta = rowsum(do·o) in f32 (B, H, T))."""
+    do = do.to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    if cos is None:
+        return q, k, do, delta
+    cos, sin = cos.float(), sin.float()
+    return (_rope_plain(q.float(), cos, sin).to(q.dtype), _rope_plain(k.float(), cos, sin).to(k.dtype),
+            do, delta)
+
+
+def flash_backward_epilogue_plain(dq_acc, dk_acc, dv_acc, cos, sin, dtype):
+    """The backward epilogue kernel's function (flash_bwd_epilogue) in plain
+    PyTorch: the RoPE VJP on the f32 dq and dk accumulators (none when cos
+    is None), then dq, dk, dv rounded to dtype."""
     if cos is not None:
         cos, sin = cos.float(), sin.float()
-        dqr, dkr = _rope_vjp_plain(dqr, cos, sin), _rope_vjp_plain(dkr, cos, sin)
-    return dqr.to(q.dtype), dkr.to(k.dtype), dv.to(v.dtype)
+        dq_acc, dk_acc = _rope_vjp_plain(dq_acc, cos, sin), _rope_vjp_plain(dk_acc, cos, sin)
+    return dq_acc.to(dtype), dk_acc.to(dtype), dv_acc.to(dtype)
+
+
+# csrc/flash_bwd_sm90.cu: keys per block; queries per streamed tile (128 at
+# head dims up to 64, else 64: its tile_queries, which refuses a pitch that
+# is not a whole number of them)
+_BWD_TILE_K = 128
+
+
+def _bwd_tile_q(D: int) -> int:
+    return 128 if D <= 64 else 64
+
+
+def flash_backward_plan(B, H, Hkv, T, D, dtype, do_dtype=None, rope=False) -> dict:
+    """What the flash backward's wrapper allocates and launches for these
+    shapes: ``scratch`` (name -> (shape, dtype), each allocated with
+    torch.empty and handed to the kernels), its total ``scratch_bytes``, the
+    row ``pitch`` of delta and lse2 (handed to the kernels, which refuse one
+    they would read past) and the ``blocks`` of the kernels that do the
+    products. This is the one statement of these rules: the kernels take the
+    scratch they are given.
+
+    bf16/fp16 run the one-pass wgmma core (csrc/flash_bwd_sm90.cu): one block
+    per (128-key tile, q head, batch); delta and lse·log2(e) padded to a
+    whole tile of queries (128 at D <= 64, else 64); an f32 dq accumulator;
+    dk's and dv's f32 accumulators with GQA (the group's heads add into
+    them), dk's also with RoPE at a head dim other than 64 or 128 (the
+    epilogue takes its VJP; at 64 and 128 the core does); the roped q and k
+    with RoPE; do rounded to q's dtype when it is wider. f32 runs the
+    two-pass kernels (csrc/flash_rope_bwd.cu: 64-row dq blocks and 64-key
+    dk/dv blocks) and needs delta only."""
+    f32 = torch.float32
+    do_dtype = do_dtype or dtype
+    if dtype == f32:
+        pitch = T
+        scratch = {"delta": ((B, H, T), f32)}
+        blocks = -(-T // 64) * H * B + -(-T // 64) * Hkv * B
+    else:
+        g = H // Hkv
+        pitch = -(-T // _bwd_tile_q(D)) * _bwd_tile_q(D)
+        scratch = {"delta": ((B, H, pitch), f32), "lse2": ((B, H, pitch), f32),
+                   "dq_acc": ((B, H, T, D), f32)}
+        if g > 1 or (rope and D not in (64, 128)):  # else dk's VJP is taken in the core
+            scratch["dk_acc"] = ((B, Hkv, T, D), f32)
+        if g > 1:
+            scratch["dv_acc"] = ((B, Hkv, T, D), f32)
+        if rope:
+            scratch["q_roped"] = ((B, H, T, D), dtype)
+            scratch["k_roped"] = ((B, Hkv, T, D), dtype)
+        if do_dtype != dtype:
+            scratch["do"] = ((B, H, T, D), dtype)
+        blocks = -(-T // _BWD_TILE_K) * H * B
+    nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in scratch.values())
+    return {"blocks": blocks, "scratch": scratch, "scratch_bytes": nbytes, "pitch": pitch}
+
+
+def _flash_backward(name, q, k, v, o, lse, do, cos, sin, causal, scale):
+    """The card's flash backward (RoPE when cos is given): allocates
+    flash_backward_plan's scratch and launches tt_flash_rope_bwd or
+    tt_flash_bwd, which take delta and the rest in their prologue."""
+    if do.dtype != q.dtype and do.dtype != torch.float32:
+        do = do.to(q.dtype)
+    do = do.contiguous()
+    _check_flash_backward(name, q, k, v, o, lse, do, cos, sin)
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not q.numel():
+        return dq, dk, dv
+    plan = flash_backward_plan(B, H, Hkv, T, D, q.dtype, do.dtype, rope=cos is not None)
+    buf = {n: torch.empty(shape, dtype=dt, device=q.device) for n, (shape, dt) in plan["scratch"].items()}
+    ptr = lambda n: buf[n].data_ptr() if n in buf else None  # noqa: E731
+    scratch = [ptr(n) for n in ("delta", "lse2", "dq_acc", "dk_acc", "dv_acc")]
+    shape = (B, H, Hkv, T, D, plan["pitch"], int(bool(causal)), float(scale),
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[do.dtype], _stream(q))
+    lib = _library()
+    if cos is None:
+        rc = lib.tt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                              lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *scratch,
+                              ptr("do"), *shape)
+    else:
+        rc = lib.tt_flash_rope_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   do.data_ptr(), lse.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *scratch,
+                                   ptr("q_roped"), ptr("k_roped"), ptr("do"), *shape)
+    _raise_on(rc, name)
+    return dq, dk, dv
 
 
 def _check_flash(name, q, k, v, cos=None, sin=None) -> None:
@@ -553,6 +673,8 @@ def _check_flash_backward(name, q, k, v, o, lse, do, cos=None, sin=None) -> None
     _require(tuple(o.shape) == tuple(q.shape) and tuple(do.shape) == tuple(q.shape)
              and tuple(lse.shape) == tuple(q.shape[:3]) and lse.dtype == torch.float32,
              f"{name}: o/do must be q's shape and lse f32 (B, H, T)")
+    _require(o.dtype == q.dtype and do.dtype in (q.dtype, torch.float32),
+             f"{name}: o must be q's dtype and do q's dtype or f32")
 
 
 def flash_rope_attention(q, k, v, cos, sin, causal=True, scale=None):
@@ -581,28 +703,18 @@ flash_rope_attention.launches = 0
 
 def flash_rope_attention_backward(q, k, v, o, lse, cos, sin, do, causal=True, scale=None):
     """dq, dk, dv of flash_rope_attention for the cotangent do of o. A wider
-    cotangent (f32 under autocast) is cast to q's dtype first, as
-    pallasex does; delta = rowsum(do·o) is taken in f32 here, outside the
-    kernels, as pallasex takes it outside its pallas_call."""
-    if do.dtype != q.dtype:
-        do = do.to(q.dtype)
+    cotangent (f32 under autocast) is rounded to q's dtype first, as
+    pallasex does; delta = rowsum(do·o) is taken in f32 before the
+    products, as pallasex takes it outside its pallas_call: on the card by
+    the kernels' prologue (csrc/flash_bwd_sm90.cu)."""
     if q.device.type == "cpu":
         return flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal, scale)
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
-    do = do.contiguous()
-    _check_flash_backward("flash_rope_attention_backward", q, k, v, o, lse, do, cos, sin)
-    B, H, T, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    out = _flash_backward("flash_rope_attention_backward", q, k, v, o, lse, do, cos, sin, causal,
+                          scale)
     if q.numel():
-        _raise_on(_library().tt_flash_rope_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, k.shape[1], T, D, int(bool(causal)), float(scale),
-            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "flash_rope_attention_backward")
         flash_rope_attention_backward.launches += 1
-    return dq, dk, dv
+    return out
 
 
 flash_rope_attention_backward.launches = 0
@@ -735,26 +847,15 @@ flash_attention.launches = 0
 def flash_attention_backward(q, k, v, o, lse, do, causal=True, scale=None):
     """dq, dk, dv of flash_attention for the cotangent do of o; dk/dv are
     summed over the GQA group. A wider cotangent (f32 under autocast) is
-    cast to q's dtype first, and delta = rowsum(do·o) is taken in f32 here,
-    outside the kernels, as pallasex.flash_attention_backward does."""
-    if do.dtype != q.dtype:
-        do = do.to(q.dtype)
+    rounded to q's dtype first, and delta = rowsum(do·o) is taken in f32
+    before the products, as pallasex.flash_attention_backward does: on the
+    card by the kernels' prologue."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal, scale)
-    do = do.contiguous()
-    _check_flash_backward("flash_attention_backward", q, k, v, o, lse, do)
-    B, H, T, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    delta = (do.float() * o.float()).sum(-1)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    out = _flash_backward("flash_attention_backward", q, k, v, o, lse, do, None, None, causal, scale)
     if q.numel():
-        _raise_on(_library().tt_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], T,
-            D, int(bool(causal)), float(scale), float(scale * LOG2E), _DTYPE_CODE[q.dtype],
-            _stream(q)), "flash_attention_backward")
         flash_attention_backward.launches += 1
-    return dq, dk, dv
+    return out
 
 
 flash_attention_backward.launches = 0
