@@ -526,6 +526,92 @@ def test_grad_bar_passes_the_roundings_and_fails_each_planted_fault(fault):
     else:
         with pytest.raises(AssertionError):
             _assert_grads_close(got, want, dt)
+# The forward's o is held on _grad_errors' three measures at FLASH_GRAD_TOL,
+# and its lse on max |err| at FLASH_LSE_TOL, beside FLASH_TOL's elementwise
+# bar: a late causal row of o is ~0.02, so an absolute 2e-2 passes a kernel
+# that drops a 64-key tile there, and lse is ~8, so FLASH_TOL's relative bar
+# is ~0.16 while a dropped tile moves lse by ~0.03. The kernels round p to
+# the input dtype before p·v and the plain version does not: on the CPU that
+# reads at most 4.2e-3 on o's measures at the planted test's shape (the
+# worst row), and 9.5e-7 on lse (l sums the unrounded p); the planted faults
+# read 0.81 to 3.1 (the row measure, or lse for lse left in log2 units).
+# lse is a sum of f32 exp2s against the plain version's logsumexp, the
+# kernels roping q and k with its roundings: an H100 80GB HBM3 (700 W) read
+# at most 1.9e-6 in bf16, fp16 and f32 at FLASH_BWD_CASES' shapes and
+# chip_smoke.py's; 2^-12 is ~128x that.
+FLASH_LSE_TOL = 2.0 ** -12
+
+
+def _fwd_errors(o, lse, ro, rlse):
+    """o's three measures (_grad_errors) and lse's max |err|."""
+    return (*_grad_errors(o, ro), (lse.float() - rlse.float()).abs().max().item() if lse.numel() else 0.0)
+
+
+def _assert_fwd_close(o, lse, ro, rlse, dtype):
+    """o within FLASH_GRAD_TOL on the three measures, lse within
+    FLASH_LSE_TOL; the readings are printed first."""
+    errs = _fwd_errors(o, lse, ro, rlse)
+    print("fwd errors [max/max, l2/l2, worst row l2/l2, lse max abs]:", errs)
+    assert max(errs[:3]) <= FLASH_GRAD_TOL[dtype] and errs[3] <= FLASH_LSE_TOL, (
+        FLASH_GRAD_TOL[dtype], FLASH_LSE_TOL, errs)
+
+
+def _planted_forward(q, k, v, cos, sin, fault):
+    """The bf16 forward as the card computes it, in plain PyTorch on the CPU
+    (causal): q and k roped in f32 and rounded to bf16, a base-2 online
+    softmax over 128-key tiles, p rounded to bf16 before p·v; with one fault
+    planted: ``drop_tile`` skips keys 128..191 (a 64-key tile) in the last
+    128 rows; ``mask_shift`` lets each row see one key past the diagonal;
+    ``rope_sign`` ropes k with −sin; ``skip_corr`` leaves o unrescaled on
+    the second tile; ``lse_log2`` leaves lse in log2 units."""
+    B, H, T, D = q.shape
+    dt, g = q.dtype, H // k.shape[1]
+    scale2 = cudaex.LOG2E / math.sqrt(D)
+    qr = cudaex._rope_plain(q.float(), cos, sin).to(dt).float()
+    kr = cudaex._rope_plain(k.float(), cos, -sin if fault == "rope_sign" else sin).to(dt).float()
+    kr, vf = kr.repeat_interleave(g, 1), v.float().repeat_interleave(g, 1)
+    rows = torch.arange(T)[:, None]
+    m = torch.full((B, H, T), -1e30)
+    l, o = torch.zeros(B, H, T), torch.zeros(B, H, T, D)
+    for k0 in range(0, T, 128):
+        keys = torch.arange(k0, min(k0 + 128, T))[None, :]
+        live = keys <= rows + (1 if fault == "mask_shift" else 0)
+        if fault == "drop_tile" and k0 == 128:
+            live = live & ~((rows >= T - 128) & (keys < 192))
+        s = torch.matmul(qr, kr[..., k0:k0 + 128, :].transpose(-1, -2)) * scale2
+        s = torch.where(live, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        if not (fault == "skip_corr" and k0 == 128):
+            o = o * corr[..., None]
+        o = o + torch.matmul(p.to(dt).float(), vf[..., k0:k0 + 128, :])
+        m = m_new
+    l_safe = torch.where(l == 0, 1.0, l)
+    lse = m + torch.log2(l_safe)
+    return (o / l_safe[..., None]).to(dt), lse if fault == "lse_log2" else lse * math.log(2)
+
+
+@pytest.mark.parametrize("fault", [None, "drop_tile", "mask_shift", "rope_sign", "skip_corr",
+                                   "lse_log2"])
+def test_fwd_bar_passes_the_roundings_and_fails_each_planted_fault(fault):
+    """The card tests' and chip_smoke.py's bar for the forward, on the CPU
+    plain versions at a GQA shape with RoPE, bf16 (T = 512, D = 64): the
+    kernels' own rounding (p to bf16) passes it; each planted fault fails
+    it."""
+    dt = torch.bfloat16
+    q, k, v, cos, sin, _ = (_torch(a) for a in _flash_inputs(1, 4, 2, 512, 64, seed=11))
+    q, k, v = (t.to(dt) for t in (q, k, v))
+    ro, rlse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, True)
+    o, lse = _planted_forward(q, k, v, cos, sin, fault)
+    if fault is None:
+        _assert_fwd_close(o, lse, ro, rlse, dt)
+    else:
+        with pytest.raises(AssertionError):
+            _assert_fwd_close(o, lse, ro, rlse, dt)
+
+
 FLASH_DTYPES = dict(argnames="dtype", argvalues=[torch.float32, torch.bfloat16, torch.float16],
                     ids=["f32", "bf16", "f16"])
 # The backward's shapes: D of 16, 24, 32, 64, 96, 128; GQA groups of 1, 2,
@@ -546,7 +632,8 @@ FLASH_BWD_IDS = ["mha-ragged", "gqa-d128", "gqa-full-d32", "mqa-d16", "gqa-d24",
 @pytest.mark.parametrize(**FLASH_DTYPES)
 def test_flash_rope_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     """The RoPE flash kernels against their plain versions: o and lse at
-    FLASH_TOL, the gradients at FLASH_TOL and FLASH_GRAD_TOL."""
+    FLASH_TOL, o at FLASH_GRAD_TOL and lse at FLASH_LSE_TOL, the gradients
+    at FLASH_TOL and FLASH_GRAD_TOL."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, cos, sin, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -560,6 +647,7 @@ def test_flash_rope_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     ro, rlse = cudaex.flash_rope_attention_plain(q, k, v, cos, sin, causal)
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    _assert_fwd_close(o, lse, ro, rlse, dtype)
     ref = cudaex.flash_rope_attention_backward_plain(q, k, v, o, lse, cos, sin, do, causal)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
@@ -589,8 +677,8 @@ def test_flash_rope_autograd_matches_autograd_through_plain(cuda):
 @pytest.mark.parametrize(**FLASH_DTYPES)
 def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     """The RoPE-free flash kernels (sdpa's claim) against their plain
-    versions: o and lse at FLASH_TOL, the gradients at FLASH_TOL and
-    FLASH_GRAD_TOL."""
+    versions: o and lse at FLASH_TOL, o at FLASH_GRAD_TOL and lse at
+    FLASH_LSE_TOL, the gradients at FLASH_TOL and FLASH_GRAD_TOL."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, _, _, do = (_torch(a).to(cuda) for a in _flash_inputs(B, H, Hkv, T, D, seed=T))
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -604,6 +692,7 @@ def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     ro, rlse = cudaex.flash_attention_plain(q, k, v, causal)
     torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    _assert_fwd_close(o, lse, ro, rlse, dtype)
     ref = cudaex.flash_attention_backward_plain(q, k, v, o, lse, do, causal)
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
@@ -625,6 +714,75 @@ def test_flash_autograd_matches_autograd_through_plain(cuda):
     torch.testing.assert_close(out, rout, atol=1e-4, rtol=1e-4)
     for a, b in zip(leaves, ref):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(**FLASH_DTYPES)
+def test_flash_forward_never_takes_the_plain_route_on_the_card(cuda, monkeypatch, dtype):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    q, k, v, cos, sin, _ = (_torch(a).to(cuda) for a in _flash_inputs(1, 4, 2, 130, 64, seed=9))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    want = (cudaex.flash_rope_attention_plain(q, k, v, cos, sin, True), cudaex.flash_attention_plain(q, k, v, False))
+    monkeypatch.setattr(cudaex, "flash_rope_attention_plain", refuse)
+    monkeypatch.setattr(cudaex, "flash_attention_plain", refuse)
+    n0 = (cudaex.flash_rope_attention.launches, cudaex.flash_attention.launches)
+    got = (cudaex.flash_rope_attention(q, k, v, cos, sin, True), cudaex.flash_attention(q, k, v, False))
+    torch.cuda.synchronize()
+    assert (cudaex.flash_rope_attention.launches, cudaex.flash_attention.launches) == (n0[0] + 1, n0[1] + 1)
+    for (o, lse), (ro, rlse) in zip(got, want):
+        _assert_fwd_close(o, lse, ro, rlse, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "plain"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_forward_in_a_cuda_graph_equals_eager(cuda, rope, dtype):
+    """The forward (with RoPE: its prologue, scratch and core) captured in a
+    CUDA graph and replayed gives the eager call's bits (it adds nothing
+    atomically), on inputs rewritten between the replays."""
+    q, k, v, cos, sin, _ = (_torch(a).to(cuda) for a in _flash_inputs(2, 8, 2, 300, 128, seed=12))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    run = ((lambda: cudaex.flash_rope_attention(q, k, v, cos, sin, True)) if rope  # noqa: E731
+           else (lambda: cudaex.flash_attention(q, k, v, True)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = run()
+    for seed in (13, 14):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, device=cuda, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        eo, elo = run()
+        torch.cuda.synchronize()
+        assert torch.equal(o, eo) and torch.equal(lse, elo)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_flash_forward_kernels_refuse_scratch_they_would_read_past(cuda, monkeypatch, dtype):
+    """flash_forward_plan states the roped q/k scratch once; the kernels
+    refuse fewer rows than B·(H + Hkv)·T rather than write and read past
+    them."""
+    q, k, v, cos, sin, _ = (_torch(a).to(cuda) for a in _flash_inputs(1, 4, 2, 64, 64, seed=2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    plan = cudaex.flash_forward_plan
+
+    def short_plan(*a, **kw):
+        out = plan(*a, **kw)
+        (shape, dt), = out["scratch"].values()
+        return {**out, "scratch": {"qk_roped": ((shape[0] - 1, *shape[1:]), dt)}}
+
+    monkeypatch.setattr(cudaex, "flash_forward_plan", short_plan)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        cudaex.flash_rope_attention(q, k, v, cos, sin, True)
 
 
 def _bf16_ulp(x):

@@ -1,36 +1,27 @@
-// Flash attention forward, with or without RoPE applied in the kernel, for
-// Hopper (sm_90a).
+// Flash attention forward in f32, with or without RoPE applied in the
+// kernel, for Hopper (sm_90a): the f32 route of tt_flash_rope_fwd and
+// tt_flash_fwd (csrc/flash_fwd_sm90.cu, whose bf16/fp16 route is a wgmma/TMA
+// core). f32 is the agreement dtype: wgmma would round its operands to tf32.
+// This file is specialised to float.
 //
-// tt_flash_rope_fwd replaces thunder_tpu/executors/pallasex.py:
-// flash_rope_attention_forward (kernel body _flash_rope_fwd_kernel): q, k, v
-// (B, H | Hkv, T, D) pre-RoPE, cos/sin (T, D) f32 duplicated-half caches ->
-// o (B, H, T, D) and the natural-log lse (B, H, T) f32 that the backward
-// reads. kv head = q head // (H / Hkv). Causal or full.
-// tt_flash_fwd replaces pallasex.py:flash_attention_forward (kernel body
-// _flash_fwd_kernel): the same kernel with RoPE compiled out; it reads no
-// cos/sin. The causal mask keeps key <= query from position 0 of both
-// (T == Tk, as the reference checker requires).
+// It replaces, for f32, thunder_tpu/executors/pallasex.py:
+// flash_rope_attention_forward (kernel body _flash_rope_fwd_kernel) and
+// flash_attention_forward (kernel body _flash_fwd_kernel, RoPE compiled out:
+// no cos/sin read): q, k, v (B, H | Hkv, T, D) pre-RoPE, cos/sin (T, D) f32
+// duplicated-half caches -> o (B, H, T, D) and the natural-log lse (B, H, T).
+// kv head = q head // (H / Hkv). Causal or full; the causal mask keeps key
+// <= query from position 0 of both (T == Tk).
 //
-// What bounds it: the products. Causal attention does 4·B·H·T²·D/2 flops
-// against about 4·B·H·T·D·2 bytes of q, k, v and o; at llama-350m's shape
-// (B=4, H=16, T=2048, D=64, bf16) that is 34.4 GFLOP (34.7 us at the 989
-// TFLOP/s bf16 peak) against 69 MB (20.6 us at 3.35 TB/s).
+// What bounds it: the products, here by plain f32 FMAs (flash_common.cuh's
+// warp_mma for f32: the tensor cores would round f32 to tf32).
 //
-// What the design does about that: the products run on the tensor cores
-// (mma.sync m16n8k16, bf16/fp16 in, f32 accumulation) from shared-memory
-// tiles, and nothing of size T² touches device memory. One block per (q
-// tile of 128 rows — 64 in f32 —, head, batch); q is roped once into shared
-// memory; a loop inside the block walks the 64-key k/v tiles up to the
-// causal limit (tiles past the diagonal are skipped). Tile i + 1 is copied
-// with cp.async while tile i is computed; each k tile is roped in shared
-// memory once it has landed. The online-softmax state — base-2, log2(e)
-// folded into the scale, as the TPU kernel — stays in registers. The
-// probabilities are rounded to the input dtype for the p·v product, as the
-// TPU kernel rounds them. RoPE is a compile-time switch: with it off the same
-// kernel is plain flash attention.
-//
-// Not done yet: no wgmma or TMA, and the probabilities pass through shared
-// memory on their way to p·v.
+// The design: one block of 4 warps per (q tile of 64 rows, head, batch); q
+// is roped once into shared memory; a loop inside the block walks the
+// 64-key k/v tiles up to the causal limit (tiles past the diagonal are
+// skipped), each k tile roped in shared memory once it has landed. The
+// online-softmax state — base-2, log2(e) folded into the scale, as the TPU
+// kernel — stays in registers; the probabilities pass through shared
+// memory to the p·v product. Nothing of size T² reaches device memory.
 
 #include "flash_common.cuh"
 
@@ -38,25 +29,24 @@ namespace {
 
 using namespace tt::flash;
 
-constexpr int kBK = 64;  // keys per k/v tile
+using T = float;
+constexpr int kBK = 64;    // keys per k/v tile
+constexpr int kWarps = 4;  // a block: a 64-row q tile
 
-// Warps of a block: 8 (a 128-row q tile) for 16-bit types, 4 for f32.
-template <typename T> struct FwdWarps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
-
-template <typename T, int DP, bool ROPE>
+template <int DP, bool ROPE>
 size_t fwd_smem_bytes() {
-  constexpr int BQ = 16 * FwdWarps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
+  constexpr int BQ = 16 * kWarps, LD = DP + Pad<T>::N, ST = Stages<T>::N;
   // q, raw k and v stages, roped k (with RoPE only), probabilities
   return sizeof(T) * ((BQ + 2 * ST * kBK + (ROPE ? kBK : 0)) * LD + BQ * (kBK + Pad<T>::N));
 }
 
-template <typename T, int DP, bool ROPE>
-__global__ void __launch_bounds__(32 * FwdWarps<T>::N)
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(32 * kWarps)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ cos, const float* __restrict__ sin,
                      T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int T_, int D,
                      int causal, float scale_log2e) {
-  constexpr int W = FwdWarps<T>::N, NT = 32 * W, BQ = 16 * W, ST = Stages<T>::N;
+  constexpr int W = kWarps, NT = 32 * W, BQ = 16 * W, ST = Stages<T>::N;
   constexpr int LD = DP + Pad<T>::N;   // row stride of the q, k, v tiles
   constexpr int LP = kBK + Pad<T>::N;  // row stride of the probability tile
   constexpr int NS = kBK / 8;          // 8-column slices of a score row block
@@ -177,79 +167,46 @@ __global__ void __launch_bounds__(32 * FwdWarps<T>::N)
   }
 }
 
-template <typename T, int DP, bool ROPE>
-int launch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
-           void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
-           float scale_log2e, cudaStream_t stream) {
-  constexpr int W = FwdWarps<T>::N;
-  auto kernel = flash_fwd_kernel<T, DP, ROPE>;
-  const size_t smem = fwd_smem_bytes<T, DP, ROPE>();
+template <int DP, bool ROPE>
+int launch(const T* q, const T* k, const T* v, const float* cos, const float* sin, T* o,
+           float* lse, int B, int H, int Hkv, int T_, int D, int causal, float scale_log2e,
+           cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<DP, ROPE>;
+  const size_t smem = fwd_smem_bytes<DP, ROPE>();
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), H, B), 32 * W, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), cos, sin,
-      static_cast<T*>(o), lse, H, Hkv, T_, D, causal, scale_log2e);
+  kernel<<<dim3((T_ + 16 * kWarps - 1) / (16 * kWarps), H, B), 32 * kWarps, smem, stream>>>(
+      q, k, v, cos, sin, o, lse, H, Hkv, T_, D, causal, scale_log2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool ROPE>
-int dispatch(const void* q, const void* k, const void* v, const float* cos, const float* sin,
-             void* o, float* lse, int B, int H, int Hkv, int T_, int D, int causal,
-             float scale_log2e, cudaStream_t s) {
+template <bool ROPE>
+int dispatch(const T* q, const T* k, const T* v, const float* cos, const float* sin, T* o,
+             float* lse, int B, int H, int Hkv, int T_, int D, int causal, float scale_log2e,
+             cudaStream_t s) {
   switch (padded_head_dim(D)) {
     case 32:
-      return launch<T, 32, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
-                                 scale_log2e, s);
+      return launch<32, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
     case 64:
-      return launch<T, 64, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
-                                 scale_log2e, s);
+      return launch<64, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e, s);
     default:
-      return launch<T, 128, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal,
-                                  scale_log2e, s);
-  }
-}
-
-template <bool ROPE>
-int forward(const void* q, const void* k, const void* v, const void* cos, const void* sin,
-            void* o, void* lse, int B, int H, int Hkv, int T, int D, int causal,
-            float scale_log2e, int dtype, void* stream) {
-  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
-  float* l = static_cast<float*>(lse);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
-                                   s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal,
-                                           scale_log2e, s);
-    case tt::kF16:
-      return dispatch<__half, ROPE>(q, k, v, c, sn, o, l, B, H, Hkv, T, D, causal, scale_log2e,
-                                    s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<128, ROPE>(q, k, v, cos, sin, o, lse, B, H, Hkv, T_, D, causal, scale_log2e,
+                               s);
   }
 }
 
 }  // namespace
 
-// All tensors contiguous; q, k, v and o of one dtype; cos/sin f32 (T, D);
-// D even, a multiple of the 16-byte vector and at most 128; H % Hkv == 0.
-// Returns the launch's CUDA error.
-extern "C" int tt_flash_rope_fwd(const void* q, const void* k, const void* v, const void* cos,
-                                 const void* sin, void* o, void* lse, int B, int H, int Hkv,
-                                 int T, int D, int causal, float scale_log2e, int dtype,
-                                 void* stream) {
-  return forward<true>(q, k, v, cos, sin, o, lse, B, H, Hkv, T, D, causal, scale_log2e, dtype,
-                       stream);
-}
-
-// The same without RoPE: plain flash attention, no cos/sin.
-extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int B, int H, int Hkv, int T, int D, int causal, float scale_log2e,
-                            int dtype, void* stream) {
-  return forward<false>(q, k, v, nullptr, nullptr, o, lse, B, H, Hkv, T, D, causal, scale_log2e,
-                        dtype, stream);
+// The f32 forward (tt_flash_rope_fwd and tt_flash_fwd of flash_fwd_sm90.cu
+// call it for f32): all tensors contiguous f32; cos/sin (T, D), or null for
+// no RoPE; D even, a multiple of 4 and at most 128; H % Hkv == 0. Returns
+// the launch's CUDA error.
+extern "C" int tt_flash_fwd_f32(const float* q, const float* k, const float* v, const float* cos,
+                                const float* sin, float* o, float* lse, int B, int H, int Hkv,
+                                int T, int D, int causal, float scale_log2e, cudaStream_t stream) {
+  if (D > 128 || D % 4 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (cos != nullptr)
+    return dispatch<true>(q, k, v, cos, sin, o, lse, B, H, Hkv, T, D, causal, scale_log2e, stream);
+  return dispatch<false>(q, k, v, nullptr, nullptr, o, lse, B, H, Hkv, T, D, causal, scale_log2e,
+                         stream);
 }

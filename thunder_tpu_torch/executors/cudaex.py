@@ -10,10 +10,12 @@ composite ltorch symbols whole and two quantized-linear prims:
   which replaces pallasex.paged_attention_decode;
 * ``thunder.paged_chunk_attention`` → ``paged_chunk_attention``
   (csrc/paged_chunk_attention.cu), which replaces pallasex.paged_chunk_decode;
-* ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_rope_fwd.cu),
-  which replaces pallasex.flash_rope_attention_forward;
+* ``thunder.rope_sdpa`` → ``flash_rope_attention`` (csrc/flash_fwd_sm90.cu:
+  in bf16 and fp16 a RoPE prologue and one wgmma/TMA core, in f32 the
+  kernel of csrc/flash_rope_fwd.cu), which replaces
+  pallasex.flash_rope_attention_forward;
 * ``torch.nn.functional.scaled_dot_product_attention`` → ``flash_attention``
-  (the same kernel with RoPE compiled out), which replaces
+  (the same core without the prologue), which replaces
   pallasex.flash_attention_forward;
 * ``torch.nn.functional.cross_entropy`` (forward only: training takes the
   composite grad rule, as in thunder_tpu) → ``cross_entropy``
@@ -158,7 +160,7 @@ def _library():
         lib.tt_paged_attention.restype = i
         lib.tt_paged_chunk_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.tt_paged_chunk_attention.restype = i
-        lib.tt_flash_rope_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.tt_flash_rope_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, p]
         lib.tt_flash_rope_fwd.restype = i
         lib.tt_flash_rope_bwd.argtypes = [p] * 19 + [i] * 7 + [f, i, i, p]
         lib.tt_flash_rope_bwd.restype = i
@@ -460,7 +462,7 @@ ex.register_implementation("thunder.paged_chunk_attention", _paged_chunk_attenti
 # Flash attention with RoPE applied in the kernel: forward and backward
 # ---------------------------------------------------------------------------
 
-_FLASH_MAX_D = 128  # csrc/flash_rope_*.cu instantiate padded head dims 32, 64, 128
+_FLASH_MAX_D = 128  # the flash kernels instantiate padded head dims up to 128
 
 
 def _rope_plain(x, cos, sin):
@@ -563,6 +565,73 @@ def flash_backward_epilogue_plain(dq_acc, dk_acc, dv_acc, cos, sin, dtype):
         cos, sin = cos.float(), sin.float()
         dq_acc, dk_acc = _rope_vjp_plain(dq_acc, cos, sin), _rope_vjp_plain(dk_acc, cos, sin)
     return dq_acc.to(dtype), dk_acc.to(dtype), dv_acc.to(dtype)
+
+
+def flash_forward_prologue_plain(q, k, cos, sin):
+    """The forward prologue kernel's function (csrc/flash_fwd_sm90.cu,
+    flash_fwd_prologue) in plain PyTorch: q and k roped in f32 and rounded
+    to their dtype. The core (flash_attention_plain) then takes them as
+    they are."""
+    cos, sin = cos.float(), sin.float()
+    return _rope_plain(q.float(), cos, sin).to(q.dtype), _rope_plain(k.float(), cos, sin).to(k.dtype)
+
+
+# csrc/flash_fwd_sm90.cu: queries a work item of the core (kBQ);
+# csrc/flash_rope_fwd.cu (f32): queries a block
+_FWD_TILE_Q = 128
+_FWD_TILE_Q_F32 = 64
+H100_SMS = 132
+
+
+def flash_forward_plan(B, H, Hkv, T, D, dtype, rope=False, sms=H100_SMS) -> dict:
+    """What the flash forward's wrapper allocates and launches for these
+    shapes on a card of ``sms`` SMs: ``scratch`` (name -> (shape, dtype),
+    each allocated with torch.empty and handed to the kernels), its total
+    ``scratch_bytes``, the ``tiles`` of queries the kernel that does the
+    products works through and its ``blocks``.
+
+    bf16/fp16 run the persistent wgmma/TMA core (csrc/flash_fwd_sm90.cu):
+    one block an SM, at most one per tile (128 queries of one q head and
+    batch); with RoPE its prologue first ropes q and k into ``qk_roped``,
+    q's B·H slabs of (T, D) then k's B·Hkv (the kernels refuse fewer rows).
+    f32 runs csrc/flash_rope_fwd.cu: one block per tile of 64 queries,
+    roping its tiles itself; no scratch."""
+    f32 = dtype == torch.float32
+    tiles = -(-T // (_FWD_TILE_Q_F32 if f32 else _FWD_TILE_Q)) * H * B
+    scratch = {}
+    if rope and not f32:
+        scratch["qk_roped"] = ((B * (H + Hkv), T, D), dtype)
+    nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in scratch.values())
+    return {"tiles": tiles, "blocks": tiles if f32 else min(tiles, sms), "scratch": scratch,
+            "scratch_bytes": nbytes}
+
+
+def _flash_forward(name, q, k, v, cos, sin, causal, scale):
+    """The card's flash forward (RoPE when cos is given): allocates
+    flash_forward_plan's scratch and launches tt_flash_rope_fwd or
+    tt_flash_fwd. -> (o, lse)."""
+    _check_flash(name, q, k, v, cos, sin)
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if not q.numel():
+        return o, lse
+    plan = flash_forward_plan(B, H, Hkv, T, D, q.dtype, rope=cos is not None)
+    shape = (B, H, Hkv, T, D, int(bool(causal)), float(scale * LOG2E), _DTYPE_CODE[q.dtype],
+             _stream(q))
+    lib = _library()
+    if cos is None:
+        rc = lib.tt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                              *shape)
+    else:
+        buf = [torch.empty(shp, dtype=dt, device=q.device) for shp, dt in plan["scratch"].values()]
+        ptr, rows = (buf[0].data_ptr(), buf[0].numel() // D) if buf else (None, 0)
+        rc = lib.tt_flash_rope_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
+                                   sin.data_ptr(), o.data_ptr(), lse.data_ptr(), ptr, rows, *shape)
+    _raise_on(rc, name)
+    return o, lse
 
 
 # csrc/flash_bwd_sm90.cu: keys per block; queries per streamed tile (128 at
@@ -684,18 +753,10 @@ def flash_rope_attention(q, k, v, cos, sin, causal=True, scale=None):
     if q.device.type == "cpu":
         return flash_rope_attention_plain(q, k, v, cos, sin, causal, scale)
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
-    _check_flash("flash_rope_attention", q, k, v, cos, sin)
-    B, H, T, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    out = _flash_forward("flash_rope_attention", q, k, v, cos, sin, causal, scale)
     if q.numel():
-        _raise_on(_library().tt_flash_rope_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T, D, int(bool(causal)),
-            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "flash_rope_attention")
         flash_rope_attention.launches += 1
-    return o, lse
+    return out
 
 
 flash_rope_attention.launches = 0
@@ -827,18 +888,10 @@ def flash_attention(q, k, v, causal=True, scale=None):
     causal mask keeps key <= query from position 0 of both."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
-    _check_flash("flash_attention", q, k, v)
-    B, H, T, D = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    out = _flash_forward("flash_attention", q, k, v, None, None, causal, scale)
     if q.numel():
-        _raise_on(_library().tt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
-            k.shape[1], T, D, int(bool(causal)), float(scale * LOG2E), _DTYPE_CODE[q.dtype],
-            _stream(q)), "flash_attention")
         flash_attention.launches += 1
-    return o, lse
+    return out
 
 
 flash_attention.launches = 0
