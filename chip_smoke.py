@@ -34,7 +34,12 @@ Phases, each printing one JSON line:
                to KERNEL_TOL and FLASH_LSE_TOL (max |err|). The
                fused cross-entropy runs on (8192,
                50304) logits in bf16 and f32 and (8192, 32000) in bf16,
-               every 97th row at ignore_index, beside F.cross_entropy. Paged chunk attention runs at the fleet
+               every 97th row at ignore_index, beside F.cross_entropy. Paged
+               attention (split kernel and combine) runs at Llama-3-1B's
+               decode heads (B=8, H=32, Hkv=8, D=64, page 16, 128 pages a
+               table) on a ragged set, a uniform 1,024-token set and one
+               2,048-token sequence beside seven of length 1, in bf16, fp16
+               and f32. Paged chunk attention runs at the fleet
                path's chunk shape (B=1, T=256 from positions 0, 1024, 1792)
                and verify shape (B=8, T=3, ragged, one query past the
                table), Llama-3-1B heads (H=32, Hkv=8, D=64), page 16. The
@@ -48,7 +53,8 @@ Phases, each printing one JSON line:
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
                just before and read just after; both kernels must have run.
 4. profile   — torch.profiler over a short decode-heavy wave: device busy
-               share and the kernels that take the time.
+               share, the kernels that take the time, and the paged
+               attention kernels' device ms a decode step.
 5. agreement — 4 of the requests in f32 (TF32 off) through the engine and
                through the dense solo GPTInference: the streams must match,
                or differ only after a step where the solo top-2 logit gap is
@@ -190,7 +196,10 @@ Phases, each printing one JSON line:
                versions (RING_TOL); then timed (CUDA graph, inputs rotated
                past L2, and eager) there and at T_blk=2048 for a diagonal, a
                past and a future step, beside bound_ms, the plain versions,
-               SDPA and the flash forward kernel on the same (q, shard) pair.
+               and on the same (q, shard) pair SDPA and the flash forward
+               kernel (forward), the flash backward kernel and SDPA's
+               autograd backward (backward). In bf16/fp16 the backward step
+               runs the flash backward's wgmma core at the step's offsets.
 23. cp_train — TrainStep over context_parallel(jit(GPTForCausalLM(llama-350m,
                block_size=8192), [AutocastTransform()]), make_mesh({"sp": 1}))
                on a one-rank NCCL process group (opened once for phases
@@ -234,7 +243,7 @@ import torch
 # moves a logit by ~1e-5 at these widths: a greedy choice may flip only where
 # the top two logits are closer than this.
 AGREE_GAP = 1e-3
-KERNEL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+KERNEL_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # The flash kernels are held to KERNEL_TOL on |kernel - plain| / max(1,
 # |plain|): absolute below 1, relative above (and to FLASH_GRAD_TOL and
 # FLASH_LSE_TOL). In bf16 an output of magnitude ~4 is
@@ -359,29 +368,74 @@ def paged_inputs(dev, gen, dt, seq_lens, B=8, H=32, Hkv=8, D=64, ps=16, npm=128)
     return q, kp, vp, pt, sl
 
 
-def check_paged(cudaex, dev, gen) -> dict:
-    ragged = [1, 17, 300, 1024, 2048, 16, 777, 1500]  # incl. seq_len 1, full table, partial pages
-    errs, cases = [], []
-    for dt in (torch.bfloat16, torch.float32):
-        args = paged_inputs(dev, gen, dt, ragged)
-        out = cudaex.paged_attention(*args)
+PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel", "paged_chunk_kernel")
+PAGED_SETS = {"ragged": [1, 17, 300, 1024, 2048, 16, 777, 1500],  # seq_len 1, full table, partial pages
+              "uniform1024": [1024] * 8, "long_one_short_rest": [2048] + [1] * 7}
+
+
+def device_rows(prof) -> list:
+    """(device us, name, count) of a torch.profiler run's device-side rows,
+    largest first (operator rows would count their kernels twice)."""
+    rows = []
+    for e in prof.key_averages():
+        # the attribute's name changed across torch releases
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if str(e.device_type).endswith("CUDA") and dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    return sorted(rows, reverse=True)
+
+
+def kernel_ms(fn, arg_sets, marks, n: int = 20) -> dict:
+    """Device ms a call of each kernel whose name holds one of marks, from
+    torch.profiler over n eager calls cycling through arg_sets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-        err = (out.float() - cudaex.paged_attention_plain(*args).float()).abs().max().item()
-        if not err <= KERNEL_TOL[dname(dt)]:
-            raise AssertionError(f"paged_attention {dt}: max abs err {err}")
-        errs.append(err)
-        cases.append({"seq_lens": ragged, "dtype": dname(dt), "max_abs_err": err})
+    out = {}
+    for us, key, _ in device_rows(prof):
+        mark = next((m for m in marks if m in key), None)
+        if mark:
+            out[mark] = out.get(mark, 0.0) + us / 1e3 / n
+    return out
+
+
+def check_paged(cudaex, dev, gen) -> dict:
+    """The paged decode against its plain version on PAGED_SETS in bf16,
+    fp16 and f32 (KERNEL_TOL), then each set timed in bf16 beside its bytes
+    bound (live K/V read once), its plain version and the plan's splits."""
+    errs, cases = [], []
+    for label, lens in PAGED_SETS.items():
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            args = paged_inputs(dev, gen, dt, lens)
+            out = cudaex.paged_attention(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - cudaex.paged_attention_plain(*args).float()).abs().max().item()
+            if not err <= KERNEL_TOL[dname(dt)]:
+                raise AssertionError(f"paged_attention {label} {dt}: max abs err {err}")
+            errs.append(err)
+            cases.append({"seq_lens": label, "dtype": dname(dt), "max_abs_err": err})
     timings = {}
-    H, Hkv, D, B = 32, 8, 64, 8
-    for label, lens in (("ragged", ragged), ("uniform1024", [1024] * 8)):
+    H, Hkv, D, B, ps, npm = 32, 8, 64, 8, 16, 128
+    plan = cudaex.paged_attention_plan(B, H, Hkv, D, ps, npm, torch.bfloat16)
+    for label, lens in PAGED_SETS.items():
         live = sum(lens)
-        nbytes = 2 * live * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4 + sum(-(-L // 16) for L in lens) * 4
+        nbytes = 2 * live * Hkv * D * 2 + 2 * B * H * D * 2 + B * 4 + sum(-(-L // ps) for L in lens) * 4
         sets = copies(lambda: paged_inputs(dev, gen, torch.bfloat16, lens), 2 * 1025 * 16 * Hkv * D * 2)
         b, by = bound_ms(nbytes, 4 * live * H * D, "bfloat16")
         ms, eager = cuda_ms(cudaex.paged_attention, sets)
         plain, plain_eager = cuda_ms(cudaex.paged_attention_plain, sets, iters=50)
+        live_blocks = Hkv * sum(-(-L // plan["split_tokens"]) for L in lens)
         timings[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by,
-                              eager_ms=eager, plain_eager_ms=plain_eager)
+                              eager_ms=eager, plain_eager_ms=plain_eager, live_tokens=live,
+                              split_blocks=plan["blocks"], live_split_blocks=live_blocks,
+                              combine_blocks=plan["combine_blocks"], n_split=plan["n_split"],
+                              device_ms_by_kernel=kernel_ms(cudaex.paged_attention, sets, PAGED_KERNELS))
     emit("kernels", kernel="paged_attention", cases=cases, timing_bf16=timings)
     return dict(max_abs_err=max(errs), shape="B=8 H=32 Hkv=8 D=64 ps=16 ragged bf16",
                 **timings["ragged"])
@@ -1135,9 +1189,11 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
 
 def profile_wave(engine, specs, phase: str = "profile") -> dict:
     """Device busy share over a wave of (prompt, max_new_tokens, lane)
-    requests, and the kernels that took the device time."""
+    requests, the kernels that took the device time, and the paged
+    attention kernels' device ms a decode step."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps0 = engine.decode_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p, n, lane in specs:
@@ -1145,18 +1201,15 @@ def profile_wave(engine, specs, phase: str = "profile") -> dict:
         engine.drain()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side rows only: operator rows would count their kernels twice
-    for e in prof.key_averages():
-        # the attribute's name changed across torch releases
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if str(e.device_type).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
+    steps = engine.decode_steps - steps0
+    attn_us = sum(us for us, k, _ in rows if any(m in k for m in PAGED_KERNELS))
     out = dict(requests=len(specs), wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-               idle_share=(1 - busy_us / wall_us) if busy_us else None,
+               idle_share=(1 - busy_us / wall_us) if busy_us else None, decode_steps=steps,
+               attention_device_ms=attn_us / 1e3,
+               attention_device_ms_per_decode_step=attn_us / 1e3 / steps if steps else None,
+               device_ms_per_decode_step=busy_us / 1e3 / steps if steps else None,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:10]])
     emit(phase, **out)
     return out
@@ -1848,16 +1901,9 @@ def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
             step(idx, tgt)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows, nccl_host = [], []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if str(e.device_type).endswith("CUDA") and dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-        elif e.key.startswith("nccl:"):
-            nccl_host.append((e.key, e.count, e.cpu_time_total))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
+    nccl_host = [(e.key, e.count, e.cpu_time_total) for e in prof.key_averages()
+                 if e.key.startswith("nccl:") and not str(e.device_type).endswith("CUDA")]
     busy_us = sum(r[0] for r in rows)
     by_kind: dict = {}
     for us, k, _ in rows:
@@ -2945,8 +2991,10 @@ def time_ring_steps(cudaex, dev, gen, shp, causal, T, kinds) -> dict:
     """Device and eager ms of the forward and backward step kernels for each
     step kind at block T (bf16), beside bound_ms, the plain versions and, as
     side yardsticks (library_ms is none: no one PyTorch call folds a shard
-    into carried accumulators), SDPA and the B1 flash kernel on the same
-    (q, shard) pair."""
+    into carried accumulators), on the same (q, shard) pair: SDPA and the B1
+    flash forward kernel; the flash backward kernel (tt_flash_bwd, causal at
+    the diagonal step) and SDPA's autograd backward (its forward and
+    backward less its forward)."""
     B, H, Hkv, D = (shp[x] for x in ("B", "H", "Hkv", "D"))
     gqa = H != Hkv
     out = {}
@@ -2986,6 +3034,17 @@ def time_ring_steps(cudaex, dev, gen, shp, causal, T, kinds) -> dict:
             b1 = lambda q, k, v: cudaex.flash_attention(q, k, v, causal and kind == "diagonal")  # noqa: E731
             row["fwd"]["sdpa_ms"] = cuda_ms(sdpa, pairs, iters=50)[0]
             row["fwd"]["flash_fwd_ms"] = cuda_ms(b1, pairs, iters=50)[0]
+            diag = causal and kind == "diagonal"
+            fb_args = [(q, k, v, *cudaex.flash_attention(q, k, v, diag), do, diag)
+                       for q, k, v, do, *_ in sets]
+            row["bwd"]["flash_bwd_ms"] = cuda_ms(cudaex.flash_attention_backward, fb_args, iters=50)[0]
+            del fb_args
+            lib = [(q.clone().requires_grad_(), k.clone().requires_grad_(), v.clone().requires_grad_(), do)
+                   for q, k, v, do, *_ in sets]
+            sdpa_fb = lambda q, k, v, do: torch.autograd.grad(sdpa(q, k, v), (q, k, v), do)  # noqa: E731
+            row["bwd"]["sdpa_bwd_ms"] = (cuda_ms(sdpa_fb, lib, iters=50)[0]
+                                         - cuda_ms(lambda q, k, v, do: sdpa(q, k, v), lib, iters=50)[0])
+            del lib
         out[kind] = row
         del sets, fwd_args, bwd_args
         torch.cuda.empty_cache()
@@ -3044,10 +3103,7 @@ def check_ring(cudaex, dev, gen) -> tuple[dict, dict]:
         emit("kernels", kernel=f"ring_flash_{kind}", errs_are="[max abs, max/max|ref|, l2/l2 ref]",
              tol=RING_TOL, cases=cases[kind], cp_train_shape_errs=main_errs[kind],
              whole_ring=whole if kind == "bwd" else None,
-             timing_bf16={lbl: {k2: r[kind] | ({} if kind == "bwd" else
-                                               {x: r["fwd"].get(x) for x in ("sdpa_ms", "flash_fwd_ms")})
-                                for k2, r in t.items()}
-                          for lbl, t in timing.items()})
+             timing_bf16={lbl: {k2: r[kind] for k2, r in t.items()} for lbl, t in timing.items()})
         main = timing["cp_train T=8192"]["diagonal"][kind]
         res[kind] = dict(max_abs_err=max(e[0] for e in main_errs[kind].values()),
                          shape="B=1 H=16 T=8192 D=64 causal bf16, the diagonal step (cp_train)",
@@ -3307,7 +3363,7 @@ def main() -> int:
              "thunder_tpu/executors/pallasex.py:2004", moe_served["launches"]["grouped_mlp"]),
             ("ring_flash_fwd", ring_fwd, "thunder_tpu_torch/csrc/ring_flash_fwd.cu",
              "thunder_tpu/executors/pallasex.py:2205", cp_trained["launches"]["ring_flash_fwd"]),
-            ("ring_flash_bwd", ring_bwd, "thunder_tpu_torch/csrc/ring_flash_bwd.cu",
+            ("ring_flash_bwd", ring_bwd, "thunder_tpu_torch/csrc/flash_bwd_sm90.cu",
              "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],

@@ -6,7 +6,12 @@ accumulators, then rounding). Composed, they must give
 flash_rope_attention_backward_plain's numbers to the last bit, in f32 and
 bf16, and pallasex's flash_rope_attention_backward in interpret mode at its
 f32 bar (5e-3, as test_torch_kernels.py holds the plain version). Also the
-wrapper's plan of scratch and blocks, as a function of the shapes."""
+wrapper's plan of scratch and blocks, as a function of the shapes.
+
+The same core runs a ring-attention backward step in bf16/fp16 at the
+step's global offsets, after a ring prologue: its padded lse2 and delta and
+the offset mask, composed with the plain products, must give
+ring_flash_bwd_step_plain bit for bit at every step kind, with GQA."""
 import math
 
 import numpy as np
@@ -138,3 +143,76 @@ def test_plan_scratch(args, kw, want):
     assert _shapes(plan) == want
     assert plan["pitch"] == want["delta"][0][-1]  # the row pitch handed to the kernels
     assert plan["scratch_bytes"] == sum(math.prod(s) * dt.itemsize for s, dt in want.values())
+
+
+# ---------------------------------------------------------------------------
+# The ring backward step on the same core
+# ---------------------------------------------------------------------------
+
+# (q_off, k_off) in units of T: a rank's diagonal, past and future steps
+RING_STEPS = {"diagonal": (1, 1), "past": (2, 0), "future": (0, 1)}
+
+
+def _ring_composed(q, kb, vb, do, lse, delta, q_off, k_off, causal, pitch):
+    """The ring prologue's padded rows (their first T), then the core's
+    products in f32 with p masked by the offsets after its exp2, as the core
+    takes them."""
+    B, H, T, D = q.shape
+    Hkv = kb.shape[1]
+    g, scale = H // Hkv, 1.0 / math.sqrt(D)
+    lse2, dl = cudaex.ring_bwd_prologue_plain(lse, delta, pitch)
+    assert tuple(lse2.shape) == tuple(dl.shape) == (B, H, pitch)
+    assert not lse2[..., T:].any() and not dl[..., T:].any()
+    kr, vr = kb.float().repeat_interleave(g, 1), vb.float().repeat_interleave(g, 1)
+    s = torch.matmul(q.float(), kr.transpose(-1, -2)) * (scale * cudaex.LOG2E)
+    p = torch.exp2(s - lse2[..., :T, None])
+    if causal:
+        p = torch.where(cudaex.ring_visible(T, T, q_off, k_off), p, 0.0)
+    dof = do.float()
+    ds = p * (torch.matmul(dof, vr.transpose(-1, -2)) - dl[..., :T, None]) * scale
+    dq = torch.matmul(ds, kr)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).reshape(B, Hkv, g, T, D).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).reshape(B, Hkv, g, T, D).sum(2)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("step", list(RING_STEPS))
+@pytest.mark.parametrize("Hkv,D", [(4, 64), (2, 32), (1, 128)], ids=["mha-d64", "gqa-d32", "mqa-d128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_prologue_and_offset_mask_compose_to_the_plain_step(dtype, Hkv, D, step, causal):
+    B, H, T = 1, 4, 77
+    rng = np.random.RandomState(D + Hkv)
+    q, do = (torch.tensor(rng.randn(B, H, T, D).astype(np.float32)).to(dtype) for _ in range(2))
+    kb, vb = (torch.tensor(rng.randn(B, Hkv, T, D).astype(np.float32)).to(dtype) for _ in range(2))
+    q_off, k_off = (T * x for x in RING_STEPS[step])
+    # the global lse and delta a ring leaves: any finite rows do for the bits
+    lse = torch.tensor(rng.randn(B, H, T, 1).astype(np.float32)) + 4.0
+    delta = torch.tensor(rng.randn(B, H, T, 1).astype(np.float32))
+    pitch = cudaex.flash_backward_plan(B, H, Hkv, T, D, torch.bfloat16, ring=True)["pitch"]
+    got = _ring_composed(q, kb, vb, do, lse, delta, q_off, k_off, causal, pitch)
+    want = cudaex.ring_flash_bwd_step_plain(q, kb, vb, do, lse, delta, q_off, k_off, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b), name
+    if step == "future" and causal:
+        assert not any(t.any() for t in got)
+
+
+@pytest.mark.parametrize("args,want", [
+    # cp_train's step (B=1, H=16, T=8192, D=64, bf16): one core block per
+    # (128-key tile, head); the f32 outputs are the core's accumulators
+    ((1, 16, 16, 8192, 64, BF16),
+     dict(pitch=8192, blocks=1024, scratch={"delta": ((1, 16, 8192), F32), "lse2": ((1, 16, 8192), F32)})),
+    # the four-shard ring's GQA step: 64-query tiles at D = 128
+    ((1, 16, 4, 2048, 128, BF16),
+     dict(pitch=2048, blocks=256, scratch={"delta": ((1, 16, 2048), F32), "lse2": ((1, 16, 2048), F32)})),
+    # ragged T: delta and lse2 padded to a whole tile
+    ((2, 4, 2, 77, 96, torch.float16),
+     dict(pitch=128, blocks=8, scratch={"delta": ((2, 4, 128), F32), "lse2": ((2, 4, 128), F32)})),
+    # f32: the two passes of csrc/ring_flash_bwd.cu read the caller's lse and delta
+    ((1, 8, 2, 200, 64, F32), dict(pitch=200, blocks=4 * 8 + 4 * 2, scratch={})),
+], ids=["cp-train", "gqa-d128", "ragged-d96", "f32"])
+def test_ring_plan(args, want):
+    plan = cudaex.flash_backward_plan(*args, ring=True)
+    assert {"pitch": plan["pitch"], "blocks": plan["blocks"], "scratch": _shapes(plan)} == want
+    assert plan["scratch_bytes"] == sum(math.prod(s) * dt.itemsize for s, dt in want["scratch"].values())

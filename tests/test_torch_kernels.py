@@ -1308,7 +1308,7 @@ RING_STEPS = {"diagonal": (1, 1), "past": (1, 0), "future": (0, 1)}
 # and on ||err|| / ||ref|| (|o/l| and dq span ~0.03 to ~4 across rows, so a
 # bar scaled by the largest value alone is as large as a typical one); a
 # zero reference (a future step's backward) admits no error.
-RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+RING_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -6}
 
 
 def _assert_ring_close(got, want, dtype, name):
@@ -1335,7 +1335,7 @@ def _ring_card_inputs(cuda, dtype, B, H, Hkv, T, D, seed):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("step", list(RING_STEPS))
 @pytest.mark.parametrize("case", list(RING_CASES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
 def test_ring_step_kernels_match_plain(cuda, case, step, causal, dtype):
     """Both ring kernels against their plain versions within RING_TOL (o/l,
     m, l; dq, dk, dv), from the state a diagonal step leaves, with GQA,
@@ -1377,6 +1377,61 @@ def test_ring_future_step_leaves_accumulators_bit_unchanged(cuda, dtype):
     lse = torch.zeros_like(m)
     for g in cudaex.ring_flash_bwd_step(q, kb, vb, do, lse, lse, 0, T, True):
         assert not g.any()
+
+
+def _ring_backward_twice(cuda, dtype, B, H, Hkv, T, D, step):
+    q, kb, vb, do, o, m, l = _ring_card_inputs(cuda, dtype, B, H, Hkv, T, D, seed=T + H)
+    lse = (m + torch.log2(l)) * cudaex.LN2
+    delta = (do.float() * (o / l)).sum(-1, keepdim=True)
+    q_off, k_off = (T * x for x in RING_STEPS[step])
+    run = lambda: cudaex.ring_flash_bwd_step(q, kb, vb, do, lse, delta, q_off, k_off, True)  # noqa: E731
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    return first, second
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", ["diagonal", "past"])
+@pytest.mark.parametrize("B,H,Hkv,T,D", [(1, 16, 4, 1000, 128), (1, 16, 16, 2048, 64)],
+                         ids=["gqa-d128", "mha-d64"])
+def test_ring_backward_bf16_runs_differ_by_at_most_an_ulp(cuda, B, H, Hkv, T, D, step):
+    """On the flash backward's core, dq (and dk, dv with GQA) are sums of f32
+    reduce-adds whose order changes from run to run: two runs may differ by
+    one bf16 ulp of an element once rounded to the input dtype (as the ring
+    rounds its sums), the magnitude taken as at least 2^-16 of the tensor's
+    largest, as test_flash_backward_bf16_runs_differ_by_at_most_an_ulp
+    holds the flash backward."""
+    first, second = _ring_backward_twice(cuda, torch.bfloat16, B, H, Hkv, T, D, step)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        m = torch.maximum(a.abs(), b.abs())
+        bound = _bf16_ulp(m.clamp(min=2.0 ** -16 * m.max().item()))
+        assert ((a - b).abs() <= bound).all(), name
+
+
+@pytest.mark.gpu
+def test_ring_backward_f32_is_bit_reproducible(cuda):
+    """The f32 route (csrc/ring_flash_bwd.cu's two passes) adds nothing
+    atomically."""
+    first, second = _ring_backward_twice(cuda, torch.float32, 1, 8, 2, 300, 64, "diagonal")
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("short", [128, 56], ids=["short-of-T", "not-whole-tiles"])
+def test_ring_backward_refuses_a_pitch_it_would_read_past(cuda, monkeypatch, short):
+    q = torch.randn(1, 2, 256, 64, device=cuda).to(torch.bfloat16)
+    lse = torch.zeros(1, 2, 256, 1, device=cuda)
+    plan = cudaex.flash_backward_plan
+
+    def short_plan(*a, **kw):
+        out = plan(*a, **kw)
+        return {**out, "pitch": out["pitch"] - short}
+
+    monkeypatch.setattr(cudaex, "flash_backward_plan", short_plan)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        cudaex.ring_flash_bwd_step(q, q, q, q, lse, lse, 0, 0, True)
 
 
 @pytest.mark.gpu

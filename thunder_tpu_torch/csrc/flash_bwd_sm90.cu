@@ -49,10 +49,19 @@
 // So one core serves both entry points, and the five products of a tile
 // make one pass; nothing of size T² reaches device memory.
 //
+// The core also runs tt_ring_flash_bwd, one backward step of ring attention
+// (at the end of this file), in bf16 and fp16: the causal mask and the
+// first q tile that can see a key tile come from the step's global offsets
+// q_off and k_off (0 for the entries above); a ring prologue copies the
+// caller's lse·log2e and delta into the padded rows and zeroes the f32
+// outputs the core adds into; dk and dv leave the core in f32 (stored, or
+// added over the GQA group), and there is no epilogue.
+//
 // Determinism: dq (and dk, dv with GQA) are sums of f32 reduce-adds whose
 // order changes from run to run: two runs on the same inputs may differ in
 // the last bit of an f32 sum, so by up to one ulp of the output dtype after
-// rounding. The f32 route adds nothing atomically and is bit-reproducible.
+// rounding; the ring step's f32 outputs likewise. The f32 routes add
+// nothing atomically and are bit-reproducible.
 
 #include <type_traits>
 
@@ -66,6 +75,14 @@ extern "C" int tt_flash_bwd_f32_two_pass(const float* q, const float* k, const f
                                          float* dv, int B, int H, int Hkv, int T, int D,
                                          int causal, float scale, float scale_log2e,
                                          cudaStream_t stream);
+
+// csrc/ring_flash_bwd.cu: the ring step's two-pass f32 kernels.
+extern "C" int tt_ring_flash_bwd_f32_two_pass(const float* q, const float* k, const float* v,
+                                              const float* dout, const float* lse,
+                                              const float* delta, float* dq, float* dk, float* dv,
+                                              int B, int H, int Hkv, int T, int D, int q_off,
+                                              int k_off, int causal, float scale,
+                                              float scale_log2e, cudaStream_t stream);
 
 namespace {
 
@@ -286,6 +303,41 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The ring step's prologue, 8 threads a row. Rows [0, BH·pitch) are q rows
+// (b·H + h, t): lse·log2e and delta copied into the pitch-padded lse2 and
+// delta_p (zeros at t >= T), and the f32 dq output zeroed for the core's
+// reduce-adds; rows past them are k rows (b·Hkv + hk, t < T), whose dk and
+// dv outputs are zeroed when zero_kv is set (under GQA the core adds into
+// them; a shard wholly in the future leaves them zero).
+__global__ void __launch_bounds__(256)
+    ring_bwd_prologue(const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ lse2, float* __restrict__ delta_p, float* __restrict__ dq,
+                      float* __restrict__ dk, float* __restrict__ dv, int BH, int BHkv, int T_,
+                      int pitch, int D, int zero_kv) {
+  constexpr int TPR = 8;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / TPR;
+  const int lane = threadIdx.x % TPR;
+  const long long q_rows = static_cast<long long>(BH) * pitch;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row < q_rows) {
+    const int t = static_cast<int>(row % pitch);
+    const size_t src = static_cast<size_t>(row / pitch) * T_ + t;
+    if (lane == 0) {
+      lse2[row] = t < T_ ? lse[src] * kLog2e : 0.f;
+      delta_p[row] = t < T_ ? delta[src] : 0.f;
+    }
+    if (t < T_) {
+      for (int d0 = 4 * lane; d0 < D; d0 += 4 * TPR) *reinterpret_cast<float4*>(dq + src * D + d0) = zero;
+    }
+  } else if (zero_kv && row - q_rows < static_cast<long long>(BHkv) * T_) {
+    const size_t off = static_cast<size_t>(row - q_rows) * D;
+    for (int d0 = 4 * lane; d0 < D; d0 += 4 * TPR) {
+      *reinterpret_cast<float4*>(dk + off + d0) = zero;
+      *reinterpret_cast<float4*>(dv + off + d0) = zero;
+    }
+  }
+}
+
 // Adds (a, b) to p[0], p[1] (8-byte aligned) in one vector atomic.
 __device__ __forceinline__ void add2(float* p, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
@@ -299,7 +351,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const float* __restrict__ delta, const float* __restrict__ cos,
                    const float* __restrict__ sin, T* __restrict__ dk, T* __restrict__ dv,
                    float* __restrict__ dk_acc, float* __restrict__ dv_acc, int H, int Hkv, int T_,
-                   int pitch, int D, int causal, float scale, float scale_log2e) {
+                   int pitch, int D, int causal, int q_off, int k_off, float scale,
+                   float scale_log2e) {
   using S = Smem<DP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -313,8 +366,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bh = b * H + h, bhk = b * Hkv + hk;
   const int k0 = kt * kBC;
   constexpr int BR = S::BR;
-  const int i0 = causal ? k0 / BR : 0;  // q tiles wholly before this key tile see none of it
-  const int n_it = (T_ + BR - 1) / BR - i0;
+  // local query qi sees local key kj unless causal and kj > qi + shift (the
+  // global positions q_off + qi and k_off + kj); q tiles wholly before this
+  // key tile's first visible row see none of it
+  const int shift = q_off - k_off, n_tiles = (T_ + BR - 1) / BR;
+  const int i0 = causal ? min(n_tiles, max(0, k0 - shift) / BR) : 0;
+  const int n_it = n_tiles - i0;
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
 
   // thread 0 issues every copy: q, do, lse2 and delta of tile n into stage n % kStages
@@ -392,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // query column 8·(i>>2) + 2c + (i&1)
     const float* l2 = reinterpret_cast<const float*>(smem + S::LSE) + s * BR;
     const float* dl = reinterpret_cast<const float*>(smem + S::DELTA) + s * BR;
-    const bool need_mask = q0 + BR > T_ || k0 + kBC > T_ || (causal && k0 + kBC - 1 > q0);
+    const bool need_mask = q0 + BR > T_ || k0 + kBC > T_ || (causal && k0 + kBC - 1 > q0 + shift);
 #pragma unroll
     for (int j = 0; j < BR / 8; ++j) {
       const int col = 8 * j + 2 * c;
@@ -403,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e, qi = q0 + col + (e & 1), key = key0 + 8 * (e >> 1);
         float p = fast_exp2(st[i] * scale_log2e - ((e & 1) ? L.y : L.x));
-        if (need_mask && (qi >= T_ || key >= T_ || (causal && key > qi))) p = 0.f;
+        if (need_mask && (qi >= T_ || key >= T_ || (causal && key > qi + shift))) p = 0.f;
         dpt[i] = p * fmaf(dpt[i], scale, -((e & 1) ? dsy : dsx));  // p·(dp − delta)·scale
         st[i] = p;
       }
@@ -522,8 +579,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (dv_acc == nullptr) {
         store_pair(dv + at, v_a, v_b);
-      } else {
+      } else if (g > 1) {
         add2(dv_acc + at, v_a, v_b);
+      } else {
+        store_pair(dv_acc + at, v_a, v_b);
       }
     }
   }
@@ -540,7 +599,9 @@ template <typename T> int threads_per_row(int D) { return D <= 8 * tt::Vec<T>::N
 // One backward call's tensors. Scratch the route does not use is null: the
 // roped q/k (qr, kr) with RoPE only, the rounded do (dor) when do arrives
 // wider, dk_acc with RoPE or GQA, dv_acc with GQA. pitch: the row pitch of
-// delta and lse2, from the caller's plan.
+// delta and lse2, from the caller's plan. q_off, k_off: the global
+// positions of q's and k's first rows (a ring step's; 0 for attention on
+// one sequence).
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse, *cos, *sin;
   void *dq, *dk, *dv;
@@ -549,6 +610,7 @@ struct Args {
   int B, H, Hkv, T, D, pitch, causal;
   float scale;
   cudaStream_t stream;
+  int q_off = 0, k_off = 0;
 };
 
 template <typename T, typename TD>
@@ -596,8 +658,8 @@ int core(const Args& a) {
   kernel<<<dim3(a.H, a.B, (a.T + kBC - 1) / kBC), kThreads, Smem<DP>::kBytes, a.stream>>>(
       mq, mk, mv, mdo, mdq, a.lse2, a.delta, vjp ? static_cast<const float*>(a.cos) : nullptr,
       vjp ? static_cast<const float*>(a.sin) : nullptr, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.dk_acc, a.dv_acc, a.H, a.Hkv, a.T, a.pitch, a.D, a.causal, a.scale,
-      a.scale * kLog2e);
+      static_cast<T*>(a.dv), a.dk_acc, a.dv_acc, a.H, a.Hkv, a.T, a.pitch, a.D, a.causal, a.q_off,
+      a.k_off, a.scale, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -658,6 +720,39 @@ int backward(const Args& a, int dtype, int do_dtype, bool rope) {
   }
 }
 
+// One ring backward step in bf16/fp16: the prologue, then (unless the shard
+// is wholly in the future: q_off + T - 1 < k_off under the causal mask,
+// where every contribution is zero) the core with the step's offsets,
+// writing f32 dq by reduce-adds and f32 dk, dv (stored, or added over the
+// GQA group). f32 runs the two-pass kernels of ring_flash_bwd.cu. delta is
+// the caller's (B, H, T); a.delta the pitch-padded copy the core reads.
+int ring_backward(const Args& a, const float* delta, int dtype) {
+  const int vec = dtype == tt::kF32 ? 4 : 8;
+  if (a.D > 128 || a.D % 2 || a.D % vec || a.H % a.Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == tt::kF32)
+    return tt_ring_flash_bwd_f32_two_pass(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), delta, static_cast<float*>(a.dq),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.B, a.H, a.Hkv, a.T, a.D, a.q_off,
+        a.k_off, a.causal, a.scale, a.scale * kLog2e, a.stream);
+  if (dtype != tt::kBF16 && dtype != tt::kF16) return static_cast<int>(cudaErrorInvalidValue);
+  const int br = a.D <= 64 ? tile_queries<64>() : tile_queries<128>();
+  if (a.pitch < a.T || a.pitch % br || a.lse2 == nullptr || a.delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool future = a.causal && a.q_off + a.T - 1 < a.k_off;
+  const bool zero_kv = future || a.H != a.Hkv;
+  const long long rows = static_cast<long long>(a.B) * a.H * a.pitch +
+                         (zero_kv ? static_cast<long long>(a.B) * a.Hkv * a.T : 0);
+  ring_bwd_prologue<<<rows_grid(rows, 8), 256, 0, a.stream>>>(
+      static_cast<const float*>(a.lse), delta, a.lse2, a.delta,
+      a.dq_acc, a.dk_acc, a.dv_acc, a.B * a.H, a.B * a.Hkv, a.T, a.pitch, a.D, zero_kv);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e || future) return e;
+  if (dtype == tt::kBF16) return a.D <= 64 ? core<__nv_bfloat16, 64>(a) : core<__nv_bfloat16, 128>(a);
+  return a.D <= 64 ? core<__half, 64>(a) : core<__half, 128>(a);
+}
+
 }  // namespace
 
 // All tensors contiguous: q, dq (B, H, T, D), k, v, dk, dv (B, Hkv, T, D) and
@@ -699,4 +794,35 @@ extern "C" int tt_flash_bwd(const void* q, const void* k, const void* v, const v
                static_cast<float*>(dk_acc), static_cast<float*>(dv_acc), nullptr, nullptr, dor,
                B, H, Hkv, T, D, pitch, causal, scale, static_cast<cudaStream_t>(stream)};
   return backward(a, dtype, do_dtype, false);
+}
+
+// One backward step of ring attention (context parallelism): replaces
+// thunder_tpu/executors/pallasex.py:ring_flash_bwd_step (kernel bodies
+// _ring_flash_bwd_dq_kernel and _ring_flash_bwd_dkv_kernel). For local
+// queries q and their cotangent do (B, H, T, D, one dtype), the global
+// natural-log lse and delta = rowsum(do·o) (B, H, T) f32 and one arriving
+// K/V shard k, v (B, Hkv, T, D) at global offsets q_off and k_off, it
+// writes the shard's f32 contributions dq (B, H, T, D), dk and dv (B, Hkv,
+// T, D), summed over the GQA group; p comes from the global lse, so the
+// steps' contributions simply add. bf16/fp16 run the ring prologue and the
+// core above with the step's offsets (what bounds it and what the core
+// does: the header note); dq and, under GQA, dk and dv are sums of f32
+// reduce-adds, so two runs may differ in the last bit of an f32 sum. f32
+// runs the two-pass kernels of csrc/ring_flash_bwd.cu, bit-reproducible.
+// Scratch for bf16/fp16, from the caller's plan (executors/cudaex.py:
+// flash_backward_plan with ring=True): lse2 and delta_p f32 (B, H, pitch),
+// pitch at least T and a whole number of the core's query tiles (refused
+// otherwise); null for f32. Returns the first CUDA error.
+extern "C" int tt_ring_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                 void* lse2, void* delta_p, int B, int H, int Hkv, int T, int D,
+                                 int pitch, int q_off, int k_off, int causal, float scale,
+                                 int dtype, void* stream) {
+  Args a{q, k, v, nullptr, dout, lse, nullptr, nullptr, dq, dk, dv,
+         static_cast<float*>(delta_p), static_cast<float*>(lse2), static_cast<float*>(dq),
+         static_cast<float*>(dk), static_cast<float*>(dv), nullptr, nullptr, nullptr,
+         B, H, Hkv, T, D, pitch, causal, scale, static_cast<cudaStream_t>(stream)};
+  a.q_off = q_off;
+  a.k_off = k_off;
+  return ring_backward(a, static_cast<const float*>(delta), dtype);
 }

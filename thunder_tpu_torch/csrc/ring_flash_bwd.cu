@@ -1,7 +1,9 @@
-// One backward step of ring attention (context parallelism) for Hopper
-// (sm_90a).
+// One backward step of ring attention (context parallelism) in f32, for
+// Hopper (sm_90a): the f32 route of tt_ring_flash_bwd, whose bf16/fp16
+// route runs the one-pass wgmma core of csrc/flash_bwd_sm90.cu (wgmma would
+// round f32 operands to tf32, so f32, the agreement dtype, stays here).
 //
-// tt_ring_flash_bwd replaces thunder_tpu/executors/pallasex.py:
+// Replaces, with that entry, thunder_tpu/executors/pallasex.py:
 // ring_flash_bwd_step (kernel bodies _ring_flash_bwd_dq_kernel and
 // _ring_flash_bwd_dkv_kernel): for the local queries q, their cotangent do
 // (B, H, T, D), the global natural-log lse and delta = rowsum(do·o) (B, H,
@@ -13,31 +15,24 @@
 // skips use global positions (q_off + i, k_off + j), as the forward step.
 // The GQA group sum of dk/dv is taken inside the block, so the kernel
 // writes (B, Hkv, T, D) where thunder_tpu writes per-q-head partials and
-// sums them outside: the same function without 2 × (B, H, T, D) f32 of
-// partials.
+// sums them outside.
 //
-// What bounds it: the products, 2.5× the forward step's (recomputed q·kᵀ
-// and do·vᵀ, and dq, dk, dv): 0.347 ms at the cp_train shape (B=1, H=16,
-// T=8192, D=64, bf16, the diagonal step) at 989 TFLOP/s.
+// What bounds it: the products, 2.5x the forward step's (recomputed q·kᵀ
+// and do·vᵀ, and dq, dk, dv), at the f32 rate outside the tensor cores.
 //
-// What the design does about that: flash_rope_bwd.cu's two passes (RoPE
-// compiled out) with global offsets and f32 outputs, tensor-core tiles
-// (mma.sync m16n8k16, f32 accumulation) from cp.async double-buffered
-// shared memory, no atomics:
-//   - dq: one block per (q tile of 128 rows — 64 in f32 —, head, batch)
-//     loops over the 64-key tiles of the shard up to the global causal
-//     limit and writes its rows of dq (zeros when the shard is wholly in
-//     its future).
-//   - dk/dv: one block per (k tile of 128 keys — 64 in f32 —, kv head,
-//     batch) loops over the g q-heads of its group and over the q tiles
-//     that can see its keys, in the transposed orientation (rows = keys),
-//     and writes its rows of dk and dv.
-// p is rounded to do's dtype for dv and ds to q's dtype for dq and dk, as
-// the TPU kernels round them. One C entry launches both passes. q_off and
-// k_off are kernel arguments: no host sync.
+// The design: flash_rope_bwd.cu's two passes (RoPE compiled out) with
+// global offsets and f32 outputs, f32 FMA tiles from shared memory, no
+// atomics, so two runs give the same bits:
+//   - dq: one block per (q tile of 64 rows, head, batch) loops over the
+//     64-key tiles of the shard up to the global causal limit and writes
+//     its rows of dq (zeros when the shard is wholly in its future).
+//   - dk/dv: one block per (k tile of 64 keys, kv head, batch) loops over
+//     the g q-heads of its group and over the q tiles that can see its
+//     keys, in the transposed orientation (rows = keys), and writes its
+//     rows of dk and dv.
+// q_off and k_off are kernel arguments: no host sync.
 //
-// Not done yet: the two passes recompute q·kᵀ and do·vᵀ each; the ring loop
-// adds the contributions to its accumulators in separate passes; no wgmma.
+// Not done yet: the two passes recompute q·kᵀ and do·vᵀ each.
 
 #include "flash_common.cuh"
 
@@ -47,35 +42,35 @@ using namespace tt::flash;
 
 constexpr int kBK = 64;  // keys per streamed k/v tile of the dq pass
 
-template <typename T> struct Warps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
+using T = float;  // the f32 route only
+constexpr int kWarps = 4;
 
 // q rows per inner tile of the dk/dv pass (two 16 x D f32 accumulators per
 // warp at D = 128 leave room for only 32-column score tiles)
 template <int DP> struct DkvRows { static constexpr int N = DP <= 64 ? 64 : 32; };
 
-template <typename T, int DP>
+template <int DP>
 size_t dq_smem_bytes() {
-  constexpr int BQ = 16 * Warps<T>::N, LD = DP + Pad<T>::N, ST = Stages<T>::N;
-  // q, do, k and v stages, ds
-  return sizeof(T) * ((2 * BQ + 2 * ST * kBK) * LD + BQ * (kBK + Pad<T>::N));
+  constexpr int BQ = 16 * kWarps, LD = DP + Pad<T>::N;
+  // q, do, k, v, ds
+  return sizeof(T) * ((2 * BQ + 2 * kBK) * LD + BQ * (kBK + Pad<T>::N));
 }
 
-template <typename T, int DP>
+template <int DP>
 size_t dkv_smem_bytes() {
-  constexpr int BK = 16 * Warps<T>::N, BQ = DkvRows<DP>::N, LD = DP + Pad<T>::N;
-  constexpr int ST = Stages<T>::N;
-  // lse2 and delta; k, v, q and do stages, p / ds
-  return sizeof(float) * 2 * BQ + sizeof(T) * ((2 * BK + 2 * ST * BQ) * LD + BK * (BQ + Pad<T>::N));
+  constexpr int BK = 16 * kWarps, BQ = DkvRows<DP>::N, LD = DP + Pad<T>::N;
+  // lse2 and delta; k, v, q, do, p / ds
+  return sizeof(float) * 2 * BQ + sizeof(T) * ((2 * BK + 2 * BQ) * LD + BK * (BQ + Pad<T>::N));
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(32 * Warps<T>::N)
+template <int DP>
+__global__ void __launch_bounds__(32 * kWarps)
     ring_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ dout, const float* __restrict__ lse,
                        const float* __restrict__ delta, float* __restrict__ dq, int H, int Hkv,
                        int T_, int D, int q_off, int k_off, int causal, float scale,
                        float scale_log2e) {
-  constexpr int W = Warps<T>::N, NT = 32 * W, BQ = 16 * W, ST = Stages<T>::N;
+  constexpr int W = kWarps, NT = 32 * W, BQ = 16 * W;
   constexpr int LD = DP + Pad<T>::N;
   constexpr int LP = kBK + Pad<T>::N;
   constexpr int NS = kBK / 8;
@@ -83,9 +78,9 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* do_s = q_s + BQ * LD;
-  T* k_s = do_s + BQ * LD;       // ST stages of k
-  T* v_s = k_s + ST * kBK * LD;  // ST stages of v
-  T* ds_s = v_s + ST * kBK * LD;
+  T* k_s = do_s + BQ * LD;
+  T* v_s = k_s + kBK * LD;
+  T* ds_s = v_s + kBK * LD;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -103,9 +98,8 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
     n_kt = lim <= 0 ? 0 : min(n_kt, (lim + kBK - 1) / kBK);
   }
   auto fetch = [&](int kt) {
-    const int st = kt % ST;
-    copy_tile_async<T, DP, kBK, NT>(k_s + st * kBK * LD, LD, kb, kt * kBK, T_, D);
-    copy_tile_async<T, DP, kBK, NT>(v_s + st * kBK * LD, LD, vb, kt * kBK, T_, D);
+    copy_tile_async<T, DP, kBK, NT>(k_s, LD, kb, kt * kBK, T_, D);
+    copy_tile_async<T, DP, kBK, NT>(v_s, LD, vb, kt * kBK, T_, D);
     cp_async_commit();
   };
   float acc[NO][4];
@@ -113,7 +107,6 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   if (n_kt > 0) {
-    if (ST == 2) fetch(0);
     load_tile<T, DP, BQ, NT, false>(q_s, LD, q + qoff, q0, T_, D, nullptr, nullptr);
     load_tile<T, DP, BQ, NT, false>(do_s, LD, dout + qoff, q0, T_, D, nullptr, nullptr);
   }
@@ -130,17 +123,10 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    const T* ks = k_s + (kt % ST) * kBK * LD;
-    const T* vs = v_s + (kt % ST) * kBK * LD;
-    if (ST == 1) {
-      fetch(kt);
-      cp_async_wait<0>();
-    } else if (kt + 1 < n_kt) {
-      fetch(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const T* ks = k_s;
+    const T* vs = v_s;
+    fetch(kt);
+    cp_async_wait<0>();
     __syncthreads();
 
     float s[NS][4], dp[NS][4];
@@ -177,15 +163,15 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   }
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(32 * Warps<T>::N)
+template <int DP>
+__global__ void __launch_bounds__(32 * kWarps)
     ring_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, float* __restrict__ dk,
                         float* __restrict__ dv, int H, int Hkv, int T_, int D, int q_off,
                         int k_off, int causal, float scale, float scale_log2e) {
-  constexpr int W = Warps<T>::N, NT = 32 * W, BK = 16 * W;
-  constexpr int BQ = DkvRows<DP>::N, ST = Stages<T>::N;
+  constexpr int W = kWarps, NT = 32 * W, BK = 16 * W;
+  constexpr int BQ = DkvRows<DP>::N;
   constexpr int LD = DP + Pad<T>::N;
   constexpr int LP = BQ + Pad<T>::N;
   constexpr int NS = BQ / 8;
@@ -195,9 +181,9 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   float* dl_s = lse2_s + BQ;                       // BQ
   T* k_s = reinterpret_cast<T*>(dl_s + BQ);
   T* v_s = k_s + BK * LD;
-  T* q_s = v_s + BK * LD;          // ST stages of q, then ST stages of do
-  T* do_s = q_s + ST * BQ * LD;
-  T* p_s = do_s + ST * BQ * LD;
+  T* q_s = v_s + BK * LD;
+  T* do_s = q_s + BQ * LD;
+  T* p_s = do_s + BQ * LD;
 
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
@@ -216,14 +202,13 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   }
   const int per_head = n_qt - i0, n_it = g * per_head;
   auto fetch = [&](int n) {
-    const int st = n % ST, h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
+    const int h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
     const size_t qoff = (static_cast<size_t>(b) * H + h) * slab;
-    copy_tile_async<T, DP, BQ, NT>(q_s + st * BQ * LD, LD, q + qoff, qs, T_, D);
-    copy_tile_async<T, DP, BQ, NT>(do_s + st * BQ * LD, LD, dout + qoff, qs, T_, D);
+    copy_tile_async<T, DP, BQ, NT>(q_s, LD, q + qoff, qs, T_, D);
+    copy_tile_async<T, DP, BQ, NT>(do_s, LD, dout + qoff, qs, T_, D);
     cp_async_commit();
   };
   if (n_it > 0) {
-    if (ST == 2) fetch(0);
     load_tile<T, DP, BK, NT, false>(k_s, LD, k + koff, k0, T_, D, nullptr, nullptr);
     load_tile<T, DP, BK, NT, false>(v_s, LD, v + koff, k0, T_, D, nullptr, nullptr);
   }
@@ -241,17 +226,10 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   for (int n = 0; n < n_it; ++n) {
     const int h = hk * g + n / per_head, qs = (i0 + n % per_head) * BQ;
     const size_t row0 = (static_cast<size_t>(b) * H + h) * T_;
-    const T* qsm = q_s + (n % ST) * BQ * LD;
-    const T* dos = do_s + (n % ST) * BQ * LD;
-    if (ST == 1) {
-      fetch(n);
-      cp_async_wait<0>();
-    } else if (n + 1 < n_it) {
-      fetch(n + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const T* qsm = q_s;
+    const T* dos = do_s;
+    fetch(n);
+    cp_async_wait<0>();
     for (int i = threadIdx.x; i < BQ; i += NT) {
       const int t = qs + i;
       lse2_s[i] = t < T_ ? lse[row0 + t] * 1.4426950408889634f : 0.f;
@@ -301,7 +279,7 @@ __global__ void __launch_bounds__(32 * Warps<T>::N)
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, float* dq, float* dk, float* dv, int B, int H, int Hkv, int T_,
            int D, int q_off, int k_off, int causal, float scale, float scale_log2e,
@@ -310,10 +288,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  constexpr int W = Warps<T>::N, BQ = 16 * W;
+  constexpr int W = kWarps, BQ = 16 * W;
 
-  auto dq_kernel = ring_bwd_dq_kernel<T, DP>;
-  const size_t dq_smem = dq_smem_bytes<T, DP>();
+  auto dq_kernel = ring_bwd_dq_kernel<DP>;
+  const size_t dq_smem = dq_smem_bytes<DP>();
   cudaError_t e = allow_smem(dq_kernel, dq_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dq_kernel<<<dim3((T_ + BQ - 1) / BQ, H, B), 32 * W, dq_smem, stream>>>(
@@ -321,8 +299,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  auto dkv_kernel = ring_bwd_dkv_kernel<T, DP>;
-  const size_t dkv_smem = dkv_smem_bytes<T, DP>();
+  auto dkv_kernel = ring_bwd_dkv_kernel<DP>;
+  const size_t dkv_smem = dkv_smem_bytes<DP>();
   e = allow_smem(dkv_kernel, dkv_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dkv_kernel<<<dim3((T_ + 16 * W - 1) / (16 * W), Hkv, B), 32 * W, dkv_smem, stream>>>(
@@ -331,54 +309,37 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
              const float* delta, float* dq, float* dk, float* dv, int B, int H, int Hkv, int T_,
              int D, int q_off, int k_off, int causal, float scale, float scale_log2e,
              cudaStream_t s) {
   switch (padded_head_dim(D)) {
     case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off, k_off,
+      return launch<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off, k_off,
                            causal, scale, scale_log2e, s);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off, k_off,
+      return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off, k_off,
                            causal, scale, scale_log2e, s);
     default:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off,
+      return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T_, D, q_off,
                             k_off, causal, scale, scale_log2e, s);
   }
 }
 
 }  // namespace
 
-// All tensors contiguous; q, k, v, do of one dtype; lse and delta (B, H, T)
-// f32; dq (B, H, T, D), dk and dv (B, Hkv, T, D) f32, written whole; D even,
-// a multiple of the 16-byte vector and at most 128; H % Hkv == 0; k and v
-// hold T rows, as q. Launches the dq pass, then the dk/dv pass, on
-// `stream`. Returns the first CUDA error.
-extern "C" int tt_ring_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, void* dk,
-                                 void* dv, int B, int H, int Hkv, int T, int D, int q_off,
-                                 int k_off, int causal, float scale, float scale_log2e,
-                                 int dtype, void* stream) {
+// The f32 route of tt_ring_flash_bwd (csrc/flash_bwd_sm90.cu): all tensors
+// contiguous f32; q, do (B, H, T, D); k, v (B, Hkv, T, D); lse and delta (B,
+// H, T); dq (B, H, T, D), dk and dv (B, Hkv, T, D), written whole; D even
+// and at most 128; H % Hkv == 0. Launches the dq pass, then the dk/dv
+// pass, on `stream`. Returns the first CUDA error.
+extern "C" int tt_ring_flash_bwd_f32_two_pass(const float* q, const float* k, const float* v,
+                                              const float* dout, const float* lse,
+                                              const float* delta, float* dq, float* dk, float* dv,
+                                              int B, int H, int Hkv, int T, int D, int q_off,
+                                              int k_off, int causal, float scale,
+                                              float scale_log2e, cudaStream_t stream) {
   if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float>(q, k, v, dout, l, dl, dqf, dkf, dvf, B, H, Hkv, T, D, q_off, k_off,
-                             causal, scale, scale_log2e, s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16>(q, k, v, dout, l, dl, dqf, dkf, dvf, B, H, Hkv, T, D, q_off,
-                                     k_off, causal, scale, scale_log2e, s);
-    case tt::kF16:
-      return dispatch<__half>(q, k, v, dout, l, dl, dqf, dkf, dvf, B, H, Hkv, T, D, q_off, k_off,
-                              causal, scale, scale_log2e, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Hkv, T, D, q_off, k_off,
+                         causal, scale, scale_log2e, stream);
 }

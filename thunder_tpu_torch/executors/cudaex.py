@@ -33,8 +33,10 @@ the ``dist.ring_attention_fwd``/``_bwd`` pair its grad rule records — and
 runs their rings (``_ring_flash_fwd_impl``, ``_ring_flash_bwd_impl``: that
 module's ring driver, the loops of pallasex's ring with
 ``torch.distributed`` point-to-point transfers) through ``ring_flash_step`` (csrc/ring_flash_fwd.cu), which
-replaces pallasex.ring_flash_step, and ``ring_flash_bwd_step``
-(csrc/ring_flash_bwd.cu), which replaces pallasex.ring_flash_bwd_step.
+replaces pallasex.ring_flash_step, and ``ring_flash_bwd_step`` (in bf16 and
+fp16 the flash backward's wgmma core of csrc/flash_bwd_sm90.cu at the step's
+global offsets, in f32 the two passes of csrc/ring_flash_bwd.cu), which
+replaces pallasex.ring_flash_bwd_step.
 
 It also holds ``fp8_linear`` (csrc/fp8_linear.cu), which replaces
 pallasex.fp8_linear_fused; transforms/fp8_training.py's stateful operators
@@ -94,6 +96,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOG2E = 1.4426950408889634
+NEG_INF = -1e30  # csrc/flash_common.cuh kNegInf: the TPU kernels' finite sentinel
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +159,7 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tt_rms_norm.argtypes = [p, p, p, i, i, f, i, p]
         lib.tt_rms_norm.restype = i
-        lib.tt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.tt_paged_attention.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
         lib.tt_paged_attention.restype = i
         lib.tt_paged_chunk_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.tt_paged_chunk_attention.restype = i
@@ -180,8 +183,7 @@ def _library():
         lib.tt_grouped_mlp.restype = i
         lib.tt_ring_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
         lib.tt_ring_flash_fwd.restype = i
-        lib.tt_ring_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f,
-                                          i, p]
+        lib.tt_ring_flash_bwd.argtypes = [p] * 11 + [i] * 9 + [f, i, p]
         lib.tt_ring_flash_bwd.restype = i
         _lib = lib
     return _lib
@@ -273,12 +275,58 @@ ex.register_implementation("torch.nn.functional.rms_norm", _rms_impl, checker=_r
 # Paged-attention decode
 # ---------------------------------------------------------------------------
 
-_SMEM_LIMIT = 227 * 1024  # a Hopper block's dynamic shared memory
+# csrc/paged_attention.cu: 128-thread blocks with 8 cp.async slots of 16
+# bytes a thread for K and V each; query groups of up to 8 rows, padded to
+# 1, 2, 4 or 8; a token read by at most 32 lanes of 16 bytes; at most 128
+# splits a table (the combine's kMaxSplitLanes warps' worth). The largest
+# such block needs under 65 KB of shared memory, within a Hopper block's 227 KB.
+_PAGED_THREADS, _PAGED_STAGES, _PAGED_MAX_G, _PAGED_MAX_VECS, _PAGED_MAX_SPLITS = 128, 8, 8, 32, 128
+_PAGED_SPLIT_TOKENS = 128  # tokens a split block owns, where the page allows
+
+
+def _paged_group_pad(g: int) -> int:
+    return next(p for p in (1, 2, 4, 8) if g <= p)
+
+
+def _paged_pages_per_split(ps: int) -> int:
+    return max(1, _PAGED_SPLIT_TOKENS // ps)
 
 
 def _paged_smem_bytes(g: int, D: int, ps: int) -> int:
-    # csrc/paged_attention.cu:smem_bytes
-    return 4 * (g * D + ps * (D + 1) + ps * D + g * ps + g * D + 2 * g)
+    # csrc/paged_attention.cu:split_smem_bytes (the kernel sets the limit above 48 KB)
+    warps = _PAGED_THREADS // 32
+    return (_PAGED_STAGES * 2 * _PAGED_THREADS * 16 + 4 * warps * _paged_group_pad(g) * (D + 2)
+            + 4 * _paged_pages_per_split(ps))
+
+
+def paged_attention_plan(B, H, Hkv, D, ps, npm, dtype) -> dict:
+    """What the paged decode's wrapper allocates and launches for these
+    shapes, from the table's width alone (no read of seq_lens, so the launch
+    is safe to capture in a CUDA graph): ``pages_per_split`` (a split block
+    owns that many pages of its sequence: 128 tokens where the page size
+    allows, one page when a page holds more), ``split_tokens``, ``n_split``
+    = ceil(npm / pages_per_split), the ``blocks`` of the split kernel (B x
+    Hkv x n_split), the ``combine_blocks`` (one warp per (b, h), four a
+    block; none when n_split is 1: the split kernel then writes o itself),
+    the ``scratch`` (name -> (shape, dtype): the f32 partials (B, H,
+    n_split, D + 2) of o, m and l) and the split block's ``smem_bytes``.
+    The plan is the same for every dtype. csrc/paged_attention.cu takes the
+    splits it is given."""
+    pps = _paged_pages_per_split(ps)
+    n_split = -(-npm // pps)
+    scratch = {"partials": ((B, H, n_split, D + 2), torch.float32)} if n_split > 1 else {}
+    nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in scratch.values())
+    return {"pages_per_split": pps, "split_tokens": pps * ps, "n_split": n_split,
+            "blocks": B * Hkv * n_split,
+            "combine_blocks": -(-B * H // (_PAGED_THREADS // 32)) if n_split > 1 else 0,
+            "scratch": scratch, "scratch_bytes": nbytes,
+            "smem_bytes": _paged_smem_bytes(H // Hkv, D, ps)}
+
+
+def _paged_shape_ok(dtype, H, Hkv, D, ps, npm) -> bool:
+    return (H % Hkv == 0 and 1 <= H // Hkv <= _PAGED_MAX_G and D % _vec(dtype) == 0
+            and D // _vec(dtype) <= _PAGED_MAX_VECS
+            and -(-npm // _paged_pages_per_split(ps)) <= _PAGED_MAX_SPLITS)
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens, scale=None):
@@ -304,11 +352,58 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens, scale=None)
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def paged_attention_split_plain(q, k_pages, v_pages, page_table, seq_lens, pages_per_split,
+                                scale=None):
+    """The split kernel's function in plain PyTorch, in f32: for each split
+    s of pages_per_split pages, each (b, h) row's unnormalised o over the
+    live slots of [s·split, (s + 1)·split), its max score m (log2 units,
+    scale·log2(e) folded in) and l = Σ exp2(score − m) -> partials (B, H,
+    n_split, D + 2) (o, then m, then l). A split with no live slot holds
+    (0, NEG_INF, 0)."""
+    B, H, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    npm = page_table.shape[1]
+    split, n_split = pages_per_split * ps, -(-npm // pages_per_split)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    pt = page_table.long()
+    pt = torch.cat([pt, pt.new_zeros(B, n_split * pages_per_split - npm)], 1)  # null page 0
+    T = n_split * split
+    k = k_pages[pt].float().reshape(B, T, Hkv, D).permute(0, 2, 1, 3)  # (B, Hkv, T, D)
+    v = v_pages[pt].float().reshape(B, n_split, split, Hkv, D).permute(0, 3, 1, 2, 4)
+    qg = q.float().reshape(B, Hkv, H // Hkv, D)
+    s = torch.matmul(qg, k.transpose(-1, -2)) * (scale * LOG2E)  # (B, Hkv, g, T)
+    live = torch.arange(T, device=q.device)[None, :] < seq_lens.long().clamp(max=npm * ps)[:, None]
+    live = live[:, None, None, :].reshape(B, 1, 1, n_split, split)
+    s = torch.where(live, s.reshape(B, Hkv, -1, n_split, split), NEG_INF)
+    m = s.amax(-1)
+    e = torch.where(live, torch.exp2(s - m[..., None]), 0.0)
+    o = torch.einsum("bhgnt,bhntd->bhgnd", e, v)
+    return torch.cat([o, m[..., None], e.sum(-1)[..., None]], -1).reshape(B, H, n_split, D + 2)
+
+
+def paged_attention_combine_plain(partials, seq_lens, split_tokens, max_tokens, dtype):
+    """The combine kernel's function in plain PyTorch: each row's live
+    splits (ceil(min(seq_len, max_tokens) / split_tokens) of them) rescaled
+    to their common max, o = Σ o_s·w_s / Σ l_s·w_s, rounded to dtype; a row
+    with no live split gives zeros."""
+    B, H, n_split, D2 = partials.shape
+    D = D2 - 2
+    n_live = -(-seq_lens.long().clamp(min=0, max=max_tokens) // split_tokens)
+    live = (torch.arange(n_split, device=partials.device)[None, :] < n_live[:, None])[:, None, :]
+    m = torch.where(live, partials[..., D], NEG_INF)
+    w = torch.where(live, torch.exp2(m - m.amax(-1, keepdim=True)), 0.0)
+    l = (partials[..., D + 1] * w).sum(-1)
+    o = (partials[..., :D] * w[..., None]).sum(-2)
+    return (o / torch.where(l == 0, 1.0, l)[..., None]).to(dtype)
+
+
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     """q (B, H, D) against the paged pools (P, page_size, Hkv, D) through
     page_table (B, n_pages_max) int32 and seq_lens (B,) int32 -> (B, H, D).
     seq_lens counts the current token, whose k/v is already in its page;
-    page ids must lie in [0, P)."""
+    page ids must lie in [0, P). On the card: paged_attention_plan's split
+    kernel and, with more than one split, its combine; one launch count
+    covers both."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens, scale)
     B, H, D = q.shape
@@ -322,15 +417,18 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
     _require(page_table.dtype == torch.int32 and seq_lens.dtype == torch.int32
              and page_table.shape == (B, npm) and seq_lens.shape == (B,),
              "paged_attention: page_table (B, n_pages_max) and seq_lens (B,) must be int32")
-    _require(D % _vec(q.dtype) == 0 and _paged_smem_bytes(H // Hkv, D, ps) <= _SMEM_LIMIT,
-             f"paged_attention: D={D}, page_size={ps} unsupported")
+    _require(_paged_shape_ok(q.dtype, H, Hkv, D, ps, npm),
+             f"paged_attention: D={D}, {H // Hkv} query heads a kv head, {npm} pages of {ps} unsupported")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     if B:
+        plan = paged_attention_plan(B, H, Hkv, D, ps, npm, q.dtype)
+        part = [torch.empty(shape, dtype=dt, device=q.device) for shape, dt in plan["scratch"].values()]
         _raise_on(_library().tt_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            seq_lens.data_ptr(), out.data_ptr(), B, Hkv, H // Hkv, D, ps, npm,
-            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "paged_attention")
+            seq_lens.data_ptr(), out.data_ptr(), part[0].data_ptr() if part else None, B, Hkv,
+            H // Hkv, D, ps, npm, plan["pages_per_split"], float(scale * LOG2E),
+            _DTYPE_CODE[q.dtype], _stream(q)), "paged_attention")
         paged_attention.launches += 1
     return out
 
@@ -346,9 +444,8 @@ def paged_attention_supported(q, k_pages, v_pages, page_table, seq_lens, scale=N
     tdt = to_torch_dtype(q.dtype)
     return (
         tdt in _DTYPE_CODE and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype
-        and tuple(v_pages.shape) == tuple(k_pages.shape) and D == Dk and H % Hkv == 0
-        and D % _vec(tdt) == 0 and _paged_smem_bytes(H // Hkv, D, ps) <= _SMEM_LIMIT
-        and page_table.ndim == 2 and page_table.shape[0] == B and to_torch_dtype(page_table.dtype) == torch.int32
+        and tuple(v_pages.shape) == tuple(k_pages.shape) and D == Dk
+        and page_table.ndim == 2 and _paged_shape_ok(tdt, H, Hkv, D, ps, page_table.shape[1]) and page_table.shape[0] == B and to_torch_dtype(page_table.dtype) == torch.int32
         and seq_lens.ndim == 1 and seq_lens.shape[0] == B and to_torch_dtype(seq_lens.dtype) == torch.int32
     )
 
@@ -644,7 +741,7 @@ def _bwd_tile_q(D: int) -> int:
     return 128 if D <= 64 else 64
 
 
-def flash_backward_plan(B, H, Hkv, T, D, dtype, do_dtype=None, rope=False) -> dict:
+def flash_backward_plan(B, H, Hkv, T, D, dtype, do_dtype=None, rope=False, ring=False) -> dict:
     """What the flash backward's wrapper allocates and launches for these
     shapes: ``scratch`` (name -> (shape, dtype), each allocated with
     torch.empty and handed to the kernels), its total ``scratch_bytes``, the
@@ -661,10 +758,22 @@ def flash_backward_plan(B, H, Hkv, T, D, dtype, do_dtype=None, rope=False) -> di
     epilogue takes its VJP; at 64 and 128 the core does); the roped q and k
     with RoPE; do rounded to q's dtype when it is wider. f32 runs the
     two-pass kernels (csrc/flash_rope_bwd.cu: 64-row dq blocks and 64-key
-    dk/dv blocks) and needs delta only."""
+    dk/dv blocks) and needs delta only.
+
+    With ``ring`` it is one ring backward step's (tt_ring_flash_bwd): bf16
+    and fp16 run the same core at the step's offsets, from a prologue that
+    copies the caller's lse·log2(e) and delta into the padded rows; the f32
+    dq, dk, dv outputs are the core's accumulators, so nothing else is
+    scratch. f32 runs csrc/ring_flash_bwd.cu's two passes (the same blocks
+    as the flash f32 route) on the caller's lse and delta: no scratch."""
     f32 = torch.float32
     do_dtype = do_dtype or dtype
-    if dtype == f32:
+    if ring:
+        pitch = T if dtype == f32 else -(-T // _bwd_tile_q(D)) * _bwd_tile_q(D)
+        scratch = {} if dtype == f32 else {"delta": ((B, H, pitch), f32), "lse2": ((B, H, pitch), f32)}
+        blocks = (-(-T // 64) * H * B + -(-T // 64) * Hkv * B if dtype == f32
+                  else -(-T // _BWD_TILE_K) * H * B)
+    elif dtype == f32:
         pitch = T
         scratch = {"delta": ((B, H, T), f32)}
         blocks = -(-T // 64) * H * B + -(-T // 64) * Hkv * B
@@ -1418,8 +1527,16 @@ def _grouped_mlp_bwd(bins, w_gate, w_up, w_down, group_sizes, g):
 # and the ring loops
 # ---------------------------------------------------------------------------
 
-NEG_INF = -1e30  # csrc/flash_common.cuh kNegInf: the TPU kernels' finite sentinel
 LN2 = 0.6931471805599453
+
+
+def ring_visible(T, Tk, q_off, k_off, device=None):
+    """(T, Tk) bool: local query i sees local key j under the causal mask at
+    global offsets, k_off + j <= q_off + i (the kernels test j > i + (q_off
+    − k_off))."""
+    qp = q_off + torch.arange(T, device=device)
+    kp = k_off + torch.arange(Tk, device=device)
+    return kp[None, :] <= qp[:, None]
 
 
 def _ring_scores2(q, kb, q_off, k_off, causal, scale):
@@ -1429,10 +1546,22 @@ def _ring_scores2(q, kb, q_off, k_off, causal, scale):
     g = q.shape[1] // kb.shape[1]
     s = torch.matmul(q.float(), kb.float().repeat_interleave(g, 1).transpose(-1, -2)) * (scale * LOG2E)
     if causal:
-        qp = q_off + torch.arange(T, device=q.device)
-        kp = k_off + torch.arange(Tk, device=q.device)
-        s = torch.where(kp[None, :] <= qp[:, None], s, NEG_INF)
+        s = torch.where(ring_visible(T, Tk, q_off, k_off, q.device), s, NEG_INF)
     return s
+
+
+def ring_bwd_prologue_plain(lse, delta, pitch):
+    """The bf16/fp16 ring step's prologue in plain PyTorch: lse·log2(e) and
+    delta (B, H, T, 1) f32 copied into rows of ``pitch`` (flash_backward_plan
+    with ring=True), zero past T -> (lse2, delta) (B, H, pitch). (It also
+    zeroes the f32 dq output, and dk, dv under GQA or for a shard wholly in
+    the future: torch.zeros here.)"""
+    B, H, T, _ = lse.shape
+    lse2 = lse.new_zeros(B, H, pitch)
+    dl = delta.new_zeros(B, H, pitch)
+    lse2[..., :T] = lse[..., 0].float() * LOG2E
+    dl[..., :T] = delta[..., 0].float()
+    return lse2, dl
 
 
 def ring_flash_step_plain(q, kb, vb, o, m, l, q_off, k_off, causal=True, scale=None):
@@ -1520,12 +1649,17 @@ def ring_flash_bwd_step(q, kb, vb, do, lse, delta, q_off, k_off, causal=True, sc
     """One backward ring step: the local queries' f32 dq contribution (B, H,
     T, D) and the shard's f32 dk/dv contributions (B, Hkv, T, D), summed
     over the GQA group, from the global lse and delta (B, H, T, 1) f32 and
-    do in q's dtype. One launch count covers the kernel's two passes."""
+    do in q's dtype. On the card bf16 and fp16 run the flash backward's
+    wgmma core at the step's offsets after a prologue (flash_backward_plan
+    with ring=True names the scratch), f32 the two-pass kernels; one launch
+    count covers the step's kernels (a shard wholly in the future runs the
+    prologue alone, which writes the zeros)."""
     if q.device.type == "cpu":
         return ring_flash_bwd_step_plain(q, kb, vb, do, lse, delta, q_off, k_off, causal, scale)
     _check_ring("ring_flash_bwd_step", q, kb, vb, lse, delta)
     _check_cuda("ring_flash_bwd_step", q, do)
     B, H, T, D = q.shape
+    Hkv = kb.shape[1]
     _require(do.dtype == q.dtype and tuple(do.shape) == tuple(q.shape)
              and tuple(lse.shape) == (B, H, T, 1) and tuple(delta.shape) == (B, H, T, 1),
              "ring_flash_bwd_step: do must be q's dtype and shape, lse and delta (B, H, T, 1)")
@@ -1534,10 +1668,13 @@ def ring_flash_bwd_step(q, kb, vb, do, lse, delta, q_off, k_off, causal=True, sc
     dk = torch.empty(kb.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(kb.shape, dtype=torch.float32, device=q.device)
     if q.numel():
+        plan = flash_backward_plan(B, H, Hkv, T, D, q.dtype, ring=True)
+        buf = {n: torch.empty(shape, dtype=dt, device=q.device) for n, (shape, dt) in plan["scratch"].items()}
+        ptr = lambda n: buf[n].data_ptr() if n in buf else None  # noqa: E731
         _raise_on(_library().tt_ring_flash_bwd(
             q.data_ptr(), kb.data_ptr(), vb.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, kb.shape[1], T,
-            D, int(q_off), int(k_off), int(bool(causal)), float(scale), float(scale * LOG2E),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr("lse2"), ptr("delta"),
+            B, H, Hkv, T, D, plan["pitch"], int(q_off), int(k_off), int(bool(causal)), float(scale),
             _DTYPE_CODE[q.dtype], _stream(q)), "ring_flash_bwd_step")
         ring_flash_bwd_step.launches += 1
     return dq, dk, dv
