@@ -219,7 +219,8 @@ Phases, each printing one JSON line:
 The kernels phase also holds grouped_mlp against its plain version at the
 paths' shapes (decode cap 8 and prefill cap 1024 in bf16, train cap 512 in
 f32, a cap of 200), timed beside its bound, its plain version and the
-torch.bmm chain of the decomposition.
+torch.bmm chain of the decomposition, with its route and each stage's device
+time (gate/up and down), as fp8_linear's quantize pass and product are.
 
 Then the kernels line, the card's name and power limit, and the final
 {"ok": true, ...} line. Any failure exits non-zero without the final line;
@@ -928,6 +929,8 @@ FP8_SWEEP_K = (1024, 2816, 4096)
 # sweep prints each K); 1e-5 leaves room. bf16 y: one rounding to bf16, one ulp
 # (2^-8 relative) where the f32 sums straddle a rounding boundary.
 FP8_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# csrc/fp8_linear.cu's two kernels: the quantize pass and the product
+FP8_STAGES = ("fp8_linear_quantize", "fp8_linear_core")
 
 
 def fp8_inputs(dev, gen, dt, M, N, K):
@@ -1002,10 +1005,11 @@ def check_fp8(cudaex, dev, gen) -> dict:
             dx_ms, _ = cuda_ms(fp8._fp8_mm, [(g, wq) for g, (_, wq, _, _) in zip(gq, pre)], iters=50)
             dw_ms, _ = cuda_ms(lambda g, xq: fp8._fp8_mm(g.t(), xq),
                                [(g, xq) for g, (xq, _, _, _) in zip(gq, pre)], iters=50)
+            stages = kernel_ms(lambda *a: cudaex.fp8_linear(*a, save_quantized=True), sets, FP8_STAGES)
             timing.setdefault(label, {})[dname(dt)] = dict(
                 M=M, N=N, K=K, ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=None, fraction_of_bound=b / ms, bytes=nbytes, operations=ops,
-                scaled_mm_prequantized_ms=smm_ms, bf16_matmul_ms=mm_ms,
+                device_ms_by_stage=stages, scaled_mm_prequantized_ms=smm_ms, bf16_matmul_ms=mm_ms,
                 backward_dx_ms=dx_ms, backward_dw_ms=dw_ms)
             del sets, q, pre, gq
             torch.cuda.empty_cache()
@@ -1023,8 +1027,9 @@ def check_fp8(cudaex, dev, gen) -> dict:
 # expert empty), a 1024-token prefill bucket (cap = 1024, 2048 assignments),
 # the train step (N = 2048 at capacity factor 1.0: cap = 512, f32 under
 # autocast; experts over capacity are cut to 512, the rest end inside a
-# 64-row block), and a cap of 200, which is not a multiple of the kernel's
-# 64-row block.
+# 128-row block), and a cap of 200, which is not a multiple of the kernels'
+# 128-row block. cudaex.grouped_mlp_plan routes them: decode to the decode
+# route, prefill and cap 200 to the wgmma route, train to the ffma route.
 GROUPED_E, GROUPED_D, GROUPED_H = 8, 2048, 1024
 # The outputs are far below 1 (max ~0.2, RMS ~0.04 at these init scales), so
 # the kernel is held to max |kernel - plain| <= GROUPED_TOL · max |plain|. f32:
@@ -1065,6 +1070,12 @@ def grouped_work(cap, gs, itemsize) -> tuple[float, float]:
     return itemsize * (live * D + experts * 3 * D * H + GROUPED_E * cap * D), 6.0 * live * D * H
 
 
+def grouped_stages(route: str) -> tuple:
+    """csrc/grouped_mlp.cu's gate/up and down kernels of a route
+    (cudaex.grouped_mlp_plan), as torch.profiler names them."""
+    return (f"grouped_mlp_{route}<true>", f"grouped_mlp_{route}<false>")
+
+
 def bmm_chain(bins, wg, wu, wd, gs):
     """The side yardstick: the decomposition's library GEMMs over the same
     bins, every row of every bin (it ignores group_sizes)."""
@@ -1096,16 +1107,20 @@ def check_grouped(cudaex, dev, gen) -> dict:
         ms, eager = cuda_ms(cudaex.grouped_mlp, sets)
         plain_ms, plain_eager = cuda_ms(cudaex.grouped_mlp_plain, sets, iters=20)
         bmm_ms, bmm_eager = cuda_ms(bmm_chain, sets, iters=50)
+        plan = cudaex.grouped_mlp_plan(GROUPED_E, cap, GROUPED_D, GROUPED_H, dt)
+        stages = kernel_ms(cudaex.grouped_mlp, sets, grouped_stages(plan["route"]))
         timing[label] = dict(cap=cap, dtype=dname(dt), ms=ms, plain_ms=plain_ms, library_ms=None,
                              bound_ms=b, bound_by=by, eager_ms=eager, plain_eager_ms=plain_eager,
                              bmm_chain_ms=bmm_ms, bmm_chain_eager_ms=bmm_eager, bytes=nbytes,
-                             operations=ops, fraction_of_bound=b / ms)
+                             operations=ops, fraction_of_bound=b / ms, route=plan["route"],
+                             gate_grid=plan["gate"]["grid"], down_grid=plan["down"]["grid"],
+                             device_ms_by_stage=stages)
         del sets
         torch.cuda.empty_cache()
     emit("kernels", kernel="grouped_mlp", E=GROUPED_E, D=GROUPED_D, H=GROUPED_H, cases=cases, timing=timing,
          library="none: no one PyTorch call computes the grouped SwiGLU MLP; bmm_chain_ms is the "
                  "decomposition's torch.bmm chain over every bin row, a side yardstick",
-         peak_ops="bf16 at 989 TFLOP/s (mma.sync tensor cores); f32 at 67 TFLOP/s (FFMA)")
+         peak_ops="bf16 at 989 TFLOP/s (tensor cores); f32 at 67 TFLOP/s (FFMA)")
     return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
                 shape=f"decode E=8 cap=8 D=2048 H=1024 bf16 group_sizes {GROUPED_SHAPES['decode'][2]}",
                 timing=timing, **timing["decode"])
@@ -1878,8 +1893,8 @@ def train(tt, cudaex, seed) -> dict:
 KERNEL_KINDS = (
     ("collective", ("nccl",)),
     ("attention", ("flash_fwd_kernel", "flash_bwd_", "ring_bwd_")),
-    ("fp8_linear", ("fp8_linear_kernel",)),
-    ("grouped_mlp", ("grouped_kernel",)),
+    ("fp8_linear", ("fp8_linear_",)),
+    ("grouped_mlp", ("grouped_mlp_",)),
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply",)),

@@ -1177,6 +1177,50 @@ def test_fp8_wrapper_refuses_bad_inputs(cuda):
         cudaex.fp8_linear(x, w.cpu(), sx, sw)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(300, 264, 2816), (130, 40, 32), (256, 32000, 1024), (129, 136, 160)],
+                         ids=["k2816", "k32", "lm_head_width", "k160"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16], ids=["x_f32", "x_bf16"])
+def test_fp8_linear_kernel_edges_match_plain(cuda, M, N, K, x_dtype):
+    """The product's edges: M past the 128-row tiles, N a multiple of 8 but
+    not of the 128-column tile, K = 32 (one promotion group, the rest of the
+    stage zero-filled by TMA), K = 2816 and 160 (a k tail past whole 128-byte
+    tiles), and lm_head's width N = 32000. The stages' plain versions give
+    the same codes and amaxes."""
+    x, w, sx, sw = _fp8_card_inputs(cuda, x_dtype, torch.float32, M, N, K, seed=M + N + K)
+    out = cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    torch.cuda.synchronize()
+    _fp8_check(out, cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True), x_dtype)
+    xq, wq, ax, aw = cudaex.fp8_quantize_plain(x, w, sx, sw)
+    assert torch.equal(out[1].view(torch.uint8), xq.view(torch.uint8)) and out[3].item() == ax.item()
+    y = cudaex.fp8_gemm_plain(out[1], out[2], sx, sw, x_dtype)
+    d = (out[0].float() - y.float()).abs() / y.float().abs().clamp(min=1.0)
+    assert d.max().item() <= FP8_TOL[x_dtype]
+
+
+@pytest.mark.gpu
+def test_fp8_linear_f32_in_a_cuda_graph_with_new_inputs(cuda):
+    """Both kernels (quantize, product) replay in a graph: new x and w values
+    and new scales, copied into the captured tensors, give the plain
+    version's codes, amaxes and y."""
+    x, w, sx, sw = _fp8_card_inputs(cuda, torch.float32, torch.float32, 200, 136, 288, seed=10)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cudaex.fp8_linear(x, w, sx, sw, save_quantized=True)
+    for seed in (11, 12):
+        for dst, src in zip((x, w, sx, sw), _fp8_card_inputs(cuda, torch.float32, torch.float32, 200, 136, 288,
+                                                             seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _fp8_check(out, cudaex.fp8_linear_plain(x, w, sx, sw, save_quantized=True), torch.float32)
+
+
 # grouped_mlp (plain version against pallasex in tests/test_torch_moe.py)
 # against its plain version on the card, max |kernel - plain| within
 # GROUPED_TOL · max |plain|: the outputs are far below 1, so the limit follows
@@ -1293,6 +1337,77 @@ def test_grouped_mlp_wrapper_refuses_bad_inputs(cuda):
                            wd[..., :36].contiguous(), gs)
     with pytest.raises(ValueError, match="CUDA device"):
         cudaex.grouped_mlp(bins, wg, wu, wd, gs.cpu())
+
+
+GROUPED_EDGE_CASES = {
+    # (E, cap, D, H, group_sizes)
+    "cap1": (4, 1, 128, 64, [1, 0, 1, 1]),
+    "cap8_at_cap": (4, 8, 128, 64, [8, 0, 3, 8]),
+    "cap200": (3, 200, 128, 96, [200, 0, 250]),  # one at cap, one empty, one past cap
+    "all_empty": (3, 64, 128, 64, [0, 0, 0]),
+    "at_cap": (2, 128, 64, 64, [128, 128]),
+    "one_expert": (1, 40, 96, 32, [29]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GROUPED_EDGE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_mlp_edges_match_plain(cuda, case, dtype):
+    """Each route (cudaex.grouped_mlp_plan: f32 ffma, bf16 decode for cap <=
+    8, bf16 wgmma) at cap 1, an expert at exactly cap and one past it, every
+    expert empty, E = 1; rows past group_sizes are zero."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E, cap, D, H, gs = GROUPED_EDGE_CASES[case]
+    args = _grouped_card_inputs(cuda, dtype, E, cap, D, H, gs, seed=cap + D + E)
+    out = cudaex.grouped_mlp(*args)
+    torch.cuda.synchronize()
+    _assert_grouped_close(out, cudaex.grouped_mlp_plain(*args), dtype)
+    for e, n in enumerate(gs):
+        assert not out[e, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,cap", [(torch.float32, 100), (torch.bfloat16, 100), (torch.bfloat16, 8)],
+                         ids=["ffma", "wgmma", "decode"])
+def test_grouped_mlp_launches_the_planned_route(cuda, dtype, cap):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _grouped_card_inputs(cuda, dtype, 3, cap, 128, 64, [cap, 1, 0], seed=7)
+    route = cudaex.grouped_mlp_plan(3, cap, 128, 64, dtype)["route"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cudaex.grouped_mlp(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "grouped_mlp_" in e.key]
+    assert len(names) == 2 and all(f"grouped_mlp_{route}<" in k for k in names), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,cap,sizes", [(torch.float32, 128, ([128, 70, 0, 64], [1, 0, 128, 65])),
+                                             (torch.bfloat16, 8, ([8, 0, 3, 1], [0, 8, 1, 2]))],
+                         ids=["ffma", "decode"])
+def test_grouped_mlp_routes_in_a_cuda_graph(cuda, dtype, cap, sizes):
+    """The ffma and decode routes replay too (the wgmma route is
+    test_grouped_mlp_in_a_cuda_graph's): new sizes and new bins copied into
+    the captured tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bins, wg, wu, wd, gs = _grouped_card_inputs(cuda, dtype, 4, cap, 128, 64, list(sizes[0]), seed=8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cudaex.grouped_mlp(bins, wg, wu, wd, gs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cudaex.grouped_mlp(bins, wg, wu, wd, gs)
+    for seed, s in enumerate(sizes):
+        gs.copy_(torch.tensor(s, device=cuda))
+        bins.copy_(_grouped_card_inputs(cuda, dtype, 4, cap, 128, 64, list(s), seed=20 + seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_grouped_close(out, cudaex.grouped_mlp_plain(bins, wg, wu, wd, gs), dtype)
+        for e, n in enumerate(s):
+            assert not out[e, n:].any()
 
 
 # ---------------------------------------------------------------------------

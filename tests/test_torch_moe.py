@@ -228,6 +228,49 @@ def test_grouped_checker_is_hoppers():
         assert not ok(*args)
 
 
+# chip_smoke.py's GROUPED_SHAPES at Llama-3-1B's widths (E = 8, D = 2048, H =
+# 1024): (cap, dtype, route, gate grid, down grid)
+GROUPED_PATH_SHAPES = {
+    "decode": (8, torch.bfloat16, "decode", (32, 8), (32, 8)),
+    "prefill": (1024, torch.bfloat16, "wgmma", (8, 8, 8), (16, 8, 8)),
+    "train": (512, torch.float32, "ffma", (16, 4, 8), (16, 4, 8)),
+    "ragged_cap": (200, torch.bfloat16, "wgmma", (8, 2, 8), (16, 2, 8)),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_PATH_SHAPES))
+def test_grouped_plan_routes_each_path_shape(case):
+    """bf16 decode (cap <= 8) streams column slices of the panels, other bf16
+    caps take the wgmma tiles, f32 the register-blocked FFMA tiles; the grids
+    and the h scratch at the paths' shapes."""
+    cap, dt, route, gate, down = GROUPED_PATH_SHAPES[case]
+    plan = cudaex.grouped_mlp_plan(8, cap, 2048, 1024, dt)
+    assert plan["route"] == route and plan["code"] == {"ffma": 0, "wgmma": 1, "decode": 2}[route]
+    assert plan["gate"]["grid"] == gate and plan["down"]["grid"] == down
+    assert plan["scratch"] == {"h": ((8, cap, 1024), dt)}
+    assert plan["gate"]["threads"] == (384 if route == "wgmma" else 256) == plan["down"]["threads"]
+
+
+def test_grouped_plan_is_sized_from_cap_not_group_sizes():
+    """The plan takes no group_sizes: the grid follows cap (blocks past a
+    group's rows exit on the card), so a captured graph replays for any
+    sizes. Row blocks are 128 rows; bf16 caps up to 8 take the decode route
+    (one block a column slice and expert), f32 never does."""
+    import inspect
+
+    assert list(inspect.signature(cudaex.grouped_mlp_plan).parameters) == ["E", "cap", "D", "H", "dtype"]
+    for cap in (9, 128, 129, 200, 1024):
+        for dt in (torch.bfloat16, torch.float32):
+            plan = cudaex.grouped_mlp_plan(3, cap, 64, 96, dt)
+            assert plan["gate"]["grid"][1:] == plan["down"]["grid"][1:] == (-(-cap // 128), 3)
+            assert plan["gate"]["tile"][0] == 128
+    for cap in (1, 8):
+        assert cudaex.grouped_mlp_plan(3, cap, 64, 96, torch.bfloat16)["route"] == "decode"
+        plan = cudaex.grouped_mlp_plan(3, cap, 64, 96, torch.float32)
+        assert plan["route"] == "ffma" and plan["gate"]["grid"] == (2, 1, 3) and plan["down"]["grid"] == (1, 1, 3)
+    assert cudaex.grouped_mlp_plan(3, 8, 64, 96, torch.bfloat16)["gate"]["grid"] == (3, 3)
+
+
 # ---------------------------------------------------------------------------
 # MoEGPT: logits, loss, generation, serving, training
 # ---------------------------------------------------------------------------

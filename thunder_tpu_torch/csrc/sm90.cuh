@@ -1,17 +1,19 @@
 // Hopper (sm_90a) building blocks for kernels fed by the Tensor Memory
 // Accelerator (TMA) and computed with warpgroup products (wgmma): mbarriers,
-// TMA and bulk copies, named barriers, shared-memory
-// matrix descriptors for 128-byte-swizzled tiles, and the m64nNk16 products
-// with f32 accumulation the flash backward uses (csrc/flash_bwd_sm90.cu).
+// TMA and bulk copies, named barriers, register reallocation (setmaxnreg),
+// shared-memory matrix descriptors for 128-byte-swizzled tiles, the m64nNk16
+// 16-bit products with f32 accumulation the flash kernels use
+// (csrc/flash_{fwd,bwd}_sm90.cu) and the m64n128k32 e4m3 product of the fp8
+// linear (csrc/fp8_linear.cu).
 //
 // Tiles live in shared memory as TMA's 128-byte swizzle writes them: rows of
-// 64 16-bit elements (128 bytes), 8-row groups of 1024 bytes, chunk c of row
-// r stored at chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary.
-// A tile wider than 64 elements is stored as 64-wide column blocks one after
-// the other. Such a tile serves a product as:
+// 64 16-bit elements (128 bytes; 128 8-bit elements), 8-row groups of 1024
+// bytes, chunk c of row r stored at chunk c ^ (r % 8). Every tile starts on a
+// 1024-byte boundary. A tile wider than 128 bytes is stored as 128-byte-wide
+// column blocks one after the other. Such a tile serves a product as:
 //   - a K-major operand (K contiguous, as q·kᵀ reads q and k): 8-row groups
-//     1024 bytes apart (SBO); the k-th 16-wide slice starts 32·k bytes into
-//     its column block;
+//     1024 bytes apart (SBO); the k-th 32-byte slice (16 16-bit elements, 32
+//     8-bit ones) starts 32·k bytes into its column block;
 //   - an MN-major operand (M or N contiguous, as p·v reads v): 8-row groups
 //     along K 1024 bytes apart (SBO), 64-wide column blocks along M or N
 //     `block_bytes` apart (LBO); the k-th 16-row slice starts 2048·k bytes in.
@@ -97,6 +99,16 @@ __device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const 
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// Copies a box of a 3-d tensor map from shared memory into global memory
+// (out-of-range elements are not written); tracked by this thread's bulk
+// groups.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -123,6 +135,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- register reallocation between warpgroups ----
+
+// Every thread of the warpgroup runs these together: dec gives registers
+// back to the block's pool, inc takes them (a multiple of 8, 24 to 256).
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- warpgroup products ----
@@ -235,6 +258,19 @@ __device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi, __half) {
 TT_WGMMA_OPS(__nv_bfloat16, "bf16")
 TT_WGMMA_OPS(__half, "f16")
 
+// d (64 x 128, f32) = or += A (64 x 32 e4m3, shared) · B (32 x 128 e4m3,
+// shared), both K-major (the only layout wgmma takes for 8-bit types);
+// scale_d 0 overwrites d. Hopper's fp8 products keep fewer bits in their
+// sums than f32, so a caller that wants f32 sums issues each k32 with
+// scale_d 0 and adds d into its own accumulators.
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+               TT_WGMMA_D64_REGS ", %64, %65, p, 1, 1;\n}\n"
+               : TT_WGMMA_D64_OUTS
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -260,15 +296,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (n, rows, cols) row-major tensor of `type` (2 or 4 bytes an element),
-// moved in boxes of `box_rows` rows by 128 bytes of columns with the
-// 128-byte swizzle. Out-of-range rows and columns read as zero and are not
-// written. Returns a CUDA error code (0 on success).
+// A (n, rows, cols) row-major tensor of `type` (1, 2 or 4 bytes an element:
+// UINT8 for e4m3 codes), moved in boxes of `box_rows` rows by 128 bytes of
+// columns with the 128-byte swizzle. Out-of-range rows and columns read as
+// zero and are not written. Row pitches must be multiples of 16 bytes.
+// Returns a CUDA error code (0 on success).
 inline int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int cols,
                        int rows, int n, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                          : type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[2] = {cols * size, cols * size * rows};

@@ -177,9 +177,9 @@ def _library():
         lib.tt_int8_linear.restype = i
         lib.tt_nf4_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.tt_nf4_linear.restype = i
-        lib.tt_fp8_linear.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.tt_fp8_linear.argtypes = [p] * 10 + [i] * 5 + [f, p]
         lib.tt_fp8_linear.restype = i
-        lib.tt_grouped_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.tt_grouped_mlp.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.tt_grouped_mlp.restype = i
         lib.tt_ring_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, p]
         lib.tt_ring_flash_fwd.restype = i
@@ -1340,11 +1340,38 @@ def fp8_linear_plain(x, w, sx, sw, *, fmt_max: float = 448.0, save_quantized: bo
     return (y, xq, wq, ax, aw) if save_quantized else (y, ax, aw)
 
 
+# csrc/fp8_linear.cu's product adds each 32-deep e4m3 tensor-core sum into
+# f32 accumulators, in k order (Hopper's fp8 sums keep fewer bits than f32).
+FP8_PROMOTE_K = 32
+
+
+def fp8_quantize_plain(x, w, sx, sw, *, fmt_max: float = 448.0):
+    """The kernel's first stage in plain PyTorch: (xq, wq, amax_x, amax_w),
+    the e4m3 codes of both operands scaled in f32 and clipped to ±fmt_max,
+    and the amaxes of the unquantized operands."""
+    xq = torch.clamp(x.float() * sx, -fmt_max, fmt_max).to(torch.float8_e4m3fn)
+    wq = torch.clamp(w.float() * sw, -fmt_max, fmt_max).to(torch.float8_e4m3fn)
+    return xq, wq, x.abs().max().float(), w.abs().max().float()
+
+
+def fp8_gemm_plain(xq, wq, sx, sw, dtype):
+    """The kernel's second stage in plain PyTorch: the codes xq (M, K) and
+    wq (N, K) widened to f32, each FP8_PROMOTE_K-deep slice of k multiplied
+    on its own and added into f32 sums in k order, the sums divided by
+    sx·sw and cast once to dtype."""
+    acc = torch.zeros((xq.shape[0], wq.shape[0]), dtype=torch.float32, device=xq.device)
+    for k0 in range(0, xq.shape[1], FP8_PROMOTE_K):
+        acc += torch.matmul(xq[:, k0:k0 + FP8_PROMOTE_K].float(), wq[:, k0:k0 + FP8_PROMOTE_K].float().t())
+    return (acc / (sx * sw)).to(dtype)
+
+
 def fp8_linear(x, w, sx, sw, *, fmt_max: float = 448.0, save_quantized: bool = False):
     """x (M, K) and w (N, K), f32 or bf16, with the delayed scales sx, sw
     (0-d f32 tensors on x's device: no host sync) -> (y (M, N) in x's dtype,
     amax_x, amax_w), or (y, xq, wq, amax_x, amax_w) with ``save_quantized``
-    (the e4m3 codes of x and w)."""
+    (the e4m3 codes of x and w). On the card two kernels: the quantize pass
+    writes the codes (into scratch without ``save_quantized``), the e4m3
+    product reads them."""
     if x.device.type == "cpu":
         return fp8_linear_plain(x, w, sx, sw, fmt_max=fmt_max, save_quantized=save_quantized)
     _require(x.ndim == 2 and w.ndim == 2 and x.shape[1] == w.shape[1],
@@ -1359,15 +1386,15 @@ def fp8_linear(x, w, sx, sw, *, fmt_max: float = 448.0, save_quantized: bool = F
     _require(K % 32 == 0 and N % 8 == 0, f"fp8_linear: K={K} must be a multiple of 32 and N={N} of 8")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     amax = torch.zeros(2, dtype=torch.float32, device=x.device)
-    xq = wq = None
-    if save_quantized:
-        xq = torch.empty((M, K), dtype=torch.float8_e4m3fn, device=x.device)
-        wq = torch.empty((N, K), dtype=torch.float8_e4m3fn, device=x.device)
+    xq = torch.empty((M, K), dtype=torch.float8_e4m3fn, device=x.device)
+    wq = torch.empty((N, K), dtype=torch.float8_e4m3fn, device=x.device)
     if M and N:
+        xh = torch.empty((M, K), dtype=torch.float16, device=x.device)
+        wh = torch.empty((N, K), dtype=torch.float16, device=x.device)
         _raise_on(_library().tt_fp8_linear(
-            x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(), y.data_ptr(),
-            None if xq is None else xq.data_ptr(), None if wq is None else wq.data_ptr(), amax.data_ptr(),
-            M, N, K, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], float(fmt_max), _stream(x)), "fp8_linear")
+            x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(), y.data_ptr(), xq.data_ptr(), wq.data_ptr(),
+            xh.data_ptr(), wh.data_ptr(), amax.data_ptr(), M, N, K, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+            float(fmt_max), _stream(x)), "fp8_linear")
         fp8_linear.launches += 1
     ax, aw = amax[0], amax[1]
     return (y, xq, wq, ax, aw) if save_quantized else (y, ax, aw)
@@ -1378,9 +1405,10 @@ fp8_linear.launches = 0
 
 def fp8_linear_supported(x, w) -> bool:
     """Hopper's checker: 2-d x (M, K) and w (N, K), each f32 or bf16, K a
-    multiple of 32 (one e4m3 product's depth; it also keeps rows 16-byte
-    aligned) and N of 8 (whole 8-column slices), M and N not 0. pallasex's
-    K and N % 128 rules are TPU tiling."""
+    multiple of 32 (one e4m3 product's depth; it also keeps the codes' rows
+    16-byte aligned, as TMA needs) and N of 8 (whole 8-column slices), M and
+    N not 0. pallasex's K and N % 128 rules are TPU tiling: TMA zero-fills
+    the tiles' ragged edges."""
     if getattr(x, "ndim", 0) != 2 or getattr(w, "ndim", 0) != 2:
         return False
     M, K = x.shape
@@ -1394,8 +1422,35 @@ def fp8_linear_supported(x, w) -> bool:
 # ---------------------------------------------------------------------------
 
 _GROUPED_DTYPES = (torch.float32, torch.bfloat16)
-_GROUPED_BM = 64  # csrc/grouped_mlp.cu: rows a block
+_GROUPED_BM = 128  # csrc/grouped_mlp.cu: rows a block of the ffma and wgmma routes
+_GROUPED_DECODE_ROWS = 8  # csrc/grouped_mlp.cu dec::ROWS: the decode route's largest cap
 _GRID_MAX = 65535  # a grid's y and z extents
+# csrc/grouped_mlp.cu's routes: (code, gate tile, down tile, threads a block);
+# a tile of None rows spans every bin row
+_GROUPED_ROUTES = {"ffma": (0, (128, 64), (128, 128), 256), "wgmma": (1, (128, 128), (128, 128), 384),
+                   "decode": (2, (None, 32), (None, 64), 256)}
+
+
+def grouped_mlp_plan(E, cap, D, H, dtype) -> dict:
+    """What grouped_mlp launches for these shapes, from (E, cap, D, H) and
+    the dtype alone (no read of group_sizes, so the launch is safe to
+    capture in a CUDA graph): the ``route`` (f32: ``ffma``, register-blocked
+    FFMA tiles; bf16 with cap up to 8: ``decode``, column slices of the
+    panels streamed over all of K for the few rows; other bf16: ``wgmma``,
+    the TMA-fed warpgroup product), its ``code`` for csrc/grouped_mlp.cu,
+    and for the ``gate`` (x -> h) and ``down`` (h -> y) stages the ``tile``
+    (rows, columns) of output a block computes, the ``grid`` of blocks
+    (column tiles, row blocks, experts; the decode route's blocks span the
+    bin: column slices, experts) and the ``threads`` a block; the
+    ``scratch`` h (E, cap, H) in the dtype. Blocks wholly past a group's
+    rows exit on the card."""
+    route = "ffma" if dtype == torch.float32 else ("decode" if cap <= _GROUPED_DECODE_ROWS else "wgmma")
+    code, gate_tile, down_tile, threads = _GROUPED_ROUTES[route]
+    stages = {}
+    for name, (bm, bn), n in (("gate", gate_tile, H), ("down", down_tile, D)):
+        grid = (-(-n // bn), E) if bm is None else (-(-n // bn), -(-cap // bm), E)
+        stages[name] = {"tile": (cap if bm is None else bm, bn), "grid": grid, "threads": threads}
+    return {"route": route, "code": code, **stages, "scratch": {"h": ((E, cap, H), dtype)}}
 
 
 def grouped_mlp_plain(bins, w_gate, w_up, w_down, group_sizes):
@@ -1433,10 +1488,13 @@ def grouped_mlp(bins, w_gate, w_up, w_down, group_sizes):
     _check_cuda("grouped_mlp", bins, w_gate, w_up, w_down, gs)
     y = torch.empty_like(bins)
     if E and cap:
-        h = torch.empty((E, cap, H), dtype=bins.dtype, device=bins.device)
+        plan = grouped_mlp_plan(E, cap, D, H, bins.dtype)
+        shape, dt = plan["scratch"]["h"]
+        h = torch.empty(shape, dtype=dt, device=bins.device)
         _raise_on(_library().tt_grouped_mlp(
             bins.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), gs.data_ptr(),
-            h.data_ptr(), y.data_ptr(), E, cap, D, H, _DTYPE_CODE[bins.dtype], _stream(bins)), "grouped_mlp")
+            h.data_ptr(), y.data_ptr(), E, cap, D, H, _DTYPE_CODE[bins.dtype], plan["code"], _stream(bins)),
+            "grouped_mlp")
         grouped_mlp.launches += 1
     return y
 
