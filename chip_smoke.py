@@ -39,10 +39,14 @@ Phases, each printing one JSON line:
                decode heads (B=8, H=32, Hkv=8, D=64, page 16, 128 pages a
                table) on a ragged set, a uniform 1,024-token set and one
                2,048-token sequence beside seven of length 1, in bf16, fp16
-               and f32. Paged chunk attention runs at the fleet
-               path's chunk shape (B=1, T=256 from positions 0, 1024, 1792)
-               and verify shape (B=8, T=3, ragged, one query past the
-               table), Llama-3-1B heads (H=32, Hkv=8, D=64), page 16. The
+               and f32. Paged chunk attention (a split kernel over the
+               keys on paged_chunk_plan's chunk or verify route, then the
+               combine) runs at the fleet path's chunk shape (B=1, T=256
+               from positions 0, 1024, 1792) and verify shape (B=8, T=3,
+               ragged, one query past the table; and with rows that see no
+               key, which must give zeros), Llama-3-1B heads (H=32, Hkv=8,
+               D=64), page 16, in bf16, fp16 and f32; timed with the plan's
+               route and splits and each kernel's device ms. The
                weight-only int8 and NF4 linears run at Llama-3-1B's decode
                linears (qkv 3072x2048, attn proj 2048x2048, fc_1/fc_2
                8192x2048, MLP proj 2048x8192, lm_head 128256x2048), int8 at
@@ -198,8 +202,11 @@ Phases, each printing one JSON line:
                past and a future step, beside bound_ms, the plain versions,
                and on the same (q, shard) pair SDPA and the flash forward
                kernel (forward), the flash backward kernel and SDPA's
-               autograd backward (backward). In bf16/fp16 the backward step
-               runs the flash backward's wgmma core at the step's offsets.
+               autograd backward (backward). In bf16/fp16 the forward step
+               runs the flash forward's wgmma core in ring mode
+               (ring_forward_plan's items and blocks are printed) and the
+               backward step the flash backward's wgmma core, both at the
+               step's offsets.
 23. cp_train — TrainStep over context_parallel(jit(GPTForCausalLM(llama-350m,
                block_size=8192), [AutocastTransform()]), make_mesh({"sp": 1}))
                on a one-rank NCCL process group (opened once for phases
@@ -369,7 +376,8 @@ def paged_inputs(dev, gen, dt, seq_lens, B=8, H=32, Hkv=8, D=64, ps=16, npm=128)
     return q, kp, vp, pt, sl
 
 
-PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel", "paged_chunk_kernel")
+PAGED_KERNELS = ("paged_split_kernel", "paged_combine_kernel", "paged_chunk_split_kernel",
+                 "paged_chunk_core")
 PAGED_SETS = {"ragged": [1, 17, 300, 1024, 2048, 16, 777, 1500],  # seq_len 1, full table, partial pages
               "uniform1024": [1024] * 8, "long_one_short_rest": [2048] + [1] * 7}
 
@@ -481,27 +489,45 @@ CHUNK_POS = {"chunk_start0": torch.arange(256, dtype=torch.int32)[None],
              "chunk_start1792": 1792 + torch.arange(256, dtype=torch.int32)[None],
              # ragged verify rows; the fifth reaches 2048, one past the table
              "verify": (torch.tensor([1, 17, 300, 1024, 2046, 16, 777, 1500], dtype=torch.int32)[:, None]
-                        + torch.arange(3, dtype=torch.int32))}
+                        + torch.arange(3, dtype=torch.int32)),
+             # rows of a batch slot that holds no sequence (position -1) see no key
+             "verify_empty_rows": torch.tensor([[-1, -1, -1], [5, 6, 7], [-1, -1, -1], [1000, 1001, 1002],
+                                                [1800, 1801, 1802], [-1, -1, -1], [64, 65, 66], [0, 1, 2]],
+                                               dtype=torch.int32)}
+
+
+def chunk_plan(cudaex, q_pos, dt=torch.bfloat16) -> dict:
+    """paged_chunk_plan's route, rows a block, split, splits and blocks at
+    chunk_inputs' shapes."""
+    plan = cudaex.paged_chunk_plan(q_pos.shape[0], 32, 8, q_pos.shape[1], 64, 16, 128, dt)
+    return {k: plan[k] for k in ("route", "rows_per_block", "split_tokens", "n_split", "blocks",
+                                 "combine_blocks", "scratch_bytes")}
 
 
 def check_chunk(cudaex, dev, gen) -> dict:
-    """paged_chunk_attention against its plain version at the chunk and
-    verify shapes in bf16 and f32, then timed in bf16. ``sdpa_pregathered_ms``
-    is a side number, not library_ms: F.scaled_dot_product_attention over K/V
-    gathered beforehand into contiguous (B, Hkv, keys, D) with the position
-    mask — no one PyTorch call gathers the pages."""
+    """paged_chunk_attention against its plain version at CHUNK_POS in bf16,
+    fp16 and f32 (KERNEL_TOL on max |kernel - plain|; rows with no live key
+    must be zeros), then timed in bf16 with the plan's route and
+    splits and each kernel's device ms. ``sdpa_pregathered_ms`` is a side
+    number, not library_ms: F.scaled_dot_product_attention over K/V gathered
+    beforehand into contiguous (B, Hkv, keys, D) with the position mask — no
+    one PyTorch call gathers the pages."""
     errs, cases = [], []
     for label, qp in CHUNK_POS.items():
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
             args = chunk_inputs(dev, gen, dt, qp)
             out = cudaex.paged_chunk_attention(*args)
             torch.cuda.synchronize()
-            err = (out.float() - cudaex.paged_chunk_attention_plain(*args).float()).abs().max().item()
+            want = cudaex.paged_chunk_attention_plain(*args).float()
+            err = (out.float() - want).abs().max().item()
             if not err <= KERNEL_TOL[dname(dt)]:
                 raise AssertionError(f"paged_chunk_attention {label} {dt}: max abs err {err}")
+            dead = (args[4] < 0)[:, None, :].expand(out.shape[:3])
+            if out[dead].any():
+                raise AssertionError(f"paged_chunk_attention {label} {dt}: a row with no live key is not 0")
             errs.append(err)
             cases.append({"shape": label, "dtype": dname(dt), "max_abs_err": err})
-            del args, out
+            del args, out, want
     torch.cuda.empty_cache()
     F = torch.nn.functional
     timings = {}
@@ -526,7 +552,9 @@ def check_chunk(cudaex, dev, gen) -> dict:
         timings[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by,
                               eager_ms=eager, plain_eager_ms=plain_eager,
                               sdpa_pregathered_ms=lib, sdpa_pregathered_eager_ms=lib_eager,
-                              bytes=nbytes, operations=ops)
+                              bytes=nbytes, operations=ops, plan=chunk_plan(cudaex, qp),
+                              device_ms_by_kernel=kernel_ms(cudaex.paged_chunk_attention, sets,
+                                                            PAGED_KERNELS))
         del sets, pre
         torch.cuda.empty_cache()
     emit("kernels", kernel="paged_chunk_attention", cases=cases, timing_bf16=timings)
@@ -1205,7 +1233,9 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
 def profile_wave(engine, specs, phase: str = "profile") -> dict:
     """Device busy share over a wave of (prompt, max_new_tokens, lane)
     requests, the kernels that took the device time, and the paged
-    attention kernels' device ms a decode step."""
+    attention kernels' device ms, in all, by kernel (PAGED_KERNELS: the
+    combine serves the decode and the chunk kernels both) and a decode
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     steps0 = engine.decode_steps
@@ -1220,9 +1250,10 @@ def profile_wave(engine, specs, phase: str = "profile") -> dict:
     busy_us = sum(r[0] for r in rows)
     steps = engine.decode_steps - steps0
     attn_us = sum(us for us, k, _ in rows if any(m in k for m in PAGED_KERNELS))
+    by_kernel = {m: sum(us for us, k, _ in rows if m in k) / 1e3 for m in PAGED_KERNELS}
     out = dict(requests=len(specs), wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                idle_share=(1 - busy_us / wall_us) if busy_us else None, decode_steps=steps,
-               attention_device_ms=attn_us / 1e3,
+               attention_device_ms=attn_us / 1e3, attention_device_ms_by_kernel=by_kernel,
                attention_device_ms_per_decode_step=attn_us / 1e3 / steps if steps else None,
                device_ms_per_decode_step=busy_us / 1e3 / steps if steps else None,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:10]])
@@ -1892,7 +1923,7 @@ def train(tt, cudaex, seed) -> dict:
 # mark wins.
 KERNEL_KINDS = (
     ("collective", ("nccl",)),
-    ("attention", ("flash_fwd_kernel", "flash_bwd_", "ring_bwd_")),
+    ("attention", ("flash_fwd_", "flash_bwd_", "ring_bwd_")),
     ("fp8_linear", ("fp8_linear_",)),
     ("grouped_mlp", ("grouped_mlp_",)),
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
@@ -3042,6 +3073,8 @@ def time_ring_steps(cudaex, dev, gen, shp, causal, T, kinds) -> dict:
                 plain_ms, plain_eager = cuda_ms(plain, args[:1], iters=3)
             row[name] = dict(ms=ms, eager_ms=eager, bound_ms=b, bound_by=by, plain_ms=plain_ms,
                              plain_eager_ms=plain_eager, library_ms=None)
+        plan = cudaex.ring_forward_plan(B, H, Hkv, T, D, torch.bfloat16, q_off, k_off, causal)
+        row["fwd"]["plan"] = {k: plan[k] for k in ("future", "items", "blocks")}
         if kind != "future":
             pairs = [(q, k, v) for q, k, v, *_ in sets]
             sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -3376,7 +3409,7 @@ def main() -> int:
              "thunder_tpu/executors/pallasex.py:1179", nano_evaluated["launches"]["cross_entropy"]),
             ("grouped_mlp", grouped, "thunder_tpu_torch/csrc/grouped_mlp.cu",
              "thunder_tpu/executors/pallasex.py:2004", moe_served["launches"]["grouped_mlp"]),
-            ("ring_flash_fwd", ring_fwd, "thunder_tpu_torch/csrc/ring_flash_fwd.cu",
+            ("ring_flash_fwd", ring_fwd, "thunder_tpu_torch/csrc/flash_fwd_sm90.cu",
              "thunder_tpu/executors/pallasex.py:2205", cp_trained["launches"]["ring_flash_fwd"]),
             ("ring_flash_bwd", ring_bwd, "thunder_tpu_torch/csrc/flash_bwd_sm90.cu",
              "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"])):

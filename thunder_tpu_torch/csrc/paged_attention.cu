@@ -51,7 +51,8 @@
 //      (B, H, n_split, D + 2); a sequence that fits one split has its o
 //      written, normalised, by block 0, and a sequence with seq_len 0 its
 //      zeros.
-//   3. Combine kernel, one warp per (b, h), launched whenever n_split > 1:
+//   3. Combine kernel (csrc/paged_combine.cuh, shared with the chunk
+//      kernel), one warp per (b, h), launched whenever n_split > 1:
 //      it reads only the live splits' partials of sequences longer than one
 //      split (every split's m and l read beside seq_len, lane s the weight
 //      of split s, eight splits' values loaded before any is added),
@@ -68,7 +69,7 @@
 // combine is a second launch, which a last-block-done counter could fold
 // into the split kernel.
 
-#include "flash_common.cuh"  // cp.async; includes common.cuh
+#include "paged_combine.cuh"  // the combine; includes flash_common.cuh (cp.async)
 
 namespace {
 
@@ -306,81 +307,6 @@ __global__ void __launch_bounds__(kThreads, Fold<GP>::kMinBlocks)
   }
 }
 
-// One warp per (b, h): the live splits' partials of a sequence longer than
-// one split, rescaled to their common max, into o. Lane s holds split s's
-// max and weight; each lane owns columns lane, lane + 32, ... (D <= 32 ·
-// kCols) and loads eight splits' values of all of them before it adds any.
-constexpr int kMaxSplitLanes = 4;  // n_split <= 128: the plan's 128-token splits of 16k tokens
-constexpr int kCols = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ seq_lens,
-                         T* __restrict__ out, int B, int H, int D, int ps, int npm, int split,
-                         int n_split) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= B * H) return;
-  const float* pr = part + static_cast<size_t>(row) * n_split * (D + 2);
-  // every split's m and l are read beside seq_len and the dead ones dropped
-  // after it (their values were never written): one dependent read less
-  float mj[kMaxSplitLanes], lj[kMaxSplitLanes], w[kMaxSplitLanes];
-#pragma unroll
-  for (int j = 0; j < kMaxSplitLanes; ++j) {
-    const int s = lane + 32 * j;
-    mj[j] = s < n_split ? pr[s * (D + 2) + D] : kNegInf;
-    lj[j] = s < n_split ? pr[s * (D + 2) + D + 1] : 0.f;
-  }
-  const int seq_len = min(seq_lens[row / H], npm * ps);
-  const int n_live = seq_len <= 0 ? 0 : (seq_len + split - 1) / split;
-  if (n_live <= 1) return;  // written by the split kernel
-  float mx = kNegInf;
-#pragma unroll
-  for (int j = 0; j < kMaxSplitLanes; ++j) {
-    const int s = lane + 32 * j;
-    mj[j] = s < n_live ? mj[j] : kNegInf;
-    lj[j] = s < n_live ? lj[j] : 0.f;
-    mx = fmaxf(mx, mj[j]);
-  }
-  mx = tt::warp_max(mx);
-  float lsum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxSplitLanes; ++j) {
-    w[j] = exp2f(mj[j] - mx);  // 0 past n_live
-    lsum += lj[j] * w[j];
-  }
-  lsum = tt::warp_sum(lsum);
-  const float inv = 1.f / (lsum == 0.f ? 1.f : lsum);
-  float acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-  for (int s0 = 0; s0 < n_live; s0 += 8) {
-    float x[8][kCols];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int s = s0 + u, d = lane + 32 * c;
-        x[u][c] = s < n_live && d < D ? pr[s * (D + 2) + d] : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int s = s0 + u;
-      float ws = w[0];
-#pragma unroll
-      for (int j = 1; j < kMaxSplitLanes; ++j) ws = (s >> 5) == j ? w[j] : ws;
-      ws = __shfl_sync(0xffffffffu, ws, s & 31);
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] = fmaf(x[u][c], ws, acc[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int d = lane + 32 * c;
-    if (d < D) out[static_cast<size_t>(row) * D + d] = tt::from_f32<T>(acc[c] * inv);
-  }
-}
-
 struct Args {
   const void *q, *kp, *vp;
   const int *pt, *sl;
@@ -418,10 +344,8 @@ int run(const Args& a) {
   else if (a.g <= 4) e = launch_split<T, 4>(a, split, n_split);
   else e = launch_split<T, 8>(a, split, n_split);
   if (e || n_split == 1) return e;
-  const int rows = a.B * a.Hkv * a.g;
-  paged_combine_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, a.stream>>>(
-      a.part, a.sl, static_cast<T*>(a.out), a.B, a.Hkv * a.g, a.D, a.ps, a.npm, split, n_split);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<T>(a.part, a.sl, 0, static_cast<T*>(a.out), a.B * a.Hkv * a.g, a.Hkv * a.g,
+                           1, a.D, a.ps, a.npm, split, n_split, a.stream);
 }
 
 }  // namespace

@@ -1,16 +1,19 @@
-// One forward step of ring attention (context parallelism) for Hopper
-// (sm_90a).
+// One forward step of ring attention (context parallelism) in f32 for
+// Hopper (sm_90a): tt_ring_flash_fwd_f32, the f32 route of
+// tt_ring_flash_fwd (csrc/flash_fwd_sm90.cu), which replaces
+// thunder_tpu/executors/pallasex.py:ring_flash_step (kernel body
+// _ring_flash_step_kernel). bf16 and fp16 run the flash forward's wgmma/TMA
+// core in ring mode there; f32, the agreement dtype, keeps this mma.sync/FMA
+// kernel (wgmma would round f32 to tf32), so f32 rings stay
+// bit-reproducible.
 //
-// tt_ring_flash_fwd replaces thunder_tpu/executors/pallasex.py:
-// ring_flash_step (kernel body _ring_flash_step_kernel): the local queries
-// q (B, H, T, D) fold one arriving K/V shard kb/vb (B, Hkv, T, D) into the
-// carried f32 accumulators o (B, H, T, D), m and l (B, H, T) with the online
-// softmax. m and l are in log2 units (scores scaled by scale·log2 e), o is
-// unnormalized; the ring loop (executors/cudaex.py) divides by l after
-// the last step. The causal mask compares global positions: query q_off + i
-// sees key k_off + j when k_off + j <= q_off + i. kv head = q head //
-// (H / Hkv). The accumulators are updated IN PLACE: each block reads its
-// rows of o, m, l and writes them back.
+// The local queries q (B, H, T, D) fold one arriving K/V shard kb/vb (B,
+// Hkv, T, D) into the carried f32 accumulators o (B, H, T, D), m and l (B,
+// H, T) with the online softmax. m and l are in log2 units (scores scaled
+// by scale·log2 e), o is unnormalized. The causal mask compares global
+// positions: query q_off + i sees key k_off + j when k_off + j <= q_off +
+// i. kv head = q head // (H / Hkv). The accumulators are updated IN PLACE:
+// each block reads its rows of o, m, l and writes them back.
 //
 // The sentinel and the step order belong together, as in the TPU kernel:
 // masked scores are the finite -1e30, so a fully masked tile against a
@@ -18,25 +21,15 @@
 // folds the diagonal shard (k_off == q_off) first; its first tile gives
 // every row a finite max before any fully masked tile comes.
 //
-// What bounds it: the products. At the cp_train shape (B=1, H=16, T=8192,
-// D=64, bf16, the diagonal step) the causal work is 137 GFLOP (0.139 ms at
-// 989 TFLOP/s) against ~120 MB of q, k, v and the f32 o read and written
-// (0.036 ms at 3.35 TB/s).
-//
-// What the design does about that: it is flash_rope_fwd.cu's tile loop
-// (RoPE compiled out) with the carried state. One block per (q tile of 128
-// rows — 64 in f32 —, head, batch) loads its rows of o, m, l into the
-// registers of the m16n8k16 accumulator layout, walks the 64-key k/v tiles
-// of the shard up to the global causal limit (cp.async double buffering,
-// mma.sync with f32 accumulation, p rounded to the input dtype for p·v as
-// the TPU kernel rounds it) and stores o, m, l back. A block whose rows all
+// The design: flash_rope_fwd.cu's tile loop (RoPE compiled out) with the
+// carried state. One block per (q tile of 64 rows, head, batch) loads its
+// rows of o, m, l into the registers of the m16n8k16 accumulator layout,
+// walks the 64-key k/v tiles of the shard up to the global causal limit
+// (cp.async, FMA products) and stores o, m, l back. A block whose rows all
 // precede the shard (a shard wholly in the future) returns before touching
 // memory, so the accumulators stay bit-unchanged. q_off and k_off are
 // kernel arguments: no host sync, so the launches can be captured in a
 // CUDA graph.
-//
-// Not done yet: no wgmma or TMA; the accumulator read and write could be
-// fused across the ring's steps.
 
 #include "flash_common.cuh"
 
@@ -46,7 +39,7 @@ using namespace tt::flash;
 
 constexpr int kBK = 64;  // keys per k/v tile
 
-// Warps of a block: 8 (a 128-row q tile) for 16-bit types, 4 for f32.
+// Warps of a block: 4 (a 64-row q tile) in f32.
 template <typename T> struct FwdWarps { static constexpr int N = sizeof(T) == 4 ? 4 : 8; };
 
 template <typename T, int DP>
@@ -214,49 +207,25 @@ int launch(const void* q, const void* k, const void* v, float* o, float* m, floa
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, float* o, float* m, float* l, int B,
-             int H, int Hkv, int T_, int D, int q_off, int k_off, int causal, float scale_log2e,
-             cudaStream_t s) {
-  switch (padded_head_dim(D)) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, m, l, B, H, Hkv, T_, D, q_off, k_off, causal, scale_log2e,
-                           s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, m, l, B, H, Hkv, T_, D, q_off, k_off, causal, scale_log2e,
-                           s);
-    default:
-      return launch<T, 128>(q, k, v, o, m, l, B, H, Hkv, T_, D, q_off, k_off, causal,
-                            scale_log2e, s);
-  }
-}
-
 }  // namespace
 
-// All tensors contiguous; q, k, v of one dtype, o (B, H, T, D), m and l
-// (B, H, T) f32, updated in place; D even, a multiple of the 16-byte vector
-// and at most 128; H % Hkv == 0; k and v hold T rows, as q. Returns the
-// launch's CUDA error.
-extern "C" int tt_ring_flash_fwd(const void* q, const void* k, const void* v, void* o, void* m,
-                                 void* l, int B, int H, int Hkv, int T, int D, int q_off,
-                                 int k_off, int causal, float scale_log2e, int dtype,
-                                 void* stream) {
-  if (D > 128 || D % 2 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* of = static_cast<float*>(o);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  switch (dtype) {
-    case tt::kF32:
-      return dispatch<float>(q, k, v, of, mf, lf, B, H, Hkv, T, D, q_off, k_off, causal,
-                             scale_log2e, s);
-    case tt::kBF16:
-      return dispatch<__nv_bfloat16>(q, k, v, of, mf, lf, B, H, Hkv, T, D, q_off, k_off, causal,
-                                     scale_log2e, s);
-    case tt::kF16:
-      return dispatch<__half>(q, k, v, of, mf, lf, B, H, Hkv, T, D, q_off, k_off, causal,
-                              scale_log2e, s);
+// All tensors contiguous f32; o (B, H, T, D), m and l (B, H, T), updated in
+// place; D even, a multiple of 4 and at most 128; H % Hkv == 0; k and v
+// hold T rows, as q. Returns the launch's CUDA error.
+extern "C" int tt_ring_flash_fwd_f32(const float* q, const float* k, const float* v, float* o,
+                                     float* m, float* l, int B, int H, int Hkv, int T, int D,
+                                     int q_off, int k_off, int causal, float scale_log2e,
+                                     cudaStream_t s) {
+  if (D > 128 || D % 4 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  switch (padded_head_dim(D)) {
+    case 32:
+      return launch<float, 32>(q, k, v, o, m, l, B, H, Hkv, T, D, q_off, k_off, causal,
+                               scale_log2e, s);
+    case 64:
+      return launch<float, 64>(q, k, v, o, m, l, B, H, Hkv, T, D, q_off, k_off, causal,
+                               scale_log2e, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<float, 128>(q, k, v, o, m, l, B, H, Hkv, T, D, q_off, k_off, causal,
+                                scale_log2e, s);
   }
 }

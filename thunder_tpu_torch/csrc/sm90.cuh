@@ -298,11 +298,12 @@ inline EncodeTiled encode_tiled() {
 
 // A (n, rows, cols) row-major tensor of `type` (1, 2 or 4 bytes an element:
 // UINT8 for e4m3 codes), moved in boxes of `box_rows` rows by 128 bytes of
-// columns with the 128-byte swizzle. Out-of-range rows and columns read as
+// columns with the 128-byte swizzle (and box_n of n: a box of one row of
+// box_n matrices lands as box_n rows). Out-of-range rows and columns read as
 // zero and are not written. Row pitches must be multiples of 16 bytes.
 // Returns a CUDA error code (0 on success).
 inline int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int cols,
-                       int rows, int n, int box_rows) {
+                       int rows, int n, int box_rows, int box_n = 1) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
@@ -310,7 +311,8 @@ inline int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType t
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[2] = {cols * size, cols * size * rows};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / size), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / size), static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(box_n)};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

@@ -32,8 +32,10 @@ parallelism (parallel/context_parallel.py) — ``dist.ring_attention`` and
 the ``dist.ring_attention_fwd``/``_bwd`` pair its grad rule records — and
 runs their rings (``_ring_flash_fwd_impl``, ``_ring_flash_bwd_impl``: that
 module's ring driver, the loops of pallasex's ring with
-``torch.distributed`` point-to-point transfers) through ``ring_flash_step`` (csrc/ring_flash_fwd.cu), which
-replaces pallasex.ring_flash_step, and ``ring_flash_bwd_step`` (in bf16 and
+``torch.distributed`` point-to-point transfers) through ``ring_flash_step``
+(in bf16 and fp16 the flash forward's wgmma core of csrc/flash_fwd_sm90.cu
+in ring mode, in f32 csrc/ring_flash_fwd.cu), which replaces
+pallasex.ring_flash_step, and ``ring_flash_bwd_step`` (in bf16 and
 fp16 the flash backward's wgmma core of csrc/flash_bwd_sm90.cu at the step's
 global offsets, in f32 the two passes of csrc/ring_flash_bwd.cu), which
 replaces pallasex.ring_flash_bwd_step.
@@ -97,6 +99,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30  # csrc/flash_common.cuh kNegInf: the TPU kernels' finite sentinel
+H100_SMS = 132  # the plans' default: blocks a wave, one an SM
+# csrc/flash_fwd_sm90.cu: queries a work item of the core (kBQ);
+# csrc/flash_rope_fwd.cu (f32): queries a block
+_FWD_TILE_Q = 128
+_FWD_TILE_Q_F32 = 64
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +168,7 @@ def _library():
         lib.tt_rms_norm.restype = i
         lib.tt_paged_attention.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
         lib.tt_paged_attention.restype = i
-        lib.tt_paged_chunk_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.tt_paged_chunk_attention.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
         lib.tt_paged_chunk_attention.restype = i
         lib.tt_flash_rope_fwd.argtypes = [p] * 8 + [i] * 7 + [f, i, p]
         lib.tt_flash_rope_fwd.restype = i
@@ -463,6 +470,71 @@ ex.register_implementation("thunder.paged_attention", _paged_attention_impl,
 # ---------------------------------------------------------------------------
 
 _CHUNK_MAX_D = 128  # csrc/paged_chunk_attention.cu instantiates padded head dims 32, 64, 128
+# csrc/paged_chunk_attention.cu: keys a gathered tile; query rows a block on
+# each route (a split block of one warp, of four warps, or the flash
+# forward core's 128-query item); the verify route's split (the decode's)
+# and the chunk route's smallest
+_CHUNK_TILE_K, _CHUNK_MIN_SPLIT = 64, 128
+_CHUNK_ROWS = {"verify": 16, "chunk": 64, "wgmma": _FWD_TILE_Q}
+_CHUNK_MAX_SPLITS = 128  # csrc/paged_combine.cuh: kMaxSplitLanes warps' worth
+
+
+def paged_chunk_plan(B, H, Hkv, T, D, ps, npm, dtype, sms=H100_SMS) -> dict:
+    """What paged chunk attention's wrapper allocates and launches for these
+    shapes, from the table's width alone (no read of q_pos, so the launches
+    are safe to capture in a CUDA graph). ``route``: ``verify`` when a kv
+    head's g·T query rows fit one 16-row tile (a split kernel of one-warp
+    blocks over the decode's 128-token splits); else ``wgmma`` in bf16 and
+    fp16 with pages of a multiple of 8 slots dividing 128 (the flash
+    forward's core in paged mode, csrc/flash_fwd_sm90.cu: one item per 128
+    queries of a q head, every key of the row walked, one TMA copy a page;
+    no split); else ``chunk`` (64-row split blocks of four warps, and the
+    largest split from the whole table down to 128 tokens, in halves, that
+    gives two waves of ``blocks`` on ``sms`` SMs). ``rows_per_block``,
+    ``split_tokens`` (a multiple of the 64-key tile, doubled while the
+    splits exceed the combine's 128; the whole table for ``wgmma``),
+    ``n_split`` = ceil(npm·ps / split_tokens), ``blocks`` (the split
+    kernel's n_split x row tiles x Hkv x B; the core's, one an SM at most),
+    ``combine_blocks`` (one warp per (b, h, t), four a block; none when
+    n_split is 1: the first kernel then writes o itself), ``scratch`` (name
+    -> (shape, dtype): the f32 partials (B, H, T, n_split, D + 2) of o, m
+    and l), ``scratch_bytes`` and a block's ``smem_bytes``.
+    csrc/paged_chunk_attention.cu takes the route and split it is given."""
+    g, S = H // Hkv, npm * ps
+    size, dp = dtype.itemsize, 32 if D <= 32 else (64 if D <= 64 else 128)
+    if g * T <= _CHUNK_ROWS["verify"]:
+        route = "verify"
+    elif size == 2 and ps % 8 == 0 and _FWD_TILE_Q % ps == 0:
+        route = "wgmma"
+    else:
+        route = "chunk"
+    rows = _CHUNK_ROWS[route]
+    if route == "wgmma":  # csrc/flash_fwd_sm90.cu: Smem<DP>, two Q buffers, two K/V stages
+        tile_bytes = max(dp, 64) // 64 * _FWD_TILE_Q * 128
+        items = -(-T // _FWD_TILE_Q) * H * B
+        return {"route": route, "rows_per_block": rows, "split_tokens": S, "n_split": 1,
+                "blocks": min(items, sms), "combine_blocks": 0, "scratch": {}, "scratch_bytes": 0,
+                "smem_bytes": 6 * tile_bytes + 8 * 8 + 8 + 1024}
+    tiles = -(-g * T // rows) * Hkv * B
+    ceil_tile = lambda n: -(-n // _CHUNK_TILE_K) * _CHUNK_TILE_K  # noqa: E731
+    split = _CHUNK_MIN_SPLIT
+    if route == "chunk":
+        split = max(split, ceil_tile(S))
+        while split > _CHUNK_MIN_SPLIT and tiles * -(-S // split) < 2 * sms:
+            split = max(_CHUNK_MIN_SPLIT, ceil_tile(split // 2))
+    while -(-S // split) > _CHUNK_MAX_SPLITS:
+        split *= 2
+    n_split = max(1, -(-S // split))
+    scratch = {"partials": ((B, H, T, n_split, D + 2), torch.float32)} if n_split > 1 else {}
+    nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in scratch.values())
+    pad, stages = 16 // size, 1 if size == 4 else 2
+    probs = rows * (_CHUNK_TILE_K + pad) if size == 4 else 0  # 16-bit p stays in registers
+    smem = (size * ((rows + 2 * stages * _CHUNK_TILE_K) * (dp + pad) + probs)
+            + 4 * (-(-split // ps) + 1))  # and the split's page ids
+    return {"route": route, "rows_per_block": rows, "split_tokens": split, "n_split": n_split,
+            "blocks": tiles * n_split,
+            "combine_blocks": -(-B * H * T // (_PAGED_THREADS // 32)) if n_split > 1 else 0,
+            "scratch": scratch, "scratch_bytes": nbytes, "smem_bytes": smem}
 
 
 def paged_chunk_attention_plain(q, k_pages, v_pages, page_table, q_pos, scale=None):
@@ -492,11 +564,58 @@ def paged_chunk_attention_plain(q, k_pages, v_pages, page_table, q_pos, scale=No
     return o.reshape(B, H, T, D).to(q.dtype)
 
 
+def paged_chunk_split_plain(q, k_pages, v_pages, page_table, q_pos, split_tokens, scale=None):
+    """The split kernel's function in plain PyTorch, in f32: for each split
+    s of split_tokens keys, each (b, h, t) row's unnormalised o over its
+    live keys in [s·split, (s + 1)·split) (positions <= q_pos[b, t], within
+    the table), its max score m (log2 units, scale·log2(e) folded in) and l
+    = Σ exp2(score − m) -> partials (B, H, T, n_split, D + 2) (o, then m,
+    then l). As the kernel, the probabilities are rounded to q's dtype
+    before p·v against the split's max, not the row's (the kernel's running
+    max within the split ends there); l sums the unrounded ones. A split
+    with no live key of a row holds (0, NEG_INF, 0)."""
+    B, H, T, D = q.shape
+    P, ps, Hkv, _ = k_pages.shape
+    npm = page_table.shape[1]
+    S, g = npm * ps, H // Hkv
+    n_split = max(1, -(-S // split_tokens))
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    pt = page_table.long()
+    k = k_pages[pt].float().reshape(B, S, Hkv, D).permute(0, 2, 1, 3)  # (B, Hkv, S, D)
+    v = v_pages[pt].float().reshape(B, S, Hkv, D).permute(0, 2, 1, 3)
+    pad = n_split * split_tokens - S  # keys past the table: never live
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+    qg = q.float().reshape(B, Hkv, g * T, D)  # row j * T + t: query t of head j
+    s = torch.matmul(qg, k.transpose(-1, -2)) * (scale * LOG2E)  # (B, Hkv, g*T, S + pad)
+    keys = torch.arange(n_split * split_tokens, device=q.device)
+    live = (keys[None, None, :] <= q_pos.long()[:, :, None]) & (keys < S)  # (B, T, S + pad)
+    live = live[:, None, None].expand(B, 1, g, T, -1).reshape(B, 1, g * T, n_split, split_tokens)
+    s = torch.where(live, s.reshape(B, Hkv, g * T, n_split, split_tokens), NEG_INF)
+    m = s.amax(-1)
+    e = torch.where(live, torch.exp2(s - m[..., None]), 0.0)
+    o = torch.einsum("bhrnt,bhntd->bhrnd", e.to(q.dtype).float(),
+                     v.reshape(B, Hkv, n_split, split_tokens, D))
+    part = torch.cat([o, m[..., None], e.sum(-1)[..., None]], -1)  # (B, Hkv, g*T, n_split, D + 2)
+    return part.reshape(B, H, T, n_split, D + 2)
+
+
+def paged_chunk_combine_plain(partials, q_pos, split_tokens, max_tokens, dtype):
+    """The combine kernel's function for chunk attention in plain PyTorch:
+    paged_attention_combine_plain over each (b, t)'s rows, with the live
+    length q_pos + 1 -> (B, H, T, D) in dtype."""
+    B, H, T, n_split, D2 = partials.shape
+    rows = partials.permute(0, 2, 1, 3, 4).reshape(B * T, H, n_split, D2)
+    o = paged_attention_combine_plain(rows, q_pos.reshape(B * T) + 1, split_tokens, max_tokens, dtype)
+    return o.reshape(B, T, H, D2 - 2).permute(0, 2, 1, 3)
+
+
 def paged_chunk_attention(q, k_pages, v_pages, page_table, q_pos, scale=None):
     """q (B, H, T, D) against the paged pools (P, page_size, Hkv, D) through
     page_table (B, n_pages_max) int32, query (b, ·, t) attending the key
     positions <= q_pos[b, t] (q_pos (B, T) int32) -> (B, H, T, D). Each
-    query's own k/v is already in its page; page ids must lie in [0, P)."""
+    query's own k/v is already in its page; page ids must lie in [0, P). On
+    the card: paged_chunk_plan's split kernel on its route and, with more
+    than one split, the combine; one launch count covers both."""
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, k_pages, v_pages, page_table, q_pos, scale)
     B, H, T, D = q.shape
@@ -515,10 +634,13 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, q_pos, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     if q.numel():
+        plan = paged_chunk_plan(B, H, Hkv, T, D, ps, npm, q.dtype)
+        part = [torch.empty(shape, dtype=dt, device=q.device) for shape, dt in plan["scratch"].values()]
         _raise_on(_library().tt_paged_chunk_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), B, H, Hkv, T, D, ps, npm,
-            float(scale * LOG2E), _DTYPE_CODE[q.dtype], _stream(q)), "paged_chunk_attention")
+            q_pos.data_ptr(), out.data_ptr(), part[0].data_ptr() if part else None, B, H, Hkv, T,
+            D, P, ps, npm, plan["rows_per_block"], plan["split_tokens"], float(scale * LOG2E),
+            _DTYPE_CODE[q.dtype], _stream(q)), "paged_chunk_attention")
         paged_chunk_attention.launches += 1
     return out
 
@@ -530,7 +652,8 @@ def paged_chunk_attention_supported(q, k_pages, v_pages, page_table, q_pos, scal
     """Hopper's checker: 4-d q and pools of one float dtype, H % Hkv == 0,
     a head dim that is a multiple of the 16-byte vector and at most 128, and
     int32 page_table (B, n_pages_max) and q_pos (B, T). Any T and page size:
-    the kernel gathers key rows one by one and masks the ragged edges."""
+    the kernel gathers key rows one by one and masks the ragged edges; the
+    plan doubles its split until the combine takes the table."""
     if getattr(q, "ndim", 0) != 4 or getattr(k_pages, "ndim", 0) != 4:
         return False
     B, H, T, D = q.shape
@@ -673,11 +796,6 @@ def flash_forward_prologue_plain(q, k, cos, sin):
     return _rope_plain(q.float(), cos, sin).to(q.dtype), _rope_plain(k.float(), cos, sin).to(k.dtype)
 
 
-# csrc/flash_fwd_sm90.cu: queries a work item of the core (kBQ);
-# csrc/flash_rope_fwd.cu (f32): queries a block
-_FWD_TILE_Q = 128
-_FWD_TILE_Q_F32 = 64
-H100_SMS = 132
 
 
 def flash_forward_plan(B, H, Hkv, T, D, dtype, rope=False, sms=H100_SMS) -> dict:
@@ -701,6 +819,37 @@ def flash_forward_plan(B, H, Hkv, T, D, dtype, rope=False, sms=H100_SMS) -> dict
     nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in scratch.values())
     return {"tiles": tiles, "blocks": tiles if f32 else min(tiles, sms), "scratch": scratch,
             "scratch_bytes": nbytes}
+
+
+def ring_forward_plan(B, H, Hkv, T, D, dtype, q_off, k_off, causal=True, sms=H100_SMS) -> dict:
+    """What one forward ring step launches for these shapes and offsets (no
+    tensor read: the launch is safe to capture in a CUDA graph): ``future``
+    (a causal shard wholly in the future: nothing is launched and the
+    accumulators stay as they are), ``items``, ``blocks`` and, for bf16 and
+    fp16, ``tiles``: the flash forward core's walk in ring mode
+    (csrc/flash_fwd_sm90.cu: item_at), one entry per live 128-query tile in
+    the order the items come, each ``(q0, key_tiles, masked)`` with the
+    128-key tiles it walks (from tile 0) and those among them on which the
+    mask runs (the shifted diagonal's or the ragged edge's). Query q_off + i
+    sees key k_off + j iff j <= i + (q_off − k_off). f32 runs
+    csrc/ring_flash_fwd.cu: one block per 64-query tile, head and batch
+    (a block with no visible key returns at once); no ``tiles``."""
+    future = bool(causal) and k_off > q_off + T - 1
+    if dtype == torch.float32:
+        n = 0 if future else -(-T // _FWD_TILE_Q_F32) * H * B
+        return {"future": future, "items": n, "blocks": n}
+    shift, tq = q_off - k_off, _FWD_TILE_Q
+    n_qt = n_kt_all = -(-T // tq)
+    qt0 = -shift // tq if causal and shift < 0 else 0
+    tiles = []
+    for qi in range(0 if future else n_qt - qt0):
+        q0 = (n_qt - 1 - qi if causal else qi) * tq
+        n_kt = min(n_kt_all, -(-(min(q0 + tq, T) + shift) // tq)) if causal else n_kt_all
+        masked = tuple(n for n in range(n_kt) if (n + 1) * tq > T or (
+            causal and any((n + 1) * tq - 1 > q0 + 64 * wg + shift for wg in (0, 1))))
+        tiles.append((q0, n_kt, masked))
+    items = len(tiles) * H * B
+    return {"future": future, "items": items, "blocks": min(items, sms), "tiles": tiles}
 
 
 def _flash_forward(name, q, k, v, cos, sin, causal, scale):
@@ -1682,7 +1831,11 @@ def ring_flash_step(q, kb, vb, o, m, l, q_off, k_off, causal=True, scale=None):
     1) — log2 units, o unnormalized — for local queries q (B, H, T, D).
     q_off and k_off are the global positions of the queries' and the
     shard's first rows. On the card the kernel updates o, m and l IN PLACE
-    and returns them; a shard wholly in the future leaves them untouched."""
+    and returns them: bf16 and fp16 run the flash forward's wgmma/TMA core
+    in ring mode (ring_forward_plan's walk), f32 csrc/ring_flash_fwd.cu's
+    kernel. A shard wholly in the future launches nothing and leaves them
+    untouched; the step still counts a launch, so the ring's count is its
+    steps."""
     if q.device.type == "cpu":
         return ring_flash_step_plain(q, kb, vb, o, m, l, q_off, k_off, causal, scale)
     _check_ring("ring_flash_step", q, kb, vb, o, m, l)
