@@ -50,8 +50,10 @@ Phases, each printing one JSON line:
                weight-only int8 and NF4 linears run at Llama-3-1B's decode
                linears (qkv 3072x2048, attn proj 2048x2048, fc_1/fc_2
                8192x2048, MLP proj 2048x8192, lm_head 128256x2048), int8 at
-               M=8 (and M=512 at fc_1), NF4 at M=4; beside a bf16 matmul
-               against weights dequantized beforehand.
+               M=8 (and the prefill buckets M=512 at fc_1, M=256 at qkv and
+               MLP proj), NF4 at M=4 (and M=512 at fc_1), each with
+               weight_only_plan's route, K splits and blocks; beside a bf16
+               matmul against weights dequantized beforehand.
 3. serve     — ServingEngine over Llama-3-1B at full width and depth in bf16
                (random weights from --seed): 16 greedy requests, prompts of
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
@@ -822,6 +824,23 @@ def check_xent(cudaex, dev, gen) -> dict:
 # fc_1 / fc_2 and proj, and lm_head.
 QUANT_SHAPES = {"attn": (3072, 2048), "attn_proj": (2048, 2048), "fc_1": (8192, 2048),
                 "fc_2": (8192, 2048), "mlp_proj": (2048, 8192), "lm_head": (128256, 2048)}
+# The cases of the kernels phase (label, M, N, K): every decode shape at the
+# serving paths' batch (int8: quant_serve's 8; NF4: nf4_inference's 4), and
+# prefill buckets on the wgmma route (quant_serve's 256 and 512; NF4 at the
+# largest bucket the checker claims).
+QUANT_CASES = {
+    "int8": [(label, 8, N, K) for label, (N, K) in QUANT_SHAPES.items()]
+    + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"]), ("attn_prefill256", 256, *QUANT_SHAPES["attn"]),
+       ("mlp_proj_prefill256", 256, *QUANT_SHAPES["mlp_proj"])],
+    "nf4": [(label, 4, N, K) for label, (N, K) in QUANT_SHAPES.items()]
+    + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"])],
+}
+
+
+def quant_plan(cudaex, kind: str, M: int, N: int, K: int) -> dict:
+    """The bf16 route weight_only_plan takes at this shape, as printed."""
+    p = cudaex.weight_only_plan(kind, M, N, K, torch.bfloat16)
+    return {k: p[k] for k in ("route", "rows", "tile_m", "splits", "units_per_split", "grid", "blocks", "stages")}
 
 
 def int8_inputs(dev, gen, dt, M, N, K):
@@ -854,20 +873,18 @@ def quant_work(kind: str, M: int, N: int, K: int) -> tuple[float, float]:
 
 
 def check_quant(cudaex, dev, gen, kind: str) -> dict:
-    """int8_linear (M = 8, the serve phase's decode; and M = 512 at fc_1) or
-    nf4_linear (M = 4, nf4_inference's decode) against its plain version at
-    Llama-3-1B's decode shapes in bf16 and f32, then timed in bf16 beside
-    its bound, its plain version, the library call where the card's PyTorch
-    has one (int8: torch._weight_int8pack_mm) and, as a side yardstick, a
-    bf16 torch.matmul against weights dequantized beforehand."""
+    """int8_linear or nf4_linear against its plain version at QUANT_CASES'
+    shapes in bf16 and f32, then timed in bf16 beside its bound, its plain
+    version, the library call where the card's PyTorch has one (int8:
+    torch._weight_int8pack_mm) and, as a side yardstick, a bf16 torch.matmul
+    against weights dequantized beforehand. Each shape's bf16 route, K
+    splits and blocks (cudaex.weight_only_plan) are printed with it."""
     from thunder_tpu_torch.transforms.quantization import dequantize_nf4_kl
 
     fn, plain = ((cudaex.int8_linear, cudaex.int8_linear_plain) if kind == "int8"
                  else (cudaex.nf4_linear, cudaex.nf4_linear_plain))
     M0 = 8 if kind == "int8" else 4
-    shapes = [(label, M0, N, K) for label, (N, K) in QUANT_SHAPES.items()]
-    if kind == "int8":
-        shapes.append(("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"]))
+    shapes = QUANT_CASES[kind]
 
     def make(dt, M, N, K, real=True):
         if kind == "int8":
@@ -883,7 +900,8 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
             err, scaled = flash_err(out, plain(*args))
             errs.append(err)
             cases.append({"shape": label, "M": M, "N": N, "K": K, "dtype": dname(dt), "max_abs_err": err,
-                          "max_err_over_max1": scaled})
+                          "max_err_over_max1": scaled,
+                          "route": cudaex.weight_only_plan(kind, M, N, K, dt)["route"]})
             if not scaled <= KERNEL_TOL[dname(dt)]:
                 raise AssertionError(f"{kind}_linear {label} {dt}: error {scaled}")
             del args, out
@@ -920,7 +938,8 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
             wsets = [(x, dequantize_nf4_kl(pk, ak, (N, K)).to(torch.bfloat16))
                      for x, pk, ak in copies(lambda: make(torch.bfloat16, M, N, K, False), 2 * N * K)]
         mm_ms, mm_eager = cuda_ms(lambda x, w: torch.matmul(x, w.t()), wsets)
-        timings[label] = dict(M=M, N=N, K=K, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        timings[label] = dict(M=M, N=N, K=K, plan=quant_plan(cudaex, kind, M, N, K), ms=ms, plain_ms=plain_ms,
+                              library_ms=lib_ms,
                               bound_ms=b, bound_by=by, eager_ms=eager, plain_eager_ms=plain_eager,
                               library_eager_ms=lib_eager, bf16_matmul_dequantized_ms=mm_ms,
                               bf16_matmul_dequantized_eager_ms=mm_eager, bytes=nbytes, operations=ops,

@@ -20,10 +20,13 @@ relative. Paged chunk attention at the paged bars: plain against the
 Pallas kernel at f32 1e-5 and bf16 2e-2 (both round p to bf16 before p·v,
 at other running maxima); on the card the kernel against its plain version
 at f32 1e-4 and bf16 2e-2, as paged attention. The weight-only int8 and
-NF4 linears (plain versions against pallasex in tests/test_torch_quant.py)
-against their plain versions on the card at f32 1e-4 (FMAs in another
-summation order) and bf16 2e-2 (one rounding of f32 sums taken in another
-order: an ulp, 2^-8 relative).
+NF4 linears (plain versions against pallasex in tests/test_torch_quant.py,
+their routes' arithmetic in tests/test_torch_quant_kernel.py) against their
+plain versions on the card at f32 1e-4 (FMAs in another summation order)
+and bf16 2e-2 (one rounding of f32 sums taken in another order: an ulp,
+2^-8 relative), on every route of cudaex.weight_only_plan; a rerun and
+three CUDA-graph replays bit-equal to the eager call (the K splits' sum
+order is fixed and their counters reset).
 """
 import math
 
@@ -980,16 +983,30 @@ def _nf4_card_inputs(cuda, dtype, M, N, K, seed):
     return (x, *pack_nf4_kernel_layout(*quantize_nf4(w), (N, K)))
 
 
+QUANT_M = [1, 4, 8, 16, 17, 40, 256, 512]
+
+
+def _expected_route(M, K, dtype):
+    """f32 x: the FMA kernel; bf16 decode (M <= 16, K in whole 128-k chunks):
+    stream; other bf16: wgmma."""
+    return "f32" if dtype == torch.float32 else ("stream" if M <= 16 and K % 128 == 0 else "wgmma")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 8, 512])
-@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 2064), (96, 8192)],
-                         ids=["2048x2048", "N200-ragged-K2064", "96x8192"])
+@pytest.mark.parametrize("M", QUANT_M)
+@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 2064), (96, 8192), (2048, 8192)],
+                         ids=["2048x2048", "N200-ragged-K2064", "96x8192", "2048x8192-split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_int8_linear_kernel_matches_plain(cuda, M, N, K, dtype):
-    """Decode (M 1, 8) and a prefill bucket (512: the 64-row blocks); N not a
-    multiple of the 16-column block, and K = 2064 ends in a partial 64-k
-    chunk (its last 16-byte groups masked)."""
+    """Decode (M <= 16: the stream route, 16-row blocks over all of K, or
+    K split at K = 8192) and prefill buckets (17 ... 512: the wgmma route,
+    64- and 128-token tiles, K split where the tiles leave SMs idle); N not
+    a multiple of any tile, and K = 2064 ends in a partial 64-byte unit
+    (the wgmma route at every M: the decode route's boxes take whole 128-k
+    chunks)."""
     x, q, s = _int8_card_inputs(cuda, dtype, M, N, K, seed=M + K)
+    plan = cudaex.weight_only_plan("int8", M, N, K, dtype)
+    assert plan["route"] == _expected_route(M, K, dtype)
     n0 = cudaex.int8_linear.launches
     out = cudaex.int8_linear(x, q, s)
     torch.cuda.synchronize()
@@ -999,20 +1016,69 @@ def test_int8_linear_kernel_matches_plain(cuda, M, N, K, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 8, 512])
-@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 768), (128, 8192)],
-                         ids=["2048x2048", "N200-slice256", "128x8192"])
+@pytest.mark.parametrize("M", QUANT_M)
+@pytest.mark.parametrize("N,K", [(2048, 2048), (200, 768), (128, 8192), (2048, 8192)],
+                         ids=["2048x2048", "N200-slice256", "128x8192", "2048x8192-split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_nf4_linear_kernel_matches_plain(cuda, M, N, K, dtype):
     """Slice widths 512 (K 2048, 8192) and 256 (K 768); N not a multiple of
-    the block. NF4's K is a multiple of 256, so it has no ragged tail."""
+    the block; both bf16 routes, with and without K splits. NF4's K is a
+    multiple of 256, so it has no ragged tail."""
     x, pk, ak = _nf4_card_inputs(cuda, dtype, M, N, K, seed=M + K)
+    plan = cudaex.weight_only_plan("nf4", M, N, K, dtype)
+    assert plan["route"] == _expected_route(M, K, dtype)
     n0 = cudaex.nf4_linear.launches
     out = cudaex.nf4_linear(x, pk, ak)
     torch.cuda.synchronize()
     assert cudaex.nf4_linear.launches == n0 + 1 and out.dtype == dtype
     tol = QUANT_TOL[dtype]
     torch.testing.assert_close(out.float(), cudaex.nf4_linear_plain(x, pk, ak).float(), atol=tol, rtol=tol)
+
+
+def _quant_call(cuda, kind, M, N, K, seed):
+    if kind == "int8":
+        return cudaex.int8_linear, _int8_card_inputs(cuda, torch.bfloat16, M, N, K, seed)
+    return cudaex.nf4_linear, _nf4_card_inputs(cuda, torch.bfloat16, M, N, K, seed)
+
+
+# (M, N, K): stream with K splits, stream without, wgmma with, wgmma without
+QUANT_SPLIT_CASES = [(8, 2048, 8192), (4, 8192, 2048), (256, 2048, 8192), (512, 8192, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("M,N,K", QUANT_SPLIT_CASES)
+def test_weight_only_rerun_is_bit_equal(cuda, kind, M, N, K):
+    """The K splits are summed in split order by whichever block finishes
+    last: a rerun gives the same bits."""
+    fn, args = _quant_call(cuda, kind, M, N, K, seed=7)
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("M,N,K", QUANT_SPLIT_CASES)
+def test_weight_only_cuda_graph_replays_match_eager(cuda, kind, M, N, K):
+    """Three replays of a captured call equal the eager call: the split
+    counters are back at zero after every launch."""
+    fn, args = _quant_call(cuda, kind, M, N, K, seed=9)
+    eager = fn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
 
 
 @pytest.mark.gpu

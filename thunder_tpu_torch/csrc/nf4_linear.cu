@@ -12,32 +12,32 @@
 //
 // What bounds it: bytes, at decode shapes: 0.5625 bytes a weight (codes and
 // absmax), a quarter of a bf16 linear's (Llama-3-1B fc_1, 8192 x 2048:
-// 9.4 MB, ~2.8 µs). Decoding costs instructions — a table lookup and a
-// multiply for each weight — so at small M the decode, not the product,
-// is the arithmetic to keep cheap.
+// 9.4 MB, ~2.8 µs). Decoding costs instructions and shared-memory loads —
+// a table lookup and a multiply for each weight — so at small M the decode,
+// not the product, is the arithmetic to keep cheap; at a 512-row prefill
+// bucket the product's operations bound it.
 //
-// What the design does about that (weight_only_linear.cuh): each weight
-// byte is read once by a 16-byte streaming load that yields two groups of
-// 16 weights (the high nibbles at k, the low at k + block_k/2; the 16 k of a
-// group share one absmax). The 16-entry codebook sits in shared memory, one
-// entry a bank, so a warp's lookups never conflict. The TPU kernel's select
-// tree and 0/1 expander product were workarounds for Mosaic's missing
-// gather and repeat; here a lookup is one shared load and absmax one
-// multiply. Decoded weights go straight into mma.sync operands (bf16) or
-// FMAs (f32).
+// What the design does about that (weight_only_linear.cuh, routes chosen by
+// cudaex.weight_only_plan): decode streams each block's code bytes through a
+// TMA-fed ring (and their absmax by cp.async), x staged once a block; a
+// 256-entry table of code pairs in shared memory, one copy for each of 16
+// lanes so lookups never conflict, turns a byte into its two weights with one
+// 8-byte load, two multiplies and one bf16x2 rounding (3 instructions a
+// weight, against 4.5 for the kernel this replaces). A byte's nibbles (k and
+// k + block_k/2, in different 64-groups) are one fragment pair of the swapped
+// mma.sync product yᵀ = W · xᵀ, with x paired to match. Prefill runs the
+// persistent TMA/wgmma product with the decoded weights as register A
+// operands and two x tiles (k and k + block_k/2) as B. The TPU kernel's
+// select tree and 0/1 expander product were workarounds for Mosaic's missing
+// gather and repeat. f32 x keeps the FMA kernel.
 
 #include "weight_only_linear.cuh"
 
 namespace {
 
-__constant__ float kNf4Code[16] = {
-    -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
-    -0.28444138169288635f, -0.18477343022823334f, -0.09105003625154495f, 0.0f,
-    0.07958029955625534f, 0.16093020141124725f, 0.24611230194568634f, 0.33791524171829224f,
-    0.44070982933044434f, 0.5626170039176941f, 0.7229568362236023f, 1.0f};
-
 __shared__ float code_s[16];
 
+// route f32's format policy
 struct Nf4Weights {
   static constexpr int kChunkK = 128;  // 4 lanes x 16 bytes x 2 nibbles
   static constexpr int kGroups = 2;
@@ -52,7 +52,7 @@ struct Nf4Weights {
   };
 
   __device__ __forceinline__ void init() const {
-    if (threadIdx.x < 16) code_s[threadIdx.x] = kNf4Code[threadIdx.x];
+    if (threadIdx.x < 16) code_s[threadIdx.x] = tt::wol::kNf4Code[threadIdx.x];
   }
 
   // the first k of group g (0: high nibbles, 1: low nibbles) of lane_k's
@@ -88,21 +88,23 @@ struct Nf4Weights {
 
 // x (M, K) f32 or bf16, packed (N, K/2) uint8 in the kernel layout of
 // slice width block_k (256 or 512, dividing K), absmax (N, K/64) f32, y
-// (M, N) like x; all contiguous and 16-byte aligned. Returns the launch's
-// cudaGetLastError().
-extern "C" int tt_nf4_linear(const void* x, const void* packed, const void* absmax, void* y, int M,
-                             int N, int K, int block_k, int dtype, void* stream) {
+// (M, N) like x; all contiguous and 16-byte aligned. route, rows, tile_m,
+// splits, units_per_split, grid and stages are cudaex.weight_only_plan's (f32
+// x: route 0, the rest unread); partial (splits, M, N) f32 and counters (one
+// a tile, zero) where the wgmma route splits K, else null. Returns the
+// launch's cudaGetLastError().
+extern "C" int tt_nf4_linear(const void* x, const void* packed, const void* absmax, void* y, void* partial,
+                             void* counters, int M, int N, int K, int block_k, int dtype, int route, int rows,
+                             int tile_m, int splits, int units_per_split, int grid, int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_k % 256 != 0 || K % block_k != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Nf4Weights w{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K,
-                     block_k / 2};
-  switch (dtype) {
-    case tt::kF32:
-      return tt::wol::launch(static_cast<const float*>(x), w, static_cast<float*>(y), M, N, K, s);
-    case tt::kBF16:
-      return tt::wol::launch(static_cast<const __nv_bfloat16*>(x), w, static_cast<__nv_bfloat16*>(y), M,
-                             N, K, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == tt::kF32 && route == tt::wol::kRouteF32) {
+    const Nf4Weights w{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K, block_k / 2};
+    return tt::wol::launch_f32(static_cast<const float*>(x), w, static_cast<float*>(y), M, N, K, s);
   }
+  if (dtype != tt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  const tt::wol::Weights w{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K, block_k / 2};
+  const tt::wol::Plan p{route, rows, tile_m, splits, units_per_split, grid, stages};
+  return tt::wol::launch_bf16<true>(static_cast<const __nv_bfloat16*>(x), w, static_cast<__nv_bfloat16*>(y),
+                                    static_cast<float*>(partial), static_cast<int*>(counters), M, N, p, s);
 }

@@ -320,5 +320,26 @@ inline int make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType t
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A (rows, cols) row-major tensor of `type` moved in unswizzled boxes of
+// box_rows rows by box_cols columns (box_cols · element bytes a multiple of
+// 16), as a 3-d map of n = 1 for tma_load_3d: a box lands as box_rows rows
+// of box_cols elements, one after the other. Out-of-range rows and columns
+// read as zero. Returns a CUDA error code (0 on success).
+inline int make_map_rows(CUtensorMap* map, const void* base, CUtensorMapDataType type, int cols, int rows,
+                         int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                          : type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows), 1};
+  const cuuint64_t strides[2] = {cols * size, cols * size * rows};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace sm90
 }  // namespace tt

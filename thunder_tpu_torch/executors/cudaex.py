@@ -180,9 +180,9 @@ def _library():
         lib.tt_flash_bwd.restype = i
         lib.tt_cross_entropy.argtypes = [p, p, p, p, i, i, i, p]
         lib.tt_cross_entropy.restype = i
-        lib.tt_int8_linear.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.tt_int8_linear.argtypes = [p] * 6 + [i] * 11 + [p]
         lib.tt_int8_linear.restype = i
-        lib.tt_nf4_linear.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.tt_nf4_linear.argtypes = [p] * 6 + [i] * 12 + [p]
         lib.tt_nf4_linear.restype = i
         lib.tt_fp8_linear.argtypes = [p] * 10 + [i] * 5 + [f, p]
         lib.tt_fp8_linear.restype = i
@@ -1341,10 +1341,151 @@ ex.register_implementation("torch.nn.functional.cross_entropy", _cross_entropy_i
 # decomposition: dequantized bf16 weights and one torch.matmul.
 QUANT_MAX_M = 512
 _QUANT_X_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/weight_only_linear.cuh: units of a weight row's bytes. The stream
+# route's blocks own 16 rows where ceil(N / 64) leaves an SM without two
+# 64-row blocks and the 16-row grid fits one wave (their warps split K), else
+# 64 rows, over all of K or, where x would pass
+# _STREAM_X_K, a K split; x for the block's k range comes in one TMA box, then
+# a ring of 1 to 16 stages each holds a unit: 128 bytes of each row (128 k of
+# int8, 256 k of NF4) and NF4's absmax. Registers hold it to 4 blocks an SM
+# (3 with 16 tokens), shared memory (228 KB an SM, 1 KB of it reserved a
+# block) may hold it to fewer. The wgmma route's tiles are 128 rows by 64 or
+# 128 tokens; its unit is 64 bytes of each row, its stages (kind, tokens) ->
+# count, and it splits K where its tiles leave SMs idle. Both routes sum K
+# splits in scratch, the last block of a slice or tile to finish adding them
+# in split order.
+_WOL_ROUTES = {"f32": 0, "stream": 1, "wgmma": 2}
+_WOL_UNIT = {"stream": 128, "wgmma": 64, "f32": 64}
+_STREAM_STAGES, _STREAM_MAX_M, _STREAM_X_K = (1, 2, 4, 6, 8, 12, 16), 16, 2048
+_SM_SMEM = 228 * 1024
+_WGMMA_ROWS = 128
+_WGMMA_STAGES = {("int8", 64): 6, ("int8", 128): 6, ("nf4", 64): 4, ("nf4", 128): 3}
+_WGMMA_MIN_UNITS = 4  # a K split of the wgmma route holds at least this many units
+_WOL_COUNTERS = 4096  # the persistent split counters a device (one a split slice or tile)
+
+
+def _stream_smem(kind: str, rows: int, tile_m: int, stages: int, ups: int) -> int:
+    """csrc/weight_only_linear.cuh stream_smem: a stream block's dynamic
+    shared memory (x for `ups` units, the ring, NF4's absmax and table)."""
+    nf4 = kind == "nf4"
+    x = ups * (4 if nf4 else 2) * tile_m * 128
+    ring = max(stages * rows * 128, 128 * 16 * 4)
+    return x + ring + (stages * 4 * rows * 4 + 256 * 16 * 8 if nf4 else 0) + (2 * stages + 1) * 8 + 8 + 1024
+
+
+def _stream_per_sm(kind: str, rows: int, tile_m: int, stages: int, ups: int) -> int:
+    """Stream blocks an SM holds at once: the launch bound's 4 (3 with 16
+    tokens) or what shared memory allows."""
+    return min(4 if tile_m == 8 else 3, _SM_SMEM // (_stream_smem(kind, rows, tile_m, stages, ups) + 1024))
 
 
 def _rows(shape) -> int:
     return math.prod(int(d) for d in shape[:-1])
+
+
+def _balanced_splits(units: int, want: int) -> tuple[int, int]:
+    """(splits, units a split) for at least `want` splits of `units`, none
+    empty: ceil(units / ups) splits of ups = ceil(units / want) units."""
+    ups = -(-units // max(1, min(want, units)))
+    return -(-units // ups), ups
+
+
+def weight_only_plan(kind, M, N, K, dtype, block_k=None, sms=H100_SMS) -> dict:
+    """What int8_linear (kind "int8") or nf4_linear ("nf4") launches for x
+    (M, K) against weights (N, K), from the shapes and x's dtype alone (no
+    tensor is read, so the launch is safe to capture in a CUDA graph):
+
+    * ``route``: ``f32`` (f32 x: the FMA kernel, 16 x 16 blocks), ``stream``
+      (bf16, M <= 16, K a multiple of 128: blocks of ``rows`` weight rows, 16
+      where ceil(N / 64) < 2 · sms and the 16-row grid is one wave of
+      resident blocks, else 64 (16-row blocks' 8 warps split K), over
+      all of K or a K split where x for it would pass 2,048 k; x in one TMA
+      box, the weights through ``stages`` ring stages, filled by one TMA box
+      a group of min(4, stages / 2)) or ``wgmma`` (bf16,
+      other M, which the checkers claim up to QUANT_MAX_M: persistent
+      TMA/wgmma tiles of 128 rows by ``tile_m`` tokens, K split while the
+      tiles leave SMs idle); its ``code`` for csrc/weight_only_linear.cuh;
+    * ``rows``: weight rows a block or tile; ``tile_m``: tokens (stream: 8
+      or 16, the n8 tiles; wgmma: 64 or 128; f32: 16);
+    * ``splits`` and ``units_per_split`` (units of a row's bytes: 128 on
+      the stream route, 64 on the others);
+    * ``grid``: the launch grid; ``blocks``: blocks (or, for wgmma, work
+      items) it runs; ``stages``;
+    * ``scratch``: the f32 partial sums (splits, M, N) when K is split;
+      ``counters``: the split counters the launch uses (zero without).
+
+    block_k is NF4's slice width (nf4_kernel_block_k(K) by default)."""
+    _require(kind in ("int8", "nf4"), f"weight_only_plan: kind {kind!r} is not int8 or nf4")
+    if kind == "nf4":
+        block_k = block_k or nf4_kernel_block_k(K)
+        _require(block_k is not None and K % block_k == 0, f"weight_only_plan: no NF4 slice width for K={K}")
+    row_bytes = K if kind == "int8" else K // 2
+    if dtype == torch.float32:
+        grid = (-(-N // 16), -(-M // 16))
+        return {"route": "f32", "code": _WOL_ROUTES["f32"], "rows": 16, "tile_m": 16, "splits": 1,
+                "units_per_split": -(-row_bytes // _WOL_UNIT["f32"]), "grid": grid, "blocks": grid[0] * grid[1], "stages": 0,
+                "scratch": {}, "counters": 0}
+    if M <= _STREAM_MAX_M and row_bytes % _WOL_UNIT["stream"] == 0:  # (int8: K in whole 128-k chunks)
+        route, tile_m = "stream", 8 if M <= 8 else 16
+        units = -(-row_bytes // _WOL_UNIT[route])
+        splits, ups = _balanced_splits(units, -(-K // _STREAM_X_K))
+        if kind == "nf4" and splits > 1:  # a split holds whole slices of the kernel layout
+            step = block_k // 2 // _WOL_UNIT[route] or 1
+            ups = -(-ups // step) * step
+            splits = -(-units // ups)
+        # 16-row blocks where 64-row ones leave SMs without two blocks and the
+        # 16-row grid is one wave of resident blocks
+        rows = 16 if (-(-N // 64) * splits < 2 * sms
+                      and -(-N // 16) * splits <= _stream_per_sm(kind, 16, tile_m, 2, ups) * sms) else 64
+        tiles = -(-N // rows)
+        blocks = tiles * splits
+        grid = (tiles, splits)
+        # stages (a multiple of _stream_group's fill group): 8 for 16-row
+        # blocks, 2 for 64-row ones (tools/quant_ab.py --sweep), no more than
+        # the units, and fewer where that makes the grid one wave of resident
+        # blocks
+        stages = max(d for d in _STREAM_STAGES if d <= min(ups, 8 if rows == 16 else 2))
+        while (stages > 1 and blocks <= _stream_per_sm(kind, rows, tile_m, 1, ups) * sms
+               and _stream_per_sm(kind, rows, tile_m, stages, ups) * sms < blocks):
+            stages = max(d for d in _STREAM_STAGES if d < stages)
+    else:
+        route, rows, tile_m = "wgmma", _WGMMA_ROWS, 64 if M <= 64 else 128
+        units = -(-row_bytes // _WOL_UNIT[route])
+        tiles = -(-M // tile_m) * -(-N // rows)
+        splits, ups = _balanced_splits(units, max(1, min(sms // tiles, units // _WGMMA_MIN_UNITS)))
+        blocks, stages = tiles * splits, _WGMMA_STAGES[(kind, tile_m)]
+        grid = (min(blocks, sms),)
+    scratch = {"partial": ((splits, M, N), torch.float32)} if splits > 1 else {}
+    return {"route": route, "code": _WOL_ROUTES[route], "rows": rows, "tile_m": tile_m, "splits": splits,
+            "units_per_split": ups, "grid": grid, "blocks": blocks, "stages": stages, "scratch": scratch,
+            "counters": tiles if scratch else 0}
+
+
+_wol_counters = {}
+
+
+def _wol_scratch(plan, device):
+    """The plan's partial sums (torch.empty) and the device's persistent
+    split counters (zeros, made once outside any CUDA-graph capture; each
+    launch that splits leaves its counters at zero), where it has them."""
+    if not plan["scratch"]:
+        return None, None
+    shape, dt = plan["scratch"]["partial"]
+    cnt = _wol_counters.get(device)
+    if cnt is None:
+        _require(not torch.cuda.is_current_stream_capturing(),
+                 "weight-only linear: the split counters are made at the first split launch, which must "
+                 "not be under CUDA-graph capture")
+        cnt = _wol_counters[device] = torch.zeros(_WOL_COUNTERS, dtype=torch.int32, device=device)
+    _require(plan["counters"] <= _WOL_COUNTERS, f"weight-only linear: {plan['counters']} split counters needed")
+    return torch.empty(shape, dtype=dt, device=device), cnt
+
+
+def _wol_args(plan, partial, counters, M, N, K, *rest) -> tuple:
+    """The C entry points' arguments after x, the weights and y."""
+    return (partial.data_ptr() if partial is not None else None,
+            counters.data_ptr() if counters is not None else None, M, N, K, *rest, plan["code"],
+            plan["rows"], plan["tile_m"], plan["splits"], plan["units_per_split"], plan["grid"][0], plan["stages"])
 
 
 def int8_linear_plain(x, qweight, scale):
@@ -1357,7 +1498,7 @@ def int8_linear_plain(x, qweight, scale):
 
 def int8_linear(x, qweight, scale):
     """x (..., K) f32 or bf16, qweight (N, K) int8, scale (N,) f32 -> (..., N)
-    in x's dtype: (x · qweightᵀ) · scale."""
+    in x's dtype: (x · qweightᵀ) · scale, on weight_only_plan's route."""
     if x.device.type == "cpu":
         return int8_linear_plain(x, qweight, scale)
     N, K = qweight.shape
@@ -1371,8 +1512,11 @@ def int8_linear(x, qweight, scale):
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
-        _raise_on(_library().tt_int8_linear(x2.data_ptr(), qweight.data_ptr(), scale.data_ptr(),
-                                            y.data_ptr(), M, N, K, _DTYPE_CODE[x.dtype], _stream(x)),
+        plan = weight_only_plan("int8", M, N, K, x.dtype)
+        partial, counters = _wol_scratch(plan, x.device)
+        _raise_on(_library().tt_int8_linear(x2.data_ptr(), qweight.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                                            *_wol_args(plan, partial, counters, M, N, K, _DTYPE_CODE[x.dtype]),
+                                            _stream(x)),
                   "int8_linear")
         int8_linear.launches += 1
     return y.reshape(*x.shape[:-1], N)
@@ -1415,7 +1559,8 @@ def nf4_linear_plain(x, packed_kl, absmax_kl, block_size: int = 64):
 def nf4_linear(x, packed_kl, absmax_kl, block_size: int = 64):
     """x (..., K) f32 or bf16 against kernel-layout NF4 weights (packed
     (N, K/2) uint8, absmax (N, K/64) f32; transforms/quantization.py:
-    pack_nf4_kernel_layout) -> (..., N) in x's dtype."""
+    pack_nf4_kernel_layout) -> (..., N) in x's dtype, on weight_only_plan's
+    route."""
     if x.device.type == "cpu":
         return nf4_linear_plain(x, packed_kl, absmax_kl, block_size)
     K = x.shape[-1]
@@ -1432,8 +1577,12 @@ def nf4_linear(x, packed_kl, absmax_kl, block_size: int = 64):
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
+        plan = weight_only_plan("nf4", M, N, K, x.dtype, bk)
+        partial, counters = _wol_scratch(plan, x.device)
         _raise_on(_library().tt_nf4_linear(x2.data_ptr(), packed_kl.data_ptr(), absmax_kl.data_ptr(),
-                                           y.data_ptr(), M, N, K, bk, _DTYPE_CODE[x.dtype], _stream(x)),
+                                           y.data_ptr(),
+                                           *_wol_args(plan, partial, counters, M, N, K, bk, _DTYPE_CODE[x.dtype]),
+                                           _stream(x)),
                   "nf4_linear")
         nf4_linear.launches += 1
     return y.reshape(*x.shape[:-1], N)
