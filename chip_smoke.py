@@ -53,14 +53,29 @@ Phases, each printing one JSON line:
                M=8 (and the prefill buckets M=512 at fc_1, M=256 at qkv and
                MLP proj), NF4 at M=4 (and M=512 at fc_1), each with
                weight_only_plan's route, K splits and blocks; beside a bf16
-               matmul against weights dequantized beforehand.
+               matmul against weights dequantized beforehand. rms_norm
+               runs at Llama-3-1B's width (D=2048) at the serve wave's
+               decode batches (1, 4, 8 rows) and prefill buckets (128, 512,
+               1,024 rows) in bf16 and at 512 rows in f32, each with
+               rms_norm_plan's launch, beside F.rms_norm and an empty
+               kernel's launch (the floor). The AdamW kernel (adamw_update,
+               csrc/adamw.cu; thunder_tpu's update is fused by XLA, so it
+               replaces no Pallas kernel) is held against the _foreach chain
+               (adamw_plain) over two updates at llama-350m's parameter
+               shapes (p f32 or bf16, g f32 or bf16: ADAMW_TOL), then timed
+               at moe_train's MoEGPT and train's llama-350m shapes beside
+               the chain and torch._fused_adamw_.
 3. serve     — ServingEngine over Llama-3-1B at full width and depth in bf16
                (random weights from --seed): 16 greedy requests, prompts of
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
                just before and read just after; both kernels must have run.
 4. profile   — torch.profiler over a short decode-heavy wave: device busy
                share, the kernels that take the time, and the paged
-               attention kernels' device ms a decode step.
+               attention kernels' device ms a decode step. Every profile
+               phase profiles twice (profile_twice) and fails when the two
+               disagree by more than PROFILE_RTOL at equal launch counts;
+               each profile's device times are divided by its clock check
+               (a spin timed by CUDA events and by the profiler).
 5. agreement — 4 of the requests in f32 (TF32 off) through the engine and
                through the dense solo GPTInference: the streams must match,
                or differ only after a step where the solo top-2 logit gap is
@@ -179,8 +194,9 @@ Phases, each printing one JSON line:
                MoE row at Llama-3-1B widths): compile, 2 warm-up and 10 timed
                steps, grouped_mlp and the flash-RoPE pair n_layer x 10 each
                between zeroed counters (the kernel runs f32 here: autocast
-               leaves grouped_mlp and rms_norm in f32); losses falling;
-               moe_train_profile over 2 steps.
+               leaves grouped_mlp and rms_norm in f32), and the AdamW
+               kernel once a step; losses falling; moe_train_profile over 2
+               steps.
 21. moe_train_agreement — f32, TF32 off, 2 layers, B=1, T=256: 3 steps on the
                grouped road (kernel and claimed grad rule) against the dense
                road (no kernel) from the same weights, losses within
@@ -272,8 +288,11 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,  # dense bf16 tensor; f32 non-
 L2_BYTES = 50 * 2 ** 20
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def _event_ms(run) -> float:
@@ -331,35 +350,151 @@ def dname(dt: torch.dtype) -> str:
 # ---------------------------------------------------------------------------
 
 
+# rms_norm at Llama-3-1B's width: the serve wave's decode batches (1-8 rows)
+# and prefill buckets (128-1,024 rows) in bf16, and 512 rows in f32
+RMS_D = 2048
+RMS_SHAPES = ((1, torch.bfloat16), (4, torch.bfloat16), (8, torch.bfloat16), (128, torch.bfloat16),
+              (512, torch.bfloat16), (1024, torch.bfloat16), (512, torch.float32))
+
+
+def rms_work(N: int, D: int, itemsize: int) -> tuple[float, float]:
+    """(bytes, operations) of one rms_norm: x read and y written once, w
+    read once; ~4 operations an element."""
+    return 2 * N * D * itemsize + D * itemsize, 4 * N * D
+
+
 def check_rms(cudaex, dev, gen) -> dict:
-    D, eps = 2048, 1e-5
+    """rms_norm against its plain version at RMS_SHAPES and in fp16
+    (KERNEL_TOL), then timed at RMS_SHAPES beside its bound, its plain
+    version, F.rms_norm and an empty kernel's launch (the floor), each with
+    rms_norm_plan's launch."""
+    D, eps = RMS_D, 1e-5
     errs, cases = [], []
-    for N in (8, 512):
-        for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn(N, D, device=dev, generator=gen).to(dt)
-            w = (1 + 0.1 * torch.randn(D, device=dev, generator=gen)).to(dt)
-            out = cudaex.rms_norm(x, w, eps)
-            torch.cuda.synchronize()
-            err = (out.float() - cudaex.rms_norm_plain(x, w, eps).float()).abs().max().item()
-            if not err <= KERNEL_TOL[dname(dt)]:
-                raise AssertionError(f"rms_norm N={N} {dt}: max abs err {err}")
-            errs.append(err)
-            cases.append({"N": N, "D": D, "dtype": dname(dt), "max_abs_err": err})
+    for N, dt in RMS_SHAPES + ((8, torch.float16), (512, torch.float16)):
+        x = torch.randn(N, D, device=dev, generator=gen).to(dt)
+        w = (1 + 0.1 * torch.randn(D, device=dev, generator=gen)).to(dt)
+        out = cudaex.rms_norm(x, w, eps)
+        torch.cuda.synchronize()
+        err = (out.float() - cudaex.rms_norm_plain(x, w, eps).float()).abs().max().item()
+        if not err <= KERNEL_TOL[dname(dt)]:
+            raise AssertionError(f"rms_norm N={N} {dt}: max abs err {err}")
+        errs.append(err)
+        cases.append({"N": N, "D": D, "dtype": dname(dt), "max_abs_err": err})
+    floor, floor_eager = cuda_ms(lambda: cudaex.empty_kernel(dev), [()])
     timings = {}
-    for N in (8, 512):
-        dt = torch.bfloat16
-        nbytes = 2 * N * D * 2 + D * 2
+    for N, dt in RMS_SHAPES:
+        nbytes, ops = rms_work(N, D, dt.itemsize)
         sets = copies(lambda: (torch.randn(N, D, device=dev, generator=gen).to(dt),
                                torch.randn(D, device=dev, generator=gen).to(dt)), nbytes)
-        b, by = bound_ms(nbytes, 4 * N * D, "bfloat16")
+        b, by = bound_ms(nbytes, ops, "float32" if dt == torch.float32 else "bfloat16")
         ms, eager = cuda_ms(lambda x, w: cudaex.rms_norm(x, w, eps), sets)
         plain, plain_eager = cuda_ms(lambda x, w: cudaex.rms_norm_plain(x, w, eps), sets)
         lib, lib_eager = cuda_ms(lambda x, w: torch.nn.functional.rms_norm(x, (D,), w, eps), sets)
-        timings[N] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
-                          eager_ms=eager, plain_eager_ms=plain_eager, library_eager_ms=lib_eager)
-    emit("kernels", kernel="rms_norm", cases=cases,
-         timing_bf16={f"N={n}": t for n, t in timings.items()})
-    return dict(max_abs_err=max(errs), shape="N=512 D=2048 bf16", **timings[512])
+        timings[f"N={N} {dname(dt)}"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by, share_of_bound=b / ms,
+            eager_ms=eager, plain_eager_ms=plain_eager, library_eager_ms=lib_eager,
+            plan=cudaex.rms_norm_plan(N, D, dt))
+    emit("kernels", kernel="rms_norm", cases=cases, empty_kernel_ms=floor, empty_kernel_eager_ms=floor_eager,
+         timing=timings)
+    return dict(max_abs_err=max(errs), shape="N=512 D=2048 bf16", **timings["N=512 bfloat16"])
+
+
+def model_shapes(which: str) -> list:
+    """The parameter shapes and dtypes of the model an AdamW timing stands
+    for: ``moe`` moe_train's MoEGPT (Llama-3-1B, 8 experts of 1024; 1.50 B
+    parameters), ``llama-350m`` the train phase's; f32 master weights both."""
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.models.moe import MoEGPT
+
+    if which == "moe":
+        cfg = Config.from_name("Llama-3-1B", block_size=2048)
+        model = MoEGPT(cfg, moe_config(cfg, capacity_factor=1.0), torch.float32)
+    else:
+        model = GPTForCausalLM(Config.from_name(which, block_size=2048), torch.float32)
+    shapes = [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    return shapes
+
+
+ADAMW_HYPER = dict(lr=TRAIN_LR, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+
+def adamw_inputs(dev, gen, shapes, g_dtype=None) -> tuple:
+    """Parameters, gradients and f32 moments at `shapes`, random (v > 0)."""
+    ps = [torch.randn(s, device=dev, generator=gen).mul_(0.02).to(dt) for s, dt in shapes]
+    gs = [torch.randn(s, device=dev, generator=gen).mul_(1e-3).to(g_dtype or dt) for s, dt in shapes]
+    ms = [torch.randn(s, device=dev, generator=gen).mul_(1e-4) for s, _ in shapes]
+    vs = [torch.rand(s, device=dev, generator=gen).mul_(1e-6) for s, _ in shapes]
+    return ps, gs, ms, vs
+
+
+def adamw_errors(got: tuple, want: tuple) -> tuple[dict, dict]:
+    """Largest |kernel - plain| of p, m and v, and each over its largest
+    |plain|."""
+    err, rel = {}, {}
+    for name, a, b in zip("pmv", got, want):
+        err[name] = max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b) if x.numel())
+        rel[name] = err[name] / max(y.float().abs().max().item() for y in b if y.numel())
+    return err, rel
+
+
+# The AdamW kernel against adamw_plain after two updates: m, v and f32 p
+# within ADAMW_TOL of their tensor set's largest |value| (both sides round
+# each step once, in one order; the card's chain may divide by a reciprocal
+# or leave a product unfused: an ulp, 6e-8 relative), bf16/fp16 p within one
+# ulp at that largest value (a rounding that lands on the other side).
+ADAMW_TOL = {"float32": 1e-6, "bfloat16": 2 ** -7, "float16": 2 ** -10}
+
+
+def check_adamw(cudaex, dev, gen) -> dict:
+    """adamw_update against adamw_plain over two updates at llama-350m's
+    parameter shapes (f32 p and g; bf16 p with bf16 g; f32 p with bf16 g),
+    then timed at moe_train's MoEGPT and train's llama-350m shapes beside its
+    bound (each parameter's p, g, m, v read and p, m, v written once), the
+    plain chain and torch._fused_adamw_ with the same hyper-parameters."""
+    errs, cases = [], []
+    small = model_shapes("llama-350m")
+    for p_dt, g_dt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                       (torch.float32, torch.bfloat16)):
+        shapes = [(s, p_dt) for s, _ in small]
+        ker = adamw_inputs(dev, gen, shapes, g_dt)
+        ref = tuple([t.clone() for t in ts] for ts in ker)
+        for step in (1, 2):
+            cudaex.adamw_update(*ker, step=step, **ADAMW_HYPER)
+            cudaex.adamw_plain(*ref, step=step, **ADAMW_HYPER)
+        torch.cuda.synchronize()
+        err, rel = adamw_errors((ker[0], ker[2], ker[3]), (ref[0], ref[2], ref[3]))
+        bar = dict(p=ADAMW_TOL[dname(p_dt)], m=ADAMW_TOL["float32"], v=ADAMW_TOL["float32"])
+        if not all(rel[k] <= bar[k] for k in rel):
+            raise AssertionError(f"adamw p {p_dt} g {g_dt}: errors {rel} against {bar}")
+        errs.append(err["p"])
+        cases.append({"p": dname(p_dt), "g": dname(g_dt), "max_abs_err": err, "rel_err": rel, "bar": bar})
+        del ker, ref
+    timings = {}
+    for which in ("moe", "llama-350m"):
+        shapes = model_shapes(which)
+        ps, gs, ms, vs = args = adamw_inputs(dev, gen, shapes)
+        n = sum(p.numel() for p in ps)
+        nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16) for p, g in zip(ps, gs))
+        b, by = bound_ms(nbytes, 15 * n, "float32")
+        step = iter(range(1, 10 ** 6))
+        ms_k, eager = cuda_ms(lambda *a: cudaex.adamw_update(*a, step=next(step), **ADAMW_HYPER), [args], iters=10)
+        plain, _ = cuda_ms(lambda *a: cudaex.adamw_plain(*a, step=next(step), **ADAMW_HYPER), [args], iters=5)
+        steps = [torch.ones((), device=dev) for _ in ps]
+        h = ADAMW_HYPER
+        lib, _ = cuda_ms(lambda *a: torch._fused_adamw_(*a, [], steps, lr=h["lr"], beta1=h["beta1"],
+                                                        beta2=h["beta2"], weight_decay=h["weight_decay"],
+                                                        eps=h["eps"], amsgrad=False, maximize=False),
+                         [args], iters=10)
+        timings[which] = dict(ms=ms_k, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                              share_of_bound=b / ms_k, eager_ms=eager, params=n, tensors=len(ps),
+                              chunks=int(cudaex.adamw_tables(ps, gs, ms, vs)[1].numel()))
+        del ps, gs, ms, vs, args, steps
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="adamw", cases=cases, timing=timings)
+    return dict(max_abs_err=max(errs), shape="MoEGPT (Llama-3-1B, 8 experts of 1024) f32 p and g",
+                **timings["moe"])
 
 
 def paged_inputs(dev, gen, dt, seq_lens, B=8, H=32, Hkv=8, D=64, ps=16, npm=128):
@@ -398,18 +533,97 @@ def device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+# The profiler's clock check. A session brackets ``run()`` between two spins
+# (torch.cuda._sleep's spin_kernel): a ~10 ms one timed by CUDA events
+# before it, and a short one after it. Two faults of the profiler's clock
+# showed on the card: a session can read every device duration scaled by
+# one factor (0.476 and 0.515 in two sessions of one run, ROADMAP queue C),
+# and a session can lose the device events of its first ~10-100 ms. So the
+# measured spin comes behind a lead-in of short spins, the
+# rows are divided by its profiler/event ratio, and a session that lost the
+# measured or the closing spin is retaken behind a longer lead-in.
+CLOCK_SPIN_CYCLES = 20_000_000  # the measured spin, ~10 ms
+CLOCK_SHORT_CYCLES = 1_000_000  # lead-in and closing spins, ~0.5 ms each
+# Lead-in spins of each try: on an H100 a full run lost the measured spin
+# behind 1 and 20 of them (0.5 and 10 ms) in 34 of 56 sessions, and none
+# behind 200 (PERF.md §6).
+CLOCK_LEAD_INS = (200, 1000)
+CLOCK_KERNEL = "spin_kernel"
+# Two profiles of one phase in one call must agree within PROFILE_RTOL on
+# device ms where their launch counts agree within PROFILE_LAUNCH_RTOL.
+PROFILE_RTOL = 0.05
+PROFILE_LAUNCH_RTOL = 0.01
+
+
+def profiled(run) -> dict:
+    """torch.profiler (CPU and CUDA activities) over run() between the clock
+    check's spins: the device rows corrected by the check's ratio (``rows``,
+    the spins left out), the wall us of run() (``wall_us``), the ratio
+    (``clock_ratio``: profiler us / event us of the measured spin), the
+    profiler object (``prof``) and the sessions retaken because they lost
+    the measured or the closing spin (``retaken``: the spins each recorded
+    of those it launched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    retaken = []
+    for lead_in in CLOCK_LEAD_INS:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead_in):
+                torch.cuda._sleep(CLOCK_SHORT_CYCLES)
+            start.record()
+            torch.cuda._sleep(CLOCK_SPIN_CYCLES)
+            stop.record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            torch.cuda._sleep(CLOCK_SHORT_CYCLES)
+            torch.cuda.synchronize()
+        spins = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                       if CLOCK_KERNEL in e.name and str(e.device_type).endswith("CUDA"))
+        # the measured spin is the one 10x longer than the others; the
+        # closing spin is the last and starts after it
+        long = [i for i, (_, us) in enumerate(spins) if us > 5 * min(u for _, u in spins)] if spins else []
+        if len(long) == 1 and long[0] < len(spins) - 1:
+            break
+        retaken.append({"lead_in": lead_in, "spins": len(spins), "launched": lead_in + 2})
+    else:
+        raise AssertionError(f"the profiler lost the clock check's spins in {len(CLOCK_LEAD_INS)} sessions: "
+                             f"{retaken}")
+    ratio = spins[long[0]][1] / (start.elapsed_time(stop) * 1e3)
+    rows = [(us / ratio, k, c) for us, k, c in device_rows(prof) if CLOCK_KERNEL not in k]
+    return {"rows": rows, "wall_us": wall_us, "clock_ratio": ratio, "prof": prof, "retaken": retaken}
+
+
+def profile_twice(phase: str, run) -> tuple[dict, dict]:
+    """Two profiled(run) in a row; raises if their device times differ by
+    more than PROFILE_RTOL while their launch counts agree within
+    PROFILE_LAUNCH_RTOL. Returns both and the comparison."""
+    first, second = profiled(run), profiled(run)
+    busy = [sum(r[0] for r in p["rows"]) for p in (first, second)]
+    launches = [sum(r[2] for r in p["rows"]) for p in (first, second)]
+    same_work = abs(launches[0] - launches[1]) <= PROFILE_LAUNCH_RTOL * max(launches)
+    gap = abs(busy[0] - busy[1]) / max(busy) if max(busy) else 0.0
+    check = dict(device_ms=[b / 1e3 for b in busy], launches=launches, gap=gap, same_work=same_work,
+                 clock_ratio=[first["clock_ratio"], second["clock_ratio"]],
+                 retaken=first["retaken"] + second["retaken"])
+    if same_work and gap > PROFILE_RTOL:
+        raise AssertionError(f"{phase}: two profiles disagree: {check}")
+    return first, check
+
+
 def kernel_ms(fn, arg_sets, marks, n: int = 20) -> dict:
     """Device ms a call of each kernel whose name holds one of marks, from
     torch.profiler over n eager calls cycling through arg_sets."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         for i in range(n):
             fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
+
     out = {}
-    for us, key, _ in device_rows(prof):
+    for us, key, _ in profiled(run)["rows"]:
         mark = next((m for m in marks if m in key), None)
         if mark:
             out[mark] = out.get(mark, 0.0) + us / 1e3 / n
@@ -1254,20 +1468,20 @@ def profile_wave(engine, specs, phase: str = "profile") -> dict:
     requests, the kernels that took the device time, and the paged
     attention kernels' device ms, in all, by kernel (PAGED_KERNELS: the
     combine serves the decode and the chunk kernels both) and a decode
-    step."""
-    from torch.profiler import ProfilerActivity, profile
+    step. The wave is profiled twice (profile_twice); the first is read."""
+    steps = []
 
-    steps0 = engine.decode_steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
+        steps0 = engine.decode_steps
         for p, n, lane in specs:
             engine.submit(p, max_new_tokens=n, lane=lane)
         engine.drain()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
+        steps.append(engine.decode_steps - steps0)
+
+    prof, check = profile_twice(phase, run)
+    rows, wall_us = prof["rows"], prof["wall_us"]
     busy_us = sum(r[0] for r in rows)
-    steps = engine.decode_steps - steps0
+    steps = steps[0]
     attn_us = sum(us for us, k, _ in rows if any(m in k for m in PAGED_KERNELS))
     by_kernel = {m: sum(us for us, k, _ in rows if m in k) / 1e3 for m in PAGED_KERNELS}
     out = dict(requests=len(specs), wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -1275,7 +1489,8 @@ def profile_wave(engine, specs, phase: str = "profile") -> dict:
                attention_device_ms=attn_us / 1e3, attention_device_ms_by_kernel=by_kernel,
                attention_device_ms_per_decode_step=attn_us / 1e3 / steps if steps else None,
                device_ms_per_decode_step=busy_us / 1e3 / steps if steps else None,
-               top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:10]])
+               top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:10]],
+               two_profiles=check)
     emit(phase, **out)
     return out
 
@@ -1904,10 +2119,11 @@ def train(tt, cudaex, seed) -> dict:
     cudaex.flash_rope_attention.launches = 0
     cudaex.flash_rope_attention_backward.launches = 0
     cudaex.rms_norm.launches = 0
+    cudaex.adamw_update.launches = 0
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = {"flash_rope_fwd": cudaex.flash_rope_attention.launches,
                 "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches,
-                "rms_norm": cudaex.rms_norm.launches}
+                "rms_norm": cudaex.rms_norm.launches, "adamw": cudaex.adamw_update.launches}
     want = cfg.n_layer * n_steps
     if launches["flash_rope_fwd"] != want or launches["flash_rope_bwd"] != want:
         raise AssertionError(f"flash launches {launches} over {n_steps} steps, want {want} each")
@@ -1947,7 +2163,7 @@ KERNEL_KINDS = (
     ("grouped_mlp", ("grouped_mlp_",)),
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
-    ("optimizer", ("multi_tensor_apply",)),
+    ("optimizer", ("adamw_kernel", "multi_tensor_apply")),
     ("reduction", ("reduce_kernel",)),
     ("copy_cast", ("direct_copy", "copy_kernel")),
     ("elementwise", ("elementwise_kernel", "index_elementwise")),
@@ -1956,18 +2172,15 @@ KERNEL_KINDS = (
 
 def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
     """Device busy share over 2 steps, the kernels that took the time (by
-    name and by kind, per step), and the kernel launches a step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    name and by kind, per step), and the kernel launches a step. The 2
+    steps are profiled twice (profile_twice); the first is read."""
+    def run():
         for _ in range(2):
             step(idx, tgt)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = device_rows(prof)
-    nccl_host = [(e.key, e.count, e.cpu_time_total) for e in prof.key_averages()
+
+    prof, check = profile_twice(phase, run)
+    rows, wall_us = prof["rows"], prof["wall_us"]
+    nccl_host = [(e.key, e.count, e.cpu_time_total) for e in prof["prof"].key_averages()
                  if e.key.startswith("nccl:") and not str(e.device_type).endswith("CUDA")]
     busy_us = sum(r[0] for r in rows)
     by_kind: dict = {}
@@ -1978,7 +2191,8 @@ def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
                idle_share=(1 - busy_us / wall_us) if busy_us else None,
                kernel_launches_per_step=sum(r[2] for r in rows) / 2,
                device_ms_per_step_by_kind=by_kind,
-               top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]])
+               top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]],
+               two_profiles=check)
     if nccl_host or "collective" in by_kind:
         out["nccl"] = dict(
             device_ms_per_step=by_kind.get("collective", 0.0),
@@ -2794,12 +3008,16 @@ def moe_train(tt, cudaex, seed) -> dict:
     cudaex.grouped_mlp.launches = 0
     cudaex.flash_rope_attention.launches = 0
     cudaex.flash_rope_attention_backward.launches = 0
+    cudaex.adamw_update.launches = 0
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = {"grouped_mlp": cudaex.grouped_mlp.launches,
                 "flash_rope_fwd": cudaex.flash_rope_attention.launches,
-                "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches}
+                "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches,
+                "adamw": cudaex.adamw_update.launches}
+    if launches["adamw"] != n_steps:
+        raise AssertionError(f"adamw launches {launches['adamw']} over {n_steps} steps, want one a step")
     want = cfg.n_layer * n_steps
-    if any(v != want for v in launches.values()):
+    if any(v != want for k, v in launches.items() if k != "adamw"):
         raise AssertionError(f"moe_train launches {launches} over {n_steps} steps, want {want} each")
     losses = [first] + losses
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -3362,6 +3580,7 @@ def main() -> int:
     nf4 = check_quant(cudaex, dev, gen, "nf4")
     fp8 = check_fp8(cudaex, dev, gen)
     grouped = check_grouped(cudaex, dev, gen)
+    adamw = check_adamw(cudaex, dev, gen)
 
     cfg = Config.from_name("Llama-3-1B")
     rng = np.random.RandomState(args.seed)
@@ -3390,7 +3609,7 @@ def main() -> int:
     remat_train(tt, cudaex, args.seed)
     moe_served = moe_serve(tt, cudaex, cfg, prompts, args.seed, served)
     moe_agreement(cfg, prompts[:4], args.seed)
-    moe_train(tt, cudaex, args.seed)
+    moe_trained = moe_train(tt, cudaex, args.seed)
     moe_train_agreement(tt, cudaex, args.seed)
     ring_fwd, ring_bwd = check_ring(cudaex, dev, gen)
     # one process group for both CP phases, destroyed after them
@@ -3431,7 +3650,10 @@ def main() -> int:
             ("ring_flash_fwd", ring_fwd, "thunder_tpu_torch/csrc/flash_fwd_sm90.cu",
              "thunder_tpu/executors/pallasex.py:2205", cp_trained["launches"]["ring_flash_fwd"]),
             ("ring_flash_bwd", ring_bwd, "thunder_tpu_torch/csrc/flash_bwd_sm90.cu",
-             "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"])):
+             "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"]),
+            ("adamw", adamw, "thunder_tpu_torch/csrc/adamw.cu",
+             "thunder_tpu/optim.py:83 (inside the step's jax.jit; no Pallas kernel)",
+             moe_trained["launches"]["adamw"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

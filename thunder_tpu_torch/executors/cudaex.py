@@ -42,7 +42,11 @@ replaces pallasex.ring_flash_bwd_step.
 
 It also holds ``fp8_linear`` (csrc/fp8_linear.cu), which replaces
 pallasex.fp8_linear_fused; transforms/fp8_training.py's stateful operators
-call it at run time, where its checker claims the shape.
+call it at run time, where its checker claims the shape. And it holds
+``adamw_update`` (csrc/adamw.cu), the port's one-pass AdamW update, which
+optim.AdamW calls: thunder_tpu has no kernel for it (XLA fuses the update
+into the train step), and its plain version ``adamw_plain`` is the
+``torch._foreach_*`` chain the port ran before.
 
 It registers the grad rules of ``thunder.rope_sdpa`` and of sdpa as pallasex
 does: the augmented forward records ``cuda.rope_flash_fwd``
@@ -164,8 +168,12 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tt_rms_norm.argtypes = [p, p, p, i, i, f, i, p]
+        lib.tt_rms_norm.argtypes = [p, p, p, i, i, f, i, i, i, i, i, p]
         lib.tt_rms_norm.restype = i
+        lib.tt_empty.argtypes = [p]
+        lib.tt_empty.restype = i
+        lib.tt_adamw.argtypes = [p, p, i] + [f] * 9 + [i, p]
+        lib.tt_adamw.restype = i
         lib.tt_paged_attention.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
         lib.tt_paged_attention.restype = i
         lib.tt_paged_chunk_attention.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
@@ -227,7 +235,36 @@ def _vec(dtype: torch.dtype) -> int:
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-_RMS_MAX_VECS = 4 * 1024  # csrc/rms_norm.cu: kMaxVecPerThread x 1024 threads
+_RMS_MAX_VECS = 4 * 1024  # csrc/rms_norm.cu: 8 vectors a lane x 32 lanes x 16 warps a row
+_RMS_DECODE_ROWS = 16  # at most this many rows: the decode launch
+# Vectors a lane aimed at, and rows a block for decode and prefill, chosen by
+# tools/rms_adamw_ab.py --sweep on an H100 (PERF.md §6): two vectors a lane
+# won at every timed shape, one row a block at decode.
+_RMS_LANE_VECS = 2
+_RMS_ROWS = {"decode": 1, "prefill": 2}
+RMS_PDL = 1  # csrc/rms_norm.cu's flag: programmatic dependent launch
+
+
+def rms_norm_plan(N: int, D: int, dtype: torch.dtype) -> dict:
+    """How rms_norm launches csrc/rms_norm.cu for x (N, D), from the shapes
+    and dtype alone (no tensor is read, so the launch is safe to capture in
+    a CUDA graph):
+
+    * ``route``: ``decode`` (N <= 16) or ``prefill``;
+    * ``wpr``: warps a row, the fewest (at most 16) that leave a lane at
+      most two vectors of 16 bytes; ``vpl``: the vectors a lane holds (1,
+      2, 4 or 8);
+    * ``rows_per_block``, ``threads`` (at most 512), ``blocks`` =
+      ceil(N / rows_per_block): a row group (wpr warps) a row;
+    * ``flags``: RMS_PDL (the block loads w before it waits for the
+      previous kernel)."""
+    nvec = D // _vec(dtype)
+    route = "decode" if N <= _RMS_DECODE_ROWS else "prefill"
+    wpr = min(16, max(1, -(-nvec // (32 * _RMS_LANE_VECS))))
+    vpl = next(v for v in (1, 2, 4, 8) if v * 32 * wpr >= nvec)
+    rows_per_block = max(1, min(_RMS_ROWS[route], 512 // (32 * wpr)))
+    return {"route": route, "vpl": vpl, "wpr": wpr, "rows_per_block": rows_per_block,
+            "threads": 32 * wpr * rows_per_block, "blocks": -(-N // rows_per_block), "flags": RMS_PDL}
 
 
 def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -238,8 +275,16 @@ def rms_norm_plain(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor
     return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
+def _rms_launch(x, w, y, eps, plan) -> None:
+    N, D = x.shape
+    _raise_on(_library().tt_rms_norm(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, D, float(eps),
+                                     _DTYPE_CODE[x.dtype], plan["vpl"], plan["wpr"], plan["rows_per_block"],
+                                     plan["flags"], _stream(x)), "rms_norm")
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """x (N, D), w (D,) of one dtype -> (N, D): x * rsqrt(mean(x²) + eps) * w."""
+    """x (N, D), w (D,) of one dtype -> (N, D): x * rsqrt(mean(x²) + eps) * w,
+    on rms_norm_plan's launch."""
     if x.device.type == "cpu":
         return rms_norm_plain(x, w, eps)
     N, D = x.shape
@@ -251,13 +296,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
              f"rms_norm: D={D} unsupported for {x.dtype}")
     y = torch.empty_like(x)
     if N:
-        _raise_on(_library().tt_rms_norm(x.data_ptr(), w.data_ptr(), y.data_ptr(), N, D,
-                                         float(eps), _DTYPE_CODE[x.dtype], _stream(x)), "rms_norm")
+        _rms_launch(x, w, y, eps, rms_norm_plan(N, D, x.dtype))
         rms_norm.launches += 1
     return y
 
 
 rms_norm.launches = 0
+
+
+def empty_kernel(device: torch.device) -> None:
+    """Launches csrc/rms_norm.cu's empty kernel on the current stream: the
+    launch floor the kernels' timings are read against."""
+    _raise_on(_library().tt_empty(torch.cuda.current_stream(device).cuda_stream), "empty")
 
 
 def _rms_supported(a, normalized_shape, weight=None, eps=1e-6) -> bool:
@@ -276,6 +326,134 @@ def _rms_impl(a, normalized_shape, weight=None, eps=1e-6):
 
 
 ex.register_implementation("torch.nn.functional.rms_norm", _rms_impl, checker=_rms_supported)
+
+
+# ---------------------------------------------------------------------------
+# AdamW (a port-side kernel: thunder_tpu's update is fused by XLA in the step)
+# ---------------------------------------------------------------------------
+
+_ADAMW_CHUNK = 1 << 16  # csrc/adamw.cu: kChunkLog2
+_ADAMW_CACHE = 4  # tensor and chunk tables kept, newest last
+_adamw_tensor_tables: dict = {}
+_adamw_chunk_tables: dict = {}
+
+
+@torch.no_grad()
+def adamw_plain(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
+                eps: float, weight_decay: float, step: int) -> None:
+    """The kernel's function as torch._foreach_* passes (optim.AdamW's chain):
+    updates the parameters ps and the f32 moments ms, vs in place from the
+    gradients gs; `step` is the step being taken (1 first)."""
+    bc1 = 1.0 - beta1 ** step
+    bc2 = 1.0 - beta2 ** step
+    gs = [g if g.dtype == torch.float32 else g.float() for g in gs]
+    # m = b1*m + (1-b1)*g ; v = b2*v + (1-b2)*g*g
+    torch._foreach_mul_(ms, beta1)
+    torch._foreach_add_(ms, gs, alpha=1.0 - beta1)
+    torch._foreach_mul_(vs, beta2)
+    torch._foreach_addcmul_(vs, gs, gs, value=1.0 - beta2)
+    # upd = (m / bc1) / (sqrt(v / bc2) + eps)
+    denom = torch._foreach_div(vs, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(ms, bc1)
+    torch._foreach_div_(upd, denom)
+    p32 = [p if p.dtype == torch.float32 else p.float() for p in ps]
+    if weight_decay:
+        # p - lr*wd*p
+        torch._foreach_add_(p32, torch._foreach_mul(p32, lr * weight_decay), alpha=-1.0)
+    torch._foreach_add_(p32, upd, alpha=-lr)
+    for p, q in zip(ps, p32):
+        if q is not p:
+            p.copy_(q)
+
+
+def adamw_chunks(numels: list) -> torch.Tensor:
+    """csrc/adamw.cu's chunk table for tensors of these numels: one int64 a
+    64K-element chunk, (tensor index << 32) | chunk index, tensors in order;
+    an empty tensor has none."""
+    counts = torch.tensor([-(-n // _ADAMW_CHUNK) for n in numels], dtype=torch.int64)
+    owner = torch.repeat_interleave(torch.arange(len(numels), dtype=torch.int64), counts)
+    first = torch.cumsum(counts, 0) - counts
+    index = torch.arange(int(counts.sum()), dtype=torch.int64) - torch.repeat_interleave(first, counts)
+    return (owner << 32) | index
+
+
+def adamw_entries(ps: list, gs: list, ms: list, vs: list) -> torch.Tensor:
+    """csrc/adamw.cu's tensor table: a row of six int64 a tensor (p, g, m and v
+    addresses, numel, p's dtype code | g's << 4)."""
+    return torch.tensor([[p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(),
+                          _DTYPE_CODE[p.dtype] | _DTYPE_CODE[g.dtype] << 4]
+                         for p, g, m, v in zip(ps, gs, ms, vs)], dtype=torch.int64).reshape(-1, 6)
+
+
+def _cached(cache: dict, key, make):
+    if key in cache:
+        cache[key] = cache.pop(key)  # newest last
+    else:
+        cache[key] = make()
+        while len(cache) > _ADAMW_CACHE:
+            cache.pop(next(iter(cache)))
+    return cache[key]
+
+
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    # from pinned memory, without waiting for the stream's queued work
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def adamw_tables(ps: list, gs: list, ms: list, vs: list) -> tuple:
+    """(tensor table, chunk table) on the tensors' device, built once per set
+    of addresses (the update works in place, so p, m and v keep theirs; a
+    gradient that moves rebuilds only the small tensor table) and per set of
+    numels."""
+    dev = ps[0].device
+    key = (dev, tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), p.dtype, g.dtype)
+                      for p, g, m, v in zip(ps, gs, ms, vs)))
+    entries = _cached(_adamw_tensor_tables, key, lambda: _upload(adamw_entries(ps, gs, ms, vs), dev))
+    numels = tuple(p.numel() for p in ps)
+    chunks = _cached(_adamw_chunk_tables, (dev, numels), lambda: _upload(adamw_chunks(list(numels)), dev))
+    return entries, chunks
+
+
+def adamw_update(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
+                 eps: float, weight_decay: float, step: int) -> None:
+    """AdamW's update of parameters ps and f32 moments ms, vs in place from
+    gradients gs (a None gradient leaves its parameter and moments as they
+    are), as adamw_plain computes it: on the CPU adamw_plain itself, on a
+    card one launch of csrc/adamw.cu over every tensor."""
+    keep = [i for i, g in enumerate(gs) if g is not None]
+    ps, gs, ms, vs = ([t[i] for i in keep] for t in (ps, gs, ms, vs))
+    if not ps:
+        return
+    hyper = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay, step=step)
+    if ps[0].device.type == "cpu":
+        return adamw_plain(ps, gs, ms, vs, **hyper)
+    dev = ps[0].device
+    gs = [g if g.is_contiguous() else g.contiguous() for g in gs]
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        _require(all(t.device == dev for t in (p, g, m, v)) and dev.type == "cuda",
+                 f"adamw_update: every tensor must be on one CUDA device, got {p.device}, {g.device}, "
+                 f"{m.device}, {v.device}")
+        _require(p.dtype in _DTYPE_CODE and g.dtype in _DTYPE_CODE,
+                 f"adamw_update: p and g must be f32, bf16 or f16, got {p.dtype} and {g.dtype}")
+        _require(m.dtype == v.dtype == torch.float32, f"adamw_update: m and v must be f32, got {m.dtype}")
+        _require(g.shape == m.shape == v.shape == p.shape,
+                 f"adamw_update: shapes differ: p {tuple(p.shape)}, g {tuple(g.shape)}, m {tuple(m.shape)}, "
+                 f"v {tuple(v.shape)}")
+        _require(p.is_contiguous() and m.is_contiguous() and v.is_contiguous(),
+                 "adamw_update: p, m and v must be contiguous")
+    entries, chunks = adamw_tables(ps, gs, ms, vs)
+    if not chunks.numel():
+        return
+    _raise_on(_library().tt_adamw(entries.data_ptr(), chunks.data_ptr(), chunks.numel(), beta1, 1.0 - beta1,
+                                  beta2, 1.0 - beta2, 1.0 - beta1 ** step, 1.0 - beta2 ** step, eps,
+                                  lr * weight_decay, -lr, int(bool(weight_decay)),
+                                  torch.cuda.current_stream(dev).cuda_stream), "adamw")
+    adamw_update.launches += 1
+
+
+adamw_update.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,15 @@ thunder_tpu's ``update`` returns new arrays, because jax arrays are
 immutable; here ``update`` writes the parameters and the state in place
 under ``torch.no_grad()`` (no second copy of the model or its moments) and
 returns the same dicts. The step counter is a Python int, so no update reads
-a value back from the card. The per-tensor arithmetic is issued as
-``torch._foreach_*`` calls: a handful of launches a step instead of several
-per parameter."""
+a value back from the card. SGD issues ``torch._foreach_*`` calls; AdamW's
+update is executors/cudaex.py's ``adamw_update``: one launch of the
+hand-written csrc/adamw.cu on a card, its plain version (the
+``torch._foreach_*`` chain) on the CPU."""
 from __future__ import annotations
 
 import torch
+
+from .executors import cudaex
 
 
 def global_norm(grads: dict) -> torch.Tensor:
@@ -20,10 +23,6 @@ def global_norm(grads: dict) -> torch.Tensor:
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
-
-
-def _f32(ts: list) -> list:
-    return [t if t.dtype == torch.float32 else t.float() for t in ts]
 
 
 class SGD:
@@ -76,35 +75,11 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict):
         state["step"] += 1
-        t = state["step"]
-        bc1 = 1.0 - self.beta1 ** t
-        bc2 = 1.0 - self.beta2 ** t
         keys = [k for k in params if grads.get(k) is not None]
-        if not keys:
-            return params, state
-        ps = [params[k] for k in keys]
-        gs = _f32([grads[k] for k in keys])
-        ms = [state["m"][k] for k in keys]
-        vs = [state["v"][k] for k in keys]
-        # m = b1*m + (1-b1)*g ; v = b2*v + (1-b2)*g*g
-        torch._foreach_mul_(ms, self.beta1)
-        torch._foreach_add_(ms, gs, alpha=1.0 - self.beta1)
-        torch._foreach_mul_(vs, self.beta2)
-        torch._foreach_addcmul_(vs, gs, gs, value=1.0 - self.beta2)
-        # upd = (m / bc1) / (sqrt(v / bc2) + eps)
-        denom = torch._foreach_div(vs, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(ms, bc1)
-        torch._foreach_div_(upd, denom)
-        p32 = _f32(ps)
-        if self.weight_decay:
-            # p - lr*wd*p
-            torch._foreach_add_(p32, torch._foreach_mul(p32, self.lr * self.weight_decay), alpha=-1.0)
-        torch._foreach_add_(p32, upd, alpha=-self.lr)
-        for p, q in zip(ps, p32):
-            if q is not p:
-                p.copy_(q)
+        cudaex.adamw_update([params[k] for k in keys], [grads[k] for k in keys],
+                            [state["m"][k] for k in keys], [state["v"][k] for k in keys],
+                            lr=self.lr, beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+                            weight_decay=self.weight_decay, step=state["step"])
         return params, state
 
 
