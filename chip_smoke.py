@@ -155,7 +155,8 @@ Phases, each printing one JSON line:
                first step's weight amaxes equal, parameters within
                FP8_PARAM_ATOL.
 13. lora_train — llama-350m with [AutocastTransform(), LORATransform(r=8,
-               lora_alpha=16)], every base parameter frozen, 10 steps: only
+               lora_alpha=16)], every base parameter frozen, a compile
+               step, a capture step and 9 timed steps: only
                the 242 adapter parameters may change; losses fall.
 14. nano_train — TrainStep(jit(NanoGPT(gpt2), [AutocastTransform()]),
                AdamW(lr=1e-4)) at bench.py's nanogpt-124m shape (B=8,
@@ -203,7 +204,8 @@ Phases, each printing one JSON line:
                LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL and
                parameters within MOE_PARAM_ATOL (flip-prone elements,
                whose gradient is near 0 and below 10x the roads' gap,
-               within ADAMW_FLIP_ATOL).
+               within ADAMW_FLIP_ATOL); then the grouped road captured
+               against op by op over 3 new batches, bit for bit.
 22. check_ring — the ring attention step kernels (ring_flash_fwd replaces
                pallasex.ring_flash_step, ring_flash_bwd pallasex.ring_flash_bwd_step):
                one process steps every rank's four-step ring over an
@@ -240,7 +242,28 @@ Phases, each printing one JSON line:
                plain TrainStep from the same weights: losses within
                LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL, parameters
                within MOE_PARAM_ATOL (flip-prone elements within
-               ADAMW_FLIP_ATOL), as moe_train_agreement.
+               ADAMW_FLIP_ATOL), as moe_train_agreement; then the CP step
+               captured against op by op over 3 new batches, bit for bit.
+CUDA graphs (executors/graphex.py). Every train, serve and inference
+phase runs captured: TrainStep's whole step is one graph from its second
+call, each engine's programs are captured by ServingEngine.warmup before its
+wave, GPTInference's decode loop is one graph (scan_decode). Each phase
+prints its graph_captures and graph_replays, fails without a replay, and a
+wave after warmup must capture and compile nothing. The agreements that
+read every step's gradients in Python (moe_train_agreement,
+cp_train_agreement: GradRecorder) run op by op; each then holds its road
+captured against op by op, bit for bit in f32 over 3 new batches
+(``captured``). ``graphs`` lines are the
+same-call pairs, captured against op by op in turns (graphs, op by op, op
+by op, graphs: PAIR_ROUNDS): train, nano_train and moe_train (one TrainStep
+with cuda_graphs switched: wall and device ms a step), serve and fleet (two
+engines on one model: tokens/s, TTFT, TBOT, captures and compiles during
+each wave) and nf4_generate (scan_decode on and off); each run's kernel
+launches must agree. ``graphs_pdl`` replays the serve decode step's graph
+with rms_norm's programmatic dependent launch on and off. nf4_inference
+also prints where one uncaptured decode call spends its host time
+(decode_enqueue_profile: torch.profiler's host rows and cProfile's).
+
 The kernels phase also holds grouped_mlp against its plain version at the
 paths' shapes (decode cap 8 and prefill cap 1024 in bf16, train cap 512 in
 f32, a cap of 200), timed beside its bound, its plain version and the
@@ -479,7 +502,9 @@ def check_adamw(cudaex, dev, gen) -> dict:
         nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16) for p, g in zip(ps, gs))
         b, by = bound_ms(nbytes, 15 * n, "float32")
         step = iter(range(1, 10 ** 6))
-        ms_k, eager = cuda_ms(lambda *a: cudaex.adamw_update(*a, step=next(step), **ADAMW_HYPER), [args], iters=10)
+        # the kernel reads its step on the card (the time does not depend on it)
+        step_t = torch.ones((), dtype=torch.int32, device=dev)
+        ms_k, eager = cuda_ms(lambda *a: cudaex.adamw_update(*a, step=step_t, **ADAMW_HYPER), [args], iters=10)
         plain, _ = cuda_ms(lambda *a: cudaex.adamw_plain(*a, step=next(step), **ADAMW_HYPER), [args], iters=5)
         steps = [torch.ones((), device=dev) for _ in ps]
         h = ADAMW_HYPER
@@ -1406,18 +1431,18 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
     engine = ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    # compile the decode program and every prefill bucket the wave will use
+    # compile and capture the decode program and every prefill bucket the
+    # wave will use
     t0 = time.perf_counter()
-    for L in sorted({engine.ladder.bucket_for(len(p)) for p in prompts}):
-        engine.submit(np.zeros((L,), np.int32), max_new_tokens=2)
-    engine.drain()
+    engine.warmup([len(p) for p in prompts])
     t_warm = time.perf_counter() - t0
 
     reset_peak_memory()
     cudaex.rms_norm.launches = 0
     cudaex.paged_attention.launches = 0
     steps0 = engine.decode_steps
-    compiles0 = tt.cache_misses(engine.runner.prefill_cfn) + tt.cache_misses(engine.runner.decode_cfn)
+    cfns = engine_cfns(engine)
+    compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
     t0 = time.perf_counter()
     futs = [engine.submit(p, max_new_tokens=64) for p in prompts]
     engine.drain()
@@ -1425,8 +1450,11 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
     wall = time.perf_counter() - t0
     launches = {"rms_norm": cudaex.rms_norm.launches,
                 "paged_attention": cudaex.paged_attention.launches}
-    compiles = (tt.cache_misses(engine.runner.prefill_cfn)
-                + tt.cache_misses(engine.runner.decode_cfn) - compiles0)
+    compiles = sum(tt.cache_misses(c) for c in cfns) - compiles0
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, cfns).items()}
+    require_replayed("serve", graphs)
+    if compiles or graphs["graph_captures"]:
+        raise AssertionError(f"serve: {compiles} compiles and {graphs['graph_captures']} captures during the wave")
     results = [f.result() for f in futs]
     for r, p in zip(results, prompts):
         if r.n_new_tokens != 64 or not ((r.new_tokens >= 0) & (r.new_tokens < cfg.padded_vocab_size)).all():
@@ -1454,11 +1482,19 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
                decode_steps=engine.decode_steps - steps0,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                init_s=t_init, warmup_compile_s=t_warm, launches=launches,
-               ops_per_program_call=ops, compiles_during_wave=compiles)
+               ops_per_program_call=ops, compiles_during_wave=compiles,
+               captures_during_wave=graphs["graph_captures"], graph_replays=graphs["graph_replays"])
     emit("serve", **out)
-    prompts = make_prompts(np.random.RandomState(1), 8, 128, 128, cfg.vocab_size)
-    prof = profile_wave(engine, [(p, 32, "interactive") for p in prompts])
-    del engine, gpt
+    short = make_prompts(np.random.RandomState(1), 8, 128, 128, cfg.vocab_size)
+    prof = profile_wave(engine, [(p, 32, "interactive") for p in short])
+    emit("graphs_pdl", cell="serve decode step", **pdl_in_graphs(tt, cudaex, engine))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_pair(tt, cudaex, "serve", lambda g: ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048,
+                                                              dtype=torch.bfloat16, cuda_graphs=g),
+                 [(p, 32, "interactive") for p in prompts[:8]])
+    del gpt
     torch.cuda.empty_cache()
     return out, prof
 
@@ -1546,6 +1582,167 @@ def reset_peak_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
+# ---------------------------------------------------------------------------
+# CUDA graphs (executors/graphex.py): replay counts and the same-call pairs
+# ---------------------------------------------------------------------------
+
+# A same-call pair (ROADMAP ground rule 8) runs captured and op by op in
+# turns, twice each: graphs, op by op, op by op, graphs.
+PAIR_ROUNDS = (True, False, False, True)
+PAIR_TRAIN_STEPS = 4
+
+
+def graph_stats(tt, cfns) -> dict:
+    """CUDA graphs captured and replayed by these programs (jit functions,
+    TrainSteps, GPTInference decode programs)."""
+    return {"graph_captures": sum(tt.graph_captures(c) for c in cfns),
+            "graph_replays": sum(tt.graph_replays(c) for c in cfns)}
+
+
+def require_replayed(phase: str, stats: dict) -> None:
+    """The phase's path ran as CUDA graphs: at least one replay."""
+    if not stats["graph_replays"]:
+        raise AssertionError(f"{phase}: the path replayed no CUDA graph ({stats})")
+
+
+def require_same_launches(phase: str, runs: list) -> None:
+    """Each kernel launched as often captured as op by op."""
+    if any(r["launches"] != runs[0]["launches"] for r in runs):
+        raise AssertionError(f"{phase}: launch counts differ between the runs: "
+                             f"{[(r['cuda_graphs'], r['launches']) for r in runs]}")
+
+
+def train_pair(cell: str, step, idx, tgt, counters) -> dict:
+    """The same-call pair of a TrainStep: PAIR_TRAIN_STEPS steps a run
+    replayed as the step's CUDA graph and run op by op (``step.cuda_graphs``
+    set each run: one compiled program), after one step of the same kind;
+    wall ms a step (host clock, synchronized) and device busy ms a step
+    (profiled over 2 more steps); each counter's launches over the timed
+    steps, which must agree across the runs."""
+    runs = []
+    for graphs in PAIR_ROUNDS:
+        step.cuda_graphs = graphs
+        step(idx, tgt)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(PAIR_TRAIN_STEPS):
+            step(idx, tgt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / PAIR_TRAIN_STEPS
+        launches = {c.__name__: c.launches for c in counters}
+        prof = profiled(lambda: [step(idx, tgt) for _ in range(2)])
+        runs.append(dict(cuda_graphs=graphs, wall_ms_per_step=wall * 1e3,
+                         device_ms_per_step=sum(r[0] for r in prof["rows"]) / 2e3,
+                         kernels_per_step=sum(r[2] for r in prof["rows"]) / 2, launches=launches,
+                         clock_ratio=prof["clock_ratio"]))
+    step.cuda_graphs = True
+    require_same_launches(f"graphs {cell}", runs)
+    out = dict(cell=cell, steps_a_run=PAIR_TRAIN_STEPS, runs=runs,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("graphs", **out)
+    return out
+
+
+def serving_pair(tt, cudaex, cell: str, make_engine, specs) -> dict:
+    """The same-call pair of a serving wave: ``specs`` (prompt, new tokens,
+    lane) through an engine whose programs replay CUDA graphs and one that
+    runs them op by op (``make_engine(cuda_graphs)``), each warmed by
+    ``warmup`` over the wave's prompt lengths; prefix caches cleared before
+    every run. tokens/s, mean TTFT and TBOT; the paged kernels' launches
+    and the greedy streams, equal across the runs; captures and compiles
+    during each wave, 0."""
+    engines = {g: make_engine(g) for g in (True, False)}
+    for e in engines.values():
+        e.warmup(sorted({len(p) for p, _, _ in specs}))
+    counters = (cudaex.rms_norm, cudaex.paged_attention, cudaex.paged_chunk_attention)
+    runs, streams = [], []
+    for graphs in PAIR_ROUNDS:
+        e = engines[graphs]
+        if e.prefix is not None:
+            e.prefix.clear()
+        cfns = engine_cfns(e)
+        before = graph_stats(tt, cfns)["graph_captures"], sum(tt.cache_misses(c) for c in cfns)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        futs = [e.submit(p, n, lane=lane) for p, n, lane in specs]
+        e.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = [f.result() for f in futs]
+        after = graph_stats(tt, cfns)["graph_captures"], sum(tt.cache_misses(c) for c in cfns)
+        n_tok = sum(r.n_new_tokens for r in res)
+        streams.append([r.new_tokens.tolist() for r in res])
+        runs.append(dict(cuda_graphs=graphs, tokens_per_s=n_tok / wall,
+                         mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in res])),
+                         mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in res])),
+                         launches={c.__name__: c.launches for c in counters},
+                         captures_during_wave=after[0] - before[0], compiles_during_wave=after[1] - before[1],
+                         graph_replays=graph_stats(tt, cfns)["graph_replays"]))
+    require_same_launches(f"graphs {cell}", runs)
+    if any(r["captures_during_wave"] or r["compiles_during_wave"] for r in runs):
+        raise AssertionError(f"graphs {cell}: captures or compiles during a wave after warmup: {runs}")
+    out = dict(cell=cell, requests=len(specs), new_tokens=sum(n for _, n, _ in specs), runs=runs,
+               streams_equal=all(s == streams[0] for s in streams))
+    emit("graphs", **out)
+    if not out["streams_equal"]:
+        raise AssertionError(f"graphs {cell}: the greedy streams differ between the runs")
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_graph(cfn):
+    """The raw CUDA-graph replay of a jit program's one captured graph."""
+    prog = next(e.program for e in cfn._cache.values() if e.program is not None)
+    return next(iter(prog._graphs.values())).replay_fn
+
+
+def pdl_in_graphs(tt, cudaex, engine, reps: int = 100) -> dict:
+    """rms_norm's programmatic dependent launch inside a captured decode
+    step: the serve engine's decode graph (captured with RMS_PDL_CAPTURED,
+    off) beside the same program captured with PDL on (a runner of its own
+    on the same weights and pools), each replayed ``reps`` times between
+    CUDA events, in turns on, off, off, on; device ms a decode step and the
+    difference a launch (33 rms_norm launches a step at Llama-3-1B)."""
+    from thunder_tpu_torch.serving.runner import PagedGPTRunner
+
+    B, npm = engine.max_batch, engine.n_pages_max
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=engine.device)  # noqa: E731
+    old = cudaex.RMS_PDL_CAPTURED
+    cudaex.RMS_PDL_CAPTURED = cudaex.RMS_PDL
+    try:
+        on_runner = PagedGPTRunner(engine.gpt, page_size=engine.page_size, cuda_graphs=True)
+        for _ in range(2):
+            _, kps, vps = on_runner.decode_cfn(engine.params, zeros(B, 1), engine.cache.k_pages,
+                                               engine.cache.v_pages, zeros(B, npm), zeros(B))
+            engine.cache.rebind(kps, vps)
+    finally:
+        cudaex.RMS_PDL_CAPTURED = old
+    n0 = cudaex.rms_norm.launches
+    _, kps, vps = engine.runner.decode_cfn(engine.params, zeros(B, 1), engine.cache.k_pages,
+                                           engine.cache.v_pages, zeros(B, npm), zeros(B))
+    per_step = cudaex.rms_norm.launches - n0
+    graphs = {True: decode_graph(on_runner.decode_cfn), False: decode_graph(engine.runner.decode_cfn)}
+    times = {True: [], False: []}
+    for pdl in PAIR_ROUNDS:
+        replay = graphs[pdl]
+        replay()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times[pdl].append(start.elapsed_time(stop) / reps)
+    on, off = float(np.mean(times[True])), float(np.mean(times[False]))
+    return dict(decode_step_ms_pdl_on=times[True], decode_step_ms_pdl_off=times[False],
+                rms_norm_launches_per_step=per_step, saved_us_per_launch=1e3 * (off - on) / per_step)
+
+
 def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
     """The serve phase's 16 requests through ServingEngine(quantize="int8")
     in bf16. int8_linear must launch 81 times a decode step (5 linears x 16
@@ -1563,16 +1760,15 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
     buckets = [engine.ladder.bucket_for(len(p)) for p in prompts]
-    for L in sorted(set(buckets)):
-        engine.submit(np.zeros((L,), np.int32), max_new_tokens=2)
-    engine.drain()
+    engine.warmup([len(p) for p in prompts])
     t_warm = time.perf_counter() - t0
 
     per_step = 5 * cfg.n_layer + 1
     reset_peak_memory()
     cudaex.int8_linear.launches = 0
     steps0 = engine.decode_steps
-    compiles0 = tt.cache_misses(engine.runner.prefill_cfn) + tt.cache_misses(engine.runner.decode_cfn)
+    cfns = engine_cfns(engine)
+    compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
     t0 = time.perf_counter()
     futs = [engine.submit(p, max_new_tokens=64) for p in prompts]
     engine.drain()
@@ -1580,8 +1776,11 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = cudaex.int8_linear.launches
     steps = engine.decode_steps - steps0
-    compiles = (tt.cache_misses(engine.runner.prefill_cfn)
-                + tt.cache_misses(engine.runner.decode_cfn) - compiles0)
+    compiles = sum(tt.cache_misses(c) for c in cfns) - compiles0
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, cfns).items()}
+    require_replayed("quant_serve", graphs)
+    if graphs["graph_captures"]:
+        raise AssertionError(f"{graphs['graph_captures']} captures during the int8 wave")
     results = [f.result() for f in futs]
     for r in results:
         if r.n_new_tokens != 64 or not ((r.new_tokens >= 0) & (r.new_tokens < cfg.padded_vocab_size)).all():
@@ -1603,7 +1802,8 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
                decode_steps=steps, int8_linear_launches=launches,
                launches_expected=dict(per_decode_step=per_step, decode=per_step * steps,
                                       prefill=prefill_launches, buckets=sorted(buckets)),
-               compiles_during_wave=compiles, weight_bytes=weight_bytes(gpt),
+               compiles_during_wave=compiles, captures_during_wave=graphs["graph_captures"],
+               graph_replays=graphs["graph_replays"], weight_bytes=weight_bytes(gpt),
                bf16_weight_bytes=bf16_bytes, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                init_s=t_init, warmup_compile_s=t_warm,
                bf16_wave_same_call={k: bf16_wave[k] for k in ("tokens_per_s", "mean_ttft_ms", "mean_tbot_ms",
@@ -1684,13 +1884,18 @@ def nf4_inference(tt, cudaex, cfg, seed) -> dict:
     prompt = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (NF4_B, NF4_PROMPT)).astype(np.int32))
     t0 = time.perf_counter()
-    eng.generate(prompt, 4)  # compiles prefill and decode
+    eng.generate(prompt, NF4_NEW)  # compiles prefill and decode, captures the decode loop
     t_warm = time.perf_counter() - t0
     reset_peak_memory()
     cudaex.nf4_linear.launches = 0
+    graphs0 = graph_stats(tt, [eng._decode_cfn])
     out_toks, m = eng.generate(prompt, NF4_NEW)
     torch.cuda.synchronize()
     launches = cudaex.nf4_linear.launches
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [eng._decode_cfn]).items()}
+    require_replayed("nf4_inference", graphs)
+    if graphs["graph_captures"]:
+        raise AssertionError(f"nf4_inference: {graphs['graph_captures']} captures in the measured call")
     per_step = 5 * cfg.n_layer + 1
     steps = NF4_NEW - 1
     want = per_step * steps + 1
@@ -1701,14 +1906,44 @@ def nf4_inference(tt, cudaex, cfg, seed) -> dict:
     step = decode_step_split(eng, gpt, prompt)
     out = dict(model=cfg.name, n_layer=cfg.n_layer, dtype="bfloat16 activations, NF4 weights",
                B=NF4_B, prompt_len=NF4_PROMPT, new_tokens=NF4_NEW, tokens_per_s=m.tokens_per_sec,
-               ttft_ms=1e3 * m.ttft_s, tbot_ms=1e3 * m.tbot_s, nf4_linear_launches=launches,
+               ttft_ms=1e3 * m.ttft_s, tbot_ms=1e3 * m.tbot_s, nf4_linear_launches=launches, **graphs,
                launches_expected=dict(per_decode_step=per_step, decode_steps=steps, prefill_lm_head=1),
                weight_bytes=weight_bytes(gpt), bf16_weight_bytes=bf16_bytes,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, quantize_s=t_quant,
                warmup_compile_s=t_warm, **step)
     emit("nf4_inference", **out)
+    nf4_pair(eng, prompt)
     del eng, gpt
     torch.cuda.empty_cache()
+    return out
+
+
+NF4_PAIR_NEW = 16
+
+
+def nf4_pair(eng, prompt) -> dict:
+    """The same-call pair of GPTInference over the NF4 model:
+    generate(prompt, NF4_PAIR_NEW) with scan_decode (the decode loop one CUDA
+    graph) and without (the Python loop over the decode program), one
+    untimed call of each kind first; tokens/s, TTFT, TBOT and nf4_linear's
+    launches a call and the streams, which must agree."""
+    from thunder_tpu_torch.executors import cudaex
+
+    runs, toks = [], []
+    for scan in PAIR_ROUNDS:
+        eng.generate(prompt, NF4_PAIR_NEW, scan_decode=scan)
+        cudaex.nf4_linear.launches = 0
+        out, m = eng.generate(prompt, NF4_PAIR_NEW, scan_decode=scan)
+        torch.cuda.synchronize()
+        toks.append(out.cpu())
+        runs.append(dict(cuda_graphs=scan, tokens_per_s=m.tokens_per_sec, ttft_ms=1e3 * m.ttft_s,
+                         tbot_ms=1e3 * m.tbot_s, launches={"nf4_linear": cudaex.nf4_linear.launches}))
+    require_same_launches("graphs nf4_generate", runs)
+    out = dict(cell="nf4_generate", B=prompt.shape[0], prompt_len=prompt.shape[1], new_tokens=NF4_PAIR_NEW,
+               runs=runs, streams_equal=all(torch.equal(t, toks[0]) for t in toks))
+    emit("graphs", **out)
+    if not out["streams_equal"]:
+        raise AssertionError("graphs nf4_generate: the greedy streams differ between the runs")
     return out
 
 
@@ -1735,7 +1970,61 @@ def decode_step_split(eng, gpt, prompt, n: int = 5) -> dict:
         torch.cuda.synchronize()
         enq.append(t1 - t0)
         wait.append(time.perf_counter() - t1)
-    return dict(decode_enqueue_ms=1e3 * float(np.median(enq)), decode_device_wait_ms=1e3 * float(np.median(wait)))
+    return dict(decode_enqueue_ms=1e3 * float(np.median(enq)), decode_device_wait_ms=1e3 * float(np.median(wait)),
+                decode_enqueue_profile=enqueue_profile(lambda: eng._decode_cfn(params, tok, ks, vs, pos)))
+
+
+def enqueue_profile(call, top: int = 12) -> dict:
+    """Where one uncaptured program call spends its host time: torch.profiler
+    with CPU activity only, the call's wall ms, the garbage collector's
+    pauses inside it (generation, ms), the call again with the collector
+    off, the aten and CUDA runtime rows by self host ms, and the Python
+    functions (cProfile) by own ms."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    pauses = []
+
+    def timed_gc(phase, info):  # the collector's own time inside the call
+        if phase == "start":
+            pauses.append([info["generation"], time.perf_counter()])
+        else:
+            pauses[-1][1] = time.perf_counter() - pauses[-1][1]
+
+    torch.cuda.synchronize()
+    gc.callbacks.append(timed_gc)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            call()
+            wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(timed_gc)
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        call()
+        wall_no_gc = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    pr = cProfile.Profile()
+    pr.enable()
+    call()
+    pr.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(pr).stats
+    py = sorted(((v[2], v[0], f"{k[0].split('/')[-1]}:{k[1]}({k[2]})") for k, v in stats.items()), reverse=True)
+    return dict(wall_ms=wall * 1e3, wall_ms_collector_off=wall_no_gc * 1e3,
+                gc_pauses=[(g, ms * 1e3) for g, ms in pauses], gc_tracked_objects=len(gc.get_objects()),
+                ops=sum(r.count for r in rows if r.key.startswith("aten::")),
+                launches=sum(r.count for r in rows if r.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")),
+                host_ms_by_op=[(r.key, r.count, r.self_cpu_time_total / 1e3) for r in rows[:top]],
+                python_ms_by_function=[(name, calls, own * 1e3) for own, calls, name in py[:top]])
 
 
 def nf4_agreement(tt, cudaex, cfg, seed) -> dict:
@@ -1766,11 +2055,15 @@ def nf4_agreement(tt, cudaex, cfg, seed) -> dict:
     want, m = GPTInference(ref, max_seq=T + new, dtype=torch.float32).generate(prompt, new)
     rows = [agree_row(got[b, T:].cpu().numpy(), want[b, T:].cpu().numpy(), m.top2_gap[b], T)
             for b in range(B)]
+    # the prefill, the new - 1 decode steps of the scan_decode graph, and the
+    # decode call that compiles and warms the decode program before a
+    # signature's first capture (GPTInference._scan_program)
+    expected = (5 * cfg.n_layer + 1) * (new + 1)
     out = dict(model=f"{cfg.name} f32", tf32=False, rows=rows, tolerance=AGREE_GAP,
-               nf4_linear_launches=launched)
+               nf4_linear_launches=launched, nf4_linear_launches_expected=expected)
     emit("nf4_agreement", **out)
     bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
-    if bad or launched != (5 * cfg.n_layer + 1) * new:
+    if bad or launched != expected:
         raise AssertionError(f"nf4 agreement: {out}")
     del gpt, ref
     torch.cuda.empty_cache()
@@ -1819,11 +2112,13 @@ def engine_cfns(engine) -> list:
 
 
 def run_wave(tt, engine, specs) -> dict:
-    """Replay the wave once with 2 new tokens each (compiles every program
-    it touches, warms the prefix cache: benchmark_serving.py's warm-up),
-    then zero the counters and submit the whole wave at once."""
+    """warmup over the wave's prompt lengths (compiles and captures the
+    programs), replay the wave once with 2 new tokens each (warms the prefix
+    cache: benchmark_serving.py's warm-up), then zero the counters and
+    submit the whole wave at once; it must compile and capture nothing."""
     from thunder_tpu_torch.executors import cudaex
 
+    engine.warmup(sorted({len(p) for p, _, _ in specs}))
     for p, _, lane in specs:
         engine.submit(p, 2, lane=lane)
     engine.drain()
@@ -1832,6 +2127,7 @@ def run_wave(tt, engine, specs) -> dict:
                                               "prefix_hits", "prefix_tokens_saved",
                                               "spec_proposed", "spec_accepted")}
     compiles0 = sum(tt.cache_misses(c) for c in engine_cfns(engine))
+    graphs0 = graph_stats(tt, engine_cfns(engine))
     engine.peak_pages_in_use = engine.cache.allocator.n_used
     cudaex.rms_norm.launches = 0
     cudaex.paged_attention.launches = 0
@@ -1855,7 +2151,9 @@ def run_wave(tt, engine, specs) -> dict:
                              f"holds {cached}")
     n_tok = sum(r.n_new_tokens for r in results)
     counts = {k: getattr(engine, k) - v for k, v in before.items()}
-    return dict(requests=len(results), prompt_tokens=int(sum(len(p) for p, _, _ in specs)),
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, engine_cfns(engine)).items()}
+    require_replayed("wave", graphs)
+    return dict(captures_during_wave=graphs["graph_captures"], graph_replays=graphs["graph_replays"],requests=len(results), prompt_tokens=int(sum(len(p) for p, _, _ in specs)),
                 new_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                 mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in results])),
                 mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in results])),
@@ -1894,8 +2192,9 @@ def fleet(tt, cudaex, cfg, seed) -> dict:
                              f"times, the engine's programs account for {want_chunk}")
     if not (launches["rms_norm"] and launches["paged_attention"]):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if wave["compiles_during_wave"]:
-        raise AssertionError(f"{wave['compiles_during_wave']} compiles during the timed wave")
+    if wave["compiles_during_wave"] or wave["captures_during_wave"] or plain_wave["captures_during_wave"]:
+        raise AssertionError(f"{wave['compiles_during_wave']} compiles, {wave['captures_during_wave']} and "
+                             f"{plain_wave['captures_during_wave']} captures during the timed waves")
     for cfn in (engine.runner.chunk_cfn, engine.runner.verify_cfn):
         if not any(b.impl is cudaex._paged_chunk_attention_impl
                    for b in tt.last_traces(cfn)[-1].bound_symbols):
@@ -1909,7 +2208,13 @@ def fleet(tt, cudaex, cfg, seed) -> dict:
                chunk_launches_expected=want_chunk, plain_engine_same_wave=plain_wave)
     emit("fleet", **out)
     out["profile"] = profile_wave(engine, specs[:8], "fleet_profile")
-    del engine, gpt
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_pair(tt, cudaex, "fleet", lambda g: ServingEngine(gpt, prefix_sharing=True, chunk_tokens=256,
+                                                              draft_gpt=gpt, spec_k=2, cuda_graphs=g, **base),
+                 specs[:12])
+    del gpt
     torch.cuda.empty_cache()
     return out
 
@@ -2120,10 +2425,14 @@ def train(tt, cudaex, seed) -> dict:
     cudaex.flash_rope_attention_backward.launches = 0
     cudaex.rms_norm.launches = 0
     cudaex.adamw_update.launches = 0
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = {"flash_rope_fwd": cudaex.flash_rope_attention.launches,
                 "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches,
                 "rms_norm": cudaex.rms_norm.launches, "adamw": cudaex.adamw_update.launches}
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    if graphs != {"graph_captures": 0, "graph_replays": n_steps}:
+        raise AssertionError(f"train: the timed steps ran {graphs}, want {n_steps} replays and no capture")
     want = cfg.n_layer * n_steps
     if launches["flash_rope_fwd"] != want or launches["flash_rope_bwd"] != want:
         raise AssertionError(f"flash launches {launches} over {n_steps} steps, want {want} each")
@@ -2145,9 +2454,11 @@ def train(tt, cudaex, seed) -> dict:
                steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s,
                mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"], **bound,
                compile_s=compile_s, init_s=t_init, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               losses=losses, launches=launches, claims=claims, ops_per_step=ops)
+               losses=losses, launches=launches, claims=claims, ops_per_step=ops, **graphs)
     emit("train", **out)
     prof = train_profile(step, idx, tgt)
+    train_pair("train", step, idx, tgt, (cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward,
+                                         cudaex.adamw_update))
     del step, model
     torch.cuda.empty_cache()
     out["baseline"] = baseline(cfg, B, T, n_steps, seed, bound["model_ops_per_step"])
@@ -2374,11 +2685,14 @@ def fp8_train(tt, cudaex, seed, bf16: dict) -> dict:
     cudaex.flash_rope_attention_backward.launches = 0
     for k in fp8.BACKWARD_ROUTES:
         fp8.BACKWARD_ROUTES[k] = 0
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = {"fp8_linear": cudaex.fp8_linear.launches,
                 "flash_rope_fwd": cudaex.flash_rope_attention.launches,
                 "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches}
     routes = dict(fp8.BACKWARD_ROUTES)
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    require_replayed("fp8_train", graphs)
     fwd = [b for b in tt.last_traces(step)[-1].bound_symbols if b.sym.id == "fp8_train_ex.train_linear_aug"]
     n_fp8 = len(fwd)
     arriving: dict = {}
@@ -2407,7 +2721,7 @@ def fp8_train(tt, cudaex, seed, bf16: dict) -> dict:
                bf16_ms_per_step=bf16["ms_per_step"], bf16_peak_memory_gb=bf16["peak_memory_gb"],
                losses=losses, launches=launches, fp8_linears_per_step=n_fp8, backward_routes=routes,
                arriving=arriving, histories=len(hists),
-               lm_head_x_hist=hists["gpt.lm_head.fp8_amax_x_hist"][:4].tolist())
+               lm_head_x_hist=hists["gpt.lm_head.fp8_amax_x_hist"][:4].tolist(), **graphs)
     emit("fp8_train", **out)
     out["profile"] = train_profile(step, idx, tgt, "fp8_train_profile")
     del step, model, hists
@@ -2471,7 +2785,8 @@ def lora_train(tt, cudaex, seed) -> dict:
     """llama-350m with LORATransform(r=8, lora_alpha=16) after bf16
     autocast, every base parameter frozen (the transform freezes the Linears
     it adapts; the embedding and norms are frozen here, as a LoRA user
-    does): only the adapters may change."""
+    does): only the adapters may change. A compile step and a capture step,
+    then n_steps - 1 timed ones."""
     from thunder_tpu_torch import optim
     from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
     from thunder_tpu_torch.training import TrainStep
@@ -2493,8 +2808,12 @@ def lora_train(tt, cudaex, seed) -> dict:
     t0 = time.perf_counter()
     first = float(step(idx, tgt))
     compile_s = time.perf_counter() - t0
+    step(idx, tgt)  # captures the step's graph (untimed)
     n0 = cudaex.flash_rope_attention.launches
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps - 1)
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    require_replayed("lora_train", graphs)
     losses = [first] + losses
     adapters = [k for k in before if "lora_" in k]
     changed = [k for k, p in model.named_parameters() if not torch.equal(p.detach(), before[k])]
@@ -2504,7 +2823,7 @@ def lora_train(tt, cudaex, seed) -> dict:
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
                adapters=len(adapters), adapter_params=sum(before[k].numel() for k in adapters),
                params=sum(p.numel() for p in before.values()), changed=len(changed),
-               flash_rope_fwd_launches=cudaex.flash_rope_attention.launches - n0)
+               flash_rope_fwd_launches=cudaex.flash_rope_attention.launches - n0, **graphs)
     emit("lora_train", **out)
     if len(adapters) != 2 * (5 * cfg.n_layer + 1) or sorted(changed) != sorted(adapters):
         raise AssertionError(f"lora: {len(adapters)} adapters; changed {len(changed)}, "
@@ -2590,9 +2909,12 @@ def nano_train(tt, cudaex, seed) -> dict:
     torch.cuda.synchronize()
     cudaex.flash_attention.launches = 0
     cudaex.flash_attention_backward.launches = 0
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = {"flash_fwd": cudaex.flash_attention.launches,
                 "flash_bwd": cudaex.flash_attention_backward.launches}
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    require_replayed("nano_train", graphs)
     want = cfg.n_layer * n_steps
     if launches["flash_fwd"] != want or launches["flash_bwd"] != want:
         raise AssertionError(f"nano flash launches {launches} over {n_steps} steps, want {want} each")
@@ -2612,9 +2934,11 @@ def nano_train(tt, cudaex, seed) -> dict:
                **bound, compile_s=compile_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                losses=losses, launches=launches, claims=claims,
                ops_per_step={name: sum(1 for b in t if b.sym.name not in ("python_del", "python_return"))
-                             for name, t in (("forward", fwd), ("backward", bwd))})
+                             for name, t in (("forward", fwd), ("backward", bwd))}, **graphs)
     emit("nano_train", **out)
     out["profile"] = train_profile(step, idx, tgt, "nano_train_profile")
+    train_pair("nano_train", step, idx, tgt, (cudaex.flash_attention, cudaex.flash_attention_backward,
+                                              cudaex.adamw_update))
     del step
     torch.cuda.empty_cache()
     out["baseline"] = nano_baseline(cfg, B, T, n_steps, seed, bound["model_ops_per_step"])
@@ -2751,7 +3075,10 @@ def remat_run(tt, cudaex, seed, ckpt: bool, B=1, T=2048, n_steps=5) -> dict:
     time a step (train_profile). Peak memory from a clean start, over
     whole steps and over the forward and backward programs alone (read as
     the optimizer update starts: AdamW's param-sized temporaries come after
-    the programs have freed their tensors)."""
+    the programs have freed their tensors). The step is a CUDA graph from
+    its second call, so those two peaks are read in its first (op by op)
+    and second (captured: the graph's pool) calls, where the update runs
+    Python; the whole-step peak covers every step."""
     from thunder_tpu_torch import optim
     from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
     from thunder_tpu_torch.training import TrainStep
@@ -2783,8 +3110,11 @@ def remat_run(tt, cudaex, seed, ckpt: bool, B=1, T=2048, n_steps=5) -> dict:
     torch.cuda.synchronize()
     cudaex.flash_rope_attention.launches = 0
     cudaex.flash_rope_attention_backward.launches = 0
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     launches = (cudaex.flash_rope_attention.launches, cudaex.flash_rope_attention_backward.launches)
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    require_replayed("remat_train", graphs)
     fwd = tt.last_traces(step)[-1].bound_symbols
     bwd = tt.last_backward_traces(step)[-1].bound_symbols
     planned = sum(b.sym.id == "cuda.rope_flash_fwd" for b in fwd) + sum(
@@ -2799,7 +3129,7 @@ def remat_run(tt, cudaex, seed, ckpt: bool, B=1, T=2048, n_steps=5) -> dict:
                saved_for_backward=n_saved, saved_for_backward_gb=nbytes / 1e9, losses=[first] + losses,
                flash_rope_fwd_per_step=launches[0] / n_steps,
                flash_rope_bwd_per_step=launches[1] / n_steps,
-               flash_rope_fwd_planned_per_step=planned)
+               flash_rope_fwd_planned_per_step=planned, **graphs)
     del step, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2879,16 +3209,14 @@ def moe_serve(tt, cudaex, cfg, prompts, seed, dense_wave: dict) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for p in prompts:
-        engine.submit(p, max_new_tokens=2)
-    engine.drain()
+    engine.warmup([len(p) for p in prompts])
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
 
     reset_peak_memory()
     cfns = (engine.runner.prefill_cfn, engine.runner.decode_cfn)
     steps0, prefills0 = engine.decode_steps, prefill_calls(engine)
-    compiles0 = sum(tt.cache_misses(c) for c in cfns)
+    compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
     cudaex.grouped_mlp.launches = 0
     cudaex.rms_norm.launches = 0
     cudaex.paged_attention.launches = 0
@@ -2901,6 +3229,10 @@ def moe_serve(tt, cudaex, cfg, prompts, seed, dense_wave: dict) -> dict:
                 "paged_attention": cudaex.paged_attention.launches}
     calls = {"prefill": prefill_calls(engine) - prefills0, "decode": engine.decode_steps - steps0}
     compiles = sum(tt.cache_misses(c) for c in cfns) - compiles0
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, cfns).items()}
+    require_replayed("moe_serve", graphs)
+    if graphs["graph_captures"]:
+        raise AssertionError(f"{graphs['graph_captures']} captures during the MoE wave")
     results = [f.result() for f in futs]
     for r in results:
         if r.n_new_tokens != 64 or not ((r.new_tokens >= 0) & (r.new_tokens < cfg.padded_vocab_size)).all():
@@ -2926,7 +3258,8 @@ def moe_serve(tt, cudaex, cfg, prompts, seed, dense_wave: dict) -> dict:
                mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in results])),
                mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in results])),
                program_calls=calls, launches=launches, grouped_mlp_launches_expected=want,
-               compiles_during_wave=compiles, ops_per_program_call=ops,
+               compiles_during_wave=compiles, captures_during_wave=graphs["graph_captures"],
+               graph_replays=graphs["graph_replays"], ops_per_program_call=ops,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, init_s=t_init, warmup_s=t_warm,
                dense_wave_same_call={k: dense_wave[k] for k in ("tokens_per_s", "mean_ttft_ms", "mean_tbot_ms",
                                                                 "decode_steps", "ops_per_program_call")})
@@ -3009,7 +3342,10 @@ def moe_train(tt, cudaex, seed) -> dict:
     cudaex.flash_rope_attention.launches = 0
     cudaex.flash_rope_attention_backward.launches = 0
     cudaex.adamw_update.launches = 0
+    graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    require_replayed("moe_train", graphs)
     launches = {"grouped_mlp": cudaex.grouped_mlp.launches,
                 "flash_rope_fwd": cudaex.flash_rope_attention.launches,
                 "flash_rope_bwd": cudaex.flash_rope_attention_backward.launches,
@@ -3033,9 +3369,11 @@ def moe_train(tt, cudaex, seed) -> dict:
                tokens_per_s=B * T / step_s, mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"],
                **bound, compile_s=compile_s, init_s=t_init,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses, launches=launches,
-               grouped_mlp_operand_dtypes=kernel_dtypes)
+               grouped_mlp_operand_dtypes=kernel_dtypes, **graphs)
     emit("moe_train", **out)
     out["profile"] = train_profile(step, idx, tgt, "moe_train_profile")
+    train_pair("moe_train", step, idx, tgt, (cudaex.grouped_mlp, cudaex.flash_rope_attention,
+                                             cudaex.flash_rope_attention_backward, cudaex.adamw_update))
     del step, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3084,6 +3422,37 @@ class GradRecorder:
         return self.inner.update(params, grads, state)
 
 
+def captured_against_op_by_op(tt, phase: str, make, batches, counters) -> dict:
+    """The road under test's TrainStep (``make(cuda_graphs)`` -> (step,
+    model), from the same weights each time) run op by op and captured (its
+    first step op by op, then one capture and replays) over ``batches``, a
+    new batch each step. f32, TF32 off, the same kernels in the same order:
+    losses and parameters must be bit-equal and each counter's launches
+    equal. A value read on the host and baked into the capture (a group size,
+    a routing count) would show from the second batch on."""
+    runs = {}
+    for graphs in (False, True):
+        step, model = make(graphs)
+        n0 = [c.launches for c in counters]
+        losses = [float(step(*b)) for b in batches]
+        runs[graphs] = dict(losses=losses, launches=[c.launches - n for c, n in zip(counters, n0)],
+                            params={k: p.detach().clone() for k, p in model.named_parameters()},
+                            **graph_stats(tt, [step]))
+        del step, model
+    got, want = runs[True], runs[False]
+    require_replayed(phase, got)
+    differ = sorted(k for k in want["params"] if not torch.equal(got["params"][k], want["params"][k]))
+    out = dict(steps=len(batches), losses=got["losses"], op_by_op_losses=want["losses"],
+               params_not_bit_equal=differ, launches={c.__name__: n for c, n in zip(counters, got["launches"])},
+               op_by_op_launches={c.__name__: n for c, n in zip(counters, want["launches"])},
+               graph_captures=got["graph_captures"], graph_replays=got["graph_replays"])
+    if got["losses"] != want["losses"] or differ or got["launches"] != want["launches"]:
+        raise AssertionError(f"{phase}: the captured step is not the op-by-op step bit for bit: {out}")
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def moe_train_agreement(tt, cudaex, seed) -> dict:
     """f32, TF32 off, the MoE model at 2 layers, B=1, T=256 (capacity factor
     1.0: cap 64, so tokens are dropped): 3 TrainSteps on the grouped road
@@ -3092,7 +3461,10 @@ def moe_train_agreement(tt, cudaex, seed) -> dict:
     LOSS_RTOL, step-1 gradients within MOE_GRAD_RTOL, parameters within
     MOE_PARAM_ATOL but flip-prone elements within ADAMW_FLIP_ATOL:
     the two roads sum in other orders (the same split as thunder_tpu's
-    grouped-vs-dense tests)."""
+    grouped-vs-dense tests). Both roads run op by op (GradRecorder reads
+    every step's gradients in Python, which a replay does not run); then
+    the grouped road captured, the main path's TrainStep, is held bit for
+    bit against it op by op over 3 new batches (``captured``)."""
     from thunder_tpu_torch import optim
     from thunder_tpu_torch.models.litgpt import Config
     from thunder_tpu_torch.models.moe import MoEGPT
@@ -3104,7 +3476,9 @@ def moe_train_agreement(tt, cudaex, seed) -> dict:
     for road in ("grouped", "dense"):
         model = MoEGPT(cfg, moe_config(cfg, 1.0, road), torch.float32, seed=seed)
         rec = GradRecorder(optim.AdamW(lr=TRAIN_LR), runs["grouped"]["rec"] if runs else None)
-        step = TrainStep(tt.jit(model), rec)
+        # op by op: GradRecorder reads every step's gradients in Python,
+        # which a CUDA-graph replay does not run
+        step = TrainStep(tt.jit(model), rec, cuda_graphs=False)
         idx, tgt = train_batch(cfg, B, T, seed)
         n0 = cudaex.grouped_mlp.launches
         losses = [float(step(idx, tgt)) for _ in range(n_steps)]
@@ -3133,6 +3507,14 @@ def moe_train_agreement(tt, cudaex, seed) -> dict:
                flip_prone_elements=flip.numel(), elements=tight.numel() + flip.numel(),
                flip_prone_max_abs=flip.max().item() if flip.numel() else 0.0, flip_prone_atol=ADAMW_FLIP_ATOL,
                grouped_mlp_launches=g["launches"])
+
+    def grouped_step(graphs):
+        model = MoEGPT(cfg, moe_config(cfg, 1.0, "grouped"), torch.float32, seed=seed)
+        return TrainStep(tt.jit(model), optim.AdamW(lr=TRAIN_LR), cuda_graphs=graphs), model
+
+    out["captured"] = captured_against_op_by_op(
+        tt, "moe_train_agreement (captured)", grouped_step,
+        [train_batch(cfg, B, T, seed + 1 + i) for i in range(n_steps)], (cudaex.grouped_mlp,))
     emit("moe_train_agreement", **out)
     if (not loss_rel <= LOSS_RTOL or not out["grad_max_rel"] <= MOE_GRAD_RTOL
             or not out["param_max_abs"] <= MOE_PARAM_ATOL or not out["flip_prone_max_abs"] <= ADAMW_FLIP_ATOL):
@@ -3399,10 +3781,10 @@ def check_ring(cudaex, dev, gen) -> tuple[dict, dict]:
     return res["fwd"], res["bwd"]
 
 
-def cp_step(tt, model, autocast: bool, sp: bool, opt=None):
+def cp_step(tt, model, autocast: bool, sp: bool, opt=None, cuda_graphs: bool = True):
     """TrainStep over jit(model) with opt (default AdamW(lr=TRAIN_LR)),
     autocast or not; with sp, context_parallel over a one-rank mesh of the
-    process group."""
+    process group; captured as a CUDA graph unless told otherwise."""
     from thunder_tpu_torch import optim
     from thunder_tpu_torch.parallel import context_parallel, make_mesh
     from thunder_tpu_torch.training import TrainStep
@@ -3411,7 +3793,7 @@ def cp_step(tt, model, autocast: bool, sp: bool, opt=None):
     tm = tt.jit(model, transforms=[AutocastTransform()] if autocast else None)
     if sp:
         context_parallel(tm, make_mesh({"sp": 1}))
-    return TrainStep(tm, opt if opt is not None else optim.AdamW(lr=TRAIN_LR))
+    return TrainStep(tm, opt if opt is not None else optim.AdamW(lr=TRAIN_LR), cuda_graphs=cuda_graphs)
 
 
 def cp_train(tt, cudaex, seed) -> dict:
@@ -3443,9 +3825,12 @@ def cp_train(tt, cudaex, seed) -> dict:
                     cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward)
         for c in counters:
             c.launches = 0
+        graphs0 = graph_stats(tt, [step])
         step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
         launches = dict(zip(("ring_flash_fwd", "ring_flash_bwd", "flash_rope_fwd", "flash_rope_bwd"),
                             (c.launches for c in counters)))
+        graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+        require_replayed(f"cp_train ({name})", graphs)
         want = cfg.n_layer * n_steps
         expect = ({"ring_flash_fwd": want, "ring_flash_bwd": want, "flash_rope_fwd": 0,
                    "flash_rope_bwd": 0} if sp else
@@ -3465,7 +3850,7 @@ def cp_train(tt, cudaex, seed) -> dict:
                    steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s,
                    mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"], **bound,
                    compile_s=compile_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   losses=losses, launches=launches,
+                   losses=losses, launches=launches, **graphs,
                    ops_per_step={"forward": len(fwd), "backward": len(bwd)})
         if sp:
             claims = {"forward": sorted({b.sym.id for b in fwd if b.impl is cudaex._ring_flash_fwd_impl}),
@@ -3494,7 +3879,9 @@ def cp_train_agreement(tt, cudaex, seed) -> dict:
     roads: losses within LOSS_RTOL (the bar of thunder_tpu's
     test_context_parallel_gpt_exact), step-1 gradients within MOE_GRAD_RTOL
     of each tensor's largest, parameters within MOE_PARAM_ATOL but
-    flip-prone elements within ADAMW_FLIP_ATOL."""
+    flip-prone elements within ADAMW_FLIP_ATOL. Then the CP step captured
+    (its all-reduces inside the graph), cp_train's path, is held bit for
+    bit against it op by op over 3 new batches (``captured``)."""
     from thunder_tpu_torch import optim
     from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
 
@@ -3505,7 +3892,8 @@ def cp_train_agreement(tt, cudaex, seed) -> dict:
     for road in ("plain", "cp"):
         model = GPTForCausalLM(cfg, torch.float32, seed=seed)
         rec = GradRecorder(optim.AdamW(lr=TRAIN_LR), runs["plain"]["rec"] if runs else None)
-        step = cp_step(tt, model, False, road == "cp", rec)
+        # op by op: GradRecorder reads every step's gradients in Python
+        step = cp_step(tt, model, False, road == "cp", rec, cuda_graphs=False)
         n0 = cudaex.ring_flash_step.launches, cudaex.ring_flash_bwd_step.launches
         losses = [float(step(idx, tgt)) for _ in range(n_steps)]
         runs[road] = dict(losses=losses, rec=rec, params={k: p.detach() for k, p in model.named_parameters()},
@@ -3533,6 +3921,15 @@ def cp_train_agreement(tt, cudaex, seed) -> dict:
                param_max_abs=tight.max().item(), param_atol=MOE_PARAM_ATOL,
                flip_prone_elements=flip.numel(), elements=tight.numel() + flip.numel(),
                flip_prone_max_abs=flip.max().item() if flip.numel() else 0.0, flip_prone_atol=ADAMW_FLIP_ATOL)
+
+    def cp_road(graphs):
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        return cp_step(tt, model, False, True, cuda_graphs=graphs), model
+
+    out["captured"] = captured_against_op_by_op(
+        tt, "cp_train_agreement (captured)", cp_road,
+        [train_batch(cfg, B, T, seed + 1 + i) for i in range(n_steps)],
+        (cudaex.ring_flash_step, cudaex.ring_flash_bwd_step))
     emit("cp_train_agreement", **out)
     if (not loss_rel <= LOSS_RTOL or not out["grad_max_rel"] <= MOE_GRAD_RTOL
             or not out["param_max_abs"] <= MOE_PARAM_ATOL or not out["flip_prone_max_abs"] <= ADAMW_FLIP_ATOL):

@@ -178,7 +178,8 @@ def _emulate(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step, sqrt=np.s
     to p's dtype), with IEEE square roots (np.sqrt) unless told otherwise.
     fused_m=False is a planted fault: (1-b1)·g rounded before the add."""
     b1, a1, b2, a2 = f32(beta1), f32(1.0 - beta1), f32(beta2), f32(1.0 - beta2)
-    bc1, bc2 = f32(1.0 - beta1 ** step), f32(1.0 - beta2 ** step)
+    # the bias corrections in f32 from the step, as the chain and the kernel take them
+    bc1, bc2 = (f32(c) for c in cudaex.adamw_corrections(step, beta1, beta2))
     m = _fma(a1, g, m * b1) if fused_m else (m * b1 + a1 * g).astype(f32)
     v = _fma(a2 * g, g, v * b2)
     upd = (m / bc1) / (sqrt(v / bc2) + f32(eps))

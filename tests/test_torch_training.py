@@ -142,8 +142,12 @@ def test_adamw_keeps_f32_state_for_bf16_params():
 
 @pytest.mark.parametrize("arg", ["mesh_plan", "guard", "slo", "buckets", "bucket_pad"])
 def test_unported_train_step_options_raise(arg):
+    """mesh_plan, guard and slo raise NotImplementedError naming the
+    argument. buckets and bucket_pad are ported (tests/test_torch_buckets.py):
+    a value of the wrong type raises TypeError naming the argument."""
     model = tlg.GPTForCausalLM(tlg.Config.from_name("tiny"), device="cpu")
-    with pytest.raises(NotImplementedError, match=arg):
+    err = TypeError if arg in ("buckets", "bucket_pad") else NotImplementedError
+    with pytest.raises(err, match=arg):
         TrainStep(model, topt.AdamW(), **{arg: object()})
     with pytest.raises(NotImplementedError, match="micro_step"):
         TrainStep(model, topt.AdamW()).micro_step()

@@ -132,10 +132,12 @@ class ThunderCompiledFunction:
     their new values beside its result; the call replays them onto their
     owners (common.py:apply_effects)."""
 
-    def __init__(self, cd: CompileData):
+    def __init__(self, cd: CompileData, cuda_graphs: bool = False, graph_pool=None):
         self._cd = cd
         self._cs = CompileStats()
         self._cache: dict = {}
+        self._cuda_graphs = cuda_graphs
+        self._graph_pool = graph_pool
         fn = cd.fn
         self.__name__ = getattr(fn, "__name__", type(fn).__name__)
 
@@ -157,7 +159,8 @@ class ThunderCompiledFunction:
         cs.last_prologue_traces = [pro]
         entry = CacheEntry(prologue_fn=pro.python_callable(),
                            computation_fn=ex_trc.python_callable(),
-                           effect_keys=tuple((owner, name) for owner, name, _ in trc.side_effects))
+                           effect_keys=tuple((owner, name) for owner, name, _ in trc.side_effects),
+                           trace=ex_trc)
         self._cache[key] = entry
         return entry
 
@@ -174,11 +177,51 @@ class ThunderCompiledFunction:
             cs.cache_hits.add()
         with torch.no_grad():
             flat_inputs = entry.prologue_fn(*[l for l, m in zip(leaves, tensor_mask) if m])
+            if self._cuda_graphs and self._graphed(flat_inputs):
+                if entry.program is None:
+                    entry.program = self._program(entry, flat_inputs)
+                return entry.program(*flat_inputs)
             out = entry.computation_fn(*flat_inputs)
         if entry.effect_keys:
             out, effects = out
             apply_effects(entry.effect_keys, effects)
         return out
+
+    @staticmethod
+    def _graphed(flat_inputs) -> bool:
+        """Run as a CUDA graph: the inputs are on the card and no other
+        program is being captured (then this one's launches are part of
+        that capture)."""
+        from .executors import graphex
+
+        return (bool(flat_inputs) and graphex.captures_on(flat_inputs[0].device)
+                and graphex.capturing() is None)
+
+    def _program(self, entry: CacheEntry, flat_inputs):
+        """The entry's CUDAGraphProgram. In place: the parameters and the
+        inputs its trace writes (the pools of write_dead_inputs_in_place);
+        the rest is copied into the graph's buffers each call. Buffer writes
+        go into the owners' buffers (apply_effects in place)."""
+        from .executors import graphex, torchex
+
+        trc = entry.trace
+        graphex.check_capturable(trc, self.__name__)
+        written = {b.args[0].name for b in trc.bound_symbols if b.impl is torchex.index_put_in_place}
+        in_place = [isinstance(t, torch.nn.Parameter) or p.name in written
+                    for t, p in zip(flat_inputs, trc.args)]
+        computation, effect_keys = entry.computation_fn, entry.effect_keys
+
+        def run(*flat):
+            out = computation(*flat)
+            if effect_keys:
+                out, effects = out
+                apply_effects(effect_keys, effects, in_place=True)
+            return out
+
+        if self._graph_pool is None:
+            self._graph_pool = graphex.GraphPool()
+        return graphex.CUDAGraphProgram(run, name=self.__name__, in_place=in_place, pool=self._graph_pool,
+                                        stats=self._cs)
 
     @property
     def cache_hits(self) -> int:
@@ -189,19 +232,27 @@ class ThunderCompiledFunction:
         return int(self._cs.cache_misses)
 
 
-def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence | None = None):
+def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence | None = None,
+        cuda_graphs: bool = False, graph_pool=None):
     """Compile a callable into a cached trace program. Its tensor inputs
     decide the device it runs on; calls with new (shape, dtype, device)
     metadata compile a new specialization. A ``torch.nn.Module`` becomes a
     ``ThunderModule`` whose program takes the parameters as inputs;
-    ``transforms`` rewrite the acquired trace (e.g. ``AutocastTransform``)."""
+    ``transforms`` rewrite the acquired trace (e.g. ``AutocastTransform``).
+
+    ``cuda_graphs=True`` runs each specialization on the card as a CUDA
+    graph (executors/graphex.py: its first call runs op by op, its second
+    captures, later calls replay); CPU tensors always run op by op.
+    Non-parameter outputs then come back as clones. Programs given one
+    ``graphex.GraphPool`` share its memory and must not run at once."""
     from .nn.module import ThunderModule
 
     if isinstance(fn, torch.nn.Module):
-        return ThunderModule(fn, executors=executors, transforms=transforms)
+        return ThunderModule(fn, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
+                             graph_pool=graph_pool)
     cd = CompileData(fn=fn, executors=resolve_executors(executors) if executors is not None else (),
                      transforms=transforms or ())
-    return ThunderCompiledFunction(cd)
+    return ThunderCompiledFunction(cd, cuda_graphs=cuda_graphs, graph_pool=graph_pool)
 
 
 def _get_cs(cfn) -> CompileStats:
@@ -233,6 +284,15 @@ def cache_hits(cfn) -> int:
 
 def cache_misses(cfn) -> int:
     return int(_get_cs(cfn).cache_misses)
+
+
+def graph_captures(cfn) -> int:
+    """CUDA graphs captured by a compiled function, TrainStep or engine program."""
+    return int(_get_cs(cfn).graph_captures)
+
+
+def graph_replays(cfn) -> int:
+    return int(_get_cs(cfn).graph_replays)
 
 
 def value_and_grad(fn, argnums=0):

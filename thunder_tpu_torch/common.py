@@ -30,6 +30,8 @@ class CompileStats:
     def __init__(self):
         self.cache_hits = _Counter()
         self.cache_misses = _Counter()
+        self.graph_captures = _Counter()  # CUDA graphs captured (executors/graphex.py)
+        self.graph_replays = _Counter()
         self.last_traces: list = []
         self.last_prologue_traces: list = []
         self.last_backward_traces: list = []
@@ -44,19 +46,28 @@ class CompileData:
         self.transforms = tuple(transforms)
 
 
-def apply_effects(effect_keys, effects) -> None:
+def apply_effects(effect_keys, effects, in_place: bool = False) -> None:
     """The epilogue of a program that writes buffers (thunder_tpu/common.py:
     EpilogueMixin.apply_effects): each ``(owner, name)`` buffer is rebound
-    to the value the program computed."""
+    to the value the program computed, or, with ``in_place`` (a program
+    run as a CUDA graph), the value is written into the buffer the owner
+    holds: a rebinding would hand the owner the graph's output, which the
+    next replay overwrites, and leave the graph reading the old buffer."""
     for (owner, name), value in zip(effect_keys, effects):
-        owner._buffers[name] = value
+        if in_place:
+            owner._buffers[name].copy_(value)
+        else:
+            owner._buffers[name] = value
 
 
 class CacheEntry:
     """One compiled specialization; ``effect_keys`` are the ``(owner,
-    name)`` buffers its program writes, in the order of its effect values."""
+    name)`` buffers its program writes, in the order of its effect values;
+    ``trace`` is the claimed computation trace and ``program`` its CUDA
+    graph (executors/graphex.py), made at its first call on the card when
+    the function was jitted with ``cuda_graphs=True``."""
 
-    __slots__ = ("prologue_fn", "computation_fn", "effect_keys")
+    __slots__ = ("prologue_fn", "computation_fn", "effect_keys", "trace", "program")
 
     def __init__(self, **kw):
         for s in self.__slots__:

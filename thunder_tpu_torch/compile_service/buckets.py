@@ -4,12 +4,17 @@ Rungs double from ``min_len`` and cap at ``max_len`` (every rung a multiple
 of ``page_size``, so serving prefill page write-out stays aligned);
 ``bucket_for(n)`` is the rounding rule, and per-rung traffic (hits, MRU
 order) is tracked here; ``subladder(max_len)`` is the capped child that
-rounds chunked prefill's final chunk. The training-side padding waits for
-the slice that uses it.
+rounds chunked prefill's final chunk. ``pad_to_bucket`` is the training
+side: ``TrainStep(buckets=...)`` pads each batch to its rung, so every
+length in a rung shares one program and one CUDA graph.
 """
 from __future__ import annotations
 
 import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
 
 
 class BucketLadder:
@@ -114,3 +119,41 @@ class BucketLadder:
 
     def __repr__(self) -> str:
         return f"BucketLadder({self.key_fields()}, rungs={self._rungs})"
+
+
+def pad_to_bucket(args: tuple, kwargs: dict, ladder: BucketLadder, *,
+                  axis: int = 1, pad_values: Optional[dict] = None) -> tuple:
+    """Pad every array-like positional/keyword arg along ``axis`` up to the
+    ladder rung for its current length (thunder_tpu's pad_to_bucket).
+    ``pad_values`` maps positional index (or kwarg name) -> fill value
+    (default 0; causal-LM targets use -100 so ``cross_entropy`` masks the
+    padding). Non-arrays and arrays too small for ``axis`` pass through
+    untouched; lengths already on a rung are returned as they are. NumPy
+    arrays stay NumPy, tensors are padded on their own device."""
+    pad_values = pad_values or {}
+
+    def one(label: Any, v):
+        shape = getattr(v, "shape", None)
+        if shape is None or len(shape) <= axis:
+            return v
+        n = int(shape[axis])
+        if n > ladder.max_len:
+            raise ValueError(
+                f"arg {label!r} has length {n} along axis {axis}, beyond "
+                f"the ladder's max_len={ladder.max_len}; raise max_len or "
+                f"shorten the batch")
+        b = ladder.bucket_for(n)
+        if b == n:
+            return v
+        fill = pad_values.get(label, 0)
+        if isinstance(v, np.ndarray):
+            widths = [(0, 0)] * len(shape)
+            widths[axis] = (0, b - n)
+            return np.pad(v, widths, constant_values=fill)
+        pad_shape = list(shape)
+        pad_shape[axis] = b - n
+        return torch.cat([v, torch.full(pad_shape, fill, dtype=v.dtype, device=v.device)], dim=axis)
+
+    new_args = tuple(one(i, a) for i, a in enumerate(args))
+    new_kwargs = {k: one(k, v) for k, v in kwargs.items()}
+    return new_args, new_kwargs

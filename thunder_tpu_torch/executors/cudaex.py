@@ -92,6 +92,7 @@ from ..core.proxies import TensorProxy
 from ..extend import OperatorExecutor, register_executor
 from ..transforms.autodiff import VJPResult, register_augmented_forward, register_backward
 from ..transforms.quantization import dequantize_nf4_kl, nf4_kernel_block_k
+from . import graphex
 
 ex = OperatorExecutor("cuda")
 register_executor(ex)
@@ -172,7 +173,7 @@ def _library():
         lib.tt_rms_norm.restype = i
         lib.tt_empty.argtypes = [p]
         lib.tt_empty.restype = i
-        lib.tt_adamw.argtypes = [p, p, i] + [f] * 9 + [i, p]
+        lib.tt_adamw.argtypes = [p, p, i, p] + [f] * 7 + [i, p]
         lib.tt_adamw.restype = i
         lib.tt_paged_attention.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
         lib.tt_paged_attention.restype = i
@@ -243,6 +244,10 @@ _RMS_DECODE_ROWS = 16  # at most this many rows: the decode launch
 _RMS_LANE_VECS = 2
 _RMS_ROWS = {"decode": 1, "prefill": 2}
 RMS_PDL = 1  # csrc/rms_norm.cu's flag: programmatic dependent launch
+# The flag under a graphex capture: off. In a captured decode step the kernel
+# before each norm never triggers its dependents early, and the launch with
+# PDL cost 0.11-1.01 us more (chip_smoke.py's graphs_pdl, PERF.md §6).
+RMS_PDL_CAPTURED = 0
 
 
 def rms_norm_plan(N: int, D: int, dtype: torch.dtype) -> dict:
@@ -257,7 +262,8 @@ def rms_norm_plan(N: int, D: int, dtype: torch.dtype) -> dict:
     * ``rows_per_block``, ``threads`` (at most 512), ``blocks`` =
       ceil(N / rows_per_block): a row group (wpr warps) a row;
     * ``flags``: RMS_PDL (the block loads w before it waits for the
-      previous kernel)."""
+      previous kernel); the wrapper launches with RMS_PDL_CAPTURED while
+      graphex captures."""
     nvec = D // _vec(dtype)
     route = "decode" if N <= _RMS_DECODE_ROWS else "prefill"
     wpr = min(16, max(1, -(-nvec // (32 * _RMS_LANE_VECS))))
@@ -296,7 +302,10 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
              f"rms_norm: D={D} unsupported for {x.dtype}")
     y = torch.empty_like(x)
     if N:
-        _rms_launch(x, w, y, eps, rms_norm_plan(N, D, x.dtype))
+        plan = rms_norm_plan(N, D, x.dtype)
+        if graphex.capturing() is not None:
+            plan["flags"] = RMS_PDL_CAPTURED
+        _rms_launch(x, w, y, eps, plan)
         rms_norm.launches += 1
     return y
 
@@ -338,14 +347,24 @@ _adamw_tensor_tables: dict = {}
 _adamw_chunk_tables: dict = {}
 
 
+def adamw_corrections(step, beta1: float, beta2: float) -> tuple:
+    """The bias corrections 1 - beta**t of step t (an int or a 0-d integer
+    tensor), as 0-d f32 tensors on the step's device, in f32 as
+    thunder_tpu/optim.py:AdamW.update takes them (csrc/adamw.cu computes
+    the same from the step it reads on the card)."""
+    t = torch.as_tensor(step).to(torch.float32)
+    return tuple(1.0 - torch.pow(torch.tensor(b, dtype=torch.float32, device=t.device), t)
+                 for b in (beta1, beta2))
+
+
 @torch.no_grad()
 def adamw_plain(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
-                eps: float, weight_decay: float, step: int) -> None:
+                eps: float, weight_decay: float, step) -> None:
     """The kernel's function as torch._foreach_* passes (optim.AdamW's chain):
     updates the parameters ps and the f32 moments ms, vs in place from the
-    gradients gs; `step` is the step being taken (1 first)."""
-    bc1 = 1.0 - beta1 ** step
-    bc2 = 1.0 - beta2 ** step
+    gradients gs; `step` is the step being taken (1 first), an int or a 0-d
+    integer tensor (read on the host: the plain version runs on the CPU)."""
+    bc1, bc2 = (float(c) for c in adamw_corrections(step, beta1, beta2))
     gs = [g if g.dtype == torch.float32 else g.float() for g in gs]
     # m = b1*m + (1-b1)*g ; v = b2*v + (1-b2)*g*g
     torch._foreach_mul_(ms, beta1)
@@ -397,31 +416,36 @@ def _cached(cache: dict, key, make):
     return cache[key]
 
 
-def _upload(t: torch.Tensor, device) -> torch.Tensor:
-    # from pinned memory, without waiting for the stream's queued work
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 def adamw_tables(ps: list, gs: list, ms: list, vs: list) -> tuple:
     """(tensor table, chunk table) on the tensors' device, built once per set
     of addresses (the update works in place, so p, m and v keep theirs; a
     gradient that moves rebuilds only the small tensor table) and per set of
-    numels."""
+    numels, and uploaded from pinned memory without a stream sync. Under
+    CUDA-graph capture the gradients sit in the graph's pool: the tensor
+    table for their addresses is filled right after the capture ends
+    (graphex.device_table; no host-to-device copy enters the graph), and
+    both tables live as long as the graph."""
     dev = ps[0].device
     key = (dev, tuple((p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel(), p.dtype, g.dtype)
                       for p, g, m, v in zip(ps, gs, ms, vs)))
-    entries = _cached(_adamw_tensor_tables, key, lambda: _upload(adamw_entries(ps, gs, ms, vs), dev))
+    make_entries = lambda: graphex.device_table(adamw_entries(ps, gs, ms, vs), dev)  # noqa: E731
+    entries = make_entries() if graphex.capturing() else _cached(_adamw_tensor_tables, key, make_entries)
     numels = tuple(p.numel() for p in ps)
-    chunks = _cached(_adamw_chunk_tables, (dev, numels), lambda: _upload(adamw_chunks(list(numels)), dev))
+    chunks = _cached(_adamw_chunk_tables, (dev, numels),
+                     lambda: graphex.device_table(adamw_chunks(list(numels)), dev))
+    graphex.keep(entries, chunks)
     return entries, chunks
 
 
 def adamw_update(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
-                 eps: float, weight_decay: float, step: int) -> None:
+                 eps: float, weight_decay: float, step) -> None:
     """AdamW's update of parameters ps and f32 moments ms, vs in place from
     gradients gs (a None gradient leaves its parameter and moments as they
     are), as adamw_plain computes it: on the CPU adamw_plain itself, on a
-    card one launch of csrc/adamw.cu over every tensor."""
+    card one launch of csrc/adamw.cu over every tensor. ``step`` is the
+    step being taken: a 0-d int32 tensor on the card, which the kernel
+    reads there (so a captured update replays with each step's bias
+    corrections), or an int."""
     keep = [i for i, g in enumerate(gs) if g is not None]
     ps, gs, ms, vs = ([t[i] for i in keep] for t in (ps, gs, ms, vs))
     if not ps:
@@ -443,13 +467,17 @@ def adamw_update(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: fl
                  f"v {tuple(v.shape)}")
         _require(p.is_contiguous() and m.is_contiguous() and v.is_contiguous(),
                  "adamw_update: p, m and v must be contiguous")
+    if not isinstance(step, torch.Tensor):
+        step = torch.tensor(step, dtype=torch.int32, device=dev)
+    _require(step.device == dev and step.dtype == torch.int32 and step.dim() == 0,
+             f"adamw_update: step must be a 0-d int32 tensor on {dev}, got {step.dtype} {tuple(step.shape)} "
+             f"on {step.device}")
     entries, chunks = adamw_tables(ps, gs, ms, vs)
     if not chunks.numel():
         return
-    _raise_on(_library().tt_adamw(entries.data_ptr(), chunks.data_ptr(), chunks.numel(), beta1, 1.0 - beta1,
-                                  beta2, 1.0 - beta2, 1.0 - beta1 ** step, 1.0 - beta2 ** step, eps,
-                                  lr * weight_decay, -lr, int(bool(weight_decay)),
-                                  torch.cuda.current_stream(dev).cuda_stream), "adamw")
+    _raise_on(_library().tt_adamw(entries.data_ptr(), chunks.data_ptr(), chunks.numel(), step.data_ptr(), beta1,
+                                  1.0 - beta1, beta2, 1.0 - beta2, eps, lr * weight_decay, -lr,
+                                  int(bool(weight_decay)), torch.cuda.current_stream(dev).cuda_stream), "adamw")
     adamw_update.launches += 1
 
 
@@ -2268,3 +2296,10 @@ ex.register_implementation("dist.ring_attention_fwd", _ring_flash_fwd_impl,
                            checker=ring_flash_supported)
 ex.register_implementation("dist.ring_attention_bwd", _ring_flash_bwd_impl,
                            checker=ring_flash_supported)
+
+# A CUDA-graph replay runs no Python: each counter gets its capture's count
+# back on every replay (executors/graphex.py).
+for _wrapper in (rms_norm, adamw_update, paged_attention, paged_chunk_attention, flash_rope_attention,
+                 flash_rope_attention_backward, flash_attention, flash_attention_backward, cross_entropy,
+                 int8_linear, nf4_linear, fp8_linear, grouped_mlp, ring_flash_step, ring_flash_bwd_step):
+    graphex.register_counter(_wrapper)

@@ -121,7 +121,22 @@ def _take(a, indices, dim):
 
 _reg(PrimIDs.TAKE, _take)
 _reg(PrimIDs.TAKE_ALONG_AXIS, lambda a, indices, dim: torch.take_along_dim(a, indices.long(), dim))
-_reg(PrimIDs.INDEX_ADD, lambda a, indices, value, dim: a.index_add(dim, indices, value))
+
+
+def _index_add(a, indices, value, dim):
+    """a.index_add(dim, indices, value). On the card torch's index_add sums
+    a repeated index with atomics, in whatever order the threads land, so
+    two runs of one f32 step (the embedding gradient) could differ in the
+    last bits. index_put with accumulate sorts the indices and sums each
+    run of a repeated index in one thread in a fixed order: the same sum
+    every run, as thunder_tpu's scatter-add on the TPU."""
+    if a.device.type != "cuda":
+        return a.index_add(dim, indices, value)
+    out = a.movedim(dim, 0).index_put((indices.long(),), value.movedim(dim, 0), accumulate=True)
+    return out.movedim(0, dim)
+
+
+_reg(PrimIDs.INDEX_ADD, _index_add)
 _reg(PrimIDs.SCATTER_ADD, lambda a, indices, value, dim: a.scatter_add(dim, indices.long(), value))
 _reg(PrimIDs.SCATTER, lambda a, indices, value, dim: a.scatter(dim, indices.long(), value))
 

@@ -3,9 +3,10 @@
 The port of thunder_tpu/inference.py. ``cached_sdpa``, ``split_qkv_rope``
 and ``block_mix`` are the per-block pieces the paged serving runner
 (serving/runner.py) reuses, so solo and batched decoding run the same block
-math. ``GPTInference.generate`` is greedy only and loops in Python over one
-compiled decode step (thunder_tpu scans the steps into one XLA program;
-CUDA graphs take that role in a later slice).
+math. ``GPTInference.generate`` is greedy only. With ``scan_decode=True``
+(the default, as in thunder_tpu) every decode step of a call is one CUDA
+graph on the card (thunder_tpu scans the steps into one XLA program), with
+``False`` it loops in Python over the compiled decode step.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .core import dtypes, prims
+from .executors import graphex
 from .ops import clang, ltorch
 
 
@@ -134,6 +136,7 @@ class GPTInference:
         decode.__name__ = "decode"
         self._prefill_cfn = jit(prefill)
         self._decode_cfn = jit(decode)
+        self._scan_programs: dict = {}  # (steps, batch, dtype) -> graphex.CUDAGraphProgram
 
     def _forward_cached(self, idx, ks, vs, pos):
         """idx (B, T); ks/vs per-layer cache tuples; pos: start position —
@@ -165,9 +168,49 @@ class GPTInference:
         logits = gpt.lm_head(x[:, -1])  # only the last position is needed
         return logits, tuple(new_ks), tuple(new_vs)
 
-    def generate(self, prompt, max_new_tokens: int = 32, *, temperature: float = 0.0):
+    def _scan_program(self, params: dict, n_steps: int, tok, ks, vs, pos):
+        """The whole greedy decode loop as one CUDA graph (thunder_tpu's
+        _build_scan_decode; its _scan_sig is the key): n_steps decode
+        programs, each followed by its argmax and its top-2 gap, taking the
+        first token, the prefill's caches and the first position. Made at
+        the first call of a (steps, batch, dtype) signature after one decode
+        call on these inputs has compiled and warmed the decode entry
+        (outputs dropped; the caches are not written). The caches are
+        copied into the graph's own each call, so one graph serves every
+        call of its signature; the parameters are read in place."""
+        sig = (n_steps, tok.shape[0], tok.dtype)
+        prog = self._scan_programs.get(sig)
+        if prog is not None:
+            return prog
+        self._decode_cfn(params, tok[:, None], ks, vs, pos)
+        graphex.check_capturable(self._decode_cfn._cs.last_traces[-1], "GPTInference decode")
+        names = list(params)
+        n_kv = len(ks)
+
+        def scan(tok, pos, *flat):
+            ks, vs = flat[:n_kv], flat[n_kv:2 * n_kv]
+            p = dict(zip(names, flat[2 * n_kv:]))
+            toks, gaps = [], []
+            for i in range(n_steps):
+                logits, ks, vs = self._decode_cfn(p, tok[:, None], ks, vs, pos + i)
+                top2 = torch.topk(logits.float(), 2, dim=-1).values
+                gaps.append(top2[:, 0] - top2[:, 1])
+                tok = torch.argmax(logits, -1).to(tok.dtype)
+                toks.append(tok)
+            return torch.stack(toks, dim=1), torch.stack(gaps, dim=1)
+
+        prog = self._scan_programs[sig] = graphex.CUDAGraphProgram(
+            scan, name="GPTInference scan_decode", in_place=[False] * (2 + 2 * n_kv) + [True] * len(names),
+            pool=graphex.GraphPool(), stats=self._decode_cfn._cs, warmup=0)
+        return prog
+
+    def generate(self, prompt, max_new_tokens: int = 32, *, temperature: float = 0.0,
+                 scan_decode: bool = True):
         """prompt: (B, T) int tensor or array. Returns (tokens (B, T+max_new)
-        on the model's device, metrics)."""
+        on the model's device, metrics). ``scan_decode`` (greedy only):
+        on the card all decode steps run as one CUDA graph, one replay a
+        call; CPU tensors, and ``scan_decode=False``, loop over the decode
+        program in Python."""
         if temperature > 0.0:
             raise NotImplementedError(
                 "temperature sampling is not ported: thunder_tpu keys it with jax's threefry "
@@ -199,14 +242,21 @@ class GPTInference:
         nxt.cpu()  # the first token is out when the host can read it
         ttft = time.perf_counter() - t_start
         t_decode = time.perf_counter()
-        for i in range(max_new_tokens - 1):
-            pos = torch.tensor(T + i, dtype=torch.int32, device=dev)
-            logits, ks, vs = self._decode_cfn(params, nxt[:, None], ks, vs, pos)
-            nxt = pick(logits)
-        out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
-        top2_gap = torch.stack(gaps, dim=1).cpu().numpy()  # waits for the last step
-        dt = time.perf_counter() - t_decode
         n_steps = max_new_tokens - 1
+        if scan_decode and n_steps > 0 and graphex.captures_on(dev):
+            pos = torch.tensor(T, dtype=torch.int32, device=dev)
+            prog = self._scan_program(params, n_steps, nxt, ks, vs, pos)
+            scan_toks, scan_gaps = prog(nxt, pos, *ks, *vs, *params.values())
+            out = torch.cat([prompt, nxt[:, None], scan_toks], dim=1)
+            top2_gap = torch.cat([gaps[0][:, None], scan_gaps], dim=1).cpu().numpy()  # waits for the replay
+        else:
+            for i in range(n_steps):
+                pos = torch.tensor(T + i, dtype=torch.int32, device=dev)
+                logits, ks, vs = self._decode_cfn(params, nxt[:, None], ks, vs, pos)
+                nxt = pick(logits)
+            out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+            top2_gap = torch.stack(gaps, dim=1).cpu().numpy()  # waits for the last step
+        dt = time.perf_counter() - t_decode
         metrics = GenerationMetrics(
             ttft_s=ttft,
             tbot_s=dt / max(1, n_steps),

@@ -71,7 +71,8 @@ class ThunderModule:
     without retracing as long as the metadata matches. Buffers the forward
     writes (update_buffer) are rebound on the module after the call."""
 
-    def __init__(self, module: torch.nn.Module, *, executors=None, transforms=None):
+    def __init__(self, module: torch.nn.Module, *, executors=None, transforms=None, cuda_graphs=False,
+                 graph_pool=None):
         from .. import jit as _jit
 
         self._module = module
@@ -84,7 +85,8 @@ class ThunderModule:
         transforms = list(transforms or ())
         for tf in transforms:
             tf.transform_module(self)
-        self._cfn = _jit(_traced, executors=executors, transforms=transforms)
+        self._cfn = _jit(_traced, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
+                         graph_pool=graph_pool)
 
     @property
     def module(self) -> torch.nn.Module:

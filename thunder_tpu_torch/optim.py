@@ -5,9 +5,12 @@ thunder_tpu/optim.py for the port, with the same math and the same state
 thunder_tpu's ``update`` returns new arrays, because jax arrays are
 immutable; here ``update`` writes the parameters and the state in place
 under ``torch.no_grad()`` (no second copy of the model or its moments) and
-returns the same dicts. The step counter is a Python int, so no update reads
-a value back from the card. SGD issues ``torch._foreach_*`` calls; AdamW's
-update is executors/cudaex.py's ``adamw_update``: one launch of the
+returns the same dicts. The step counter is a 0-d int32 tensor on the
+parameters' device, as thunder_tpu keeps it: an update increments it there
+and AdamW takes its bias corrections from it in f32, so no update reads a
+value back from the card and a captured CUDA graph (TrainStep) replays
+every step with its own corrections. SGD issues ``torch._foreach_*`` calls;
+AdamW's update is executors/cudaex.py's ``adamw_update``: one launch of the
 hand-written csrc/adamw.cu on a card, its plain version (the
 ``torch._foreach_*`` chain) on the CPU."""
 from __future__ import annotations
@@ -15,6 +18,12 @@ from __future__ import annotations
 import torch
 
 from .executors import cudaex
+
+
+def _step0(params: dict) -> torch.Tensor:
+    """A step counter at 0 on the parameters' device."""
+    dev = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def global_norm(grads: dict) -> torch.Tensor:
@@ -33,12 +42,12 @@ class SGD:
 
     def init(self, params: dict) -> dict:
         if self.momentum == 0.0:
-            return {"step": 0}
-        return {"step": 0, "momentum_buf": {k: torch.zeros_like(v) for k, v in params.items()}}
+            return {"step": _step0(params)}
+        return {"step": _step0(params), "momentum_buf": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict):
-        state["step"] += 1
+        state["step"].add_(1)
         keys = [k for k in params if grads.get(k) is not None]
         if not keys:
             return params, state
@@ -67,14 +76,14 @@ class AdamW:
 
     def init(self, params: dict) -> dict:
         return {
-            "step": 0,
+            "step": _step0(params),
             "m": {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device) for k, v in params.items()},
             "v": {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device) for k, v in params.items()},
         }
 
     @torch.no_grad()
     def update(self, params: dict, grads: dict, state: dict):
-        state["step"] += 1
+        state["step"].add_(1)
         keys = [k for k in params if grads.get(k) is not None]
         cudaex.adamw_update([params[k] for k in keys], [grads[k] for k in keys],
                             [state["m"][k] for k in keys], [state["v"][k] for k in keys],

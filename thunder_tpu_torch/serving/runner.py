@@ -31,6 +31,13 @@ returned pools are the tensors passed in: in every program each pool input
 is read only by its index_put, and attention reads the index_put's output.
 Positions (start_pos, last_rel, pos) are 0-d or 1-d int32 tensors, never
 Python ints, so no position recompiles or syncs.
+
+With ``cuda_graphs=True`` every program runs on the card as a CUDA graph
+(executors/graphex.py), all of a runner's programs, and those of other
+runners given the same ``graph_pool``, in one memory pool: the engine runs
+them one at a time. Parameters and pools are read and written in place,
+the other inputs are copied into the graphs' buffers, logits come back as
+clones.
 """
 from __future__ import annotations
 
@@ -62,7 +69,7 @@ def quantize_for_serving(gpt, mode: Optional[str]):
 class PagedGPTRunner:
     """Traces and caches the paged serving programs for one GPT."""
 
-    def __init__(self, gpt, *, page_size: int):
+    def __init__(self, gpt, *, page_size: int, cuda_graphs: bool = False, graph_pool=None):
         from .. import jit
         from ..nn.module import functional_params
 
@@ -90,10 +97,11 @@ class PagedGPTRunner:
         decode.__name__ = "serve_decode"
         chunk_prefill.__name__ = "serve_chunk_prefill"
         verify.__name__ = "serve_verify"
-        self.prefill_cfn = jit(prefill)
-        self.decode_cfn = jit(decode)
-        self.chunk_cfn = jit(chunk_prefill)
-        self.verify_cfn = jit(verify)
+        graphs = dict(cuda_graphs=cuda_graphs, graph_pool=graph_pool)
+        self.prefill_cfn = jit(prefill, **graphs)
+        self.decode_cfn = jit(decode, **graphs)
+        self.chunk_cfn = jit(chunk_prefill, **graphs)
+        self.verify_cfn = jit(verify, **graphs)
 
     # -- prefill ----------------------------------------------------------
     def _forward_prefill(self, idx, page_ids, kps, vps, last_pos):

@@ -57,6 +57,7 @@ import torch
 
 from ..compile_service.buckets import BucketLadder
 from ..core.devices import resolve_device
+from ..executors.graphex import GraphPool
 from .kv_pages import PagedKVCache, PrefixCache
 from .runner import PagedGPTRunner, quantize_for_serving
 
@@ -126,6 +127,10 @@ class ServingEngine:
                     interactive admission (on; only bites with lanes in use)
     quantize        weight-only quantization applied to ``gpt`` in place
                     before tracing: None/"none" or "int8"
+    cuda_graphs     run every program on the card as a CUDA graph (the
+                    default; the counterpart of thunder_tpu's XLA programs),
+                    the target's and the draft's in one graph memory pool;
+                    ``warmup`` captures them before a wave
     """
 
     def __init__(self, gpt, *, max_batch: int = 8, page_size: int = 16,
@@ -134,7 +139,7 @@ class ServingEngine:
                  slo=None, prefix_sharing: bool = False,
                  chunk_tokens: Optional[int] = None, prefill_budget: Optional[int] = None,
                  draft_gpt=None, spec_k: Optional[int] = None, preemption: bool = True,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, cuda_graphs: bool = True):
         if slo is not None:
             raise NotImplementedError(
                 "ServingEngine(slo=) is not ported: SLOPolicy and SLOMonitor come with the "
@@ -184,8 +189,10 @@ class ServingEngine:
 
         self.cache = PagedKVCache(cfg.n_layer, n_pages, page_size, cfg.n_query_groups,
                                   cfg.head_size, dtype, self.device)
-        self.runner = PagedGPTRunner(gpt, page_size=page_size)
-        self.params = {k: p.detach() for k, p in gpt.named_parameters()}
+        pool = GraphPool()
+        self.runner = PagedGPTRunner(gpt, page_size=page_size, cuda_graphs=cuda_graphs, graph_pool=pool)
+        # the Parameters themselves: a CUDA graph reads them in place
+        self.params = dict(gpt.named_parameters())
         self.prefix = PrefixCache(self.cache.allocator, page_size) if prefix_sharing else None
 
         self.draft_gpt = draft_gpt
@@ -211,8 +218,9 @@ class ServingEngine:
             self.draft_cache = PagedKVCache(dcfg.n_layer, n_pages, page_size,
                                             dcfg.n_query_groups, dcfg.head_size, dtype,
                                             self.device, allocator=self.cache.allocator)
-            self.draft_runner = PagedGPTRunner(draft_gpt, page_size=page_size)
-            self.draft_params = {k: p.detach() for k, p in draft_gpt.named_parameters()}
+            self.draft_runner = PagedGPTRunner(draft_gpt, page_size=page_size, cuda_graphs=cuda_graphs,
+                                               graph_pool=pool)
+            self.draft_params = dict(draft_gpt.named_parameters())
 
         # host-side packed decode state; pos/toks change every step and are
         # re-uploaded, the page tables only at (un)assignment
@@ -337,6 +345,43 @@ class ServingEngine:
             return
         while self._outstanding > 0:
             self._step_once()
+
+    def warmup(self, prompt_lens, max_new_tokens: int = 2) -> None:
+        """Compile, and on the card capture, every program a wave of these
+        prompt lengths runs (thunder_tpu's warmup submits one request a
+        length; here a program's first call compiles and its second
+        captures, which requests alone would not reach for a bucket one
+        request uses). Each program is called twice on the null page, whose
+        slots no sequence reads: the prefill bucket of each length, with
+        chunking or prefix sharing every chunk rung, the decode program
+        (with a draft: the draft's decode and the verify program), the
+        draft's prefill and chunk programs. Then one request a length runs
+        through the scheduler, as in thunder_tpu. A wave after it compiles
+        and captures nothing."""
+        ps, npm, B = self.page_size, self.n_pages_max, self.max_batch
+        # every input its own tensor: inputs that share storage would key
+        # another specialization than the wave's
+        zeros = lambda *shape: self._tensor(np.zeros(shape, np.int32))  # noqa: E731
+        runners = [(self.runner, self.params, self.cache)]
+        if self.draft_runner is not None:
+            runners.append((self.draft_runner, self.draft_params, self.draft_cache))
+        buckets = sorted({self.ladder.bucket_for(int(L)) for L in prompt_lens})
+        chunks = self.chunk_ladder.rungs if (self.chunk_tokens < self.max_seq or self.prefix is not None) else ()
+        for _ in range(2):
+            for i, (runner, params, cache) in enumerate(runners):
+                calls = [(runner.prefill_cfn, (zeros(1, b), zeros(b // ps)), (self._scalar(0),)) for b in buckets]
+                calls += [(runner.chunk_cfn, (zeros(1, c), zeros(1, npm)), (self._scalar(0), self._scalar(0)))
+                          for c in chunks]
+                if self.spec_k and i == 0:
+                    calls.append((runner.verify_cfn, (zeros(B, self.spec_k + 1),), (zeros(B, npm), zeros(B))))
+                elif self.spec_k or i == 0:
+                    calls.append((runner.decode_cfn, (zeros(B, 1),), (zeros(B, npm), zeros(B))))
+                for cfn, head, tail in calls:
+                    _, kps, vps = cfn(params, *head, cache.k_pages, cache.v_pages, *tail)
+                    cache.rebind(kps, vps)
+        for L in prompt_lens:
+            self.submit(np.zeros((int(L),), np.int32), max_new_tokens)
+        self.drain()
 
     def stats(self) -> dict:
         usable = self.cache.n_pages - 1

@@ -3,14 +3,25 @@
 thunder_tpu/training.py:TrainStep, single-device path. thunder_tpu traces the
 whole step — prologue-checked forward, backward, optimizer update — into one
 ``jax.jit`` program that donates the parameters and optimizer state. Here
-the step runs op by op: the forward and backward programs that autodiff
-builds (transforms/autodiff.py), then the optimizer's in-place update
-(optim.py). The parameters live in the module and are written in place, so
+the step is the forward and backward programs that autodiff builds
+(transforms/autodiff.py), then the optimizer's in-place update (optim.py).
+The parameters live in the module and are written in place, so
 ``step(*batch) -> loss`` leaves the module trained. Buffers the forward
 writes (fp8 amax histories) are replayed onto the module after the update,
 as thunder_tpu replays the step's effect outputs; buffers ride in the frozen
-argument, read fresh each step. Capturing the step in a CUDA graph (the
-counterpart of the jit) is later work.
+argument, read fresh each step.
+
+On the card the whole step is one CUDA graph (``cuda_graphs=True``, the
+default; executors/graphex.py), the counterpart of thunder_tpu's one
+``jax.jit``: the first call of a batch signature runs op by op, the second
+captures forward, backward, the update and the buffer writes (written into
+the module's buffers), later calls replay. Parameters, buffers and the
+optimizer state are read and written in place; the batch is copied into
+the graph's buffers; the loss comes back as the caller's tensor. CPU
+tensors run op by op. ``buckets=`` (a ``BucketLadder``) pads each batch
+leaf along ``bucket_axis`` to its rung (``compile_service.pad_to_bucket``,
+fill values from ``bucket_pad``, e.g. -100 for targets), so every length in
+a rung is one program and one graph.
 
 Distributed plans (parallel/): a module wrapped by ``ddp`` and/or
 ``context_parallel`` carries a ``_dist_plan``, and its step is one program
@@ -25,10 +36,17 @@ loss_world_size`` — the loss every rank gets back. The plan rides on the
 module, so ``mesh_plan=`` (which thunder_tpu stores and never reads)
 raises NotImplementedError naming ``ddp``/``context_parallel``.
 
-Not ported yet: the step guard, SLO monitoring, bucketed lowering, the AOT
-executable cache and no_sync gradient accumulation (``micro_step``).
-Asking for one of the arguments or for ``micro_step`` raises
-NotImplementedError naming it."""
+A distributed step is captured too when its collectives capture on the
+rank: a one-rank NCCL group's do. Asking for capture of a step over a
+multi-rank group raises NotImplementedError naming ROADMAP A3b (pass
+``cuda_graphs=False``); over Gloo (the CPU) it runs op by op. Before a
+capture the forward and backward traces are checked as ``jit``'s are
+(graphex.check_capturable): a host sync or host-side effect raises, naming
+the symbol.
+
+Not ported yet: the step guard, SLO monitoring, the AOT executable cache
+and no_sync gradient accumulation (``micro_step``). Asking for one of the
+arguments or for ``micro_step`` raises NotImplementedError naming it."""
 from __future__ import annotations
 
 import contextlib
@@ -36,7 +54,9 @@ import contextlib
 import torch
 
 from .common import apply_effects
+from .compile_service.buckets import BucketLadder, pad_to_bucket
 from .core.pytree import tree_flatten, tree_unflatten
+from .executors import graphex
 from .nn.module import ThunderModule
 
 
@@ -47,17 +67,21 @@ class TrainStep:
     returns a scalar loss."""
 
     def __init__(self, loss_module, optimizer, *, mesh_plan=None, guard=None, slo=None,
-                 buckets=None, bucket_pad=None):
+                 buckets=None, bucket_pad=None, bucket_axis: int = 1, cuda_graphs: bool = True):
         from . import jit as _jit
 
         if mesh_plan is not None:
             raise NotImplementedError(
                 "TrainStep(mesh_plan=...) is not read: the distributed plan rides on the "
                 "module (parallel.ddp / parallel.context_parallel)")
-        for name, value in (("guard", guard), ("slo", slo), ("buckets", buckets),
-                            ("bucket_pad", bucket_pad)):
+        for name, value in (("guard", guard), ("slo", slo)):
             if value is not None:
                 raise NotImplementedError(f"TrainStep({name}=...) is not ported yet")
+        if buckets is not None and not isinstance(buckets, BucketLadder):
+            raise TypeError(f"TrainStep(buckets=...) takes a BucketLadder, got {type(buckets).__name__}")
+        if bucket_pad is not None and not isinstance(bucket_pad, dict):
+            raise TypeError(f"TrainStep(bucket_pad=...) takes a dict of fill values by argument, "
+                            f"got {type(bucket_pad).__name__}")
         if isinstance(loss_module, torch.nn.Module):
             loss_module = _jit(loss_module)
         if not isinstance(loss_module, ThunderModule):
@@ -68,6 +92,12 @@ class TrainStep:
         self._vag = None
         self._pairs = None
         self._step_count = 0
+        self.buckets = buckets
+        self.bucket_pad = dict(bucket_pad or {})
+        self.bucket_axis = bucket_axis
+        self.cuda_graphs = cuda_graphs
+        self._programs: dict = {}  # batch signature -> graphex.CUDAGraphProgram
+        self._pool = graphex.GraphPool()
 
     @property
     def _cs(self):
@@ -132,7 +162,22 @@ class TrainStep:
                                         executors=cd.executors)
         self._vag.defer_effects = True  # replayed by __call__ after the update
 
+    def _bucketize(self, args, kwargs):
+        """Pad batch leaves to the ladder's rung (thunder_tpu's _bucketize):
+        every length in a rung then has one cache key, one program and one
+        graph. The rung's traffic is recorded as the serving engine records
+        its prefill buckets."""
+        if self.buckets is None:
+            return args, kwargs
+        for a in args:
+            shape = getattr(a, "shape", None)
+            if shape is not None and len(shape) > self.bucket_axis:
+                self.buckets.touch(int(shape[self.bucket_axis]))
+                break
+        return pad_to_bucket(args, kwargs, self.buckets, axis=self.bucket_axis, pad_values=self.bucket_pad)
+
     def __call__(self, *args, **kwargs):
+        args, kwargs = self._bucketize(args, kwargs)
         tparams, frozen = self._split()
         plan = self._plan
         if plan is not None:
@@ -144,9 +189,20 @@ class TrainStep:
             self.opt_state = self.optimizer.init(tparams)
         if self._vag is None:
             self._build()
+        first = next(iter(tparams.values()), None)
+        if self.cuda_graphs and first is not None and graphex.captures_on(first.device):
+            loss = self._graphed(tparams, frozen, args, kwargs)
+        else:
+            loss = self._step(tparams, frozen, args, kwargs, in_place=False)
+        self._step_count += 1
+        return loss
+
+    def _step(self, tparams, frozen, args, kwargs, in_place: bool):
+        """Forward, backward, the update, then the forward's buffer writes
+        (into the module's buffers when ``in_place``: a CUDA graph's)."""
         loss, grads = self._vag(tparams, frozen, args, kwargs)
         pending = self._vag.consume_pending_effects()
-        if plan is not None and pending is not None:
+        if self._plan is not None and pending is not None:
             raise NotImplementedError(
                 "buffer mutations (e.g. BatchNorm running stats) inside a "
                 "distributed TrainStep are not supported yet — stats would "
@@ -154,9 +210,41 @@ class TrainStep:
                 "or train without a mesh plan")
         self.optimizer.update(tparams, grads[0][0], self.opt_state)
         if pending is not None:
-            apply_effects(*pending)
-        self._step_count += 1
+            apply_effects(*pending, in_place=in_place)
         return loss
+
+    def _graphed(self, tparams, frozen, args, kwargs):
+        """The step as one CUDA graph per batch signature. Inputs: the
+        parameters, buffers and optimizer state (in place), then the batch's
+        tensors (copied into the graph's buffers)."""
+        from . import _cache_key
+
+        leaves, treedef = tree_flatten((args, kwargs))
+        is_t = [isinstance(x, torch.Tensor) for x in leaves]
+        state = [t for t in tree_flatten(self.opt_state)[0] if isinstance(t, torch.Tensor)]
+        resident = [*tparams.values(), *frozen.values(), *state]
+        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t))
+        prog = self._programs.get(key)
+        if prog is None:
+            nt, nf, nr = len(tparams), len(frozen), len(resident)
+
+            def step(*flat):
+                tp = dict(zip(tparams, flat[:nt]))
+                fz = dict(zip(frozen, flat[nt:nt + nf]))
+                batch = iter(flat[nr:])
+                a, kw = tree_unflatten([next(batch) if t else x for x, t in zip(leaves, is_t)], treedef)
+                return self._step(tp, fz, a, kw, in_place=True)
+
+            prog = self._programs[key] = graphex.CUDAGraphProgram(
+                step, name="TrainStep", in_place=[True] * nr + [False] * sum(is_t), pool=self._pool,
+                stats=self._vag._cs, check=self._check_capturable)
+        return prog(*resident, *(x for x, t in zip(leaves, is_t) if t))
+
+    def _check_capturable(self):
+        """The forward and backward traces of the last compile hold nothing
+        a graph cannot (graphex.check_capturable raises, naming it)."""
+        graphex.check_capturable(self._cs.last_traces[-1], "TrainStep forward")
+        graphex.check_capturable(self._cs.last_backward_traces[-1], "TrainStep backward")
 
     def micro_step(self, *args, **kwargs):
         raise NotImplementedError("TrainStep.micro_step (no_sync gradient accumulation) is not "

@@ -36,7 +36,7 @@ import torch
 from ..core import dtypes
 from ..core.proxies import TensorProxy
 from ..core.transform_common import Transform
-from ..executors import cudaex
+from ..executors import cudaex, graphex
 from ..extend import StatefulExecutor, register_executor
 from ..nn.module import update_buffer
 from .autodiff import VJPResult, register_augmented_forward, register_backward
@@ -47,6 +47,8 @@ E5M2_MAX = 57344.0
 # which backward product ran, counted per product: "scaled_mm" on the card,
 # "f32" (widened codes) on the CPU or for shapes _scaled_mm refuses
 BACKWARD_ROUTES = {"scaled_mm": 0, "f32": 0}
+for _route in BACKWARD_ROUTES:
+    graphex.register_counter(BACKWARD_ROUTES, _route)  # a CUDA-graph replay counts its routes
 
 
 class FP8Recipe:

@@ -163,8 +163,9 @@ def adamw_ab(dev, gen) -> None:
         nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16) for p, g in zip(ps, gs))
         b, by = cs.bound_ms(nbytes, 15 * sum(p.numel() for p in ps), "float32")
         step = iter(range(1, 10 ** 6))
+        step_t = torch.ones((), dtype=torch.int32, device=dev)  # the kernel reads its step on the card
         fns = {"chain": lambda *a: cudaex.adamw_plain(*a, step=next(step), **h),
-               "kernel": lambda *a: cudaex.adamw_update(*a, step=next(step), **h)}
+               "kernel": lambda *a: cudaex.adamw_update(*a, step=step_t, **h)}
         turns = {}
         for name in ("chain", "kernel", "kernel", "chain"):
             turns.setdefault(name, []).append(cs.cuda_ms(fns[name], [args], iters=5)[0])
