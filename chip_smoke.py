@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
-eval, remat, MoE serve and train, context-parallel train, agree.
+eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
+ResNet-50 train and eval, agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -244,6 +245,46 @@ Phases, each printing one JSON line:
                within MOE_PARAM_ATOL (flip-prone elements within
                ADAMW_FLIP_ATOL), as moe_train_agreement; then the CP step
                captured against op by op over 3 new batches, bit for bit.
+25. vit_train — TrainStep(jit(ViTForClassification(vit-b16),
+               [AutocastTransform()]), AdamW(lr=1e-4)) at B=64, 224x224
+               (patch 16: T=197, 12 heads of 64, full attention), full width
+               and depth, random images and labels from --seed: compile, 2
+               warm-up and 10 timed steps (ms, images/s, MFU from the
+               trace's shapes, peak memory), tt_flash_fwd and tt_flash_bwd
+               12 x 10 each and AdamW 10 between zeroed counters, 0
+               captures; vit_train_profile over 2 steps; the same-call pair;
+               the hand-written baseline (F.conv2d, F.layer_norm,
+               F.scaled_dot_product_attention) on the same weights, in
+               turns with the captured step (baseline, port, port,
+               baseline).
+26. vit_eval — the eval-mode forward loss with no gradient, bf16, B=64:
+               the cross-entropy kernel claims the (64, 1000) logits, once;
+               within VIT_EVAL_RTOL of F.cross_entropy on the same logits.
+27. vit_train_agreement — f32, TF32 off, vit-b16's width at depth 2, B=8:
+               3 steps against the hand-written step with written-out
+               attention (losses within LOSS_RTOL, parameters within
+               PARAM_ATOL), then captured against op by op, bit for bit,
+               cuDNN deterministic.
+28. resnet_train — TrainStep(jit(ResNetLoss(resnet50)),
+               [AutocastTransform()]), SGD(lr=0.1, momentum=0.9,
+               weight_decay=1e-4): torchvision's recipe) at B=64, 224x224,
+               full width and depth: as vit_train (every BatchNorm's f32
+               running stats written each step), its profile, the pair and
+               the captured step in turns with a hand-written
+               F.conv2d/F.batch_norm baseline.
+29. resnet_train_agreement — f32, TF32 off, cuDNN deterministic, resnet50's
+               widths at one bottleneck a stage, B=8: a train-mode forward
+               and 3 steps against the hand-written step, with AdamW
+               (losses, parameters and running stats held) and with the
+               recipe's SGD at lr 1e-3 (losses and running stats held, the
+               parameters against the hand-written step in f64: no farther
+               than SGD_F64_RATIO times the f32 hand-written step);
+               model.eval() retraces once and matches the hand-written eval
+               forward; then the recipe's SGD road captured against op by
+               op, bit for bit, running stats included.
+The kernels phase also holds the RoPE-free flash pair at vit_train's shape
+(B=64, H=12, T=197, D=64, full) and over a ragged sweep (T of 50, 197,
+257; flash_ragged_full), each against the plain versions.
 CUDA graphs (executors/graphex.py). Every train, serve and inference
 phase runs captured: TrainStep's whole step is one graph from its second
 call, each engine's programs are captured by ServingEngine.warmup before its
@@ -806,10 +847,17 @@ def check_chunk(cudaex, dev, gen) -> dict:
 FLASH_SHAPES = {"llama-350m": dict(B=4, H=16, Hkv=16, T=2048, D=64),
                 "llama-1b": dict(B=1, H=16, Hkv=4, T=2048, D=128)}
 # The RoPE-free kernels (sdpa's claim): NanoGPT-124M's attention at the
-# nano_train shape, and llama-1b's GQA heads, causal and full.
+# nano_train shape, llama-1b's GQA heads, causal and full, and ViT-B/16's at
+# vit_train's (B=64, T=197 = 196 patches + the class token, full: two
+# 128-row query tiles cover 256 rows, so ~23 % of the tiles' rows are past
+# the ragged edge).
 PLAIN_FLASH_ROWS = {"nanogpt-124m": (dict(B=8, H=12, Hkv=12, T=1024, D=64), True),
                     "llama-1b": (dict(B=1, H=16, Hkv=4, T=2048, D=128), True),
-                    "llama-1b-full": (dict(B=1, H=16, Hkv=4, T=2048, D=128), False)}
+                    "llama-1b-full": (dict(B=1, H=16, Hkv=4, T=2048, D=128), False),
+                    "vit-b16": (dict(B=64, H=12, Hkv=12, T=197, D=64), False)}
+# A ragged sweep at ViT's heads, full attention: T of 50, 197 and 257 against
+# the 64- and 128-row tiles, each held against the plain versions.
+VIT_RAGGED_T = (50, 197, 257)
 
 
 def flash_inputs(dev, gen, dt, B, H, Hkv, T, D):
@@ -939,6 +987,7 @@ def check_flash(cudaex, dev, gen, rope: bool = True) -> tuple[dict, dict]:
             err = max(e[0] for e in fwd)
             scaled = max(e[1] for e in fwd)
             res["fwd"]["errs"].append(err)
+            res["fwd"].setdefault("label_errs", {}).setdefault(label, []).append(err)
             res["fwd"]["cases"].append({"shape": label, "dtype": dname(dt), "max_abs_err": err,
                                         "max_err_over_max1": scaled, "o": o_err, "lse": lse_err,
                                         "tolerance": FLASH_GRAD_TOL[dname(dt)],
@@ -948,6 +997,7 @@ def check_flash(cudaex, dev, gen, rope: bool = True) -> tuple[dict, dict]:
                 raise AssertionError(f"{name}_fwd {label} {dt}: errors {scaled}, o {o_err}, lse {lse_err}")
             err = max(e[0] for e in bwd.values())
             res["bwd"]["errs"].append(err)
+            res["bwd"].setdefault("label_errs", {}).setdefault(label, []).append(err)
             res["bwd"]["cases"].append({"shape": label, "dtype": dname(dt), "max_abs_err": err,
                                         "max_err_over_max1": bwd_max1,
                                         "tolerance": FLASH_GRAD_TOL[dname(dt)], **bwd})
@@ -1007,7 +1057,40 @@ def check_flash(cudaex, dev, gen, rope: bool = True) -> tuple[dict, dict]:
              timing_bf16=res[kind]["timing"],
              errs_are="[max abs, max/max|ref|, l2/l2 ref, worst row l2/l2 ref]")
         out[kind] = dict(max_abs_err=max(res[kind]["errs"]), shape=shape, **res[kind]["timing"][main])
+        # every row with its own error, for the kernels line
+        out[kind]["rows"] = {label: dict(max_abs_err=max(res[kind]["label_errs"][label]), **timing)
+                             for label, timing in res[kind]["timing"].items()}
     return out["fwd"], out["bwd"]
+
+
+def check_flash_ragged(cudaex, dev, gen) -> dict:
+    """The RoPE-free flash pair at ViT's heads (H=12, D=64), full attention,
+    B=2, over VIT_RAGGED_T, in bf16 and f32: o, lse, dq, dk, dv against the
+    plain versions at check_flash's bars (KERNEL_TOL; FLASH_GRAD_TOL on
+    grad_err's measures; lse at FLASH_LSE_TOL)."""
+    fk = FlashKernels(cudaex, False, False)
+    cases = []
+    for T in VIT_RAGGED_T:
+        for dt in (torch.bfloat16, torch.float32):
+            a = flash_inputs(dev, gen, dt, B=2, H=12, Hkv=12, T=T, D=64)
+            o, lse = fk.fwd(*fk.fwd_args(a))
+            grads = fk.bwd(*fk.bwd_args(a, o, lse))
+            ro, rlse = fk.fwd_plain(*fk.fwd_args(a))
+            ref = fk.bwd_plain(*fk.bwd_args(a, o, lse))
+            o_err, lse_err = grad_err(o, ro), (lse - rlse).abs().max().item()
+            bwd = {n: grad_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+            scaled = max(flash_err(o, ro)[1], flash_err(lse, rlse)[1],
+                         *(flash_err(g, r)[1] for g, r in zip(grads, ref)))
+            tol = FLASH_GRAD_TOL[dname(dt)]
+            case = dict(T=T, dtype=dname(dt), o=o_err, lse=lse_err, max_err_over_max1=scaled, tolerance=tol,
+                        **bwd)
+            cases.append(case)
+            if (not scaled <= KERNEL_TOL[dname(dt)] or not max(o_err[1:]) <= tol or not lse_err <= FLASH_LSE_TOL
+                    or not max(max(e[1:]) for e in bwd.values()) <= tol):
+                raise AssertionError(f"flash ragged full attention T={T} {dt}: {case}")
+    emit("kernels", kernel="flash_ragged_full", shape="B=2 H=12 D=64 full", cases=cases,
+         errs_are="[max abs, max/max|ref|, l2/l2 ref, worst row l2/l2 ref]")
+    return {"cases": cases}
 
 
 # Fused cross-entropy: NanoGPT-124M's LM head at the nano_eval shape (B·T =
@@ -2470,6 +2553,8 @@ def train(tt, cudaex, seed) -> dict:
 KERNEL_KINDS = (
     ("collective", ("nccl",)),
     ("attention", ("flash_fwd_", "flash_bwd_", "ring_bwd_")),
+    ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "nchwToNhwc", "nhwcToNchw")),
+    ("pooling", ("max_pool", "avg_pool")),
     ("fp8_linear", ("fp8_linear_",)),
     ("grouped_mlp", ("grouped_mlp_",)),
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
@@ -3427,16 +3512,19 @@ def captured_against_op_by_op(tt, phase: str, make, batches, counters) -> dict:
     model), from the same weights each time) run op by op and captured (its
     first step op by op, then one capture and replays) over ``batches``, a
     new batch each step. f32, TF32 off, the same kernels in the same order:
-    losses and parameters must be bit-equal and each counter's launches
-    equal. A value read on the host and baked into the capture (a group size,
-    a routing count) would show from the second batch on."""
+    losses, parameters and buffers (the running stats, MoE counts and the
+    like that a step writes; constant ones compare equal) must be bit-equal
+    and each counter's launches equal. A value read on the host and baked
+    into the capture (a group size, a routing count) would show from the
+    second batch on."""
     runs = {}
     for graphs in (False, True):
         step, model = make(graphs)
         n0 = [c.launches for c in counters]
         losses = [float(step(*b)) for b in batches]
+        state = [*model.named_parameters(), *model.named_buffers()]
         runs[graphs] = dict(losses=losses, launches=[c.launches - n for c, n in zip(counters, n0)],
-                            params={k: p.detach().clone() for k, p in model.named_parameters()},
+                            params={k: p.detach().clone() for k, p in state},
                             **graph_stats(tt, [step]))
         del step, model
     got, want = runs[True], runs[False]
@@ -3941,6 +4029,560 @@ def cp_train_agreement(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-29: vision — ViT-B/16 and ResNet-50 through the captured
+# TrainStep, ViT's eval loss, and their f32 agreements
+# ---------------------------------------------------------------------------
+
+VIT_B = 64
+RESNET_B = 64
+# torchvision's ResNet recipe (named, not fetched): SGD, lr 0.1, momentum 0.9,
+# weight decay 1e-4
+RESNET_SGD = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+# resnet_train_agreement's SGD road: the recipe's momentum and weight decay
+# at a rate where the loss does not run away over 3 steps at its B=8 (at
+# 0.1 it rises over the 3 steps, and the two f32 roads part with it).
+RESNET_AGREE_SGD = dict(RESNET_SGD, lr=1e-3)
+# PARAM_ATOL counts AdamW's moves, ±lr whatever the gradient. An SGD move is
+# lr times the momentum buffer, a sum of gradients with no bound of its own,
+# and a ReLU, pool or BatchNorm decision taken otherwise moves a gradient
+# element by its whole upstream value. So the SGD road is held against the
+# exact answer, the hand-written step in f64: each tensor's distance from it
+# over that tensor's move there, worst and median over the tensors, at most
+# SGD_F64_RATIO times the hand-written f32 step's. A wrong rate, sign or
+# momentum misses by a large share of the move (no momentum: 2.61 of a
+# steady gradient's 5.61 lr over 3 steps), where two f32 roads share most
+# of their rounding.
+SGD_F64_RATIO = 2.0
+
+
+def image_batch(B, size, classes, seed, dev="cuda"):
+    """Random images (B, 3, size, size) f32 and labels (B,) int64 from a
+    numpy seed."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.standard_normal((B, 3, size, size)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, classes, (B,)).astype(np.int64)).to(dev)
+    return x, y
+
+
+def trace_matmul_ops(trace) -> float:
+    """Forward operations of a claimed trace's convolutions, linears and
+    matmuls from their shapes: 2 per multiply-add (the attention that the
+    flash kernels run is counted apart)."""
+    from thunder_tpu_torch.core.prims import PrimIDs
+
+    ops = 0.0
+    for b in trace.bound_symbols:
+        if b.sym.id == PrimIDs.CONVOLUTION:
+            a, w = b.args[0], b.args[1]
+            ops += 2 * math.prod(b.output.shape) * math.prod(w.shape[1:])
+        elif b.sym.id == PrimIDs.LINEAR:
+            ops += 2 * math.prod(b.output.shape) * b.args[0].shape[-1]
+        elif b.sym.id == PrimIDs.MATMUL:
+            ops += 2 * math.prod(b.output.shape) * b.args[0].shape[-1]
+    return ops
+
+
+def vision_bound(fwd_trace, model, attn_fwd_ops: float, state_bytes_per_param: int, batch_bytes: int) -> dict:
+    """The least time of one vision train step, from shapes: 3x the forward
+    trace's conv/linear/matmul operations (forward, input and weight
+    gradients) plus 3.5x the full attention's forward 4·B·H·T²·hs
+    (step_bound's count); bytes: the f32 parameters and the optimizer's
+    state read and written once, the batch read once."""
+    ops = 3 * trace_matmul_ops(fwd_trace) + 3.5 * attn_fwd_ops
+    n_all = sum(p.numel() for p in model.parameters())
+    b, by = bound_ms(2 * state_bytes_per_param * n_all + batch_bytes, ops, "bfloat16")
+    return dict(model_ops_per_step=ops, bound_ms=b, bound_by=by)
+
+
+def vision_train(tt, cell: str, step, model, x, y, counters, want: dict, n_steps: int = 10) -> dict:
+    """A vision TrainStep's timed run, as train and nano_train time theirs:
+    the first call timed as compile, 2 warm-up steps (capture, replay),
+    then the counters zeroed and n_steps timed steps, which must replay with
+    no capture and launch each counter ``want[name]`` times; losses finite
+    and falling."""
+    reset_peak_memory()
+    t0 = time.perf_counter()
+    first = float(step(x, y))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    graphs0 = graph_stats(tt, [step])
+    step_s, losses = timed_steps(lambda: step(x, y), 0, n_steps)
+    launches = {c.__name__: c.launches for c in counters}
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    if graphs != {"graph_captures": 0, "graph_replays": n_steps}:
+        raise AssertionError(f"{cell}: the timed steps ran {graphs}, want {n_steps} replays and no capture")
+    if launches != {k: v * n_steps for k, v in want.items()}:
+        raise AssertionError(f"{cell}: launches {launches} over {n_steps} steps, want {want} a step")
+    losses = [first] + losses
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cell} losses {losses}")
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    return dict(steps=n_steps, ms_per_step=step_s * 1e3, images_per_s=x.shape[0] / step_s,
+                compile_s=compile_s, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+                launches=launches, launches_per_step={k: v / n_steps for k, v in launches.items()},
+                ops_per_step={name: sum(1 for b in t if b.sym.name not in ("python_del", "python_return"))
+                              for name, t in (("forward", fwd), ("backward", bwd))}, **graphs)
+
+
+def vit_reference_loss(params: dict, cfg, x, y, attention, linear=None):
+    """ViT's loss written out in plain torch ops over ViTForClassification's
+    parameter dict (models/vit.py's module math): F.conv2d patchify,
+    F.layer_norm, erf GELU, ``attention(q, k, v)`` on (B, H, T, hs) heads."""
+    F = torch.nn.functional
+    p = lambda n: params[f"vit.{n}"]  # noqa: E731
+    B, C, nh = x.shape[0], cfg.dim, cfg.heads
+    h = F.conv2d(x, p("patch_embed.proj.weight"), p("patch_embed.proj.bias"), stride=cfg.patch_size)
+    h = torch.cat([p("cls_token").expand(B, 1, C), h.flatten(2).transpose(1, 2)], 1) + p("pos_embed")
+    for i in range(cfg.depth):
+        w = lambda n: params[f"vit.blocks.{i}.{n}"]  # noqa: E731
+        a = F.layer_norm(h, (C,), w("norm1.weight"), w("norm1.bias"), 1e-5)
+        q, k, v = F.linear(a, w("attn.qkv.weight"), w("attn.qkv.bias")).split(C, -1)
+        q, k, v = (t.reshape(B, -1, nh, C // nh).transpose(1, 2) for t in (q, k, v))
+        o = attention(q, k, v).transpose(1, 2).reshape(B, -1, C)
+        h = h + F.linear(o, w("attn.proj.weight"), w("attn.proj.bias"))
+        m = F.layer_norm(h, (C,), w("norm2.weight"), w("norm2.bias"), 1e-5)
+        h = h + F.linear(F.gelu(F.linear(m, w("fc1.weight"), w("fc1.bias"))), w("fc2.weight"), w("fc2.bias"))
+    h = F.layer_norm(h, (C,), p("norm.weight"), p("norm.bias"), 1e-5)
+    return F.cross_entropy(F.linear(h[:, 0], p("head.weight"), p("head.bias")).float(), y.long())
+
+
+def plain_full_attention(q, k, v):
+    """Full (non-causal) softmax attention written out."""
+    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return torch.matmul(torch.softmax(s, -1), v)
+
+
+def sdpa_full_attention(q, k, v):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def vit_attention_ops(cfg, B) -> float:
+    T = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    return cfg.depth * 4 * B * cfg.heads * T * T * (cfg.dim // cfg.heads)
+
+
+def vit_train(tt, cudaex, seed) -> tuple:
+    """TrainStep(jit(ViTForClassification(vit-b16), [AutocastTransform()]),
+    AdamW(lr=1e-4)) at B=64 (224x224, patch 16: T=197, 12 heads of 64),
+    full width and depth: compile, 2 warm-up and 10 timed steps on one
+    batch; tt_flash_fwd and tt_flash_bwd 12 a step each (full attention),
+    the AdamW kernel once. Then its profile, the same-call pair and the
+    captured step in turns with the hand-written baseline (F.conv2d,
+    F.layer_norm, F.scaled_dot_product_attention)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.vit import ViTForClassification, configs
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    cfg = configs["vit-b16"]
+    B = VIT_B
+    model = ViTForClassification(cfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), optim.AdamW(lr=TRAIN_LR))
+    x, y = image_batch(B, cfg.image_size, cfg.num_classes, seed)
+    counters = (cudaex.flash_attention, cudaex.flash_attention_backward, cudaex.adamw_update)
+    run = vision_train(tt, "vit_train", step, model, x, y, counters,
+                       {"flash_attention": cfg.depth, "flash_attention_backward": cfg.depth, "adamw_update": 1})
+    fwd = tt.last_traces(step)[-1].bound_symbols
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    claims = {"forward": sum(b.impl is cudaex._flash_fwd_impl for b in fwd),
+              "backward": sum(b.impl is cudaex._flash_bwd_impl for b in bwd)}
+    if claims != {"forward": cfg.depth, "backward": cfg.depth}:
+        raise AssertionError(f"the ViT step's flash claims are {claims}")
+    bound = vision_bound(tt.last_traces(step)[-1], model, vit_attention_ops(cfg, B), 3 * 4, x.numel() * 4)
+    T = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    out = dict(model="vit-b16", depth=cfg.depth, B=B, T=T, image_size=cfg.image_size,
+               dtype="bf16 autocast, f32 master", optimizer="AdamW(lr=1e-4)", **run,
+               mfu=bound["model_ops_per_step"] / (run["ms_per_step"] / 1e3) / PEAK_OPS["bfloat16"], **bound,
+               claims=claims)
+    emit("vit_train", **out)
+    out["profile"] = train_profile(step, x, y, "vit_train_profile")
+    train_pair("vit_train", step, x, y, counters)
+
+    def make_baseline():
+        params = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+        opt = ReferenceAdamW(list(params.values()), TRAIN_LR)
+
+        def base_step():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss = vit_reference_loss(params, cfg, x, y, sdpa_full_attention)
+            opt.step(torch.autograd.grad(loss, opt.params))
+            return loss.detach()
+        return base_step
+
+    out["baseline"] = against_baseline(tt, "vit_train_baseline", step, x, y, make_baseline, B,
+                                       bound["model_ops_per_step"])
+    del step
+    torch.cuda.empty_cache()
+    return out, model
+
+
+def against_baseline(tt, phase, step, x, y, make_baseline, B, model_ops, n_steps: int = 10) -> dict:
+    """The captured TrainStep and a hand-written plain-PyTorch step
+    (``make_baseline()`` -> its step, over detached copies of the weights:
+    bf16 autocast, torch autograd, the reference optimizer) timed in turns,
+    twice each: baseline, port, port, baseline; n_steps a run after 2
+    untimed steps, wall ms a step (host clock, synchronized). Only the
+    baseline's speed is read. Its host time moves between runs, so each run
+    is reported; the port's runs must replay with no capture. The
+    baseline's peak memory is read above what the port's step holds."""
+    resident = torch.cuda.memory_allocated()
+    reset_peak_memory()
+    base_step = make_baseline()
+    graphs0 = graph_stats(tt, [step])
+    runs = []
+    for road in ("baseline", "port", "port", "baseline"):
+        step_s, losses = timed_steps(base_step if road == "baseline" else lambda: step(x, y), 2, n_steps)
+        runs.append(dict(road=road, ms_per_step=step_s * 1e3, images_per_s=B / step_s,
+                         mfu=model_ops / step_s / PEAK_OPS["bfloat16"], losses=losses))
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    if graphs != {"graph_captures": 0, "graph_replays": 2 * (2 + n_steps)}:
+        raise AssertionError(f"{phase}: the port's runs ran {graphs}")
+    out = dict(rounds=runs, baseline_ms_per_step=[r["ms_per_step"] for r in runs if r["road"] == "baseline"],
+               port_ms_per_step=[r["ms_per_step"] for r in runs if r["road"] == "port"],
+               baseline_peak_memory_gb=(torch.cuda.max_memory_allocated() - resident) / 1e9, **graphs)
+    emit(phase, **out)
+    del base_step
+    torch.cuda.empty_cache()
+    return out
+
+
+VIT_EVAL_RTOL = NANO_EVAL_RTOL
+
+
+def vit_eval(tt, cudaex, model, seed) -> dict:
+    """The no-grad forward loss of vit_train's model in eval mode,
+    ``jit(model)(x, labels)`` under autocast at B=64: within VIT_EVAL_RTOL
+    (PERF.md §2's eval-loss bar) of F.cross_entropy on the same program's
+    logits; whether the cross-entropy kernel claims the (64, 1000) bf16
+    logits, and its launches."""
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    cfg = model.vit.cfg
+    B = VIT_B
+    model.eval()
+    x, y = image_batch(B, cfg.image_size, cfg.num_classes, seed + 1)
+    logits = tt.jit(model.vit, transforms=[AutocastTransform()])(x)
+    want = torch.nn.functional.cross_entropy(logits.float(), y).item()
+    fn = tt.jit(model, transforms=[AutocastTransform()])
+    fn(x, y)  # compile
+    torch.cuda.synchronize()
+    cudaex.cross_entropy.launches = 0
+    cudaex.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    loss = fn(x, y).item()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"cross_entropy": cudaex.cross_entropy.launches, "flash_fwd": cudaex.flash_attention.launches}
+    claimed = [b for b in tt.last_traces(fn)[-1].bound_symbols if b.impl is cudaex._cross_entropy_impl]
+    out = dict(model="vit-b16", B=B, dtype="bf16 autocast", mode="eval", ms=ms, loss=loss,
+               f_cross_entropy=want, rel_err=abs(loss - want) / abs(want), rtol=VIT_EVAL_RTOL,
+               launches=launches, cross_entropy_claimed=bool(claimed),
+               logits=f"{tuple(claimed[0].args[0].shape)} {claimed[0].args[0].dtype}" if claimed else None)
+    emit("vit_eval", **out)
+    if launches != {"cross_entropy": 1, "flash_fwd": cfg.depth} or not claimed:
+        raise AssertionError(f"vit eval launches {launches}, claimed {len(claimed)}")
+    if not out["rel_err"] <= VIT_EVAL_RTOL:
+        raise AssertionError(f"vit eval loss {loss} vs F.cross_entropy {want}")
+    return out
+
+
+def held_to(ref: dict, got: dict) -> float:
+    """The largest |got - ref| over every tensor of ``ref``."""
+    return max((got[k].detach().float() - r.detach().float()).abs().max().item() for k, r in ref.items())
+
+
+def vit_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, vit-b16's width (dim 768, 12 heads, MLP 3072, 224x224,
+    patch 16) at depth 2, B=8: 3 steps of the port's TrainStep against the
+    hand-written step (vit_reference_loss with written-out attention,
+    torch autograd, the reference AdamW) from the same weights and batch.
+    Losses within LOSS_RTOL, parameters within PARAM_ATOL. Then the
+    captured road against op by op
+    over 3 new batches, bit-equal; cuDNN pinned to its deterministic
+    algorithms there (the patchify conv's weight gradient may sum with
+    atomics otherwise)."""
+    from dataclasses import replace
+
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.vit import ViTForClassification, configs
+    from thunder_tpu_torch.training import TrainStep
+
+    B, n_steps = 8, 3
+    cfg = replace(configs["vit-b16"], depth=2)
+    model = ViTForClassification(cfg, torch.float32, seed=seed)
+    ref = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+    x, y = image_batch(B, cfg.image_size, cfg.num_classes, seed)
+    step = TrainStep(tt.jit(model), optim.AdamW(lr=TRAIN_LR))
+    opt = ReferenceAdamW(list(ref.values()), TRAIN_LR)
+    n0 = cudaex.flash_attention.launches
+    got = [float(step(x, y)) for _ in range(n_steps)]
+    want = [float(reference_step(ref, opt, cfg, x, y, plain_full_attention, False, loss_fn=vit_reference_loss))
+            for _ in range(n_steps)]
+    if cudaex.flash_attention.launches - n0 != cfg.depth * n_steps:
+        raise AssertionError("the f32 ViT step did not run the flash kernels")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    param_max = held_to(ref, dict(model.named_parameters()))
+    out = dict(model="vit-b16 depth=2", B=B, steps=n_steps, tf32=False, losses=got, reference_losses=want,
+               loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL, param_max_abs=param_max, param_atol=PARAM_ATOL)
+    del step, ref, opt
+
+    def road(graphs):
+        m = ViTForClassification(cfg, torch.float32, seed=seed)
+        return TrainStep(tt.jit(m), optim.AdamW(lr=TRAIN_LR), cuda_graphs=graphs), m
+
+    with cudnn_deterministic():
+        out["captured"] = captured_against_op_by_op(
+            tt, "vit_train_agreement (captured)", road,
+            [image_batch(B, cfg.image_size, cfg.num_classes, seed + 1 + i) for i in range(n_steps)],
+            (cudaex.flash_attention, cudaex.flash_attention_backward, cudaex.adamw_update))
+    emit("vit_train_agreement", **out)
+    if not loss_rel <= LOSS_RTOL or not param_max <= PARAM_ATOL:
+        raise AssertionError(f"vit train agreement: losses {loss_rel}, params {param_max}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms inside the block, the setting
+    restored after it: a bit-for-bit comparison of two runs needs them,
+    since cuDNN's weight-gradient algorithms may sum with atomics."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+class ResNetLoss(torch.nn.Module):
+    """A ResNet's mean cross-entropy over labels: the model a ResNet
+    TrainStep takes (thunder_tpu's tests wrap theirs alike)."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, y):
+        from thunder_tpu_torch.ops import ltorch
+
+        return ltorch.cross_entropy(self.net(x), y)
+
+
+def resnet_reference_logits(params: dict, buffers: dict, cfg, x, training: bool):
+    """ResNet v1.5's logits written out in plain torch ops over ResNetLoss's
+    parameter and buffer dicts (models/resnet.py's module math): F.conv2d,
+    F.batch_norm (in training mode it writes the running stats in place,
+    momentum 0.1, the variance unbiased), F.relu, F.max_pool2d,
+    F.adaptive_avg_pool2d, F.linear."""
+    F = torch.nn.functional
+
+    def convbn(h, name, stride, pad):
+        h = F.conv2d(h, params[f"net.{name}.conv.weight"], None, stride, pad)
+        return F.batch_norm(h, buffers[f"net.{name}.bn.running_mean"], buffers[f"net.{name}.bn.running_var"],
+                            params[f"net.{name}.bn.weight"], params[f"net.{name}.bn.bias"], training=training,
+                            momentum=0.1, eps=1e-5)
+
+    h = F.max_pool2d(F.relu(convbn(x, "stem", 2, 3)), 3, 2, 1)
+    for i, n_blocks in enumerate(cfg.layers):
+        for j in range(n_blocks):
+            pre, stride = f"stages.{i}.{j}", ((1 if i == 0 else 2) if j == 0 else 1)
+            idn = convbn(h, f"{pre}.down", stride, 0) if f"net.{pre}.down.conv.weight" in params else h
+            if cfg.block == "bottleneck":
+                o = F.relu(convbn(h, f"{pre}.cbr1", 1, 0))
+                o = convbn(F.relu(convbn(o, f"{pre}.cbr2", stride, 1)), f"{pre}.cbr3", 1, 0)
+            else:
+                o = convbn(F.relu(convbn(h, f"{pre}.cbr1", stride, 1)), f"{pre}.cbr2", 1, 1)
+            h = F.relu(o + idn)
+    return F.linear(F.adaptive_avg_pool2d(h, 1).flatten(1), params["net.fc.weight"], params["net.fc.bias"])
+
+
+class ReferenceSGD:
+    """SGD written out as thunder_tpu/optim.py's: g + wd·p, then the
+    momentum buffer m·buf + g (g at the first step), then p - lr·buf."""
+
+    def __init__(self, params: list, lr, momentum, weight_decay):
+        self.params, self.lr, self.m, self.wd = params, lr, momentum, weight_decay
+        self.bufs = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, grads: list):
+        for p, g, b in zip(self.params, grads, self.bufs):
+            b.mul_(self.m).add_(g + self.wd * p)
+            p.sub_(self.lr * b)
+
+
+def resnet_train(tt, cudaex, seed) -> dict:
+    """TrainStep(jit(ResNetLoss(ResNet(resnet50)), [AutocastTransform()]),
+    SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)) at B=64, 224x224, full
+    width and depth (bottleneck v1.5): compile, 2 warm-up and 10 timed
+    steps; every BatchNorm's running stats written each step (f32). No
+    hand-written kernel is on this path (conv, pooling and BatchNorm run
+    as torch ops: cuDNN's convolutions). Then its profile, the same-call
+    pair and the captured step in turns with the hand-written baseline
+    (F.conv2d, F.batch_norm)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.resnet import build, configs
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    cfg = configs["resnet50"]
+    B = RESNET_B
+    model = ResNetLoss(build("resnet50", torch.float32, seed=seed))
+    step = TrainStep(tt.jit(model, transforms=[AutocastTransform()]), optim.SGD(**RESNET_SGD))
+    x, y = image_batch(B, 224, cfg.num_classes, seed)
+    stats0 = model.net.stem.bn.running_var.clone()
+    run = vision_train(tt, "resnet_train", step, model, x, y, (), {})
+    buffers = dict(model.named_buffers())
+    if (torch.equal(stats0, model.net.stem.bn.running_var)
+            or any(b.dtype != torch.float32 for b in buffers.values())):
+        raise AssertionError("resnet_train: the running stats were not written, or are not f32")
+    bound = vision_bound(tt.last_traces(step)[-1], model, 0.0, 2 * 4, x.numel() * 4)
+    out = dict(model="resnet50", B=B, image_size=224, dtype="bf16 autocast, f32 master and running stats",
+               optimizer="SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)", **run,
+               mfu=bound["model_ops_per_step"] / (run["ms_per_step"] / 1e3) / PEAK_OPS["bfloat16"], **bound,
+               batch_norms=sum(1 for k in buffers if k.endswith("running_mean")))
+    emit("resnet_train", **out)
+    out["profile"] = train_profile(step, x, y, "resnet_train_profile")
+    train_pair("resnet_train", step, x, y, ())
+
+    def make_baseline():
+        buffers = {k: b.clone() for k, b in model.named_buffers()}
+        params = {k: p.detach().clone().requires_grad_() for k, p in model.named_parameters()}
+        opt = ReferenceSGD(list(params.values()), **RESNET_SGD)
+
+        def base_step():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss = torch.nn.functional.cross_entropy(
+                    resnet_reference_logits(params, buffers, cfg, x, True).float(), y)
+            opt.step(torch.autograd.grad(loss, opt.params))
+            return loss.detach()
+        return base_step
+
+    out["baseline"] = against_baseline(tt, "resnet_train_baseline", step, x, y, make_baseline, B,
+                                       bound["model_ops_per_step"])
+    del step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def distance_from_f64(start: dict, exact: dict, roads: dict) -> dict:
+    """For each road (name -> parameter dict), each tensor's largest
+    distance from the f64 road's parameters (``exact``) over that tensor's
+    largest move in the f64 road from ``start``; worst and median over the
+    tensors."""
+    out = {}
+    for name, got in roads.items():
+        rel = sorted(((got[k].detach().double() - e).abs().max()
+                      / (e - start[k]).abs().max().clamp(min=1e-30)).item() for k, e in exact.items())
+        out[name] = {"worst": rel[-1], "median": rel[len(rel) // 2]}
+    return out
+
+
+def resnet_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, cuDNN's deterministic algorithms (their sums have one
+    order; the bit-for-bit check below needs it), resnet50's widths with
+    one bottleneck a stage (layers (1, 1, 1, 1)), B=8, 224x224.
+
+    Two roads, each from the same weights and batches as the hand-written
+    step (F.conv2d, F.batch_norm, torch autograd): a train-mode forward of
+    ``jit(model.net)`` (its running-stat writes), then 3 TrainSteps with a
+    new batch each. ``adamw`` (AdamW(lr=1e-4), as every train agreement):
+    losses within LOSS_RTOL, parameters and running stats within
+    PARAM_ATOL. ``sgd`` (the recipe's momentum and weight decay at
+    RESNET_AGREE_SGD's rate): losses within LOSS_RTOL, running stats within
+    PARAM_ATOL, and the parameters no farther from the hand-written step
+    in f64 than SGD_F64_RATIO times the hand-written f32 step is (worst and
+    median tensor). Each road then ``model.eval()``: the same jit function
+    retraces once, and its logits match the hand-written eval forward on
+    the port's own weights and running stats within 1e-4 of the largest.
+    Then the recipe's SGD road captured against op by op over 3 new
+    batches, bit for bit, running stats included."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from thunder_tpu_torch.training import TrainStep
+
+    F = torch.nn.functional
+    B, n_steps = 8, 3
+    cfg = ResNetConfig(block="bottleneck", layers=(1, 1, 1, 1))
+    batches = [image_batch(B, 224, cfg.num_classes, seed + i) for i in range(n_steps + 2)]
+    f32, f64 = torch.float32, torch.float64
+
+    def hand_written(model, dtype, make_ref):
+        params = {k: p.detach().to(dtype).clone().requires_grad_() for k, p in model.named_parameters()}
+        return params, {k: b.to(dtype).clone() for k, b in model.named_buffers()}, make_ref(list(params.values()))
+
+    def hand_step(road, x, y):
+        params, buffers, opt = road
+        loss = F.cross_entropy(resnet_reference_logits(params, buffers, cfg, x.to(opt.params[0].dtype), True), y)
+        opt.step(torch.autograd.grad(loss, opt.params))
+        return loss.item()
+
+    with cudnn_deterministic():
+        out = dict(model="resnet50 layers=(1,1,1,1)", B=B, steps=n_steps, tf32=False, cudnn_deterministic=True)
+        for road, make_opt, make_ref, dtypes in (
+                ("adamw", lambda: optim.AdamW(lr=TRAIN_LR), lambda ps: ReferenceAdamW(ps, TRAIN_LR), (f32,)),
+                ("sgd", lambda: optim.SGD(**RESNET_AGREE_SGD),
+                 lambda ps: ReferenceSGD(ps, **RESNET_AGREE_SGD), (f32, f64))):
+            model = ResNetLoss(ResNet(cfg, torch.float32, seed=seed))
+            start = {k: p.detach().double() for k, p in model.named_parameters()}
+            refs = {dt: hand_written(model, dt, make_ref) for dt in dtypes}
+            fwd = tt.jit(model.net)
+            fwd(batches[0][0])
+            with torch.no_grad():
+                for dt, (params, buffers, _) in refs.items():
+                    resnet_reference_logits(params, buffers, cfg, batches[0][0].to(dt), True)
+            step = TrainStep(tt.jit(model), make_opt())
+            got = [float(step(x, y)) for x, y in batches[1:n_steps + 1]]
+            want = {dt: [hand_step(r, x, y) for x, y in batches[1:n_steps + 1]] for dt, r in refs.items()}
+            params = dict(model.named_parameters())
+            res = dict(losses=got, reference_losses=want[f32],
+                       loss_max_rel=max(abs(a - b) / abs(b) for a, b in zip(got, want[f32])),
+                       running_stats_max_abs=held_to(refs[f32][1], dict(model.named_buffers())))
+            if f64 in refs:
+                res.update(f64_losses=want[f64], distance_from_f64=distance_from_f64(
+                    start, {k: p.detach() for k, p in refs[f64][0].items()},
+                    {"port": params, "reference_f32": refs[f32][0]}))
+            else:
+                res.update(param_max_abs=held_to(refs[f32][0], params))
+            misses = tt.cache_misses(fwd)
+            model.eval()
+            logits = fwd(batches[-1][0])
+            with torch.no_grad():  # on the port's own weights and running stats
+                ref_logits = resnet_reference_logits(params, dict(model.named_buffers()), cfg, batches[-1][0], False)
+            res.update(eval_logits_max_rel=((logits - ref_logits).abs().max() / ref_logits.abs().max()).item(),
+                       eval_retraces=tt.cache_misses(fwd) - misses)
+            out[road] = res
+            del step, refs, params, model, fwd
+        out.update(loss_rtol=LOSS_RTOL, param_atol=PARAM_ATOL, sgd_optimizer=RESNET_AGREE_SGD,
+                   sgd_f64_ratio=SGD_F64_RATIO, eval_rtol=1e-4)
+
+        def road(graphs):
+            m = ResNetLoss(ResNet(cfg, torch.float32, seed=seed))
+            return TrainStep(tt.jit(m), optim.SGD(**RESNET_SGD), cuda_graphs=graphs), m
+
+        out["captured"] = captured_against_op_by_op(
+            tt, "resnet_train_agreement (captured)", road,
+            [image_batch(B, 224, cfg.num_classes, seed + 10 + i) for i in range(n_steps)], ())
+    emit("resnet_train_agreement", **out)
+    adamw, sgd = out["adamw"], out["sgd"]
+    port, plain = sgd["distance_from_f64"]["port"], sgd["distance_from_f64"]["reference_f32"]
+    if (any(not r["loss_max_rel"] <= LOSS_RTOL or not r["running_stats_max_abs"] <= PARAM_ATOL
+            or not r["eval_logits_max_rel"] <= 1e-4 or r["eval_retraces"] != 1 for r in (adamw, sgd))
+            or not adamw["param_max_abs"] <= PARAM_ATOL
+            or not port["worst"] <= SGD_F64_RATIO * plain["worst"]
+            or not port["median"] <= SGD_F64_RATIO * plain["median"]):
+        raise AssertionError(f"resnet train agreement: adamw {adamw}, sgd {sgd}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3972,6 +4614,7 @@ def main() -> int:
     chunk = check_chunk(cudaex, dev, gen)
     flash_fwd, flash_bwd = check_flash(cudaex, dev, gen)
     plain_fwd, plain_bwd = check_flash(cudaex, dev, gen, rope=False)
+    check_flash_ragged(cudaex, dev, gen)
     xent = check_xent(cudaex, dev, gen)
     int8 = check_quant(cudaex, dev, gen, "int8")
     nf4 = check_quant(cudaex, dev, gen, "nf4")
@@ -4016,6 +4659,12 @@ def main() -> int:
         cp_train_agreement(tt, cudaex, args.seed)
     finally:
         multiprocess.destroy()
+    vit, vit_model = vit_train(tt, cudaex, args.seed)
+    vit_eval(tt, cudaex, vit_model, args.seed)
+    del vit_model
+    vit_train_agreement(tt, cudaex, args.seed)
+    resnet_train(tt, cudaex, args.seed)
+    resnet_train_agreement(tt, cudaex, args.seed)
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -4050,7 +4699,13 @@ def main() -> int:
              "thunder_tpu/executors/pallasex.py:2326", cp_trained["launches"]["ring_flash_bwd"]),
             ("adamw", adamw, "thunder_tpu_torch/csrc/adamw.cu",
              "thunder_tpu/optim.py:83 (inside the step's jax.jit; no Pallas kernel)",
-             moe_trained["launches"]["adamw"])):
+             moe_trained["launches"]["adamw"]),
+            ("flash_fwd@vit-b16", dict(plain_fwd["rows"]["vit-b16"], shape="B=64 H=12 T=197 D=64 full bf16"),
+             "thunder_tpu_torch/csrc/flash_fwd_sm90.cu", "thunder_tpu/executors/pallasex.py:134",
+             vit["launches"]["flash_attention"]),
+            ("flash_bwd@vit-b16", dict(plain_bwd["rows"]["vit-b16"], shape="B=64 H=12 T=197 D=64 full bf16"),
+             "thunder_tpu_torch/csrc/flash_bwd_sm90.cu", "thunder_tpu/executors/pallasex.py:423",
+             vit["launches"]["flash_attention_backward"])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],

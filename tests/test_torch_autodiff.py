@@ -146,10 +146,13 @@ def test_rope_sdpa_claims_the_flash_kernels(name, claimed, monkeypatch):
 
 
 def test_unported_fallback_ops_raise_naming_the_op():
-    """thunder_tpu takes var's gradient from jax.vjp; the port raises."""
-    vag = tt.value_and_grad(lambda x: tl.sum(tl.var(x, -1)))
-    with pytest.raises(NotImplementedError, match="var"):
-        vag(torch.rand(3, 4))
+    """thunder_tpu takes scatter's gradient from jax.vjp, and no port path
+    differentiates it yet; the port raises (var has a rule now:
+    tests/test_torch_vision_grads.py)."""
+    vag = tt.value_and_grad(lambda x, s: tl.sum(tl.scatter(x, 0, torch.tensor([[1, 0, 2, 1]]), s)),
+                            argnums=(0,))
+    with pytest.raises(NotImplementedError, match="scatter"):
+        vag(torch.rand(3, 4), torch.rand(1, 4))
 
 
 def test_grad_returns_only_the_gradients():

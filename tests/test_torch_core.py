@@ -116,6 +116,54 @@ def test_tensor_position_does_not_recompile():
     assert (tt.cache_misses(cf), tt.cache_hits(cf)) == (1, 2)
 
 
+class _ModeScale(torch.nn.Module):
+    """w · x, doubled in training mode and tripled in eval mode: a branch on
+    ``self.training`` that no input shows, as BatchNorm's."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(3))
+
+    def forward(self, x):
+        return tl.sum(self.w * x) * (2.0 if self.training else 3.0)
+
+
+def test_mode_flip_retraces_and_a_repeated_mode_hits_the_cache():
+    """The train/eval flags of every submodule are part of the key
+    (thunder_tpu's ``__cache_extra__``): a flip retraces once, a repeated
+    mode hits, for jit, value_and_grad and TrainStep alike. Without them a
+    flip replayed the program traced in the other mode."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.training import TrainStep
+
+    m = torch.nn.Sequential(_ModeScale())
+    x = torch.ones(3)
+    tm = tt.jit(m)
+    assert float(tm(x)) == 6.0
+    m[0].eval()  # a submodule's flag alone
+    assert float(tm(x)) == 9.0 and (tt.cache_misses(tm), tt.cache_hits(tm)) == (2, 0)
+    assert float(tm(x)) == 9.0 and (tt.cache_misses(tm), tt.cache_hits(tm)) == (2, 1)
+    tm.train()
+    assert float(tm(x)) == 6.0 and (tt.cache_misses(tm), tt.cache_hits(tm)) == (2, 2)
+
+    vag = tt.value_and_grad(m)
+    loss, grads = vag(x)
+    m.eval()
+    loss_eval, grads_eval = vag(x)
+    assert (float(loss), float(loss_eval)) == (6.0, 9.0)
+    torch.testing.assert_close(grads_eval["0.w"], 1.5 * grads["0.w"])
+
+    m.train()
+    step = TrainStep(tt.jit(m), optim.SGD(lr=0.0))
+    losses = [float(step(x))]
+    m.eval()
+    losses += [float(step(x)), float(step(x))]
+    m.train()
+    losses.append(float(step(x)))
+    assert losses == [6.0, 9.0, 9.0, 6.0]
+    assert (tt.cache_misses(step), tt.cache_hits(step)) == (2, 2)
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
@@ -131,7 +179,8 @@ def test_port_imports_neither_jax_nor_thunder_tpu():
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"thunder_tpu_torch/transforms/fp8_training.py", "thunder_tpu_torch/transforms/lora.py",
-            "thunder_tpu_torch/extend.py", "thunder_tpu_torch/common.py"} <= names
+            "thunder_tpu_torch/extend.py", "thunder_tpu_torch/common.py",
+            "thunder_tpu_torch/models/vit.py", "thunder_tpu_torch/models/resnet.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "thunder_tpu")]
     assert not bad, bad

@@ -22,10 +22,15 @@ Planted faults show that the checks can fail: a replay that does not
 refresh its copied inputs, an AdamW whose step stays at 1, a capturable
 trace judged so.
 
+A TrainStep over a conv + BatchNorm + max-pool model runs train mode, then
+eval mode: one program and one graph a mode, the running stats written in
+place, bit for bit against op by op.
+
 On the card (``-m gpu``; jax and thunder_tpu are imported only inside the
 CPU tests' fixtures, so ``python -m pytest --noconftest -m gpu
 tests/test_torch_graphs.py`` runs there): an f32 TrainStep captured against
-op by op, bit for bit over 3 steps; index_add (the embedding gradient)
+op by op, bit for bit over 3 steps, and so a tiny ViT and ResNet step
+(cuDNN deterministic); index_add (the embedding gradient)
 the same sum every run; a greedy bf16 engine wave captured
 against op by op, equal streams, equal launch counts, the pools the
 caller's own tensors, no capture or compile after ``warmup``; two
@@ -218,6 +223,51 @@ def test_train_step_on_the_cpu_never_captures():
     cfg, _ = _tiny_llama()
     _, _, step = _train(True, _batches(cfg, 2))
     assert (tt.graph_captures(step), tt.graph_replays(step)) == (0, 0)
+
+
+class _ConvBNLoss(torch.nn.Module):
+    """A ResNet stem in miniature (conv, BatchNorm with its running-stat
+    writes, ReLU, max pool) under a cross-entropy."""
+
+    def __init__(self):
+        super().__init__()
+        from thunder_tpu_torch import nn as tnn
+        from thunder_tpu_torch.models.resnet import ConvBN
+
+        g = torch.Generator().manual_seed(0)
+        self.cbn = ConvBN(3, 4, 3, 2, 1, device="cpu", generator=g)
+        self.fc = tnn.Linear(4 * 16, 5, device="cpu", generator=g)
+
+    def forward(self, x, y):
+        h = tlt.max_pool2d(tlt.relu(self.cbn(x)), 3, 2, 1)
+        return tlt.cross_entropy(self.fc(tlt.reshape(h, (x.shape[0], 4 * 16))), y)
+
+
+def _bn_run(cuda_graphs: bool, batches):
+    model = _ConvBNLoss()
+    step = TrainStep(model, topt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4), cuda_graphs=cuda_graphs)
+    losses = [step(*b).item() for b in batches[:4]]
+    model.eval()
+    losses += [step(*b).item() for b in batches[4:]]
+    state = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    return losses, {k: t.detach().clone() for k, t in state.items()}, step
+
+
+def test_train_step_graphs_are_keyed_per_mode_and_replay_buffer_writes(fake_graphs):
+    """Train mode, then eval mode: each mode its own program and graph
+    (a flip retraces; the eval step reads the running stats the train
+    steps wrote into the module's buffers, in place), captured against op
+    by op bit for bit, parameters and running stats included."""
+    rng = np.random.RandomState(0)
+    batches = [(torch.tensor(rng.standard_normal((2, 3, 16, 16)).astype(np.float32)),
+                torch.tensor(rng.randint(0, 5, (2,)))) for _ in range(7)]
+    ref_l, ref_s, _ = _bn_run(False, batches)
+    got_l, got_s, step = _bn_run(True, batches)
+    assert got_l == ref_l
+    assert all(torch.equal(got_s[k], ref_s[k]) for k in ref_s)
+    assert len(step._programs) == 2 and tt.cache_misses(step) == 2
+    assert (tt.graph_captures(step), tt.graph_replays(step)) == (2, 5)  # a capture replays too
+    assert not torch.equal(ref_s["cbn.bn.running_var"], torch.ones(4))
 
 
 class _ItemLoss(torch.nn.Module):
@@ -531,6 +581,60 @@ def test_card_f32_train_step_captured_is_op_by_op_bit_for_bit(cuda):
     assert all(torch.equal(got_p[k], ref_p[k]) for k in ref_p)
     assert (tt.graph_captures(step), tt.graph_replays(step)) == (1, 2)
     assert int(step.opt_state["step"]) == int(ref.opt_state["step"]) == 3
+
+
+def _vision_step(kind: str, cuda_graphs: bool, device):
+    """A tiny f32 vision TrainStep on ``device``: ViT's ``test`` config
+    under AdamW (the flash pair at T = 17, full; the AdamW kernel) or
+    ResNet's bottleneck variant under torchvision's SGD (cuDNN convs, the
+    max pool, BatchNorm running-stat writes)."""
+    from thunder_tpu_torch.models import resnet as tr
+    from thunder_tpu_torch.models import vit as tv
+
+    if kind == "vit":
+        model = tv.ViTForClassification(tv.configs["test"], device=device, seed=0)
+        opt = topt.AdamW(lr=1e-3)
+    else:
+        model = _ResNetLoss(tr.ResNet(tr.ResNetConfig(block="bottleneck", layers=(1, 1), num_classes=4,
+                                                      width=8), device=device, seed=0))
+        opt = topt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    return TrainStep(model, opt, cuda_graphs=cuda_graphs), model
+
+
+class _ResNetLoss(torch.nn.Module):
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, x, y):
+        return tlt.cross_entropy(self.net(x), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vit", "resnet"])
+def test_card_vision_train_step_captured_is_op_by_op_bit_for_bit(cuda, kind):
+    """f32, a new batch each of 3 steps, cuDNN's deterministic algorithms
+    (its weight-gradient algorithms may sum with atomics otherwise):
+    losses, parameters and running stats bit-equal, captured against op by
+    op; the captured step replays."""
+    rng = np.random.RandomState(2)
+    batches = [(torch.tensor(rng.standard_normal((2, 3, 32, 32)).astype(np.float32), device=cuda),
+                torch.tensor(rng.randint(0, 4, (2,)), device=cuda)) for _ in range(3)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphs in (False, True):
+            step, model = _vision_step(kind, graphs, cuda)
+            losses = [step(*b).item() for b in batches]
+            state = {k: t.detach().clone() for k, t in [*model.named_parameters(), *model.named_buffers()]}
+            runs.append((losses, state, step))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (ref_l, ref_s, _), (got_l, got_s, step) = runs
+    assert got_l == ref_l
+    assert all(torch.equal(got_s[k], ref_s[k]) for k in ref_s)
+    assert (tt.graph_captures(step), tt.graph_replays(step)) == (1, 2)
 
 
 @pytest.mark.gpu

@@ -702,6 +702,21 @@ def test_flash_kernels_match_plain(cuda, B, H, Hkv, T, D, causal, dtype):
     _assert_grads_close(grads, ref, dtype)
 
 
+# ViT-B/16's attention (models/vit.py): full, 12 heads of 64, T = patches +
+# 1, ragged against the cores' 64- and 128-row tiles.
+VIT_RAGGED_T = (50, 197, 257)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", VIT_RAGGED_T)
+@pytest.mark.parametrize(**FLASH_DTYPES)
+def test_flash_kernels_match_plain_at_vits_ragged_full_attention(cuda, T, dtype):
+    """The RoPE-free flash pair at ViT's heads, full (non-causal) attention
+    over a T that is no multiple of a tile, against the plain versions at
+    the bars of test_flash_kernels_match_plain."""
+    test_flash_kernels_match_plain(cuda, 2, 12, 12, T, 64, False, dtype)
+
+
 @pytest.mark.gpu
 def test_flash_autograd_matches_autograd_through_plain(cuda):
     """FlashAttention (both RoPE-free kernels) against torch.autograd through

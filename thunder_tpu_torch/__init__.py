@@ -107,10 +107,12 @@ def _alias_groups(leaves, tensor_mask) -> tuple:
     return tuple(tuple(g) for g in by_store.values() if len(g) > 1)
 
 
-def _cache_key(leaves, tensor_mask) -> tuple:
+def _cache_key(leaves, tensor_mask, fn=None) -> tuple:
     """Tensors key on (shape, dtype, device), never on values: a 0-d int32
     position is one specialization for every position. Other leaves key on
-    their value."""
+    their value. ``fn.__cache_extra__()``, where fn has one, is part of the
+    key: a module's train/eval flags (nn/module.py), which change the traced
+    program without changing any input."""
     key = []
     for leaf, is_t in zip(leaves, tensor_mask):
         if is_t:
@@ -124,6 +126,9 @@ def _cache_key(leaves, tensor_mask) -> tuple:
     groups = _alias_groups(leaves, tensor_mask)
     if groups:
         key.append(("aliases", groups))
+    extra = getattr(fn, "__cache_extra__", None)
+    if extra is not None:
+        key.append(("extra", extra()))
     return tuple(key)
 
 
@@ -168,7 +173,7 @@ class ThunderCompiledFunction:
         cs = self._cs
         leaves, _ = tree_flatten((args, kwargs))
         tensor_mask = [_is_tensor_like(leaf) for leaf in leaves]
-        key = _cache_key(leaves, tensor_mask)
+        key = _cache_key(leaves, tensor_mask, self._cd.fn)
         entry = self._cache.get(key)
         if entry is None:
             cs.cache_misses.add()

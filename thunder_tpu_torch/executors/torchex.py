@@ -291,6 +291,102 @@ _reg(PrimIDs.MATMUL, torch.matmul)
 _reg(PrimIDs.LINEAR, lambda a, w, bias=None: F.linear(a, w))
 _reg(PrimIDs.EMBEDDING, lambda indices, weight: F.embedding(indices, weight))
 
+
+# Convolutions: thunder_tpu's jaxex computes them with XLA's
+# conv_general_dilated (preferred_element_type f32 for bf16, then cast back),
+# no Pallas kernel; here one torch call, which sums bf16 products in f32 and
+# rounds once (cuDNN on the card). ltorch adds a layer's bias as its own op
+# and passes the prim none.
+def _convolution(a, weight, bias, stride, padding, dilation, groups):
+    return torch.convolution(a, weight, bias, tuple(stride), tuple(padding), tuple(dilation), False,
+                             (0,) * (a.ndim - 2), groups)
+
+
+def _conv_transpose(a, weight, bias, stride, padding, output_padding, dilation, groups):
+    """weight (Cin, Cout/groups, *K): torch's conv_transpose layout, and
+    thunder_tpu's (jaxex.py:_conv_transpose)."""
+    return torch.convolution(a, weight, bias, tuple(stride), tuple(padding), tuple(dilation), True,
+                             tuple(output_padding), groups)
+
+
+_reg(PrimIDs.CONVOLUTION, _convolution)
+_reg(PrimIDs.CONV_TRANSPOSE, _conv_transpose)
+
+
+def _conv_backward(g, a, weight, stride, padding, dilation, transposed, output_padding, groups, which):
+    mask = [which == 0, which == 1, False]
+    out = torch.ops.aten.convolution_backward(g, a, weight, None, list(stride), list(padding),
+                                              list(dilation), transposed, list(output_padding), groups,
+                                              mask)
+    return out[which]
+
+
+def _conv_backward_meta(which):
+    def meta(g, a, weight, stride, padding, dilation, transposed, output_padding, groups):
+        from ..core.proxies import TensorProxy
+
+        like = a if which == 0 else weight
+        return TensorProxy(shape=like.shape, dtype=like.dtype, device=like.device)
+    return meta
+
+
+# The grad rules of CONVOLUTION and CONV_TRANSPOSE (transforms/autodiff.py)
+# record these two operators: the input's and the weight's gradient, each
+# one aten.convolution_backward call (cuDNN's on the card) that computes
+# only its own output, so dead-code elimination drops the one no input needs
+# (the stem conv's input gradient).
+conv_backward_input = ex.register_operator(
+    "conv_backward_input", meta=_conv_backward_meta(0),
+    fn=lambda g, a, w, *conv: _conv_backward(g, a, w, *conv, 0))
+conv_backward_weight = ex.register_operator(
+    "conv_backward_weight", meta=_conv_backward_meta(1),
+    fn=lambda g, a, w, *conv: _conv_backward(g, a, w, *conv, 1))
+
+
+# REDUCE_WINDOW (thunder_tpu's pooling prim): padding fills with the op's
+# identity, -inf / +inf / 0 (jaxex.py:_reduce_window), integers with their
+# extremes. A 4-d window over the last two dims with even pads that torch's
+# pooling takes runs as max_pool2d (min as -max_pool2d(-a)) or avg_pool2d
+# with divisor 1; any other window as pad + unfold + reduce.
+def _window_fill(a, op):
+    if op == "sum":
+        return 0
+    if a.dtype.is_floating_point:
+        return float("-inf") if op == "max" else float("inf")
+    info = torch.iinfo(a.dtype)
+    return info.min if op == "max" else info.max
+
+
+def _reduce_window(a, window_dims, strides, padding, *, op="max"):
+    window_dims, strides = tuple(int(w) for w in window_dims), tuple(int(s) for s in strides)
+    padding = tuple((int(lo), int(hi)) for lo, hi in padding)
+    if (a.ndim == 4 and a.dtype.is_floating_point and window_dims[:2] == (1, 1) and strides[:2] == (1, 1)
+            and padding[:2] == ((0, 0), (0, 0)) and all(lo == hi and 2 * lo <= w for (lo, hi), w
+                                                         in zip(padding[2:], window_dims[2:]))):
+        ks, st, pd = window_dims[2:], strides[2:], tuple(lo for lo, _ in padding[2:])
+        if op == "max":
+            return F.max_pool2d(a, ks, st, pd)
+        if op == "min":
+            return -F.max_pool2d(-a, ks, st, pd)
+        return F.avg_pool2d(a, ks, st, pd, count_include_pad=True, divisor_override=1)
+    flat = [p for lo_hi in reversed(padding) for p in lo_hi]
+    x = F.pad(a, flat, value=_window_fill(a, op)) if any(flat) else a
+    dims = []
+    for d, (w, s) in enumerate(zip(window_dims, strides)):
+        if w != 1 or s != 1:
+            x = x.unfold(d, w, s)
+            dims.append(x.ndim - 1)
+    if not dims:
+        return x.clone()
+    if op == "max":
+        return torch.amax(x, dim=dims)
+    if op == "min":
+        return torch.amin(x, dim=dims)
+    return torch.sum(x, dim=dims, dtype=a.dtype)
+
+
+_reg(PrimIDs.REDUCE_WINDOW, _reduce_window)
+
 # ---- memory / interop ----
 _reg(PrimIDs.ITEM, lambda a: a.item())
 

@@ -363,9 +363,13 @@ def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
     also holds the ``fp8_amax_x_hist`` / ``fp8_amax_w_hist`` buffers, from
     the JAX model's ``named_buffers()``. Each value must have its
     parameter's (buffer's) dtype and shape: a mismatch raises, nothing is
-    cast."""
+    cast. The vision models (models/vit.py, models/resnet.py) load here too:
+    conv weights are OIHW in both packages, and a ResNet's ``params`` also
+    holds its BatchNorm ``running_mean`` / ``running_var`` buffers, from the
+    JAX model's ``named_buffers()``."""
     own = dict(model.named_parameters())
-    own.update((k, b) for k, b in model.named_buffers() if k.rsplit(".", 1)[-1].startswith("fp8_amax_"))
+    own.update((k, b) for k, b in model.named_buffers() if k.rsplit(".", 1)[-1].startswith("fp8_amax_")
+               or k.rsplit(".", 1)[-1] in ("running_mean", "running_var"))
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

@@ -1,2 +1,2 @@
-from .module import Module, ModuleList, Parameter, ThunderModule, functional_params, update_buffer
-from .layers import Embedding, LayerNorm, Linear, RMSNorm
+from .module import Module, ModuleList, Parameter, Sequential, ThunderModule, functional_params, update_buffer
+from .layers import GELU, Conv2d, Dropout, Embedding, LayerNorm, Linear, ReLU, RMSNorm, Sigmoid, SiLU, Tanh

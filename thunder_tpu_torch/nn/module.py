@@ -24,6 +24,7 @@ import torch
 Module = torch.nn.Module
 Parameter = torch.nn.Parameter
 ModuleList = torch.nn.ModuleList
+Sequential = torch.nn.Sequential
 
 
 def update_buffer(module: torch.nn.Module, name: str, value) -> None:
@@ -82,6 +83,10 @@ class ThunderModule:
                 return module(*args, **kwargs)
 
         _traced.__name__ = f"{type(module).__name__}_forward"
+        # train/eval flags change the traced program (BatchNorm's branches)
+        # without changing any input, so they are part of the cache key
+        # (thunder_tpu/nn/module.py:418-422): a mode flip retraces
+        _traced.__cache_extra__ = lambda: tuple(m.training for m in module.modules())
         transforms = list(transforms or ())
         for tf in transforms:
             tf.transform_module(self)
@@ -99,6 +104,13 @@ class ThunderModule:
     @property
     def _cd(self):
         return self._cfn._cd
+
+    def train(self, mode: bool = True) -> "ThunderModule":
+        self._module.train(mode)
+        return self
+
+    def eval(self) -> "ThunderModule":
+        return self.train(False)
 
     def get_parameters(self) -> dict:
         return dict(self._module.named_parameters())

@@ -803,6 +803,210 @@ def conv1d(a, weight, bias=None, stride=(1,), padding=(0,), dilation=(1,), group
     return out
 
 
+@torchsymbol(name="conv3d", id="torch.nn.functional.conv3d")
+def conv3d(a, weight, bias=None, stride=(1, 1, 1), padding=(0, 0, 0), dilation=(1, 1, 1), groups=1):
+    stride = (stride,) * 3 if isinstance(stride, int) else tuple(stride)
+    padding = (padding,) * 3 if isinstance(padding, int) else tuple(padding)
+    dilation = (dilation,) * 3 if isinstance(dilation, int) else tuple(dilation)
+    out = prims.convolution(a, weight, None, stride, padding, dilation, groups)
+    if bias is not None:
+        out = clang.add(out, clang.reshape(bias, (1, bias.shape[0], 1, 1, 1)))
+    return out
+
+
+def _conv_transpose_nd(a, weight, bias, stride, padding, output_padding, dilation, groups, n):
+    stride = (stride,) * n if isinstance(stride, int) else tuple(stride)
+    padding = (padding,) * n if isinstance(padding, int) else tuple(padding)
+    output_padding = (output_padding,) * n if isinstance(output_padding, int) else tuple(output_padding)
+    dilation = (dilation,) * n if isinstance(dilation, int) else tuple(dilation)
+    out = prims.conv_transpose(a, weight, None, stride, padding, output_padding, dilation, groups)
+    if bias is not None:
+        out = clang.add(out, clang.reshape(bias, (1, bias.shape[0]) + (1,) * n))
+    return out
+
+
+@torchsymbol(name="conv_transpose1d", id="torch.nn.functional.conv_transpose1d")
+def conv_transpose1d(a, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1, dilation=1):
+    return _conv_transpose_nd(a, weight, bias, stride, padding, output_padding, dilation, groups, 1)
+
+
+@torchsymbol(name="conv_transpose2d", id="torch.nn.functional.conv_transpose2d")
+def conv_transpose2d(a, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1, dilation=1):
+    return _conv_transpose_nd(a, weight, bias, stride, padding, output_padding, dilation, groups, 2)
+
+
+@torchsymbol(name="conv_transpose3d", id="torch.nn.functional.conv_transpose3d")
+def conv_transpose3d(a, weight, bias=None, stride=1, padding=0, output_padding=0, groups=1, dilation=1):
+    return _conv_transpose_nd(a, weight, bias, stride, padding, output_padding, dilation, groups, 3)
+
+
+# pooling: the reduce_window prim (thunder_tpu/ops/ltorch.py:2203-2282) ------
+
+
+def _pool_args(kernel_size, stride, padding, n):
+    ks = (kernel_size,) * n if isinstance(kernel_size, int) else tuple(pyval(k) for k in kernel_size)
+    if stride is None:
+        st = ks
+    else:
+        st = (stride,) * n if isinstance(stride, int) else tuple(pyval(s) for s in stride)
+    pd = (padding,) * n if isinstance(padding, int) else tuple(pyval(p) for p in padding)
+    return ks, st, pd
+
+
+def _max_pool(a, kernel_size, stride, padding, n):
+    ks, st, pd = _pool_args(kernel_size, stride, padding, n)
+    return prims.reduce_window(a, (1, 1) + ks, (1, 1) + st, ((0, 0), (0, 0)) + tuple((p, p) for p in pd),
+                               op="max")
+
+
+@torchsymbol(name="max_pool1d", id="torch.nn.functional.max_pool1d")
+def max_pool1d(a, kernel_size, stride=None, padding=0):
+    return _max_pool(a, kernel_size, stride, padding, 1)
+
+
+@torchsymbol(name="max_pool2d", id="torch.nn.functional.max_pool2d")
+def max_pool2d(a, kernel_size, stride=None, padding=0):
+    return _max_pool(a, kernel_size, stride, padding, 2)
+
+
+@torchsymbol(name="max_pool3d", id="torch.nn.functional.max_pool3d")
+def max_pool3d(a, kernel_size, stride=None, padding=0):
+    return _max_pool(a, kernel_size, stride, padding, 3)
+
+
+def _avg_pool(a, kernel_size, stride, padding, n, count_include_pad):
+    ks, st, pd = _pool_args(kernel_size, stride, padding, n)
+    check(builtins.all(k > 0 for k in ks), lambda: f"pooling kernel sizes must be positive, got {ks}")
+    window, strides = (1, 1) + ks, (1, 1) + st
+    pads = ((0, 0), (0, 0)) + tuple((p, p) for p in pd)
+    s = prims.reduce_window(a, window, strides, pads, op="sum")
+    if count_include_pad or builtins.all(p == 0 for p in pd):
+        return clang.true_divide(s, float(math.prod(ks)))
+    counts = prims.reduce_window(clang.full_like(a, 1.0), window, strides, pads, op="sum")
+    return clang.true_divide(s, counts)
+
+
+@torchsymbol(name="avg_pool1d", id="torch.nn.functional.avg_pool1d")
+def avg_pool1d(a, kernel_size, stride=None, padding=0, count_include_pad=True):
+    return _avg_pool(a, kernel_size, stride, padding, 1, count_include_pad)
+
+
+@torchsymbol(name="avg_pool2d", id="torch.nn.functional.avg_pool2d")
+def avg_pool2d(a, kernel_size, stride=None, padding=0, count_include_pad=True):
+    return _avg_pool(a, kernel_size, stride, padding, 2, count_include_pad)
+
+
+@torchsymbol(name="avg_pool3d", id="torch.nn.functional.avg_pool3d")
+def avg_pool3d(a, kernel_size, stride=None, padding=0, count_include_pad=True):
+    return _avg_pool(a, kernel_size, stride, padding, 3, count_include_pad)
+
+
+def _adaptive_window(a, output_size, name):
+    if isinstance(output_size, int):
+        output_size = (output_size, output_size)
+    oh, ow = (pyval(o) for o in output_size)
+    H, W = a.shape[-2], a.shape[-1]
+    check(H % oh == 0 and W % ow == 0, lambda: f"{name}: {H}x{W} not divisible by {oh}x{ow}")
+    return H // oh, W // ow
+
+
+@torchsymbol(name="adaptive_avg_pool2d", id="torch.nn.functional.adaptive_avg_pool2d")
+def adaptive_avg_pool2d(a, output_size):
+    k = _adaptive_window(a, output_size, "adaptive_avg_pool2d")
+    return _avg_pool(a, k, k, 0, 2, True)
+
+
+@torchsymbol(name="adaptive_max_pool2d", id="torch.nn.functional.adaptive_max_pool2d")
+def adaptive_max_pool2d(a, output_size):
+    k = _adaptive_window(a, output_size, "adaptive_max_pool2d")
+    return _max_pool(a, k, k, 0, 2)
+
+
+@torchsymbol(name="adaptive_avg_pool2d_backward", id="torch.ops.aten._adaptive_avg_pool2d_backward")
+def adaptive_avg_pool2d_backward(g, a):
+    """aten::_adaptive_avg_pool2d_backward for the divisible windows the
+    forward takes: each output's gradient spreads evenly over its kh x kw
+    window."""
+    H, W = a.shape[-2], a.shape[-1]
+    oh, ow = g.shape[-2], g.shape[-1]
+    check(H % oh == 0 and W % ow == 0,
+          lambda: f"adaptive_avg_pool2d_backward: {H}x{W} not divisible by {oh}x{ow}")
+    kh, kw = H // oh, W // ow
+    lead = tuple(g.shape[:-2])
+    nd = len(lead)
+    scaled = clang.reshape(clang.true_divide(g, float(kh * kw)), lead + (oh, 1, ow, 1))
+    bcast = prims.broadcast_in_dim(scaled, lead + (oh, kh, ow, kw),
+                                   tuple(range(nd)) + (nd, nd + 1, nd + 2, nd + 3))
+    return clang.reshape(bcast, lead + (H, W))
+
+
+# batch, group and instance norms: f32 compute, cast back -------------------
+
+
+def _channel_view(t, ndim):
+    return clang.reshape(t, (1, t.shape[0]) + (1,) * (ndim - 2))
+
+
+def _affine(out, weight, bias, ndim):
+    if weight is not None:
+        out = clang.mul(out, _channel_view(weight, ndim))
+    if bias is not None:
+        out = clang.add(out, _channel_view(bias, ndim))
+    return out
+
+
+def _normalize_affine(centered, v, eps, dtype, weight, bias, ndim):
+    out = clang.maybe_convert_to_dtype(clang.mul(centered, prims.rsqrt(clang.add(v, eps))), dtype)
+    return _affine(out, weight, bias, ndim)
+
+
+def _f32(a):
+    return a if a.dtype == dtypes.float32 else clang.maybe_convert_to_dtype(a, dtypes.float32)
+
+
+@torchsymbol(name="batch_norm", id="torch.nn.functional.batch_norm")
+def batch_norm(a, running_mean=None, running_var=None, weight=None, bias=None, training=False,
+               momentum=0.1, eps=1e-5):
+    """Batch statistics in training mode (or without running stats), the
+    running stats otherwise. The running-stat update is the caller's:
+    models/resnet.py's BatchNorm2d writes it through nn.update_buffer."""
+    compute = _f32(a)
+    if training or running_mean is None:
+        dims = (0,) + tuple(builtins.range(2, a.ndim))
+        m = clang.mean(compute, dims, keepdim=True)
+        centered = clang.sub(compute, m)
+        v = clang.mean(clang.mul(centered, centered), dims, keepdim=True)
+    else:
+        centered = clang.sub(compute, _channel_view(running_mean, a.ndim))
+        v = _channel_view(running_var, a.ndim)
+    return _normalize_affine(centered, v, eps, a.dtype, weight, bias, a.ndim)
+
+
+@torchsymbol(name="group_norm", id="torch.nn.functional.group_norm")
+def group_norm(a, num_groups, weight=None, bias=None, eps=1e-5):
+    N, C = a.shape[0], a.shape[1]
+    G = pyval(num_groups)
+    check(C % G == 0, lambda: f"group_norm: {C} channels not divisible by {G} groups")
+    grouped = clang.reshape(_f32(a), (N, G, C // G) + tuple(a.shape[2:]))
+    dims = tuple(builtins.range(2, grouped.ndim))
+    m = clang.mean(grouped, dims, keepdim=True)
+    centered = clang.sub(grouped, m)
+    v = clang.mean(clang.mul(centered, centered), dims, keepdim=True)
+    out = clang.reshape(clang.mul(centered, prims.rsqrt(clang.add(v, eps))), a.shape)
+    return _affine(clang.maybe_convert_to_dtype(out, a.dtype), weight, bias, a.ndim)
+
+
+@torchsymbol(name="instance_norm", id="torch.nn.functional.instance_norm")
+def instance_norm(a, running_mean=None, running_var=None, weight=None, bias=None, use_input_stats=True,
+                  momentum=0.1, eps=1e-5):
+    dims = tuple(builtins.range(2, a.ndim))
+    compute = _f32(a)
+    m = clang.mean(compute, dims, keepdim=True)
+    centered = clang.sub(compute, m)
+    v = clang.mean(clang.mul(centered, centered), dims, keepdim=True)
+    return _normalize_affine(centered, v, eps, a.dtype, weight, bias, a.ndim)
+
+
 @torchsymbol(name="layer_norm", id="torch.nn.functional.layer_norm")
 def layer_norm(a, normalized_shape, weight=None, bias=None, eps=1e-5):
     ndims = len(normalized_shape)

@@ -157,6 +157,7 @@ class TrainStep:
             return traced({**frozen, **tparams}, args, kwargs)
 
         traced_split.__name__ = getattr(inner, "__name__", "step")
+        traced_split.__cache_extra__ = getattr(inner, "__cache_extra__", None)
         cd = self.tmodule._cd
         self._vag = ThunderValueAndGrad(traced_split, argnums=0, transforms=cd.transforms,
                                         executors=cd.executors)
@@ -223,7 +224,7 @@ class TrainStep:
         is_t = [isinstance(x, torch.Tensor) for x in leaves]
         state = [t for t in tree_flatten(self.opt_state)[0] if isinstance(t, torch.Tensor)]
         resident = [*tparams.values(), *frozen.values(), *state]
-        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t))
+        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t, self._vag.fn))
         prog = self._programs.get(key)
         if prog is None:
             nt, nf, nr = len(tparams), len(frozen), len(resident)

@@ -17,8 +17,9 @@ residuals for the minimal forward subgraph that re-derives them (saving its
 external inputs instead), and the backward replays that subgraph lazily,
 right before the first grad rule that reads one of its outputs.
 
-Ops whose gradient thunder_tpu takes from ``jax.vjp`` (VJP_FALLBACK_OPS
-below) raise NotImplementedError here. There is no interpreter frontend yet:
+Of the ops whose gradient thunder_tpu takes from ``jax.vjp``, those no port
+path reaches yet (VJP_FALLBACK_OPS below) raise NotImplementedError here;
+the others have rules written out. There is no interpreter frontend yet:
 programs are acquired by direct proxy tracing."""
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import torch
 
 from ..common import apply_effects
 from ..core import dtypes, prims
+from ..core.codeutils import flat_proxies
 from ..core.prims import PrimIDs
-from ..core.proxies import AnyProxy, NumberProxy, Proxy, TensorProxy
+from ..core.proxies import AnyProxy, NumberProxy, Proxy, TensorProxy, pyval
 from ..core.symbol import OpTags
 from ..core.trace import TraceCtx, tracectx
 from ..core.transform_common import dce
@@ -72,17 +74,12 @@ def has_grad_rule(sym_id) -> bool:
 
 
 # ops whose gradient thunder_tpu takes from jax.vjp of their jax impl
-# (JAX_VJP_FALLBACK there). The port has no counterpart yet: differentiating
-# one raises NotImplementedError naming it. dist.ring_attention, which is in
-# thunder_tpu's JAX_VJP_FALLBACK, has an explicit grad rule in the port
-# (parallel/context_parallel.py: the backward ring over the plain backward
-# step, or over the ring kernels where the cuda executor claims it).
-VJP_FALLBACK_OPS: set = {
-    PrimIDs.CONVOLUTION, PrimIDs.GROUPED_MM, PrimIDs.ATAN2, PrimIDs.CUMSUM,
-    PrimIDs.CUMPROD, PrimIDs.REDUCE_WINDOW, PrimIDs.CONV_TRANSPOSE, PrimIDs.EINSUM,
-    PrimIDs.DIGAMMA, PrimIDs.SCATTER, PrimIDs.COPY_WITH_SETITEM,
-    PrimIDs.VAR,
-}
+# (JAX_VJP_FALLBACK there) and no port path differentiates yet:
+# differentiating one raises NotImplementedError naming it. The rest of
+# thunder_tpu's set has explicit rules below (convolution, conv_transpose,
+# reduce_window, var, atan2, cumsum, cumprod, digamma, copy_with_setitem)
+# and dist.ring_attention in parallel/context_parallel.py.
+VJP_FALLBACK_OPS: set = {PrimIDs.GROUPED_MM, PrimIDs.EINSUM, PrimIDs.SCATTER}
 
 
 # ---------------------------------------------------------------------------
@@ -873,6 +870,226 @@ def _linear_bwd(a, w, g):
 
 
 # ---------------------------------------------------------------------------
+# convolution, pooling-window, variance and scan rules: thunder_tpu takes
+# these from jax.vjp of its jax implementations (JAX_VJP_FALLBACK there);
+# here each is written out, and tests/test_torch_vision_grads.py holds it
+# against jax.vjp
+# ---------------------------------------------------------------------------
+
+
+def _conv_grads(a, weight, bias, conv, g):
+    """(input, weight, bias) gradients of a convolution or transposed
+    convolution: torchex's conv_backward_input / conv_backward_weight
+    operators (aten.convolution_backward, one gradient each), the bias's
+    summed over every dim but channels."""
+    from ..executors import torchex
+
+    grads = (torchex.conv_backward_input(g, a, weight, *conv),
+             torchex.conv_backward_weight(g, a, weight, *conv))
+    if bias:
+        grads += (prims.sum_prim(g, (0,) + tuple(range(2, g.ndim))),)
+    return grads
+
+
+@register_augmented_forward(PrimIDs.CONVOLUTION)
+def _conv_aug(a, weight, bias, stride, padding, dilation, groups):
+    out = prims.convolution(a, weight, bias, stride, padding, dilation, groups)
+    conv = (tuple(stride), tuple(padding), tuple(dilation), False, (0,) * (a.ndim - 2), groups)
+    return VJPResult(out, (a, weight, bias is not None, conv))
+
+
+@register_augmented_forward(PrimIDs.CONV_TRANSPOSE)
+def _conv_transpose_aug(a, weight, bias, stride, padding, output_padding, dilation, groups):
+    out = prims.conv_transpose(a, weight, bias, stride, padding, output_padding, dilation, groups)
+    conv = (tuple(stride), tuple(padding), tuple(dilation), True, tuple(output_padding), groups)
+    return VJPResult(out, (a, weight, bias is not None, conv))
+
+
+register_backward(PrimIDs.CONVOLUTION)(_conv_grads)
+register_backward(PrimIDs.CONV_TRANSPOSE)(_conv_grads)
+
+
+def _window_spec(window_dims, strides, padding) -> tuple:
+    return (tuple(int(pyval(w)) for w in window_dims), tuple(int(pyval(s)) for s in strides),
+            tuple((int(pyval(lo)), int(pyval(hi))) for lo, hi in padding))
+
+
+@register_augmented_forward(PrimIDs.REDUCE_WINDOW)
+def _reduce_window_aug(a, window_dims, strides, padding, *, op="max"):
+    out = prims.reduce_window(a, window_dims, strides, padding, op=op)
+    spec = _window_spec(window_dims, strides, padding)
+    if op == "sum":
+        return VJPResult(out, (a.shape, None, spec, op))
+    return VJPResult(out, (a, out, spec, op))
+
+
+@register_backward(PrimIDs.REDUCE_WINDOW)
+def _reduce_window_bwd(a, out, spec, op, g):
+    if op == "sum":
+        return _window_sum_transpose(g, a, *spec)
+    return _window_select_transpose(g, a, out, *spec, op)
+
+
+def _window_sum_transpose(g, in_shape, window, strides, padding):
+    """Each window's cotangent spread over the window: g dilated by the
+    strides, padded, and summed over stride-1 windows (jax's transpose of
+    reduce_window_sum)."""
+    cfg = []
+    for n, w, s, (lo, _), o in zip(in_shape, window, strides, padding, g.shape):
+        before = w - lo - 1
+        cfg.append((before, n + w - 1 - ((o - 1) * s + 1) - before, s - 1))
+    nd = len(in_shape)
+    return prims.reduce_window(prims.pad(g, 0.0, tuple(cfg)), window, (1,) * nd, ((0, 0),) * nd, op="sum")
+
+
+def _window_select_transpose(g, a, out, window, strides, padding, op):
+    """Each window's cotangent to the one element it selected, by jax's
+    rule (XLA's SelectAndScatter with >= for max, <= for min): the first
+    in-bounds element equal to the window's result, in row-major order over
+    the window; padding is never selected. Windows that overlap add. Per
+    window offset: the strided slice of the padded input, the elements it
+    selects that no earlier offset selected, and their cotangent put back
+    where the slice came from (the slice's transpose)."""
+    import itertools
+
+    fill = float("-inf") if op == "max" else float("inf")
+    pad_cfg = tuple((lo, hi, 0) for lo, hi in padding)
+    padded = prims.pad(a, fill, pad_cfg)
+    inside = prims.pad(clang.full(a.shape, True, dtype=dtypes.bool8, device=a.device), False, pad_cfg)
+    zero = _zeros_like(g)
+    taken = None
+    acc = None
+    for offset in itertools.product(*(range(w) for w in window)):
+        limits = tuple(o + (n - 1) * s + 1 for o, n, s in zip(offset, out.shape, strides))
+        hit = prims.bitwise_and(prims.eq(prims.slice_prim(padded, offset, limits, strides), out),
+                                prims.slice_prim(inside, offset, limits, strides))
+        if taken is not None:
+            hit = prims.bitwise_and(hit, prims.logical_not(taken))
+        taken = hit if taken is None else prims.bitwise_or(taken, hit)
+        transpose = tuple((o, pn - lim, s - 1) for o, lim, pn, s in zip(offset, limits, padded.shape, strides))
+        back = prims.pad(prims.where(hit, g, zero), 0.0, transpose)
+        acc = back if acc is None else prims.add(acc, back)
+    return prims.slice_prim(acc, tuple(lo for lo, _ in padding),
+                            tuple(lo + n for (lo, _), n in zip(padding, a.shape)))
+
+
+@register_augmented_forward(PrimIDs.VAR)
+def _var_aug(a, dims, *, correction=1):
+    return VJPResult(prims.var_prim(a, dims, correction=correction), (a, tuple(dims), correction))
+
+
+@register_backward(PrimIDs.VAR)
+def _var_bwd(a, dims, correction, g):
+    n = math.prod(a.shape[d] for d in dims)
+    denom = max(0, n - correction)
+    kept = tuple(d for d in range(a.ndim) if d not in dims)
+    centered = clang.sub(a, clang.mean(a, dims, keepdim=True))
+    g_b = prims.broadcast_in_dim(g, a.shape, kept)
+    return clang.mul(prims.mul(g_b, centered), 2.0 / denom if denom else float("inf"))
+
+
+@register_augmented_forward(PrimIDs.ATAN2)
+def _atan2_aug(a, b):
+    return VJPResult(prims.atan2(a, b), (a, b))
+
+
+@register_backward(PrimIDs.ATAN2)
+def _atan2_bwd(a, b, g):
+    r2 = prims.add(prims.mul(a, a), prims.mul(b, b))
+    return prims.mul(g, prims.div(b, r2)), prims.neg(prims.mul(g, prims.div(a, r2)))
+
+
+def _reverse_cumsum(x, dim):
+    return prims.flip(prims.cumsum(prims.flip(x, (dim,)), dim), (dim,))
+
+
+@register_augmented_forward(PrimIDs.CUMSUM)
+def _cumsum_aug(a, dim):
+    return VJPResult(prims.cumsum(a, dim), (dim % a.ndim,))
+
+
+@register_backward(PrimIDs.CUMSUM)
+def _cumsum_bwd(dim, g):
+    return _reverse_cumsum(g, dim)
+
+
+@register_augmented_forward(PrimIDs.CUMPROD)
+def _cumprod_aug(a, dim):
+    out = prims.cumprod(a, dim)
+    return VJPResult(out, (a, out, dim % a.ndim))
+
+
+@register_backward(PrimIDs.CUMPROD)
+def _cumprod_bwd(a, out, dim, g):
+    """Finite where a holds zeros, as jax's division-free scan gradient:
+    before a slice's first zero z, d out_j / d a_i = out_j / a_i (a_i != 0,
+    and out_j = 0 from z on); at z, the product of a before z times the sum
+    over j >= z of g_j times the product of a over (z, j]; after z, 0."""
+    zero, one = _zeros_like(a), clang.full_like(a, 1)
+    is_zero = prims.eq(a, zero)
+    zeros_so_far = prims.cumsum(prims.convert_element_type(is_zero, a.dtype), dim)
+    before = prims.eq(zeros_so_far, zero)
+    first = prims.bitwise_and(is_zero, prims.eq(zeros_so_far, one))
+    grad_before = prims.where(before, prims.div(_reverse_cumsum(prims.mul(g, out), dim),
+                                                prims.where(before, a, one)), zero)
+    head = prims.cumprod(prims.where(before, a, one), dim)
+    tail = prims.cumprod(prims.where(prims.bitwise_or(before, first), one, a), dim)
+    at_first = _reverse_cumsum(prims.where(before, zero, prims.mul(g, tail)), dim)
+    return prims.add(grad_before, prims.where(first, prims.mul(head, at_first), zero))
+
+
+def _trigamma(x):
+    """polygamma(1, x) from elementwise prims: for x >= 1/2 six steps of
+    the recurrence psi1(y) = 1/y^2 + psi1(y + 1), then the asymptotic series
+    at y + 6 >= 6.5 (terms to 1/z^9, the next ~1e-10 there); below 1/2 the
+    reflection psi1(x) = pi^2 / sin^2(pi x) - psi1(1 - x)."""
+    reflect = prims.lt(x, clang.full_like(x, 0.5))
+    y = prims.where(reflect, clang.sub(1.0, x), x)
+    acc = None
+    for k in range(6):
+        yk = clang.add(y, float(k))
+        term = prims.reciprocal(prims.mul(yk, yk))
+        acc = term if acc is None else prims.add(acc, term)
+    iz = prims.reciprocal(clang.add(y, 6.0))
+    iz2 = prims.mul(iz, iz)
+    series = clang.sub(1.0 / 42, clang.mul(iz2, 1.0 / 30))
+    series = clang.sub(1.0 / 30, prims.mul(iz2, series))
+    series = clang.sub(1.0 / 6, prims.mul(iz2, series))
+    asym = prims.add(prims.add(iz, clang.mul(iz2, 0.5)), prims.mul(prims.mul(iz, iz2), series))
+    res = prims.add(acc, asym)
+    s = prims.sin(clang.mul(x, math.pi))
+    reflected = clang.sub(clang.true_divide(math.pi ** 2, prims.mul(s, s)), res)
+    return prims.where(reflect, reflected, res)
+
+
+@register_augmented_forward(PrimIDs.DIGAMMA)
+def _digamma_aug(a):
+    return VJPResult(prims.digamma(a), (a,))
+
+
+@register_backward(PrimIDs.DIGAMMA)
+def _digamma_bwd(a, g):
+    return prims.mul(g, _trigamma(a))
+
+
+@register_augmented_forward(PrimIDs.COPY_WITH_SETITEM)
+def _setitem_aug(a, key, value):
+    n_key_tensors = len(_flat_tensors(key))
+    value_shape = value.shape if isinstance(value, TensorProxy) else None
+    return VJPResult(prims.copy_with_setitem(a, key, value), (key, n_key_tensors, value_shape))
+
+
+@register_backward(PrimIDs.COPY_WITH_SETITEM)
+def _setitem_bwd(key, n_key_tensors, value_shape, g):
+    """a's gradient is g with the written elements zeroed; the value's is
+    g at the key, summed over what the write broadcast."""
+    ga = prims.copy_with_setitem(g, key, 0.0)
+    if value_shape is None:
+        return (ga,) + (None,) * n_key_tensors
+    return (ga,) + (None,) * n_key_tensors + (_sum_to_shape(clang.getitem(g, key), value_shape),)
+
+
+# ---------------------------------------------------------------------------
 # the transform itself
 # ---------------------------------------------------------------------------
 
@@ -1068,12 +1285,13 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
     with tracectx(fwd):
         for bsym in trace.bound_symbols:
             process(bsym)
-        # saved-for-backward = union of residual proxies (dedup, trace order)
+        # saved-for-backward = union of residual proxies, nested ones too (a
+        # setitem key's index tensors), deduplicated in trace order
         saved: list[Proxy] = []
         seen: set = set()
         for entry in tape:
-            for r in entry.residuals:
-                if isinstance(r, Proxy) and r.name not in seen:
+            for r in flat_proxies(entry.residuals):
+                if r.name not in seen:
                     seen.add(r.name)
                     saved.append(r)
         saved, recompute_subgraph = _plan_recompute(fwd, saved, recompute_names)
@@ -1149,9 +1367,8 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                 continue
             # fill missing cotangents with zeros for multi-output rules
             cots = [c for c, o in zip(cots, entry.outputs) if _is_diff_dtype(o) or c is not None]
-            for r in entry.residuals:
-                if isinstance(r, Proxy):
-                    materialize(r.name)
+            for r in flat_proxies(entry.residuals):
+                materialize(r.name)
             res = tuple(_map_names(r, saved_mirror) for r in entry.residuals)
             grads = backward_impls[entry.sym_id](*res, *cots)
             if not isinstance(grads, tuple):
@@ -1261,7 +1478,7 @@ class ThunderValueAndGrad:
         leaves, treedef = tree_flatten((args, kwargs))
         tensor_mask = [_is_tensor_like(leaf) for leaf in leaves]
         grad_mask = self._grad_mask(args, kwargs)
-        key = _cache_key(leaves, tensor_mask) + (("grad", tuple(grad_mask)),)
+        key = _cache_key(leaves, tensor_mask, self.fn) + (("grad", tuple(grad_mask)),)
         entry = self._cache.get(key)
         if entry is None:
             self._cs.cache_misses.add()
