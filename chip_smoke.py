@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
 eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
-ResNet-50 train and eval, agree.
+ResNet-50 train and eval, a plain-PyTorch Llama through the torch frontend,
+agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -282,6 +283,27 @@ Phases, each printing one JSON line:
                model.eval() retraces once and matches the hand-written eval
                forward; then the recipe's SGD road captured against op by
                op, bit for bit, running stats included.
+30. frontend_eval — TorchLlama (a Llama written in plain PyTorch in this
+               script: nn.Embedding, nn.Linear, F.rms_norm, RoPE in tensor
+               ops, F.scaled_dot_product_attention with enable_gqa, F.silu,
+               F.cross_entropy) at Llama-3-1B, bf16, with the weights of a
+               port GPTForCausalLM from --seed: tt.jit(model,
+               cuda_graphs=True) must take the torch frontend
+               (interop/torch_frontend.py); the loss at B=2, T=2048 within
+               FRONTEND_EVAL_RTOL of the module run eagerly; per call 16
+               tt_flash_fwd, 33 tt_rms_norm, 1 tt_cross_entropy, no
+               torch_eager op, 0 captures and compiles after warm-up; the
+               same-call pair with the port-native forward (frontend,
+               native, native, frontend) and two profiles of each.
+31. frontend_train — TorchLlama at llama-350m, f32 master weights, bf16
+               autocast, B=4, T=2048, a user loop of tt.value_and_grad and
+               AdamW.update (op by op): 3 untimed and 10 timed steps,
+               tt_flash_fwd and tt_flash_bwd 24 a step; in turns with the
+               port-native value_and_grad loop, two profiles of each; the
+               captured TrainStep's ms a step beside it.
+32. frontend_train_agreement — f32, train_agreement's config: 3 AdamW
+               steps of the frontend road against the hand-written step
+               (LOSS_RTOL, PARAM_ATOL).
 The kernels phase also holds the RoPE-free flash pair at vit_train's shape
 (B=64, H=12, T=197, D=64, full) and over a ragged sweep (T of 50, 197,
 257; flash_ragged_full), each against the plain versions.
@@ -4583,6 +4605,369 @@ def resnet_train_agreement(tt, cudaex, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 30-32: the torch frontend — a Llama written in plain PyTorch,
+# traced through __torch_function__ (interop/torch_frontend.py)
+# ---------------------------------------------------------------------------
+
+
+class TorchRMSNorm(torch.nn.Module):
+    """An RMSNorm weight applied by F.rms_norm."""
+
+    def __init__(self, dim: int, eps: float, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.weight = torch.nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return torch.nn.functional.rms_norm(x, (x.shape[-1],), self.weight, self.eps)
+
+
+class TorchAttention(torch.nn.Module):
+    """Grouped-query attention with half-split RoPE written out in tensor
+    ops, then F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True). The fused qkv projection keeps litgpt's grouped row
+    layout, so the port model's weights load as they are."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        width = (cfg.n_head + 2 * cfg.n_query_groups) * cfg.head_size
+        self.attn = torch.nn.Linear(cfg.n_embd, width, bias=cfg.bias, dtype=dtype, device=device)
+        self.proj = torch.nn.Linear(cfg.n_head * cfg.head_size, cfg.n_embd, bias=cfg.bias, dtype=dtype,
+                                    device=device)
+
+    def forward(self, x, cos, sin):
+        cfg = self.cfg
+        B, T, _ = x.shape
+        nh, ng, hs = cfg.n_head, cfg.n_query_groups, cfg.head_size
+        per = nh // ng
+        qkv = self.attn(x).view(B, T, ng, per + 2, hs)
+        q = qkv[:, :, :, :per].reshape(B, T, nh, hs).transpose(1, 2)
+        k = qkv[:, :, :, per].transpose(1, 2)
+        v = qkv[:, :, :, per + 1].transpose(1, 2)
+
+        def rope(t):
+            h = hs // 2
+            t1, t2 = t[..., :h], t[..., h:]
+            c, s = cos[:, :h], sin[:, :h]
+            return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], dim=-1)
+
+        y = torch.nn.functional.scaled_dot_product_attention(rope(q), rope(k), v, is_causal=True,
+                                                             enable_gqa=True)
+        return self.proj(y.transpose(1, 2).reshape(B, T, nh * hs))
+
+
+class TorchMLP(torch.nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        kw = dict(bias=cfg.bias, dtype=dtype, device=device)
+        self.fc_1 = torch.nn.Linear(cfg.n_embd, cfg.intermediate_size, **kw)
+        self.fc_2 = torch.nn.Linear(cfg.n_embd, cfg.intermediate_size, **kw)
+        self.proj = torch.nn.Linear(cfg.intermediate_size, cfg.n_embd, **kw)
+
+    def forward(self, x):
+        return self.proj(torch.nn.functional.silu(self.fc_1(x)) * self.fc_2(x))
+
+
+class TorchBlock(torch.nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.norm_1 = TorchRMSNorm(cfg.n_embd, cfg.norm_eps, dtype, device)
+        self.attn = TorchAttention(cfg, dtype, device)
+        self.norm_2 = TorchRMSNorm(cfg.n_embd, cfg.norm_eps, dtype, device)
+        self.mlp = TorchMLP(cfg, dtype, device)
+
+    def forward(self, x, cos, sin):
+        x = x + self.attn(self.norm_1(x), cos, sin)
+        return x + self.mlp(self.norm_2(x))
+
+
+class TorchGPT(torch.nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.wte = torch.nn.Embedding(cfg.padded_vocab_size, cfg.n_embd, dtype=dtype, device=device)
+        self.h = torch.nn.ModuleList([TorchBlock(cfg, dtype, device) for _ in range(cfg.n_layer)])
+        self.ln_f = TorchRMSNorm(cfg.n_embd, cfg.norm_eps, dtype, device)
+        self.lm_head = torch.nn.Linear(cfg.n_embd, cfg.padded_vocab_size, bias=cfg.lm_head_bias, dtype=dtype,
+                                       device=device)
+        # build_rope_cache's tables, as plain tensors (buffers: the program's
+        # inputs, read on every call)
+        self.register_buffer("cos", torch.empty(cfg.block_size, cfg.rope_n_elem, dtype=dtype, device=device))
+        self.register_buffer("sin", torch.empty(cfg.block_size, cfg.rope_n_elem, dtype=dtype, device=device))
+
+    def forward(self, idx):
+        T = idx.shape[1]
+        cos, sin = self.cos[:T], self.sin[:T]
+        x = self.wte(idx)
+        for block in self.h:
+            x = block(x, cos, sin)
+        return self.lm_head(self.ln_f(x))
+
+
+class TorchLlama(torch.nn.Module):
+    """A Llama written in plain PyTorch (nn.Embedding, nn.Linear, F.rms_norm,
+    F.scaled_dot_product_attention, F.silu, F.cross_entropy): user code, as a
+    user would write it, that ``tt.jit`` takes to the torch frontend. Its
+    parameter and buffer names are GPTForCausalLM's (models/litgpt.py), so
+    ``torch_llama_from(port_model)`` computes the port model's function on
+    the same weights. Llama configs only (RMSNorm, LLaMAMLP, RoPE over the
+    whole head)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.gpt = TorchGPT(cfg, dtype, device)
+
+    def forward(self, idx, targets):
+        logits = self.gpt(idx)
+        B, T, V = logits.shape
+        return torch.nn.functional.cross_entropy(logits.reshape(B * T, V),
+                                                 targets.reshape(B * T).to(torch.long))
+
+
+def torch_llama_from(port_model) -> TorchLlama:
+    """A TorchLlama holding a copy of ``port_model``'s weights and rope tables
+    (a GPTForCausalLM), on its device and in its dtype."""
+    w = port_model.gpt.lm_head.weight
+    user = TorchLlama(port_model.cfg, w.dtype, torch.device("meta")).to_empty(device=w.device)
+    user.load_state_dict(port_model.state_dict())
+    return user
+
+
+FRONTEND_EVAL_RTOL = 1e-3
+FRONTEND_CALLS = 5
+
+
+def frontend_claims(cudaex, trace) -> dict:
+    """The cuda claims of a frontend program, and any op that fell back to
+    the opaque torch_eager ops."""
+    impls = {"sdpa": cudaex._sdpa_impl, "rms_norm": cudaex._rms_impl, "cross_entropy": cudaex._cross_entropy_impl}
+    return dict(claims={k: sum(1 for b in trace.bound_symbols if b.impl is f) for k, f in impls.items()},
+                torch_eager=sorted({str(b.sym.id) for b in trace.bound_symbols
+                                    if str(b.sym.id).startswith("torch_eager.")}))
+
+
+def frontend_eval(tt, cudaex, seed) -> dict:
+    """Llama-3-1B (16 layers, 32 heads in 8 KV groups of D=64, vocab
+    128,256) in bf16 as TorchLlama, ``tt.jit(model, cuda_graphs=True)``:
+    the route is the frontend; the loss at B=2, T=2048 within
+    FRONTEND_EVAL_RTOL of the same module run eagerly in torch (its logits,
+    the loss of them taken in f32); per call
+    16 tt_flash_fwd, 33 tt_rms_norm and 1 tt_cross_entropy launches; no
+    torch_eager op in the trace; after warm-up 0 captures and 0 compiles.
+    Then the same-call pair with the port-native GPTForCausalLM forward on
+    the same weights (captured too): frontend, native, native, frontend, ms
+    a call each; device ms a call from two agreeing profiles of each."""
+    from thunder_tpu_torch.interop.torch_frontend import CompiledTorchModule
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T = 2, 2048
+    cfg = Config.from_name("Llama-3-1B")
+    reset_peak_memory()
+    port = GPTForCausalLM(cfg, torch.bfloat16, seed=seed)
+    user = torch_llama_from(port)
+    fn = tt.jit(user, cuda_graphs=True)
+    if not (tt.uses_torch_frontend(user) and isinstance(fn, CompiledTorchModule)):
+        raise AssertionError(f"frontend_eval: jit took {type(fn).__name__}, not the torch frontend")
+    idx, tgt = train_batch(cfg, B, T, seed + 3)
+    with torch.no_grad():
+        # the module run eagerly, its loss taken in f32 from its bf16 logits
+        # (a bf16 loss is rounded to 2^-8 of itself, more than the bar)
+        want = torch.nn.functional.cross_entropy(user.gpt(idx).reshape(B * T, -1).float(),
+                                                 tgt.reshape(-1).long()).item()
+    t0 = time.perf_counter()
+    fn(idx, tgt)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):  # capture, replay
+        fn(idx, tgt)
+    torch.cuda.synchronize()
+    counters = (cudaex.flash_attention, cudaex.rms_norm, cudaex.cross_entropy)
+    for c in counters:
+        c.launches = 0
+    graphs0, misses0 = graph_stats(tt, [fn]), tt.cache_misses(fn)
+    t0 = time.perf_counter()
+    losses = [fn(idx, tgt) for _ in range(FRONTEND_CALLS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / FRONTEND_CALLS * 1e3
+    losses = [x.item() for x in losses]
+    launches = {c.__name__: c.launches / FRONTEND_CALLS for c in counters}
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [fn]).items()}
+    compiles = tt.cache_misses(fn) - misses0
+    trace = frontend_claims(cudaex, tt.last_traces(fn)[-1])
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16", route=type(fn).__name__,
+               compile_s=compile_s, ms_per_call=ms, loss=losses[0], eager_loss=want,
+               rel_err=abs(losses[0] - want) / abs(want), rtol=FRONTEND_EVAL_RTOL,
+               launches_per_call=launches, compiles=compiles, **graphs, **trace)
+    want_launches = {"flash_attention": cfg.n_layer, "rms_norm": 2 * cfg.n_layer + 1, "cross_entropy": 1}
+    if launches != want_launches or trace["torch_eager"] or compiles or graphs != {
+            "graph_captures": 0, "graph_replays": FRONTEND_CALLS}:
+        emit("frontend_eval", **out)
+        raise AssertionError(f"frontend_eval: launches {launches} (want {want_launches}), torch_eager "
+                             f"{trace['torch_eager']}, compiles {compiles}, graphs {graphs}")
+    if not out["rel_err"] <= FRONTEND_EVAL_RTOL or len(set(losses)) != 1:
+        emit("frontend_eval", **out)
+        raise AssertionError(f"frontend_eval: losses {losses} vs eager {want}")
+    native = tt.jit(port, cuda_graphs=True)
+    for _ in range(3):
+        native(idx, tgt)
+    rounds = []
+    for road, f in (("frontend", fn), ("native", native), ("native", native), ("frontend", fn)):
+        f(idx, tgt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRONTEND_CALLS):
+            f(idx, tgt)
+        torch.cuda.synchronize()
+        rounds.append(dict(road=road, ms_per_call=(time.perf_counter() - t0) / FRONTEND_CALLS * 1e3))
+    profiles = {}
+    for road, f in (("frontend", fn), ("native", native)):
+        prof, check = profile_twice(f"frontend_eval_{road}_profile", lambda: [f(idx, tgt) for _ in range(2)])
+        rows = prof["rows"]
+        profiles[road] = dict(device_ms_per_call=sum(r[0] for r in rows) / 2e3,
+                              kernels_per_call=sum(r[2] for r in rows) / 2,
+                              top=[{"name": k[:80], "device_ms": us / 2e3, "count": c / 2} for us, k, c in rows[:8]],
+                              two_profiles=check)
+    out.update(native_loss=native(idx, tgt).item(), pair=rounds, profiles=profiles,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("frontend_eval", **out)
+    del fn, native, user, port
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_train(tt, cudaex, seed, trained: dict) -> dict:
+    """llama-350m as TorchLlama, f32 master weights, B=4, T=2048, through
+    ``tt.jit(model, transforms=[AutocastTransform()])`` and a user loop of
+    ``tt.value_and_grad`` and ``optim.AdamW.update`` (op by op, as every
+    value_and_grad runs): 3 untimed and 10 timed steps, ms a step and
+    tokens/s; tt_flash_fwd and tt_flash_bwd 24 a step (rms_norm and the
+    cross-entropy kernel counted as their checkers decide: autocast leaves
+    the f32 RMSNorm weights beside bf16 activations); losses finite and
+    falling. Then in turns with the port-native value_and_grad loop on the
+    same weights (frontend, native, native, frontend), and device ms a step
+    of each from two agreeing profiles. The captured TrainStep's ms a step
+    (the train phase's) is printed beside it, for context only."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = 4, 2048, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    reset_peak_memory()
+    port = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    user = torch_llama_from(port)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    opt = optim.AdamW(lr=TRAIN_LR)
+
+    def loop(model, jitted):
+        vag = tt.value_and_grad(jitted)
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+
+        def step():
+            loss, grads = vag(idx, tgt)
+            opt.update(params, grads, state)
+            return loss
+
+        return step, vag
+
+    step, vag = loop(user, tt.jit(user, transforms=[AutocastTransform()]))
+    if type(vag).__name__ != "TorchModuleValueAndGrad":
+        raise AssertionError(f"frontend_train: value_and_grad took {type(vag).__name__}")
+    t0 = time.perf_counter()
+    first = float(step())
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    counters = (cudaex.flash_attention, cudaex.flash_attention_backward, cudaex.rms_norm, cudaex.cross_entropy,
+                cudaex.adamw_update)
+    for c in counters:
+        c.launches = 0
+    step_s, losses = timed_steps(step, 0, n_steps)
+    launches = {c.__name__: c.launches / n_steps for c in counters}
+    losses = [first] + losses
+    fwd = frontend_claims(cudaex, vag._cs.last_traces[-1])
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 autocast, f32 master",
+               route="frontend, value_and_grad op by op", steps=n_steps, ms_per_step=step_s * 1e3,
+               tokens_per_s=B * T / step_s, compile_s=compile_s, losses=losses, launches_per_step=launches,
+               forward=fwd, train_step_captured_ms_per_step=trained["ms_per_step"])
+    if launches["flash_attention"] != cfg.n_layer or launches["flash_attention_backward"] != cfg.n_layer:
+        emit("frontend_train", **out)
+        raise AssertionError(f"frontend_train: flash launches a step {launches}, want {cfg.n_layer} each")
+    if fwd["torch_eager"] or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        emit("frontend_train", **out)
+        raise AssertionError(f"frontend_train: torch_eager {fwd['torch_eager']}, losses {losses}")
+    native_step, _ = loop(port, tt.jit(port, transforms=[AutocastTransform()]))
+    for _ in range(2):
+        native_step()
+    rounds = []
+    for road, f in (("frontend", step), ("native", native_step), ("native", native_step), ("frontend", step)):
+        s, _ = timed_steps(f, 1, PAIR_TRAIN_STEPS)
+        rounds.append(dict(road=road, ms_per_step=s * 1e3))
+    profiles = {}
+    for road, f in (("frontend", step), ("native", native_step)):
+        prof, check = profile_twice(f"frontend_train_{road}_profile", lambda: [f() for _ in range(2)])
+        rows, wall_us = prof["rows"], prof["wall_us"]
+        busy_us = sum(r[0] for r in rows)
+        profiles[road] = dict(device_ms_per_step=busy_us / 2e3, wall_ms_per_step=wall_us / 2e3,
+                              idle_share=1 - busy_us / wall_us, kernels_per_step=sum(r[2] for r in rows) / 2,
+                              two_profiles=check)
+    out.update(pair=rounds, profiles=profiles, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("frontend_train", **out)
+    del step, native_step, user, port
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, train_agreement's config (llama-350m width at 2
+    layers, B=1, T=2048): 3 AdamW steps of the frontend road (TorchLlama,
+    ``tt.value_and_grad`` and ``optim.AdamW.update``) against
+    reference_step's hand-written step from the same weights and batch:
+    losses within LOSS_RTOL, parameters within PARAM_ATOL; the f32 flash
+    kernels launch n_layer times a step."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T, n_steps = 1, 2048, 3
+    cfg = Config.from_name("llama-350m", n_layer=2, block_size=T)
+    port = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    user = torch_llama_from(port)
+    ref = {k: p.detach().clone().requires_grad_() for k, p in port.named_parameters()}
+    del port
+    idx, tgt = train_batch(cfg, B, T, seed)
+    vag = tt.value_and_grad(tt.jit(user))
+    opt = optim.AdamW(lr=TRAIN_LR)
+    params = dict(user.named_parameters())
+    state = opt.init(params)
+    ref_opt = ReferenceAdamW(list(ref.values()), TRAIN_LR)
+    n0 = cudaex.flash_attention.launches
+    got = []
+    for _ in range(n_steps):
+        loss, grads = vag(idx, tgt)
+        opt.update(params, grads, state)
+        got.append(float(loss))
+    launches = cudaex.flash_attention.launches - n0
+    want = [float(reference_step(ref, ref_opt, cfg, idx, tgt, plain_attention, False)) for _ in range(n_steps)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    diffs = torch.cat([(params[k].detach() - ref[k].detach()).abs().flatten() for k in ref])
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False, losses=got,
+               reference_losses=want, loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+               param_max_abs=diffs.max().item(), param_atol=PARAM_ATOL, flash_launches=launches)
+    emit("frontend_train_agreement", **out)
+    if launches != cfg.n_layer * n_steps:
+        raise AssertionError(f"frontend_train_agreement: {launches} flash launches, want {cfg.n_layer * n_steps}")
+    if not loss_rel <= LOSS_RTOL or not out["param_max_abs"] <= PARAM_ATOL:
+        raise AssertionError(f"frontend train agreement: losses {loss_rel}, params {out['param_max_abs']}")
+    del vag, user, ref, ref_opt, params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4665,6 +5050,13 @@ def main() -> int:
     vit_train_agreement(tt, cudaex, args.seed)
     resnet_train(tt, cudaex, args.seed)
     resnet_train_agreement(tt, cudaex, args.seed)
+    front_eval = frontend_eval(tt, cudaex, args.seed)
+    front_train = frontend_train(tt, cudaex, args.seed, trained)
+    frontend_train_agreement(tt, cudaex, args.seed)
+    front = {"rms_norm": front_eval["launches_per_call"]["rms_norm"],
+             "flash_fwd": front_eval["launches_per_call"]["flash_attention"],
+             "flash_bwd": front_train["launches_per_step"]["flash_attention_backward"],
+             "cross_entropy": front_eval["launches_per_call"]["cross_entropy"]}
 
     kernels = []
     for name, res, src, rep, launches in (
@@ -4711,6 +5103,9 @@ def main() -> int:
                         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
                         "shape": res["shape"]})
+        if name in front:
+            # launches a call (frontend_eval) or a step (frontend_train) on the torch frontend's path
+            kernels[-1]["frontend_launches"] = front[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -180,7 +180,10 @@ def test_port_imports_neither_jax_nor_thunder_tpu():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"thunder_tpu_torch/transforms/fp8_training.py", "thunder_tpu_torch/transforms/lora.py",
             "thunder_tpu_torch/extend.py", "thunder_tpu_torch/common.py",
-            "thunder_tpu_torch/models/vit.py", "thunder_tpu_torch/models/resnet.py"} <= names
+            "thunder_tpu_torch/models/vit.py", "thunder_tpu_torch/models/resnet.py",
+            "thunder_tpu_torch/interop/torch_frontend.py", "thunder_tpu_torch/ops/auto_register.py",
+            "thunder_tpu_torch/ops/auto_catalog_ext.py", "thunder_tpu_torch/recipes.py",
+            "thunder_tpu_torch/plugins.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "thunder_tpu")]
     assert not bad, bad

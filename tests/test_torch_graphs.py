@@ -30,7 +30,8 @@ On the card (``-m gpu``; jax and thunder_tpu are imported only inside the
 CPU tests' fixtures, so ``python -m pytest --noconftest -m gpu
 tests/test_torch_graphs.py`` runs there): an f32 TrainStep captured against
 op by op, bit for bit over 3 steps, and so a tiny ViT and ResNet step
-(cuDNN deterministic); index_add (the embedding gradient)
+(cuDNN deterministic) and the torch frontend's tiny Llama (chip_smoke.py's
+TorchLlama, plain PyTorch: equal launches too); index_add (the embedding gradient)
 the same sum every run; a greedy bf16 engine wave captured
 against op by op, equal streams, equal launch counts, the pools the
 caller's own tensors, no capture or compile after ``warmup``; two
@@ -660,6 +661,59 @@ def _card_engine(cuda, graphs: bool):
     gpt = tlg.GPT(cfg, torch.bfloat16, device=cuda, seed=0)
     return ServingEngine(gpt, max_batch=4, page_size=16, max_seq=256, dtype=torch.bfloat16, device=cuda,
                          cuda_graphs=graphs)
+
+
+def _frontend_llama(device, graphs: bool):
+    """chip_smoke.py's TorchLlama (plain PyTorch) at tiny-llama2, f32, with
+    a port GPTForCausalLM's seeded weights, jitted: the torch frontend."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    cfg = tlg.Config.from_name("tiny-llama2")
+    user = chip_smoke.torch_llama_from(tlg.GPTForCausalLM(cfg, torch.float32, device=device, seed=0))
+    return cfg, tt.jit(user, cuda_graphs=graphs)
+
+
+def _frontend_runs(device):
+    """The frontend Llama's losses and kernel launches over 3 new batches,
+    op by op and captured; the captured program."""
+    from thunder_tpu_torch.interop.torch_frontend import CompiledTorchModule
+
+    counters = (cudaex.flash_attention, cudaex.rms_norm, cudaex.cross_entropy)
+    runs = []
+    for graphs in (False, True):
+        cfg, fn = _frontend_llama(device, graphs)
+        assert isinstance(fn, CompiledTorchModule)
+        rng = np.random.RandomState(9)
+        n0 = [c.launches for c in counters]
+        losses = [fn(*(torch.tensor(rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32), device=device)
+                       for _ in range(2))).item() for _ in range(3)]
+        runs.append((losses, [c.launches - n for c, n in zip(counters, n0)], fn))
+    return runs
+
+
+def test_frontend_module_captured_equals_op_by_op(fake_graphs):
+    """jit of a plain-PyTorch module (the torch frontend) with cuda_graphs:
+    the captured program replays, bit for bit with op by op."""
+    (ref, ref_n, _), (got, got_n, fn) = _frontend_runs(torch.device("cpu"))
+    assert got == ref and got_n == ref_n
+    assert (tt.graph_captures(fn), tt.graph_replays(fn)) == (1, 2)
+
+
+@pytest.mark.gpu
+def test_card_frontend_llama_captured_is_op_by_op_bit_for_bit(cuda):
+    """The frontend Llama (flash forward, RMSNorm and cross-entropy kernels
+    claimed from F.* calls), f32, 3 new batches: losses bit-equal captured
+    and op by op, and equal launches of each kernel."""
+    (ref, ref_n, _), (got, got_n, fn) = _frontend_runs(cuda)
+    assert got == ref
+    assert got_n == ref_n and all(ref_n)
+    assert (tt.graph_captures(fn), tt.graph_replays(fn)) == (1, 2)
 
 
 @pytest.mark.gpu

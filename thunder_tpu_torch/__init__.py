@@ -13,7 +13,10 @@ The serving slice brought ``jit`` and ``last_traces`` here, ``nn``,
 (transforms/autocast.py), ``jit(module, transforms=...)`` returning a
 ``ThunderModule``, ``optim`` and ``training.TrainStep``; the distributed
 slice brings ``parallel`` (a mesh over torch.distributed process groups,
-``ddp`` and ring-attention ``context_parallel``). A program runs where
+``ddp`` and ring-attention ``context_parallel``); the frontend slice
+brings ``interop.torch_frontend`` (plain torch modules traced through
+``__torch_function__``), the auto-registered catalog (ops/auto_register.py),
+``compile`` with ``recipes`` and ``plugins``. A program runs where
 its tensor inputs live; model and engine constructors take ``device`` and
 default to the card (raising when there is none).
 """
@@ -237,12 +240,33 @@ class ThunderCompiledFunction:
         return int(self._cs.cache_misses)
 
 
+# torch.nn's containers: they hold layers and compute nothing of their own
+_CONTAINERS = (torch.nn.Module, torch.nn.Sequential, torch.nn.ModuleList, torch.nn.ModuleDict,
+               torch.nn.ParameterList, torch.nn.ParameterDict)
+
+
+def uses_torch_frontend(module: torch.nn.Module) -> bool:
+    """Whether ``jit`` traces ``module`` through the torch frontend
+    (interop/torch_frontend.py): its class comes from ``transformers``, or
+    its tree holds a layer of ``torch.nn`` other than the containers. A
+    module built from the port's own layers (nn/layers.py; every model in
+    models/), whose forward is written in the port's ltorch, keeps
+    ``ThunderModule``. thunder_tpu's rule (any ``torch.nn`` class in the
+    MRO) cannot serve here: every port model is a ``torch.nn.Module``."""
+    if any(k.__module__.startswith("transformers") for k in type(module).__mro__):
+        return True
+    return any(k.__module__.startswith("torch.nn.modules") and k not in _CONTAINERS
+               for m in module.modules() for k in type(m).__mro__)
+
+
 def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence | None = None,
         cuda_graphs: bool = False, graph_pool=None):
     """Compile a callable into a cached trace program. Its tensor inputs
     decide the device it runs on; calls with new (shape, dtype, device)
     metadata compile a new specialization. A ``torch.nn.Module`` becomes a
-    ``ThunderModule`` whose program takes the parameters as inputs;
+    ``ThunderModule`` whose program takes the parameters as inputs, or,
+    when it is written with torch's own layers (``uses_torch_frontend``), a
+    ``CompiledTorchModule`` that traces it through ``__torch_function__``;
     ``transforms`` rewrite the acquired trace (e.g. ``AutocastTransform``).
 
     ``cuda_graphs=True`` runs each specialization on the card as a CUDA
@@ -252,12 +276,26 @@ def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence
     ``graphex.GraphPool`` share its memory and must not run at once."""
     from .nn.module import ThunderModule
 
+    if isinstance(fn, torch.nn.Module) and uses_torch_frontend(fn):
+        from .interop.torch_frontend import compile_torch_module
+
+        return compile_torch_module(fn, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
+                                    graph_pool=graph_pool)
     if isinstance(fn, torch.nn.Module):
         return ThunderModule(fn, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
                              graph_pool=graph_pool)
     cd = CompileData(fn=fn, executors=resolve_executors(executors) if executors is not None else (),
                      transforms=transforms or ())
     return ThunderCompiledFunction(cd, cuda_graphs=cuda_graphs, graph_pool=graph_pool)
+
+
+def compile(fn: Callable, *, recipe=None, plugins=None, **kwargs):
+    """Compile through a recipe (recipes.py): ``recipe`` is a Recipe, a
+    registered name, or None / "auto" (``HFTransformers`` for a transformers
+    model, else ``BaseRecipe``); ``plugins`` add to it (plugins.py)."""
+    from .recipes import resolve_recipe
+
+    return resolve_recipe(recipe, fn).apply(fn, plugins=plugins, **kwargs)
 
 
 def _get_cs(cfn) -> CompileStats:

@@ -284,3 +284,11 @@ def float_math_dtype(d) -> dtype:
     if d.is_float or d.is_complex:
         return d
     return float32
+
+
+def finfo_max(d) -> float:
+    """Largest finite value representable in dtype d (torch.finfo(d).max)."""
+    import torch
+
+    tdt = to_torch_dtype(to_dtype(d))
+    return float(torch.finfo(tdt).max if tdt.is_floating_point else torch.iinfo(tdt).max)

@@ -268,6 +268,17 @@ _reg(PrimIDs.CUMSUM, lambda a, dim: torch.cumsum(a, dim, dtype=a.dtype))
 _reg(PrimIDs.CUMPROD, lambda a, dim: torch.cumprod(a, dim, dtype=a.dtype))
 
 
+def _cummax(a, dim):
+    """Running max and the index it came from: a tie keeps the later index
+    and a NaN propagates with its own, as thunder_tpu's scan does (and
+    torch.cummax)."""
+    values, indices = torch.cummax(a, dim)
+    return values, indices.to(torch.int32)
+
+
+_reg(PrimIDs.CUMMAX, _cummax)
+
+
 def _topk(a, k, dim):
     """lax.top_k's order: values descending, equal values lowest index
     first (torch.topk leaves ties in no set order). A stable descending

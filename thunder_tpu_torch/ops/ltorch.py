@@ -1367,3 +1367,664 @@ def index_put(a, indices, values, accumulate=False):
     nothing else in the program reads (executors/passes.py:write_dead_inputs_in_place)."""
     return clang.index_put(a, tuple(indices), values, accumulate)
 
+
+
+# ---------------------------------------------------------------------------
+# the torch frontend's surface (interop/torch_frontend.py): the ops its
+# mapping table and its same-name methods reach, as thunder_tpu writes them
+# ---------------------------------------------------------------------------
+
+clip = clamp  # torch.clip is torch.clamp: one symbol, as thunder_tpu records it
+
+log10 = _unary("log10", prims.log10, int_to_float=True)
+lgamma = _unary("lgamma", prims.lgamma, int_to_float=True)
+digamma = _unary("digamma", prims.digamma, int_to_float=True)
+erfinv = _unary("erfinv", prims.erfinv, int_to_float=True)
+asinh = _unary("asinh", prims.asinh, int_to_float=True)
+acosh = _unary("acosh", prims.acosh, int_to_float=True)
+atanh = _unary("atanh", prims.atanh, int_to_float=True)
+signbit = _unary("signbit", prims.signbit)
+
+
+@torchsymbol(name="square", method_names=("square",))
+def square(a):
+    return clang.mul(a, a)
+
+
+@torchsymbol(name="frac", method_names=("frac",))
+def frac(a):
+    return clang.sub(a, prims.trunc(a))
+
+
+@torchsymbol(name="nan_to_num", method_names=("nan_to_num",))
+def nan_to_num(a, nan=0.0, posinf=None, neginf=None):
+    if posinf is None:
+        posinf = dtypes.finfo_max(a.dtype)
+    if neginf is None:
+        neginf = -dtypes.finfo_max(a.dtype)
+    out = clang.where(prims.isnan(a), clang.full_like(a, nan), a)
+    out = clang.where(clang.eq(a, float("inf")), clang.full_like(a, posinf), out)
+    out = clang.where(clang.eq(a, float("-inf")), clang.full_like(a, neginf), out)
+    return out
+
+
+@torchsymbol(name="hardtanh", id="torch.nn.functional.hardtanh")
+def hardtanh(a, min_val=-1.0, max_val=1.0):
+    return clang.minimum(clang.maximum(a, min_val), max_val)
+
+
+@torchsymbol(name="hardswish", id="torch.nn.functional.hardswish")
+def hardswish(a):
+    return clang.mul(a, clang.true_divide(clang.minimum(clang.maximum(clang.add(a, 3.0), 0.0), 6.0), 6.0))
+
+
+@torchsymbol(name="hardsigmoid", id="torch.nn.functional.hardsigmoid")
+def hardsigmoid(a):
+    return clang.true_divide(clang.minimum(clang.maximum(clang.add(a, 3.0), 0.0), 6.0), 6.0)
+
+
+@torchsymbol(name="elu", id="torch.nn.functional.elu")
+def elu(a, alpha=1.0):
+    return clang.where(clang.gt(a, 0), a, clang.mul(alpha, prims.expm1(a)))
+
+
+@torchsymbol(name="logaddexp", method_names=("logaddexp",))
+def logaddexp(a, b):
+    m = clang.maximum(a, b)
+    out = clang.add(m, prims.log1p(prims.exp(prims.neg(prims.abs(clang.sub(a, b))))))
+    # a == b (incl. ±inf where a-b is nan): exact result is a + log(2)
+    return clang.where(clang.eq(a, b), clang.add(m, math.log(2.0)), out)
+
+
+@torchsymbol(name="logaddexp2", method_names=("logaddexp2",))
+def logaddexp2(a, b):
+    m = clang.maximum(a, b)
+    inner = prims.exp2(prims.neg(prims.abs(clang.sub(a, b))))
+    out = clang.add(m, clang.true_divide(prims.log1p(inner), math.log(2.0)))
+    return clang.where(clang.eq(a, b), clang.add(m, 1.0), out)
+
+
+@torchsymbol(name="hypot", method_names=("hypot",))
+def hypot(a, b):
+    return clang._elementwise_binary(prims.hypot, a, b)
+
+
+@torchsymbol(name="copysign", method_names=("copysign",))
+def copysign(a, b):
+    return clang._elementwise_binary(prims.copysign, a, b)
+
+
+@torchsymbol(name="xlogy", method_names=("xlogy",))
+def xlogy(a, b):
+    safe = prims.log(clang.where(clang.eq(a, 0), clang.full_like(b, 1.0), b))
+    return clang.where(clang.eq(a, 0), clang.full_like(safe, 0.0), clang.mul(a, safe))
+
+
+@torchsymbol(name="heaviside", method_names=("heaviside",))
+def heaviside(a, values):
+    out = clang.where(clang.gt(a, 0), clang.full_like(a, 1.0), clang.full_like(a, 0.0))
+    return clang.where(clang.eq(a, 0), values, out)
+
+
+@torchsymbol(name="clamp_min", method_names=("clamp_min",))
+def clamp_min(a, min):
+    return clang.maximum(a, min)
+
+
+@torchsymbol(name="clamp_max", method_names=("clamp_max",))
+def clamp_max(a, max):
+    return clang.minimum(a, max)
+
+
+@torchsymbol(name="rsub", method_names=("rsub",))
+def rsub(a, b, *, alpha=None):
+    if alpha is not None and pyval(alpha) != 1:
+        a = clang.mul(a, alpha)
+    return clang.sub(b, a)
+
+
+@torchsymbol(name="logical_xor", method_names=("logical_xor",))
+def logical_xor(a, b):
+    return clang.ne(clang.to_bool(a), clang.to_bool(b))
+
+
+@torchsymbol(name="logsumexp", method_names=("logsumexp",))
+def logsumexp(a, dim, keepdim=False):
+    m = clang.amax(a, dim, keepdim=True)
+    m_stopped = prims.stop_gradient(m)
+    s = clang.sum_(prims.exp(clang.sub(a, m_stopped)), dim, keepdim=True)
+    out = clang.add(prims.log(s), m_stopped)
+    if not keepdim:
+        dims = clang._reduction_dims(a, dim)
+        out = clang.squeeze(out, dims)
+    return out
+
+
+@torchsymbol(name="softmin", id="torch.nn.functional.softmin")
+def softmin(a, dim=-1):
+    return softmax.meta(prims.neg(a), dim)
+
+
+@torchsymbol(name="cumprod", method_names=("cumprod",))
+def cumprod(a, dim):
+    return prims.cumprod(a, canonicalize_dim(a.ndim, pyval(dim)))
+
+
+@torchsymbol(name="cummax", method_names=("cummax",))
+def cummax(a, dim):
+    return prims.cummax(a, canonicalize_dim(a.ndim, pyval(dim)))
+
+
+@torchsymbol(name="count_nonzero", method_names=("count_nonzero",))
+def count_nonzero(a, dim=None):
+    nz = clang.ne(a, 0)
+    return clang.sum_(clang.maybe_convert_to_dtype(nz, dtypes.int64), dim, False)
+
+
+@torchsymbol(name="nansum", method_names=("nansum",))
+def nansum(a, dim=None, keepdim=False):
+    cleaned = clang.where(prims.isnan(a), clang.full_like(a, 0), a)
+    return clang.sum_(cleaned, dim, keepdim)
+
+
+@torchsymbol(name="nanmean", method_names=("nanmean",))
+def nanmean(a, dim=None, keepdim=False):
+    nan_mask = prims.isnan(a)
+    cleaned = clang.where(nan_mask, clang.full_like(a, 0), a)
+    total = clang.sum_(cleaned, dim, keepdim)
+    count = clang.sum_(clang.maybe_convert_to_dtype(prims.logical_not(nan_mask), a.dtype), dim, keepdim)
+    return clang.true_divide(total, count)
+
+
+@torchsymbol(name="aminmax", method_names=("aminmax",))
+def aminmax(a, *, dim=None, keepdim=False):
+    return clang.amin(a, dim, keepdim), clang.amax(a, dim, keepdim)
+
+
+@torchsymbol(name="median", method_names=("median",))
+def median(a, dim=None, keepdim=False):
+    """torch.median: global form returns the lower median value."""
+    if dim is None:
+        flat = clang.reshape(a, (a.numel,))
+        s = prims.sort(flat, 0, False)
+        return clang.squeeze(clang.slice_in_dim(s, (a.numel - 1) // 2, (a.numel - 1) // 2 + 1, 0), (0,))
+    d = canonicalize_dim(a.ndim, pyval(dim))
+    n = a.shape[d]
+    sv = prims.sort(a, d, False)
+    si = prims.argsort(a, d, False)
+    values = clang.slice_in_dim(sv, (n - 1) // 2, (n - 1) // 2 + 1, d)
+    indices = clang.slice_in_dim(si, (n - 1) // 2, (n - 1) // 2 + 1, d)
+    if not keepdim:
+        values = clang.squeeze(values, (d,))
+        indices = clang.squeeze(indices, (d,))
+    return values, clang.maybe_convert_to_dtype(indices, dtypes.int64)
+
+
+@torchsymbol(name="norm", method_names=("norm",))
+def norm(a, p=2, dim=None, keepdim=False):
+    p = pyval(p) if not isinstance(p, str) else p
+    check(isinstance(p, (int, float)) or p in ("fro", "inf"),
+          lambda: f"norm: ord/p must be a number or 'fro'/'inf', got {p!r}")
+    if p == "fro" or p == 2:
+        return prims.sqrt(clang.sum_(clang.mul(a, a), dim, keepdim))
+    if p == "inf" or p == float("inf"):
+        return clang.amax(prims.abs(a), dim, keepdim)
+    if p == float("-inf"):
+        return clang.amin(prims.abs(a), dim, keepdim)
+    if p == 1:
+        return clang.sum_(prims.abs(a), dim, keepdim)
+    powd = clang.pow_(prims.abs(a), p)
+    return clang.pow_(clang.sum_(powd, dim, keepdim), 1.0 / p)
+
+
+@torchsymbol(name="normalize", id="torch.nn.functional.normalize")
+def normalize(a, p=2.0, dim=1, eps=1e-12):
+    n = norm.meta(a, pyval(p), pyval(dim), True)
+    return clang.true_divide(a, clang.maximum(n, eps))
+
+
+@torchsymbol(name="cosine_similarity", id="torch.nn.functional.cosine_similarity")
+def cosine_similarity(x1, x2, dim=1, eps=1e-8):
+    num = clang.sum_(clang.mul(x1, x2), dim, False)
+    n1 = prims.sqrt(clang.sum_(clang.mul(x1, x1), dim, False))
+    n2 = prims.sqrt(clang.sum_(clang.mul(x2, x2), dim, False))
+    return clang.true_divide(num, clang.maximum(clang.mul(n1, n2), eps))
+
+
+# shape and indexing -----------------------------------------------------------
+
+
+@torchsymbol(name="narrow", method_names=("narrow",))
+def narrow(a, dim, start, length):
+    dim = canonicalize_dim(a.ndim, pyval(dim))
+    start = pyval(start)
+    if start < 0:
+        start += a.shape[dim]
+    return clang.slice_in_dim(a, start, start + pyval(length), dim)
+
+
+@torchsymbol(name="select", method_names=("select",))
+def select(a, dim, index):
+    dim = canonicalize_dim(a.ndim, pyval(dim))
+    index = pyval(index)
+    if index < 0:
+        index += a.shape[dim]
+    return clang.squeeze(clang.slice_in_dim(a, index, index + 1, dim), (dim,))
+
+
+@torchsymbol(name="unbind", method_names=("unbind",))
+def unbind(a, dim=0):
+    dim = canonicalize_dim(a.ndim, pyval(dim))
+    return tuple(select.meta(a, dim, i) for i in builtins.range(a.shape[dim]))
+
+
+@torchsymbol(name="tile", method_names=("tile",))
+def tile(a, *dims):
+    if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
+        dims = tuple(dims[0])
+    out = a
+    while out.ndim < len(dims):
+        out = clang.unsqueeze(out, 0)
+    dims = (1,) * (out.ndim - len(dims)) + tuple(pyval(d) for d in dims)
+    for i, d in enumerate(dims):
+        check(d >= 0, lambda: f"tile: negative repeat {d} for dim {i}")
+        if d == 0:
+            out = clang.slice_in_dim(out, 0, 0, i)
+        elif d > 1:
+            out = clang.cat([out] * d, i)
+    return out
+
+
+@torchsymbol(name="broadcast_to", method_names=("broadcast_to",))
+def broadcast_to(a, shape):
+    return clang.expand(a, tuple(shape))
+
+
+@torchsymbol(name="expand_as", method_names=("expand_as",))
+def expand_as(a, other):
+    return clang.expand(a, other.shape)
+
+
+@torchsymbol(name="diagonal", method_names=("diagonal",), id="torch.diagonal")
+def diagonal_op(a, offset=0, dim1=0, dim2=1):
+    d1 = canonicalize_dim(a.ndim, pyval(dim1))
+    d2 = canonicalize_dim(a.ndim, pyval(dim2))
+    k = pyval(offset)
+    n1, n2 = a.shape[d1], a.shape[d2]
+    dlen = builtins.max(0, builtins.min(n1, n2 - k) if k >= 0 else builtins.min(n1 + k, n2))
+    # move d1,d2 to the end
+    order = [i for i in builtins.range(a.ndim) if i not in (d1, d2)] + [d1, d2]
+    moved = clang.permute(a, order)
+    i = prims.iota(dlen, dtype=dtypes.int32, device=a.device)
+    r = clang.add(i, builtins.max(0, -k))
+    c = clang.add(i, builtins.max(0, k))
+    flat = clang.reshape(moved, moved.shape[:-2] + (n1 * n2,))
+    lin = clang.add(clang.mul(r, n2), c)
+    lin_b = clang.expand_to(lin, flat.shape[:-1] + (dlen,))
+    return clang.take_along_axis(flat, lin_b, flat.ndim - 1)
+
+
+@torchsymbol(name="diag", method_names=("diag",))
+def diag(a, diagonal=0):
+    k = pyval(diagonal)
+    if a.ndim == 1:
+        n = a.shape[0] + builtins.abs(k)
+        r = clang.unsqueeze(prims.iota(n, dtype=dtypes.int32, device=a.device), 1)
+        c = clang.unsqueeze(prims.iota(n, dtype=dtypes.int32, device=a.device), 0)
+        mask = clang.eq(clang.sub(c, r), k)
+        # place values: index vector along the diagonal
+        src = clang.expand(clang.unsqueeze(a, 0), (n, a.shape[0]))
+        idx = clang.sub(c if k >= 0 else r, builtins.abs(k))
+        take_idx = clang.maximum(clang.minimum(idx, a.shape[0] - 1), 0)
+        vals = clang.take_along_axis(src, clang.expand(take_idx, (n, n)) if take_idx.shape != (n, n) else take_idx, 1)
+        zero = clang.full_like(vals, 0)
+        return clang.where(mask, vals, zero)
+    return diagonal_op.meta(a, offset=k)
+
+
+@torchsymbol(name="ravel", method_names=("ravel",))
+def ravel(a):
+    return clang.reshape(a, (a.numel,))
+
+
+@torchsymbol(name="unflatten", method_names=("unflatten",))
+def unflatten(a, dim, sizes):
+    dim = canonicalize_dim(a.ndim, pyval(dim))
+    sizes = tuple(pyval(s) for s in sizes)
+    if -1 not in sizes:
+        prod = 1
+        for x in sizes:
+            prod *= x
+        check(prod == a.shape[dim],
+              lambda: f"unflatten: sizes {sizes} (product {prod}) must multiply to dim {dim} size {a.shape[dim]}")
+    if -1 in sizes:
+        known = 1
+        for s in sizes:
+            if s != -1:
+                known *= s
+        sizes = tuple(a.shape[dim] // known if s == -1 else s for s in sizes)
+    return clang.reshape(a, a.shape[:dim] + sizes + a.shape[dim + 1 :])
+
+
+@torchsymbol(name="pixel_shuffle", id="torch.nn.functional.pixel_shuffle")
+def pixel_shuffle(a, upscale_factor):
+    r = pyval(upscale_factor)
+    N, C, H, W = a.shape
+    check(C % (r * r) == 0, lambda: f"pixel_shuffle: {C} % {r*r}")
+    out = clang.reshape(a, (N, C // (r * r), r, r, H, W))
+    out = clang.permute(out, (0, 1, 4, 2, 5, 3))
+    return clang.reshape(out, (N, C // (r * r), H * r, W * r))
+
+
+def _pair(v):
+    """int-or-(a, b) normalization shared by the im2col family."""
+    if isinstance(v, (int, NumberProxy)):
+        n = int(pyval(v))
+        return n, n
+    a, b = v
+    return int(pyval(a)), int(pyval(b))
+
+
+@torchsymbol(name="unfold", id="torch.nn.functional.unfold")
+def unfold(a, kernel_size, dilation=1, padding=0, stride=1):
+    """F.unfold (im2col): (N, C, H, W) -> (N, C*kh*kw, L), as kh*kw strided
+    slices."""
+    kh, kw = _pair(kernel_size)
+    dh, dw = _pair(dilation)
+    ph, pw = _pair(padding)
+    sh, sw = _pair(stride)
+    N, C, H, W = a.shape
+    if ph or pw:
+        a = clang.pad(a, 0.0, [(0, 0, 0), (0, 0, 0), (ph, ph, 0), (pw, pw, 0)])
+        H, W = H + 2 * ph, W + 2 * pw
+    oh = (H - (kh - 1) * dh - 1) // sh + 1
+    ow = (W - (kw - 1) * dw - 1) // sw + 1
+    patches = []
+    for i in builtins.range(kh):
+        for j in builtins.range(kw):
+            r0, c0 = i * dh, j * dw
+            sl = prims.slice_prim(a, (0, 0, r0, c0),
+                                  (N, C, r0 + (oh - 1) * sh + 1, c0 + (ow - 1) * sw + 1),
+                                  (1, 1, sh, sw))
+            patches.append(clang.reshape(sl, (N, C, 1, oh * ow)))
+    out = clang.cat(patches, 2)  # (N, C, kh*kw, L)
+    return clang.reshape(out, (N, C * kh * kw, oh * ow))
+
+
+@torchsymbol(name="fold", id="torch.nn.functional.fold")
+def fold(a, output_size, kernel_size, dilation=1, padding=0, stride=1):
+    """F.fold (col2im): (N, C*kh*kw, L) -> (N, C, H, W), overlaps summed."""
+    H, W = _pair(output_size)
+    kh, kw = _pair(kernel_size)
+    check(a.ndim == 3 and a.shape[1] % (kh * kw) == 0,
+          lambda: f"fold expects (N, C*kh*kw, L) input; dim 1 of {tuple(a.shape)} "
+                  f"is not divisible by the kernel block size {kh*kw}")
+    dh, dw = _pair(dilation)
+    ph, pw = _pair(padding)
+    sh, sw = _pair(stride)
+    N = a.shape[0]
+    C = a.shape[1] // (kh * kw)
+    Hp, Wp = H + 2 * ph, W + 2 * pw
+    oh = (Hp - (kh - 1) * dh - 1) // sh + 1
+    ow = (Wp - (kw - 1) * dw - 1) // sw + 1
+    cols = clang.reshape(a, (N, C, kh * kw, oh, ow))
+    out = clang.full((N, C, Hp, Wp), 0.0, dtype=a.dtype, device=a.device)
+    # scatter each kernel position back with stride-interior padding
+    for i in builtins.range(kh):
+        for j in builtins.range(kw):
+            idx = i * kw + j
+            piece = clang.squeeze(clang.slice_in_dim(cols, idx, idx + 1, 2), (2,))  # (N,C,oh,ow)
+            r0, c0 = i * dh, j * dw
+            expanded = clang.pad(piece, 0.0, [
+                (0, 0, 0), (0, 0, 0),
+                (r0, Hp - r0 - ((oh - 1) * sh + 1), sh - 1),
+                (c0, Wp - c0 - ((ow - 1) * sw + 1), sw - 1),
+            ])
+            out = clang.add(out, expanded)
+    if ph or pw:
+        out = prims.slice_prim(out, (0, 0, ph, pw), (N, C, ph + H, pw + W), (1, 1, 1, 1))
+    return out
+
+
+@torchsymbol(name="interpolate", id="torch.nn.functional.interpolate")
+def interpolate(a, size=None, scale_factor=None, mode="nearest"):
+    """Static-shape interpolate: nearest / bilinear (align_corners=False)."""
+    n_spatial = a.ndim - 2
+    in_sp = a.shape[2:]
+    if size is not None:
+        out_sp = (size,) * n_spatial if isinstance(size, int) else tuple(pyval(s) for s in size)
+    else:
+        sf = (scale_factor,) * n_spatial if isinstance(scale_factor, (int, float)) else tuple(scale_factor)
+        out_sp = tuple(int(s * f) for s, f in zip(in_sp, sf))
+    if mode == "nearest":
+        out = a
+        for i, (si, so) in enumerate(zip(in_sp, out_sp)):
+            dim = 2 + i
+            idx_f = clang.mul(clang.add(prims.iota(so, dtype=dtypes.float32, device=a.device), 0.0), si / so)
+            idx = clang.maybe_convert_to_dtype(prims.floor(idx_f), dtypes.int32)
+            out = clang.take(out, idx, dim)
+        return out
+    check(mode in ("bilinear", "linear"), lambda: f"interpolate mode {mode} unsupported")
+    out = a
+    for i, (si, so) in enumerate(zip(in_sp, out_sp)):
+        dim = 2 + i
+        # align_corners=False source coordinates
+        coord = clang.sub(clang.mul(clang.add(prims.iota(so, dtype=dtypes.float32, device=a.device), 0.5), si / so), 0.5)
+        coord = clang.maximum(clang.minimum(coord, float(si - 1)), 0.0)
+        lo_f = prims.floor(coord)
+        w_hi = clang.sub(coord, lo_f)
+        lo = clang.maybe_convert_to_dtype(lo_f, dtypes.int32)
+        hi = clang.minimum(clang.add(lo, 1), si - 1)
+        g_lo = clang.take(out, lo, dim)
+        g_hi = clang.take(out, hi, dim)
+        shape = [1] * out.ndim
+        shape[dim] = so
+        w = clang.reshape(w_hi, tuple(shape))
+        out = clang.add(clang.mul(g_lo, clang.sub(1.0, w)), clang.mul(g_hi, w))
+    return out
+
+
+# products -------------------------------------------------------------------
+
+
+@torchsymbol(name="baddbmm", method_names=("baddbmm",))
+def baddbmm(input, batch1, batch2, *, beta=1, alpha=1):
+    out = prims.matmul(batch1, batch2)
+    if pyval(alpha) != 1:
+        out = clang.mul(out, alpha)
+    if pyval(beta) != 0:
+        out = clang.add(out, clang.mul(input, beta) if pyval(beta) != 1 else input)
+    return out
+
+
+@torchsymbol(name="addmm", method_names=("addmm",))
+def addmm(input, mat1, mat2, *, beta=1, alpha=1):
+    return baddbmm.meta(input, mat1, mat2, beta=beta, alpha=alpha)
+
+
+@torchsymbol(name="outer", method_names=("outer",))
+def outer(a, b):
+    check(a.ndim == 1 and b.ndim == 1,
+          lambda: f"outer expects 1D vectors, got {a.ndim}-D and {b.ndim}-D")
+    return clang.mul(clang.unsqueeze(a, 1), clang.unsqueeze(b, 0))
+
+
+@torchsymbol(name="mv", method_names=("mv",))
+def mv(a, b):
+    check(a.ndim == 2 and b.ndim == 1, lambda: "mv expects (2D, 1D)")
+    return prims.matmul(a, b)
+
+
+@torchsymbol(name="dot", method_names=("dot",))
+def dot(a, b):
+    check(a.ndim == 1 and b.ndim == 1, lambda: "dot expects 1D tensors")
+    check(a.shape[0] == b.shape[0],
+          lambda: f"dot: 1D tensors must have the same size, got {a.shape[0]} and {b.shape[0]}")
+    return prims.matmul(a, b)
+
+
+@torchsymbol(name="vdot", method_names=("vdot",))
+def vdot(a, b):
+    return prims.matmul(a, b)
+
+
+@torchsymbol(name="kron", method_names=("kron",))
+def kron(a, b):
+    check(a.ndim == b.ndim, lambda: "kron: rank mismatch (pad with reshape first)")
+    out = clang.mul(
+        clang.reshape(a, tuple(x for s in a.shape for x in (s, 1))),
+        clang.reshape(b, tuple(x for s in b.shape for x in (1, s))),
+    )
+    return clang.reshape(out, tuple(sa * sb for sa, sb in zip(a.shape, b.shape)))
+
+
+@torchsymbol(name="tensordot", method_names=("tensordot",))
+def tensordot(a, b, dims=2):
+    if isinstance(dims, int):
+        axes_a = list(builtins.range(a.ndim - dims, a.ndim))
+        axes_b = list(builtins.range(dims))
+    else:
+        axes_a = [canonicalize_dim(a.ndim, pyval(d)) for d in dims[0]]
+        axes_b = [canonicalize_dim(b.ndim, pyval(d)) for d in dims[1]]
+    free_a = [i for i in builtins.range(a.ndim) if i not in axes_a]
+    free_b = [i for i in builtins.range(b.ndim) if i not in axes_b]
+    pa = clang.permute(a, free_a + axes_a)
+    pb = clang.permute(b, axes_b + free_b)
+    M = 1
+    for i in free_a:
+        M *= a.shape[i]
+    K = 1
+    for i in axes_a:
+        K *= a.shape[i]
+    N = 1
+    for i in free_b:
+        N *= b.shape[i]
+    out = prims.matmul(clang.reshape(pa, (M, K)), clang.reshape(pb, (K, N)))
+    return clang.reshape(out, tuple(a.shape[i] for i in free_a) + tuple(b.shape[i] for i in free_b))
+
+
+# losses ---------------------------------------------------------------------
+
+
+def _apply_reduction(loss, reduction):
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return clang.sum_(loss)
+    return clang.mean(loss)
+
+
+@torchsymbol(name="l1_loss", id="torch.nn.functional.l1_loss")
+def l1_loss(input, target, reduction="mean"):
+    return _apply_reduction(prims.abs(clang.sub(input, target)), reduction)
+
+
+@torchsymbol(name="smooth_l1_loss", id="torch.nn.functional.smooth_l1_loss")
+def smooth_l1_loss(input, target, reduction="mean", beta=1.0):
+    d = clang.sub(input, target)
+    ad = prims.abs(d)
+    quad = clang.true_divide(clang.mul(clang.mul(d, d), 0.5), beta)
+    lin = clang.sub(ad, 0.5 * beta)
+    return _apply_reduction(clang.where(clang.lt(ad, beta), quad, lin), reduction)
+
+
+@torchsymbol(name="huber_loss", id="torch.nn.functional.huber_loss")
+def huber_loss(input, target, reduction="mean", delta=1.0):
+    d = clang.sub(input, target)
+    ad = prims.abs(d)
+    quad = clang.mul(clang.mul(d, d), 0.5)
+    lin = clang.mul(delta, clang.sub(ad, 0.5 * delta))
+    return _apply_reduction(clang.where(clang.lt(ad, delta), quad, lin), reduction)
+
+
+@torchsymbol(name="binary_cross_entropy", id="torch.nn.functional.binary_cross_entropy")
+def binary_cross_entropy(input, target, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = prims.neg(clang.add(
+        clang.mul(target, prims.log(clang.maximum(input, eps))),
+        clang.mul(clang.sub(1.0, target), prims.log(clang.maximum(clang.sub(1.0, input), eps))),
+    ))
+    if weight is not None:
+        loss = clang.mul(loss, weight)
+    return _apply_reduction(loss, reduction)
+
+
+@torchsymbol(name="binary_cross_entropy_with_logits", id="torch.nn.functional.binary_cross_entropy_with_logits")
+def binary_cross_entropy_with_logits(input, target, weight=None, pos_weight=None, reduction="mean"):
+    # max(x,0) - x*z + log(1 + exp(-|x|)) — numerically stable
+    neg_abs = prims.neg(prims.abs(input))
+    loss = clang.add(clang.sub(clang.maximum(input, 0.0), clang.mul(input, target)),
+                     prims.log1p(prims.exp(neg_abs)))
+    if pos_weight is not None:
+        log_sig = prims.neg(clang.add(clang.maximum(prims.neg(input), 0.0),
+                                      prims.log1p(prims.exp(neg_abs))))
+        log_sig_neg = clang.sub(log_sig, input)
+        loss = prims.neg(clang.add(clang.mul(clang.mul(target, pos_weight), log_sig),
+                                   clang.mul(clang.sub(1.0, target), log_sig_neg)))
+    if weight is not None:
+        loss = clang.mul(loss, weight)
+    return _apply_reduction(loss, reduction)
+
+
+@torchsymbol(name="kl_div", id="torch.nn.functional.kl_div")
+def kl_div(input, target, reduction="mean", log_target=False):
+    if log_target:
+        loss = clang.mul(prims.exp(target), clang.sub(target, input))
+    else:
+        eps_t = clang.maximum(target, 1e-12)
+        loss = clang.mul(target, clang.sub(prims.log(eps_t), input))
+    if reduction == "batchmean":
+        return clang.true_divide(clang.sum_(loss), input.shape[0])
+    return _apply_reduction(loss, reduction)
+
+
+@torchsymbol(name="soft_margin_loss", id="torch.nn.functional.soft_margin_loss")
+def soft_margin_loss(input, target, reduction="mean"):
+    return _apply_reduction(prims.log1p(prims.exp(prims.neg(clang.mul(input, target)))), reduction)
+
+
+@torchsymbol(name="hinge_embedding_loss", id="torch.nn.functional.hinge_embedding_loss")
+def hinge_embedding_loss(input, target, margin=1.0, reduction="mean"):
+    pos = input
+    neg = clang.maximum(clang.sub(margin, input), 0.0)
+    loss = clang.where(clang.gt(target, 0), pos, neg)
+    return _apply_reduction(loss, reduction)
+
+
+@torchsymbol(name="triplet_margin_loss", id="torch.nn.functional.triplet_margin_loss")
+def triplet_margin_loss(anchor, positive, negative, margin=1.0, p=2.0, reduction="mean"):
+    dp = norm.meta(clang.sub(anchor, positive), pyval(p), -1, False)
+    dn = norm.meta(clang.sub(anchor, negative), pyval(p), -1, False)
+    loss = clang.maximum(clang.add(clang.sub(dp, dn), margin), 0.0)
+    return _apply_reduction(loss, reduction)
+
+
+@torchsymbol(name="nll_loss", id="torch.nn.functional.nll_loss")
+def nll_loss(log_probs, target, weight=None, ignore_index=-100, reduction="mean"):
+    # an ignored row gathers row 0: jax reads a fill value there, torch's
+    # gather would raise on the sentinel; the row is masked to 0 below
+    valid = clang.ne(target, ignore_index)
+    tgt = clang.unsqueeze(clang.where(valid, target, clang.full_like(target, 0)), 1)
+    picked = clang.squeeze(clang.take_along_axis(log_probs, tgt, 1), 1)
+    nll = prims.neg(picked)
+    if weight is not None:
+        # per-sample class weights; torch normalizes the mean by their sum
+        safe_tgt = clang.where(valid, target, clang.full_like(target, 0))
+        w = clang.take(weight, safe_tgt, 0)
+        nll = clang.mul(nll, w)
+        denom = clang.sum_(clang.where(valid, w, clang.full_like(w, 0)))
+    else:
+        denom = clang.sum_(clang.maybe_convert_to_dtype(valid, nll.dtype))
+    nll = clang.where(valid, nll, clang.full_like(nll, 0))
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return clang.sum_(nll)
+    return clang.true_divide(clang.sum_(nll), denom)
+
+
+# registered last, as thunder_tpu registers it: ``a / b`` on a proxy records
+# torch.true_divide
+@torchsymbol(name="true_divide", method_names=("true_divide",))
+def true_divide(a, b):
+    return clang.true_divide(a, b)

@@ -1013,6 +1013,18 @@ def _cumsum_bwd(dim, g):
     return _reverse_cumsum(g, dim)
 
 
+@register_augmented_forward(PrimIDs.CUMMAX)
+def _cummax_aug(a, dim):
+    values, indices = prims.cummax(a, dim)
+    return VJPResult((values, indices), (a.shape, a.dtype, indices, dim))
+
+
+@register_backward(PrimIDs.CUMMAX)
+def _cummax_bwd(in_shape, in_dtype, indices, dim, g_values, g_indices=None):
+    zeros = prims.full(in_shape, 0.0, dtype=in_dtype)
+    return prims.scatter_add(zeros, indices, g_values, dim)
+
+
 @register_augmented_forward(PrimIDs.CUMPROD)
 def _cumprod_aug(a, dim):
     out = prims.cumprod(a, dim)
@@ -1521,12 +1533,16 @@ def value_and_grad(fn, argnums=None):
     from .. import ThunderCompiledFunction
     from ..nn.module import Module, ThunderModule
 
+    from ..interop.torch_frontend import CompiledTorchModule
+
     if isinstance(fn, ThunderModule):
         return ModuleValueAndGrad(fn)
+    if isinstance(fn, CompiledTorchModule):
+        return TorchModuleValueAndGrad(fn)
     if isinstance(fn, Module):
         from .. import jit
 
-        return ModuleValueAndGrad(jit(fn))
+        return value_and_grad(jit(fn))
     if isinstance(fn, ThunderCompiledFunction):
         return ThunderValueAndGrad(fn._cd.fn, argnums, transforms=fn._cd.transforms,
                                    executors=fn._cd.executors)
@@ -1568,3 +1584,17 @@ class ModuleValueAndGrad:
         all_grads = grads[0][0]  # grads mirrors ((state, args, kwargs), {})
         param_names = set(self.tmodule.get_parameters())
         return loss, {k: g for k, g in all_grads.items() if k in param_names}
+
+
+class TorchModuleValueAndGrad(ModuleValueAndGrad):
+    """value_and_grad over a CompiledTorchModule (the torch frontend's
+    wrapper): ``(loss, {parameter name: grad})`` for the trainable
+    parameters, whose live tensors are the program's inputs
+    (thunder_tpu/transforms/autodiff.py:TorchModuleValueAndGrad; there every
+    parameter gets one: jax arrays carry no requires_grad). It runs op by
+    op, as every value_and_grad does."""
+
+    def __call__(self, *args, **kwargs):
+        loss, grads = super().__call__(*args, **kwargs)
+        return loss, {k: g for k, g in grads.items() if g is not None}
+
