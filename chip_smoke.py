@@ -2,7 +2,7 @@
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
 eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
 ResNet-50 train and eval, a plain-PyTorch Llama through the torch frontend,
-agree.
+resilient training (guard, checkpoints, faults, loader), agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -66,7 +66,10 @@ Phases, each printing one JSON line:
                (adamw_plain) over two updates at llama-350m's parameter
                shapes (p f32 or bf16, g f32 or bf16: ADAMW_TOL), then timed
                at moe_train's MoEGPT and train's llama-350m shapes beside
-               the chain and torch._fused_adamw_.
+               the chain and torch._fused_adamw_; under the skip flag of a
+               guarded step (0: p, m and v bit-equal; 1: the unflagged
+               launch's bits) at llama-350m's shapes, and timed unflagged,
+               flag 1 and flag 0 in turns at both shapes.
 3. serve     — ServingEngine over Llama-3-1B at full width and depth in bf16
                (random weights from --seed): 16 greedy requests, prompts of
                128-1024 tokens, 64 new tokens each. Launch counters are zeroed
@@ -304,6 +307,40 @@ Phases, each printing one JSON line:
 32. frontend_train_agreement — f32, train_agreement's config: 3 AdamW
                steps of the frontend road against the hand-written step
                (LOSS_RTOL, PARAM_ATOL).
+33. resilient_train — llama-350m at full width, B=4, T=2048, bf16 autocast,
+               AdamW, captured, ``ScaledLoss`` (the loss times a float
+               input of ones, which nan_loss poisons): a token file of
+               RESILIENT_TOKENS uint16 tokens from --seed under build/, a
+               native TokenLoader (its library must build) through
+               prefetch_to_device, TrainStep(guard=StepGuard(
+               GuardPolicy(on_nonfinite="skip", check_grad_norm=True,
+               retry_transient=2))), CheckpointManager(every_n_steps=8,
+               keep=2, async_save=True), the fault plan RESILIENT_PLAN.
+               Step 5 is skipped (every parameter, moment, the device step
+               and buffer bit-equal, compared on the card), step 9 retried
+               twice, a SIGTERM after step 14 drains into a final save and
+               Preempted; the counters of the flash-RoPE pair and AdamW,
+               zeroed before, read 24 + 24 + 1 a step; 1 capture, at the
+               second step. Then RESILIENT_CONTINUATIONS uninterrupted
+               continuations from the saved state (written back in place),
+               RESILIENT_STEPS steps each on the next batches, and a fresh
+               TrainStep and manager restore the save (bit-equal to a device
+               copy kept at the preemption; its loader cursor serves the
+               same batches) and run those steps: within the
+               continuations' spread of the nearest (the bf16 flash
+               backward is not bit-reproducible). Prints the save's stall
+               on the step loop, its write's seconds and GB, the restore's
+               seconds, the native loader's batches/s, the device's idle
+               share over 3 prefetched guarded steps (profiled), and the
+               guarded and an unguarded step's ms in turns (unguarded,
+               guarded, guarded, unguarded).
+34. resilient_kill_resume — llama-350m at 2 layers, f32, B=1, T=512: three
+               processes (KILL_RESUME_CHILD): 12 uninterrupted steps; 12
+               steps under TT_FAULT=die@7 with a save every 4, killed by
+               os._exit in step 7 (exit code 77, only the step-4 save);
+               a restore of that save (loader cursor included) run to 12.
+               The resumed losses must equal the uninterrupted run's, bit
+               for bit (the f32 routes are bit-reproducible).
 The kernels phase also holds the RoPE-free flash pair at vit_train's shape
 (B=64, H=12, T=197, D=64, full) and over a ragged sweep (T of 50, 197,
 257; flash_ragged_full), each against the plain versions.
@@ -557,6 +594,7 @@ def check_adamw(cudaex, dev, gen) -> dict:
         errs.append(err["p"])
         cases.append({"p": dname(p_dt), "g": dname(g_dt), "max_abs_err": err, "rel_err": rel, "bar": bar})
         del ker, ref
+    skip_case = check_adamw_skip_flag(cudaex, dev, gen, small)
     timings = {}
     for which in ("moe", "llama-350m"):
         shapes = model_shapes(which)
@@ -569,6 +607,15 @@ def check_adamw(cudaex, dev, gen) -> dict:
         step_t = torch.ones((), dtype=torch.int32, device=dev)
         ms_k, eager = cuda_ms(lambda *a: cudaex.adamw_update(*a, step=step_t, **ADAMW_HYPER), [args], iters=10)
         plain, _ = cuda_ms(lambda *a: cudaex.adamw_plain(*a, step=next(step), **ADAMW_HYPER), [args], iters=5)
+        # the skip flag of a guarded step, set (1: the full update) and
+        # unset (0: nothing written), in turns with the unflagged launch
+        flags = {"unflagged": None, "flag_1": torch.ones((), dtype=torch.int32, device=dev),
+                 "flag_0": torch.zeros((), dtype=torch.int32, device=dev)}
+        flag_ms = {}
+        for name in ("unflagged", "flag_1", "flag_0", "flag_0", "flag_1", "unflagged"):
+            flag_ms.setdefault(name, []).append(cuda_ms(
+                lambda *a: cudaex.adamw_update(*a, step=step_t, finite=flags[name], **ADAMW_HYPER), [args],
+                iters=10)[0])
         steps = [torch.ones((), device=dev) for _ in ps]
         h = ADAMW_HYPER
         lib, _ = cuda_ms(lambda *a: torch._fused_adamw_(*a, [], steps, lr=h["lr"], beta1=h["beta1"],
@@ -577,12 +624,38 @@ def check_adamw(cudaex, dev, gen) -> dict:
                          [args], iters=10)
         timings[which] = dict(ms=ms_k, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
                               share_of_bound=b / ms_k, eager_ms=eager, params=n, tensors=len(ps),
-                              chunks=int(cudaex.adamw_tables(ps, gs, ms, vs)[1].numel()))
+                              chunks=int(cudaex.adamw_tables(ps, gs, ms, vs)[1].numel()),
+                              skip_flag_ms=flag_ms)
         del ps, gs, ms, vs, args, steps
         torch.cuda.empty_cache()
-    emit("kernels", kernel="adamw", cases=cases, timing=timings)
+    emit("kernels", kernel="adamw", cases=cases, skip_flag_case=skip_case, timing=timings)
     return dict(max_abs_err=max(errs), shape="MoEGPT (Llama-3-1B, 8 experts of 1024) f32 p and g",
-                **timings["moe"])
+                **timings["moe"], skip_flag={"case": skip_case,
+                                             "ms_at_llama-350m": timings["llama-350m"]["skip_flag_ms"]})
+
+
+def check_adamw_skip_flag(cudaex, dev, gen, shapes) -> dict:
+    """The skip flag of a guarded step at llama-350m's parameter shapes (f32
+    p and g): flag 0 leaves every p, m and v bit-equal; flag 1 writes the
+    unflagged launch's bits."""
+    ker = adamw_inputs(dev, gen, shapes)
+    ref = tuple([t.clone() for t in ts] for ts in ker)
+    before = [t.clone() for ts in (ker[0], ker[2], ker[3]) for t in ts]
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    cudaex.adamw_update(*ker, step=1, finite=flag, **ADAMW_HYPER)
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, (t for ts in (ker[0], ker[2], ker[3]) for t in ts)))
+    flag.fill_(1)
+    cudaex.adamw_update(*ker, step=1, finite=flag, **ADAMW_HYPER)
+    cudaex.adamw_update(*ref, step=1, **ADAMW_HYPER)
+    same = all(torch.equal(a, b) for a, b in zip((t for ts in (ker[0], ker[2], ker[3]) for t in ts),
+                                                 (t for ts in (ref[0], ref[2], ref[3]) for t in ts)))
+    moved = not torch.equal(before[0], ker[0][0])
+    if not (unchanged and same and moved):
+        raise AssertionError(f"adamw skip flag: flag 0 left p, m, v bit-equal: {unchanged}; flag 1 wrote the "
+                             f"unflagged bits: {same}; flag 1 moved p: {moved}")
+    del ker, ref, before
+    torch.cuda.empty_cache()
+    return {"flag_0_bit_equal": unchanged, "flag_1_equals_unflagged": same, "tensors": len(shapes)}
 
 
 def paged_inputs(dev, gen, dt, seq_lens, B=8, H=32, Hkv=8, D=64, ps=16, npm=128):
@@ -4968,6 +5041,376 @@ def frontend_train_agreement(tt, cudaex, seed) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phases 33-34: resilient training
+# ---------------------------------------------------------------------------
+
+RESILIENT_PLAN = "nan_loss@5,transient@9*2,preempt@14"
+RESILIENT_TOKENS = 16 * 2 ** 20  # uint16 tokens in the phase's token file
+RESILIENT_STEPS = 6  # steps after the preemption: the resumed run and each uninterrupted continuation
+RESILIENT_CONTINUATIONS = 3  # uninterrupted continuations from the saved state, for their spread
+RESILIENT_PAIR_STEPS = 8
+LOADER_RATE_BATCHES = 64
+KILL_RESUME_STEPS = 12
+# what each resilient_kill_resume process runs, from the checkout's root
+KILL_RESUME_CHILD = ("import sys, chip_smoke; "
+                     "chip_smoke.kill_resume_child(sys.argv[1], sys.argv[2], int(sys.argv[3]))")
+
+
+class ScaledLoss(torch.nn.Module):
+    """The LM loss times a float input, ``scale`` (ones): the batch's float
+    leaf, which the ``nan_loss`` fault poisons (a token batch has none)."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, idx, tgt, scale):
+        from thunder_tpu_torch.ops import ltorch
+
+        return ltorch.mul(self.lm(idx, tgt), scale)
+
+
+def scratch_dir():
+    """A temporary directory under the checkout's build/ (gitignored), removed
+    by the caller."""
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_tmp"
+    root.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=root)
+
+
+def device_state(step) -> list:
+    """Device copies of every tensor a step writes: parameters, buffers and
+    the optimizer's state (flatten order)."""
+    from thunder_tpu_torch.parallel.checkpoint import flatten
+
+    return [t.detach().clone() for t in (*step.tmodule.get_parameters().values(),
+                                         *step.tmodule.get_buffers().values(), *flatten(step.opt_state))]
+
+
+def live_tensors(step) -> list:
+    from thunder_tpu_torch.parallel.checkpoint import flatten
+
+    return [t.detach() for t in (*step.tmodule.get_parameters().values(),
+                                 *step.tmodule.get_buffers().values(), *flatten(step.opt_state))]
+
+
+@torch.no_grad()
+def write_state_(step, saved: list) -> None:
+    """``device_state``'s copies written back in place (the graph's tensors)."""
+    for t, s in zip(live_tensors(step), saved):
+        t.copy_(s)
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def loader_rate(loader_cls, path, B, T, seed) -> dict:
+    """The native loader's batches/s on the host alone (next_batch, after one
+    warm batch)."""
+    loader = loader_cls(path, B, T, seed=seed)
+    loader.next_batch()
+    t0 = time.perf_counter()
+    for _ in range(LOADER_RATE_BATCHES):
+        loader.next_batch()
+    s = time.perf_counter() - t0
+    loader.close()
+    return dict(batches_per_s=LOADER_RATE_BATCHES / s, tokens_per_s=LOADER_RATE_BATCHES * B * T / s)
+
+
+def resilient_train(tt, cudaex, seed) -> dict:
+    """Phase 33 (see the module docstring)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.data import TokenLoader, write_token_file
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.robustness import CheckpointManager, GuardPolicy, Preempted, StepGuard, faults
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    from thunder_tpu_torch.core.devices import resolve_device
+
+    B, T = 4, 2048
+    cfg = Config.from_name("llama-350m", block_size=T)
+    dev = resolve_device(None)
+    one = torch.ones((), device=dev)
+    counters = (cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward, cudaex.adamw_update)
+
+    def make_step(model_seed, guarded=True, model=None):
+        model = model if model is not None else GPTForCausalLM(cfg, torch.float32, seed=model_seed)
+        guard = (StepGuard(GuardPolicy(on_nonfinite="skip", check_grad_norm=True, retry_transient=2))
+                 if guarded else None)
+        return TrainStep(tt.jit(ScaledLoss(model), transforms=[AutocastTransform()]), optim.AdamW(lr=TRAIN_LR),
+                         guard=guard), model
+
+    tmp = scratch_dir()
+    try:
+        import shutil
+
+        tokens = f"{tmp.name}/tokens.bin"
+        write_token_file(tokens, np.random.RandomState(seed).randint(0, cfg.vocab_size, RESILIENT_TOKENS))
+        ckdir = f"{tmp.name}/ckpts"
+        disk_free_gb = shutil.disk_usage(tmp.name).free / 1e9
+        rate = loader_rate(TokenLoader, tokens, B, T, seed)
+        loader = TokenLoader(tokens, B, T, seed=seed)
+        if loader._lib is None or not loader.is_native:
+            raise AssertionError("resilient_train: the native TokenLoader did not build")
+        batches = loader.prefetched(size=2)
+        step, model = make_step(seed)
+        mgr = CheckpointManager(ckdir, every_n_steps=8, keep=2, async_save=True, loader=batches).attach(step)
+        guard = step.guard
+
+        # -- the main path: 15 guarded steps under the fault plan, preempted
+        faults.configure(RESILIENT_PLAN)
+        for c in counters:
+            c.launches = 0
+        walls, losses, skip_ok, retries_at_9 = [], [], None, None
+        captures_after_first = None
+        try:
+            for i in range(40):
+                x, y = next(batches)
+                pre = device_state(step) if i == 5 else None
+                t0 = time.perf_counter()
+                try:
+                    loss = step(x, y, one)
+                finally:
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                if i == 1:
+                    captures_after_first = tt.graph_captures(step)
+                if pre is not None:
+                    skip_ok = same_bits(pre, live_tensors(step))
+                    del pre
+                if i == 9:
+                    retries_at_9 = guard.retries
+            raise AssertionError("resilient_train: the preempt fault never fired")
+        except Preempted as e:
+            preempted = dict(step=e.step, checkpoint=e.checkpoint_path is not None)
+        finally:
+            faults.clear()
+        n_steps = len(walls)
+        launches = {c.__name__: c.launches for c in counters}
+        graphs = graph_stats(tt, [step])
+        mgr.close()
+        step._ckpt_manager = None
+        saves = [dict(r) for r in mgr.save_log]
+        kept = device_state(step)
+        cursor = batches.state_dict()
+        if not (preempted["step"] == 15 and preempted["checkpoint"] and n_steps == 15):
+            raise AssertionError(f"resilient_train: preempted {preempted} after {n_steps} steps")
+        if not skip_ok or not math.isnan(losses[5]) or guard.skipped != 1:
+            raise AssertionError(f"resilient_train: step 5 not skipped bit-equal (skip_ok {skip_ok}, "
+                                 f"loss {losses[5]}, skipped {guard.skipped})")
+        if retries_at_9 != 2:
+            raise AssertionError(f"resilient_train: {retries_at_9} retries at step 9, want 2")
+        if [s["step"] for s in saves] != [8, 15] or not all("write_s" in s for s in saves):
+            raise AssertionError(f"resilient_train: saves {saves}")
+        if graphs["graph_captures"] != captures_after_first or not graphs["graph_replays"]:
+            raise AssertionError(f"resilient_train: graphs {graphs}, captures after step 1 {captures_after_first}")
+        # each step (the skipped one too: its AdamW launch reads the flag and writes nothing)
+        want = {"flash_rope_attention": cfg.n_layer * n_steps,
+                "flash_rope_attention_backward": cfg.n_layer * n_steps, "adamw_update": n_steps}
+        if launches != want:
+            raise AssertionError(f"resilient_train: launches {launches}, want {want}")
+        per_step = {"tt_flash_rope_fwd": launches["flash_rope_attention"] / n_steps,
+                    "tt_flash_rope_bwd": launches["flash_rope_attention_backward"] / n_steps,
+                    "adamw": launches["adamw_update"] / n_steps}
+        finite = [x for i, x in enumerate(losses) if i != 5]
+        if not all(math.isfinite(x) for x in finite):
+            raise AssertionError(f"resilient_train: losses {losses}")
+
+        # -- uninterrupted continuations from the saved state
+        recorded = [tuple(t.clone() for t in next(batches)) for _ in range(RESILIENT_STEPS)]
+        batches.close()
+        loader.close()
+        continuations = []
+        for _ in range(RESILIENT_CONTINUATIONS):
+            write_state_(step, kept)
+            step._step_count = 15
+            continuations.append([float(step(x, y, one)) for x, y in recorded])
+        del step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- a fresh step and manager restore the last save
+        fresh, fresh_model = make_step(seed + 1)
+        loader2 = TokenLoader(tokens, B, T, seed=seed + 7)
+        mgr2 = CheckpointManager(ckdir, loader=loader2, preemption=False)
+        torch.cuda.synchronize()
+        meta = mgr2.restore(fresh)
+        torch.cuda.synchronize()
+        restore = dict(mgr2.last_restore)
+        restore.pop("path")
+        restored_bit_equal = same_bits(kept, live_tensors(fresh))
+        del kept
+        if not restored_bit_equal or meta["step"] != 15 or fresh.step_count != 15 or meta["loader"] != cursor:
+            raise AssertionError(f"resilient_train: restore bit-equal {restored_bit_equal}, meta step "
+                                 f"{meta['step']}, loader {meta['loader']} vs {cursor}")
+        batches2 = loader2.prefetched(size=2)
+        resumed, same_batches = [], True
+        for x0, y0 in recorded:
+            x, y = next(batches2)
+            same_batches = same_batches and torch.equal(x, x0) and torch.equal(y, y0)
+            resumed.append(float(fresh(x, y, one)))
+        if not same_batches:
+            raise AssertionError("resilient_train: the restored loader served other batches")
+        spread = max(abs(a - b) for i, c in enumerate(continuations) for d in continuations[i + 1:]
+                     for a, b in zip(c, d))
+        gap = min(max(abs(a - b) for a, b in zip(resumed, c)) for c in continuations)
+        floor = 4 * math.ulp(max(abs(x) for x in resumed))
+        if not gap <= max(spread, floor):
+            raise AssertionError(f"resilient_train: resumed losses {resumed} are {gap} from the nearest "
+                                 f"uninterrupted continuation {continuations}, spread {spread}")
+
+        # -- the device's idle share between guarded steps (from the prefetcher)
+        prof = profiled(lambda: [fresh(*next(batches2), one) for _ in range(3)])
+        busy_ms = sum(r[0] for r in prof["rows"]) / 1e3
+        idle_share = 1 - busy_ms / (prof["wall_us"] / 1e3)
+
+        # -- guarded and unguarded ms a step, in turns (a same-call pair, twice)
+        x, y = next(batches2)
+        batches2.close()
+        loader2.close()
+        plain, _ = make_step(None, guarded=False, model=fresh_model)
+        rounds = []
+        for guarded in (False, True, True, False):
+            s = fresh if guarded else plain
+            for _ in range(2):
+                s(x, y, one)
+            torch.cuda.synchronize()
+            calls = []
+            t0 = time.perf_counter()
+            for _ in range(RESILIENT_PAIR_STEPS):
+                c0 = time.perf_counter()
+                s(x, y, one)
+                calls.append(time.perf_counter() - c0)
+            torch.cuda.synchronize()
+            # host_ms_per_call: the call's own wall time, without a sync: the
+            # host's work a step unguarded, the whole step guarded (its flag read)
+            rounds.append(dict(guarded=guarded, ms_per_step=(time.perf_counter() - t0) / RESILIENT_PAIR_STEPS * 1e3,
+                               host_ms_per_call=sum(calls) / len(calls) * 1e3))
+        pair_graphs = graph_stats(tt, [fresh, plain])
+        guarded_ms = [r["ms_per_step"] for r in rounds if r["guarded"]]
+        plain_ms = [r["ms_per_step"] for r in rounds if not r["guarded"]]
+        del plain, fresh, fresh_model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    # call 7 saves (the step counter reaches 8), 5 is skipped, 9 retried, 14
+    # preempted; 0 and 1 compile and capture
+    normal = [w for i, w in enumerate(walls) if i not in (0, 1, 5, 7, 9, 14)]
+    median = sorted(normal)[len(normal) // 2]
+    out = dict(model=cfg.name, B=B, T=T, dtype="bf16 autocast, f32 master", plan=RESILIENT_PLAN,
+               steps=n_steps, losses=losses, preempted=preempted, skipped_step_bit_equal=skip_ok,
+               retries_at_step_9=retries_at_9, launches=launches, launches_per_step=per_step, **graphs,
+               captures_after_first_step=captures_after_first, step_wall_ms=walls, median_step_ms=median,
+               save_step_ms=walls[7], save_stall_ms=walls[7] - median,
+               writer_overlap_ms=walls[8:14], 
+               saves=[{k: v for k, v in s.items() if k != "path"} for s in saves],
+               write_gb=saves[0]["bytes"] / 1e9, write_s=saves[0]["write_s"],
+               preempt_save_write_s=saves[1]["write_s"], restore_s=restore["seconds"], restore=restore,
+               restored_bit_equal=restored_bit_equal, resumed_losses=resumed, continuations=continuations,
+               continuation_spread=spread, resumed_gap=gap, loader=rate, loader_native=True,
+               device_busy_ms=busy_ms, device_idle_share=idle_share, clock_ratio=prof["clock_ratio"],
+               guarded_ms_per_step=guarded_ms, unguarded_ms_per_step=plain_ms, pair_rounds=rounds,
+               pair_graphs=pair_graphs, disk_free_gb=disk_free_gb,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("resilient_train", **out)
+    return out
+
+
+def kill_resume_child(workdir: str, mode: str, seed: int) -> None:
+    """One process of resilient_kill_resume: llama-350m cut to 2 layers, f32,
+    B=1, T=512, AdamW, captured, a native TokenLoader. ``full`` runs
+    KILL_RESUME_STEPS steps; ``die`` saves every 4 steps (TT_FAULT=die@7 in
+    its environment kills it in step 7); ``resume`` restores the newest save
+    (loader cursor included) and runs to KILL_RESUME_STEPS. Prints a JSON
+    line a step: {"step": i, "loss": x}."""
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.core.devices import resolve_device
+    from thunder_tpu_torch.data import TokenLoader
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.robustness import CheckpointManager
+    from thunder_tpu_torch.training import TrainStep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.from_name("llama-350m", block_size=512, n_layer=2)
+    step = TrainStep(tt.jit(GPTForCausalLM(cfg, torch.float32, seed=seed)), optim.AdamW(lr=TRAIN_LR))
+    loader = TokenLoader(f"{workdir}/tokens.bin", 1, 512, seed=seed)
+    if not loader.is_native:
+        raise AssertionError("kill_resume_child: the native TokenLoader did not build")
+    if mode != "full":
+        mgr = CheckpointManager(f"{workdir}/ckpts", every_n_steps=4, keep=3, async_save=False, loader=loader,
+                                preemption=False).attach(step)
+        if mode == "resume":
+            mgr.restore(step)
+    while step.step_count < KILL_RESUME_STEPS:
+        x, y = loader.next_batch()
+        i = step.step_count
+        dev = resolve_device(None)
+        loss = float(step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+        print(json.dumps({"step": i, "loss": loss}), flush=True)
+    loader.close()
+
+
+def resilient_kill_resume(seed) -> dict:
+    """Phase 34 (see the module docstring)."""
+    import os
+    from pathlib import Path
+
+    from thunder_tpu_torch.data import write_token_file
+    from thunder_tpu_torch.models.litgpt import Config
+    from thunder_tpu_torch.robustness import faults, list_steps
+
+    here = str(Path(__file__).resolve().parent)
+    vocab = Config.from_name("llama-350m").vocab_size
+    tmp = scratch_dir()
+    try:
+        write_token_file(f"{tmp.name}/tokens.bin", np.random.RandomState(seed).randint(0, vocab, 2 ** 20))
+
+        def child(mode, env_extra=None):
+            env = {k: v for k, v in os.environ.items() if k != "TT_FAULT"}
+            env.update(env_extra or {})
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-c", KILL_RESUME_CHILD, tmp.name, mode, str(seed)],
+                                 cwd=here, env=env, capture_output=True, text=True, timeout=300)
+            losses = {}
+            for ln in run.stdout.splitlines():
+                if ln.startswith("{"):
+                    rec = json.loads(ln)
+                    losses[rec["step"]] = rec["loss"]
+            return run.returncode, losses, time.perf_counter() - t0, run.stderr[-2000:]
+
+        rc_full, full, s_full, err = child("full")
+        if rc_full != 0 or sorted(full) != list(range(KILL_RESUME_STEPS)):
+            raise AssertionError(f"resilient_kill_resume: the uninterrupted run: rc {rc_full}, {full}, {err}")
+        rc_die, died, s_die, err = child("die", {"TT_FAULT": "die@7"})
+        saved = [s for s, _ in list_steps(f"{tmp.name}/ckpts")]
+        if rc_die != faults.DIE_EXIT_CODE or sorted(died) != list(range(7)) or saved != [4]:
+            raise AssertionError(f"resilient_kill_resume: the killed run: rc {rc_die}, steps {sorted(died)}, "
+                                 f"saves {saved}, {err}")
+        rc_res, resumed, s_res, err = child("resume")
+        if rc_res != 0 or sorted(resumed) != list(range(4, KILL_RESUME_STEPS)):
+            raise AssertionError(f"resilient_kill_resume: the resumed run: rc {rc_res}, {resumed}, {err}")
+    finally:
+        tmp.cleanup()
+    bit_equal = all(resumed[i] == full[i] for i in resumed) and all(died[i] == full[i] for i in died)
+    out = dict(model="llama-350m at 2 layers", dtype="float32", B=1, T=512, steps=KILL_RESUME_STEPS,
+               fault="die@7", die_exit_code=rc_die, saves=saved, full_losses=[full[i] for i in sorted(full)],
+               resumed_losses=[resumed[i] for i in sorted(resumed)], bit_equal=bit_equal,
+               seconds={"full": s_full, "die": s_die, "resume": s_res})
+    emit("resilient_kill_resume", **out)
+    if not bit_equal:
+        raise AssertionError(f"resilient_kill_resume: resumed losses {resumed} are not the uninterrupted {full}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5053,6 +5496,14 @@ def main() -> int:
     front_eval = frontend_eval(tt, cudaex, args.seed)
     front_train = frontend_train(tt, cudaex, args.seed, trained)
     frontend_train_agreement(tt, cudaex, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilient = resilient_train(tt, cudaex, args.seed)
+    torch.cuda.empty_cache()
+    resilient_kill_resume(args.seed)
+    on_resilient = {"flash_rope_fwd": resilient["launches_per_step"]["tt_flash_rope_fwd"],
+                    "flash_rope_bwd": resilient["launches_per_step"]["tt_flash_rope_bwd"],
+                    "adamw": resilient["launches_per_step"]["adamw"]}
     front = {"rms_norm": front_eval["launches_per_call"]["rms_norm"],
              "flash_fwd": front_eval["launches_per_call"]["flash_attention"],
              "flash_bwd": front_train["launches_per_step"]["flash_attention_backward"],
@@ -5106,6 +5557,11 @@ def main() -> int:
         if name in front:
             # launches a call (frontend_eval) or a step (frontend_train) on the torch frontend's path
             kernels[-1]["frontend_launches"] = front[name]
+        if name in on_resilient:
+            # launches a step on resilient_train's guarded path
+            kernels[-1]["resilient_launches_per_step"] = on_resilient[name]
+        if name == "adamw":
+            kernels[-1]["skip_flag"] = res["skip_flag"]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

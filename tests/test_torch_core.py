@@ -183,7 +183,12 @@ def test_port_imports_neither_jax_nor_thunder_tpu():
             "thunder_tpu_torch/models/vit.py", "thunder_tpu_torch/models/resnet.py",
             "thunder_tpu_torch/interop/torch_frontend.py", "thunder_tpu_torch/ops/auto_register.py",
             "thunder_tpu_torch/ops/auto_catalog_ext.py", "thunder_tpu_torch/recipes.py",
-            "thunder_tpu_torch/plugins.py"} <= names
+            "thunder_tpu_torch/plugins.py", "thunder_tpu_torch/observability/events.py",
+            "thunder_tpu_torch/observability/metrics.py", "thunder_tpu_torch/robustness/__init__.py",
+            "thunder_tpu_torch/robustness/faults.py", "thunder_tpu_torch/robustness/preemption.py",
+            "thunder_tpu_torch/robustness/guards.py", "thunder_tpu_torch/robustness/checkpoint_manager.py",
+            "thunder_tpu_torch/parallel/checkpoint.py", "thunder_tpu_torch/data/__init__.py",
+            "thunder_tpu_torch/data/prefetch.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "thunder_tpu")]
     assert not bad, bad

@@ -634,8 +634,10 @@ def test_unported_options_raise():
     _, a, _, _, _ = _llama_pair()
     with pytest.raises(NotImplementedError, match="bucket"):
         ddp(tt.jit(a), make_mesh({"dp": 1}), bucket_mb=25)
-    with pytest.raises(NotImplementedError, match="guard"):
-        TrainStep(tt.jit(a), topt.AdamW(lr=1e-3), guard=object())
+    from thunder_tpu_torch.robustness import StepGuard
+
+    with pytest.raises(NotImplementedError, match="guard.*A3b"):  # an all-rank verdict
+        TrainStep(ddp(tt.jit(a), make_mesh({"dp": 1})), topt.AdamW(lr=1e-3), guard=StepGuard())
     with pytest.raises(NotImplementedError, match="mesh_plan.*rides on the module"):
         TrainStep(tt.jit(a), topt.AdamW(lr=1e-3), mesh_plan=object())
     with pytest.raises(ValueError, match="mesh wants 4 devices, have 1"):

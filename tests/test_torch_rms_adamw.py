@@ -22,6 +22,10 @@ On the CPU:
   f32, 1.3e-5 off the port's at t = 1, which moves an update by ~6e-6 of
   lr); bf16 p within one bf16 ulp a step (3): that shift can turn a step's
   rounding to bf16 the other way, and the next steps carry it.
+* The skip flag of a guarded step: ``adamw_plain`` under flag 0 writes
+  nothing and under flag 1 is the unflagged update bit for bit, and
+  ``optim.AdamW``/``SGD`` gate parameters, moments, momentum and the step
+  counter on it.
 * A planted fault fails each bar: a plan one block short, a chunk table
   that loses a tensor's last chunk, an emulation that rounds (1-b1)·g before
   the add, and an update that decays after the step.
@@ -37,7 +41,9 @@ tables) with mixed p and g dtypes, odd numels, misaligned views, empty and
 0-d tensors and None gradients: m, v and f32 p within 1e-6 of the largest
 |value| of their tensor (the card's chain may take a product unfused or a
 quotient through a reciprocal: an ulp), bf16 p within 2^-7 and f16 within
-2^-10 of it (one ulp at the largest value)."""
+2^-10 of it (one ulp at the largest value); under the skip flag (0) every
+tensor stays bit-equal, and flag 1 gives the unflagged launch's bits
+(tests/test_torch_robustness.py holds it inside a CUDA graph too)."""
 import numpy as np
 import pytest
 import torch
@@ -326,6 +332,65 @@ def test_adamw_fault_decay_after_the_step_is_caught(jax_optim):
 
 
 # ---------------------------------------------------------------------------
+# The skip flag of a guarded step (the update's gate)
+# ---------------------------------------------------------------------------
+
+
+def _flag_case(seed=3):
+    rng = np.random.RandomState(seed)
+    shapes = [(37, 65), (65,), ()]
+    ps = [torch.tensor(0.05 * rng.randn(*s), dtype=torch.float32) for s in shapes]
+    gs = [torch.tensor(1e-2 * rng.randn(*s), dtype=torch.float32) for s in shapes]
+    ms = [torch.tensor(1e-3 * rng.randn(*s), dtype=torch.float32) for s in shapes]
+    vs = [torch.tensor(1e-5 * rng.rand(*s), dtype=torch.float32) for s in shapes]
+    return ps, gs, ms, vs
+
+
+@pytest.mark.parametrize("flag", [0, 1], ids=["skip", "apply"])
+def test_adamw_plain_under_the_skip_flag(flag):
+    """On the CPU (adamw_plain): flag 0 writes nothing; flag 1 is the
+    unflagged update, bit for bit."""
+    ker, ref = _flag_case(), _flag_case()
+    before = [t.clone() for ts in (ker[0], ker[2], ker[3]) for t in ts]
+    cudaex.adamw_update(*ker, weight_decay=0.01, step=2, finite=torch.tensor(flag, dtype=torch.int32), **HYPER)
+    cudaex.adamw_update(*ref, weight_decay=0.01, step=2, **HYPER)
+    after = [t for ts in (ker[0], ker[2], ker[3]) for t in ts]
+    want = before if flag == 0 else [t for ts in (ref[0], ref[2], ref[3]) for t in ts]
+    assert all(torch.equal(a, b) for a, b in zip(after, want))
+
+
+@pytest.mark.parametrize("make", [lambda: topt.AdamW(lr=1e-2, weight_decay=0.1),
+                                  lambda: topt.SGD(lr=0.1, momentum=0.9, weight_decay=0.01),
+                                  lambda: topt.SGD(lr=0.1)], ids=["adamw", "sgd_momentum", "sgd"])
+def test_optimizers_gate_the_whole_state_on_the_flag(make):
+    """``update(..., finite=0)`` leaves parameters, moments (momentum) and
+    the step counter as they were; ``finite=1`` is the unguarded update."""
+    opt = make()
+    ps, gs, _, _ = _flag_case()
+    params = {f"t{i}": p for i, p in enumerate(ps)}
+    grads = {f"t{i}": g for i, g in enumerate(gs)}
+    state = opt.init(params)
+    opt.update(params, grads, state)  # a step in: momentum and moments are not zero
+    snap = lambda: [t.clone() for t in (*params.values(), *topt_leaves(state))]  # noqa: E731
+    before = snap()
+    opt.update(params, grads, state, finite=torch.tensor(0, dtype=torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(before, snap()))
+    ref_p = {k: v.clone() for k, v in params.items()}
+    ref_s = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict) else v.clone())
+             for k, v in state.items()}
+    opt.update(params, grads, state, finite=torch.tensor(1, dtype=torch.int32))
+    opt.update(ref_p, grads, ref_s)
+    assert all(torch.equal(a, b) for a, b in zip(snap(), [*ref_p.values(), *topt_leaves(ref_s)]))
+    assert int(state["step"]) == 2
+
+
+def topt_leaves(state: dict) -> list:
+    from thunder_tpu_torch.parallel.checkpoint import flatten
+
+    return flatten(state)
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -486,6 +551,26 @@ def test_adamw_kernel_matches_plain_over_two_updates(cuda, wd):
             assert err <= tol * scale, (i, err, scale)
     # the None gradient's parameter and moments did not move
     assert all(torch.equal(a, b) for a, b in zip(frozen, (ker[0][-1], ker[2][-1], ker[3][-1])))
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_skip_flag(cuda):
+    """The mixed card case under the skip flag: 0 leaves every p, m and v
+    bit-equal; 1 gives the unflagged launch's bits."""
+    ker, ref = _adamw_card_case(cuda), _adamw_card_case(cuda)
+    before = [t.clone() for ts in (ker[0], ker[2], ker[3]) for t in ts]
+    flag = torch.zeros((), dtype=torch.int32, device=cuda)
+    cudaex.adamw_update(*ker, weight_decay=0.01, step=1, finite=flag, **HYPER)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, [t for ts in (ker[0], ker[2], ker[3]) for t in ts]))
+    flag.fill_(1)
+    cudaex.adamw_update(*ker, weight_decay=0.01, step=1, finite=flag, **HYPER)
+    cudaex.adamw_update(*ref, weight_decay=0.01, step=1, **HYPER)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip([t for ts in (ker[0], ker[2], ker[3]) for t in ts],
+                                                 [t for ts in (ref[0], ref[2], ref[3]) for t in ts]))
+    with pytest.raises(ValueError, match="skip flag"):
+        cudaex.adamw_update(*ker, weight_decay=0.01, step=1, finite=flag.bool(), **HYPER)
 
 
 @pytest.mark.gpu

@@ -26,6 +26,14 @@
 // its step on the card and increments it before the launch), so a training
 // step captured in a CUDA graph replays with each step's corrections.
 //
+// The skip flag: a guarded step (TrainStep(guard=...)) passes a device int32
+// that is 1 when the step's loss (and gradient norm) is finite and 0 when it
+// is not; every block reads it first and, at 0, returns before it reads or
+// writes p, m or v. thunder_tpu gates its functional update with
+// where(finite, new, old) in the step's program; the port updates in place,
+// so the gate sits where the writes are, at the cost of one 4-byte read a
+// block instead of a pass over the state.
+//
 // What the design does about that: every byte moves once, in one launch. A
 // device table (cudaex.adamw_tables: built once per set of tensors and
 // cached, since the update works in place) lists each tensor's pointers,
@@ -134,7 +142,9 @@ __device__ __forceinline__ void update_chunk_p(const Entry& e, long long start, 
 // Block b updates chunk chunks[b] = (tensor index << 32) | chunk index.
 __global__ void __launch_bounds__(kThreads) adamw_kernel(const Entry* __restrict__ tensors,
                                                          const long long* __restrict__ chunks,
-                                                         const int* __restrict__ step_t, Hyper h) {
+                                                         const int* __restrict__ step_t,
+                                                         const int* __restrict__ finite, Hyper h) {
+  if (finite != nullptr && *finite == 0) return;  // a skipped step writes nothing
   const float t = static_cast<float>(*step_t);
   const Corrections corr{__fsub_rn(1.0f, powf(h.b1, t)), __fsub_rn(1.0f, powf(h.b2, t))};
   const long long c = chunks[blockIdx.x];
@@ -155,17 +165,18 @@ __global__ void __launch_bounds__(kThreads) adamw_kernel(const Entry* __restrict
 // tensors: device table of n_tensors Entry rows (6 int64 each); chunks:
 // device table of n_chunks int64 (tensor index << 32 | 64K-element chunk
 // index), both from cudaex.adamw_tables; step: the device int32 of the step
-// being taken (1 first), whose bias corrections each block computes. The
+// being taken (1 first), whose bias corrections each block computes; finite:
+// null, or the device int32 skip flag (0: write nothing). The
 // hyper-parameters as the chain takes them: b1, 1-b1, b2, 1-b2, eps, lr*wd
 // and -lr, each rounded to f32; decay 0 skips the weight decay. Returns the
 // launch's cudaGetLastError().
-extern "C" int tt_adamw(const void* tensors, const void* chunks, int n_chunks, const void* step, float b1,
-                        float a1, float b2, float a2, float eps, float lr_wd, float neg_lr, int decay,
-                        void* stream) {
+extern "C" int tt_adamw(const void* tensors, const void* chunks, int n_chunks, const void* step,
+                        const void* finite, float b1, float a1, float b2, float a2, float eps, float lr_wd,
+                        float neg_lr, int decay, void* stream) {
   if (n_chunks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Hyper h{b1, a1, b2, a2, eps, lr_wd, neg_lr, decay};
   adamw_kernel<<<n_chunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Entry*>(tensors), static_cast<const long long*>(chunks), static_cast<const int*>(step),
-      h);
+      static_cast<const int*>(finite), h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -173,7 +173,7 @@ def _library():
         lib.tt_rms_norm.restype = i
         lib.tt_empty.argtypes = [p]
         lib.tt_empty.restype = i
-        lib.tt_adamw.argtypes = [p, p, i, p] + [f] * 7 + [i, p]
+        lib.tt_adamw.argtypes = [p, p, i, p, p] + [f] * 7 + [i, p]
         lib.tt_adamw.restype = i
         lib.tt_paged_attention.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
         lib.tt_paged_attention.restype = i
@@ -359,11 +359,15 @@ def adamw_corrections(step, beta1: float, beta2: float) -> tuple:
 
 @torch.no_grad()
 def adamw_plain(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
-                eps: float, weight_decay: float, step) -> None:
+                eps: float, weight_decay: float, step, finite=None) -> None:
     """The kernel's function as torch._foreach_* passes (optim.AdamW's chain):
     updates the parameters ps and the f32 moments ms, vs in place from the
     gradients gs; `step` is the step being taken (1 first), an int or a 0-d
-    integer tensor (read on the host: the plain version runs on the CPU)."""
+    integer tensor (read on the host: the plain version runs on the CPU).
+    ``finite``: None, or the skip flag (a 0-d tensor, or a bool): when it is
+    0 nothing is written, as the kernel does."""
+    if finite is not None and not bool(finite):
+        return
     bc1, bc2 = (float(c) for c in adamw_corrections(step, beta1, beta2))
     gs = [g if g.dtype == torch.float32 else g.float() for g in gs]
     # m = b1*m + (1-b1)*g ; v = b2*v + (1-b2)*g*g
@@ -438,21 +442,24 @@ def adamw_tables(ps: list, gs: list, ms: list, vs: list) -> tuple:
 
 
 def adamw_update(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: float, beta2: float,
-                 eps: float, weight_decay: float, step) -> None:
+                 eps: float, weight_decay: float, step, finite=None) -> None:
     """AdamW's update of parameters ps and f32 moments ms, vs in place from
     gradients gs (a None gradient leaves its parameter and moments as they
     are), as adamw_plain computes it: on the CPU adamw_plain itself, on a
     card one launch of csrc/adamw.cu over every tensor. ``step`` is the
     step being taken: a 0-d int32 tensor on the card, which the kernel
     reads there (so a captured update replays with each step's bias
-    corrections), or an int."""
+    corrections), or an int. ``finite`` is the skip flag of a guarded step:
+    None (always update), or a 0-d int32 tensor on the card that the kernel
+    reads there, writing nothing where it is 0 (no host sync, and a
+    captured step replays the gate)."""
     keep = [i for i, g in enumerate(gs) if g is not None]
     ps, gs, ms, vs = ([t[i] for i in keep] for t in (ps, gs, ms, vs))
     if not ps:
         return
     hyper = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay, step=step)
     if ps[0].device.type == "cpu":
-        return adamw_plain(ps, gs, ms, vs, **hyper)
+        return adamw_plain(ps, gs, ms, vs, finite=finite, **hyper)
     dev = ps[0].device
     gs = [g if g.is_contiguous() else g.contiguous() for g in gs]
     for p, g, m, v in zip(ps, gs, ms, vs):
@@ -472,10 +479,17 @@ def adamw_update(ps: list, gs: list, ms: list, vs: list, *, lr: float, beta1: fl
     _require(step.device == dev and step.dtype == torch.int32 and step.dim() == 0,
              f"adamw_update: step must be a 0-d int32 tensor on {dev}, got {step.dtype} {tuple(step.shape)} "
              f"on {step.device}")
+    if finite is not None:
+        # the message reads metadata only: a tensor's repr would sync, which a capture refuses
+        got = (f"{finite.dtype} {tuple(finite.shape)} on {finite.device}" if isinstance(finite, torch.Tensor)
+               else type(finite).__name__)
+        _require(isinstance(finite, torch.Tensor) and finite.device == dev and finite.dtype == torch.int32
+                 and finite.dim() == 0, f"adamw_update: the skip flag must be a 0-d int32 tensor on {dev}, got {got}")
     entries, chunks = adamw_tables(ps, gs, ms, vs)
     if not chunks.numel():
         return
-    _raise_on(_library().tt_adamw(entries.data_ptr(), chunks.data_ptr(), chunks.numel(), step.data_ptr(), beta1,
+    _raise_on(_library().tt_adamw(entries.data_ptr(), chunks.data_ptr(), chunks.numel(), step.data_ptr(),
+                                  None if finite is None else finite.data_ptr(), beta1,
                                   1.0 - beta1, beta2, 1.0 - beta2, eps, lr * weight_decay, -lr,
                                   int(bool(weight_decay)), torch.cuda.current_stream(dev).cuda_stream), "adamw")
     adamw_update.launches += 1

@@ -6,7 +6,9 @@ ltorch. Covers RoPE, RMSNorm/LayerNorm, GQA (n_query_groups), GptNeox vs
 LLaMA (SwiGLU) MLPs and parallel residuals.
 
 Weights are random, made on the model's device from ``seed``;
-``load_jax_params`` loads thunder_tpu's weights instead. The attention of
+``load_jax_params`` loads thunder_tpu's weights instead, and
+``load_jax_checkpoint`` a thunder_tpu training checkpoint into a port
+``TrainStep``. The attention of
 ``GPT.forward`` (``ltorch.rope_sdpa``) is claimed by the flash-RoPE kernels
 (executors/cudaex.py); traced under context parallelism
 (parallel/context_parallel.py) it takes RoPE outside and plain ``sdpa``,
@@ -385,6 +387,63 @@ def load_jax_params(model: "GPT | GPTForCausalLM", params: dict) -> None:
             # numpy has no bfloat16 of its own: bf16 goes through f32, exactly
             v = torch.tensor(a.astype(np.float32) if want == "bfloat16" else a)
             p.copy_(v.to(device=p.device, dtype=p.dtype))
+
+
+def _key_paths(tree) -> list:
+    """The dict keys of ``tree`` in the order jax.tree_util prints them in a
+    treedef (sorted at every level, depth first)."""
+    if not isinstance(tree, dict):
+        return []
+    return [x for k in sorted(tree) for x in (k, *_key_paths(tree[k]))]
+
+
+def load_jax_checkpoint(train_step, stepdir: str, *, loader=None) -> dict:
+    """Continue a thunder_tpu run in the port: read one step directory of
+    thunder_tpu's ``CheckpointManager`` (robustness/checkpoint_manager.py,
+    the flat npz layout of parallel/checkpoint.py) into a port
+    ``TrainStep`` whose module has the same parameter names. Written in
+    place, as ``CheckpointManager.restore`` writes: the parameters, by
+    ``load_jax_params``'s mapping (the same names, dtypes and shapes; the
+    fp8 amax histories and BatchNorm running stats among the buffers, the
+    rope buffers rebuilt by the model and left alone), the optimizer's
+    state (AdamW's m and v, the device step; the step's optimizer state is
+    initialized first if it has not run), the step counter and, given a
+    ``loader``, its cursor. Returns the checkpoint's meta dict.
+
+    The names are checked against the structure note thunder_tpu writes
+    beside the arrays (its treedef, whose dict keys give the flatten
+    order). A step directory written through orbax (thunder_tpu with orbax
+    installed) or a sharded one has no reader here and raises."""
+    import os
+    import re
+
+    from ..parallel import checkpoint as ckpt
+    from ..robustness.checkpoint_manager import CheckpointError, copy_state_, live_state, read_meta, validate_step
+
+    ok, problems = validate_step(stepdir)
+    if not ok:
+        raise CheckpointError(f"checkpoint {stepdir} failed validation: {problems}")
+    meta = read_meta(stepdir)
+    payload = os.path.join(stepdir, "state", "state.npz")
+    if not os.path.exists(payload):
+        raise CheckpointError(f"{stepdir} holds no state/state.npz: an orbax or sharded layout, which the "
+                              f"port does not read (write the checkpoint without orbax)")
+    live = live_state(train_step, meta.get("has_opt_state", False))
+    with np.load(payload) as data:
+        note = str(data["__tt_treedef__"])
+    if re.findall(r"'([^']*)':", note) != _key_paths(live):
+        raise KeyError(f"{stepdir}: the checkpoint's state tree is not this step's "
+                       f"(checkpoint {note[:300]}...)")
+    state = ckpt.load(os.path.dirname(payload), like=live)
+    kept = {k for k in live["buffers"] if k.rsplit(".", 1)[-1].startswith("fp8_amax_")
+            or k.rsplit(".", 1)[-1] in ("running_mean", "running_var")}
+    copy_state_({k: v for k, v in live.items() if k != "buffers"},
+                {k: v for k, v in state.items() if k != "buffers"})
+    copy_state_({k: live["buffers"][k] for k in kept}, {k: state["buffers"][k] for k in kept})
+    train_step._step_count = int(meta["step"])
+    if loader is not None and meta.get("loader") is not None:
+        loader.load_state_dict(meta["loader"])
+    return meta
 
 
 def name_to_config(name: str) -> dict:

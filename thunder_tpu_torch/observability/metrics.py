@@ -1,0 +1,36 @@
+"""Robustness interventions over the event bus.
+
+thunder_tpu/observability/metrics.py for the port, limited to what the
+robustness layer calls: ``record_intervention`` (robustness/guards.py,
+robustness/checkpoint_manager.py), with the same counter and event
+vocabulary (so tools/obs_summary.py reads the port's dumps). The cache,
+recompile, fusion, serving, fleet, SLO and distributed recorders come with
+the slices whose code calls them (ROADMAP A6, A3b).
+"""
+from __future__ import annotations
+
+from . import events
+
+# Robustness-layer intervention reason codes (consumed by tools/obs_summary.py):
+#
+#   nonfinite-skip       a NaN/Inf step's update was gated off in-program
+#   nonfinite-raise      the guard policy (or an exhausted skip budget) raised
+#   rollback             N consecutive bad steps restored the last checkpoint
+#   transient-retry      a transient runtime error was retried with backoff
+#   transient-exhausted  the retry budget ran out; the error propagated
+#   preempt              SIGTERM drained into a final checkpoint
+#   preempt-escalated    a SECOND SIGTERM during the drain window forced an
+#                        immediate blocking save (no courtesy waits)
+INTERVENTION_CODES = ("nonfinite-skip", "nonfinite-raise", "rollback",
+                      "transient-retry", "transient-exhausted", "preempt",
+                      "preempt-escalated")
+
+
+def record_intervention(reason: str, **attrs) -> None:
+    """A robustness-layer intervention (guard skip/raise/rollback, transient
+    retry, preemption drain), reason-coded so the CLI can name it: counter
+    ``guard.<reason>`` plus one ``guard`` timeline event."""
+    if not events.enabled():
+        return
+    events.inc(f"guard.{reason}")
+    events.event("guard", reason=reason, **attrs)

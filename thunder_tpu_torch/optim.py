@@ -12,7 +12,17 @@ value back from the card and a captured CUDA graph (TrainStep) replays
 every step with its own corrections. SGD issues ``torch._foreach_*`` calls;
 AdamW's update is executors/cudaex.py's ``adamw_update``: one launch of the
 hand-written csrc/adamw.cu on a card, its plain version (the
-``torch._foreach_*`` chain) on the CPU."""
+``torch._foreach_*`` chain) on the CPU.
+
+A guarded step (TrainStep(guard=...)) passes ``update`` a skip flag,
+``finite``: a 0-d int32 tensor on the parameters' device, 1 when the step's
+loss and gradient norm are finite. thunder_tpu gates its functional update
+with ``where(finite, new, old)`` over parameters and state; here the writes
+are in place, so the gate is inside them: the step counter advances by
+``finite`` (so later bias corrections match thunder_tpu's), AdamW's kernel
+reads the flag and writes nothing at 0, and SGD writes ``where(finite, new,
+old)`` into its parameters and momentum. No update reads the flag on the
+host."""
 from __future__ import annotations
 
 import torch
@@ -27,11 +37,18 @@ def _step0(params: dict) -> torch.Tensor:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    """L2 norm over every tensor of a gradient dict, accumulated in f32."""
-    leaves = [g for g in grads.values() if g is not None]
+    """L2 norm over every tensor of a gradient dict, accumulated in f32: one
+    ``torch._foreach_norm`` pass over the gradients (no squared copies), then
+    the norm of the per-tensor norms."""
+    leaves = [g if g.dtype == torch.float32 else g.float() for g in grads.values() if g is not None]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+
+
+def _advance(state: dict, finite) -> None:
+    """The step counter moves by one, or by the skip flag of a guarded step."""
+    state["step"].add_(1 if finite is None else finite)
 
 
 class SGD:
@@ -46,8 +63,8 @@ class SGD:
         return {"step": _step0(params), "momentum_buf": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: dict):
-        state["step"].add_(1)
+    def update(self, params: dict, grads: dict, state: dict, finite=None):
+        _advance(state, finite)
         keys = [k for k in params if grads.get(k) is not None]
         if not keys:
             return params, state
@@ -55,12 +72,25 @@ class SGD:
         gs = [grads[k] for k in keys]
         if self.weight_decay:
             gs = torch._foreach_add(gs, ps, alpha=self.weight_decay)
+        if finite is None:
+            if self.momentum != 0.0:
+                bufs = [state["momentum_buf"][k] for k in keys]
+                torch._foreach_mul_(bufs, self.momentum)
+                torch._foreach_add_(bufs, gs)
+                gs = bufs
+            torch._foreach_add_(ps, gs, alpha=-self.lr)
+            return params, state
+        # guarded: the same values into scratch, written where finite
+        keep = finite.bool()
         if self.momentum != 0.0:
             bufs = [state["momentum_buf"][k] for k in keys]
-            torch._foreach_mul_(bufs, self.momentum)
-            torch._foreach_add_(bufs, gs)
-            gs = bufs
-        torch._foreach_add_(ps, gs, alpha=-self.lr)
+            new = torch._foreach_mul(bufs, self.momentum)
+            torch._foreach_add_(new, gs)
+            for b, n in zip(bufs, new):
+                b.copy_(torch.where(keep, n, b))
+            gs = new
+        for p, n in zip(ps, torch._foreach_add(ps, gs, alpha=-self.lr)):
+            p.copy_(torch.where(keep, n, p))
         return params, state
 
 
@@ -82,13 +112,13 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict, state: dict):
-        state["step"].add_(1)
+    def update(self, params: dict, grads: dict, state: dict, finite=None):
+        _advance(state, finite)
         keys = [k for k in params if grads.get(k) is not None]
         cudaex.adamw_update([params[k] for k in keys], [grads[k] for k in keys],
                             [state["m"][k] for k in keys], [state["v"][k] for k in keys],
                             lr=self.lr, beta1=self.beta1, beta2=self.beta2, eps=self.eps,
-                            weight_decay=self.weight_decay, step=state["step"])
+                            weight_decay=self.weight_decay, step=state["step"], finite=finite)
         return params, state
 
 

@@ -10,7 +10,10 @@ card, joined by ``torch.distributed``:
   environment (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
   ``LOCAL_RANK``, as ``torchrun`` sets them). A missing or broken NCCL
   raises; it never falls back to Gloo.
-* ``barrier()`` and ``destroy()``.
+* ``barrier()`` and ``destroy()``; ``process_index()`` and
+  ``process_count()``, thunder_tpu's ``jax.process_index()`` and
+  ``jax.process_count()``: this rank and the world size of the joined
+  group, 0 and 1 outside one.
 * ``LocalCluster`` spawns N CPU worker processes on this machine, each one
   Gloo rank with a timeout, and keeps them for many calls: ``call(source,
   fn, *args)`` runs ``fn`` of ``source`` on every rank and returns each
@@ -87,6 +90,20 @@ def barrier() -> None:
 
     if dist.is_initialized():
         dist.barrier()
+
+
+def process_index() -> int:
+    """This process's rank in the joined group; 0 outside one."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The joined group's world size; 1 outside one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def destroy() -> None:

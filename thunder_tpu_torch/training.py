@@ -44,9 +44,29 @@ capture the forward and backward traces are checked as ``jit``'s are
 (graphex.check_capturable): a host sync or host-side effect raises, naming
 the symbol.
 
-Not ported yet: the step guard, SLO monitoring, the AOT executable cache
-and no_sync gradient accumulation (``micro_step``). Asking for one of the
-arguments or for ``micro_step`` raises NotImplementedError naming it."""
+Resilient training (robustness/, thunder_tpu/training.py:281-335,
+:536-700): ``guard=StepGuard(...)`` makes the step compute ``finite =
+isfinite(loss) & isfinite(global_norm(grads))`` (the norm under
+``check_grad_norm``) as a 0-d tensor on the card, inside the step's graph,
+and pass it to the optimizer as its skip flag (optim.py): csrc/adamw.cu
+writes nothing on a non-finite step, SGD writes ``where(finite, new, old)``,
+the device step advances by ``finite``, and the forward's buffer writes are
+gated the same way. The step returns (loss, finite, grad norm) and
+``StepGuard.after_step`` reads the flag once (the policy: raise, skip,
+rollback). The guard's ``program_key()`` is part of the trace cache key and
+of the graph's key: a guarded and an unguarded step never share a trace or
+a graph. A ``CheckpointManager`` attaches itself (``manager.attach(step)``)
+and runs after each update (periodic saves, the SIGTERM drain); a step that
+fails while the manager is preempted finalizes the preemption. The fault
+sites of ``robustness.faults`` (TT_FAULT) are where thunder_tpu has them:
+``slow`` and ``nan_loss`` before the step, ``die``, ``oom`` and
+``transient`` (inside the guard's bounded retry) at dispatch, ``preempt``
+after it.
+
+Not ported yet: guards under a distributed plan (an all-rank verdict:
+ROADMAP A3b), SLO monitoring (``slo=``: ROADMAP A6), the AOT executable
+cache and no_sync gradient accumulation (``micro_step``: ROADMAP A3b).
+Asking for one of them raises NotImplementedError naming it."""
 from __future__ import annotations
 
 import contextlib
@@ -58,6 +78,9 @@ from .compile_service.buckets import BucketLadder, pad_to_bucket
 from .core.pytree import tree_flatten, tree_unflatten
 from .executors import graphex
 from .nn.module import ThunderModule
+from .optim import global_norm
+from .robustness import faults as _faults
+from .robustness.guards import StepGuard
 
 
 class TrainStep:
@@ -74,9 +97,8 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(mesh_plan=...) is not read: the distributed plan rides on the "
                 "module (parallel.ddp / parallel.context_parallel)")
-        for name, value in (("guard", guard), ("slo", slo)):
-            if value is not None:
-                raise NotImplementedError(f"TrainStep({name}=...) is not ported yet")
+        if slo is not None:
+            raise NotImplementedError("TrainStep(slo=...) (SLO monitoring) is not ported yet (ROADMAP A6)")
         if buckets is not None and not isinstance(buckets, BucketLadder):
             raise TypeError(f"TrainStep(buckets=...) takes a BucketLadder, got {type(buckets).__name__}")
         if bucket_pad is not None and not isinstance(bucket_pad, dict):
@@ -86,7 +108,14 @@ class TrainStep:
             loss_module = _jit(loss_module)
         if not isinstance(loss_module, ThunderModule):
             raise TypeError("TrainStep expects a Module or ThunderModule computing a scalar loss")
+        if guard is not None and not isinstance(guard, StepGuard):
+            raise TypeError(f"TrainStep(guard=...) takes a robustness.StepGuard, got {type(guard).__name__}")
+        if guard is not None and getattr(loss_module, "_dist_plan", None) is not None:
+            raise NotImplementedError(
+                "TrainStep(guard=...) under a distributed plan (an all-rank finite verdict) is not "
+                "ported yet (ROADMAP A3b)")
         self.tmodule = loss_module
+        self.guard = guard
         self.optimizer = optimizer
         self.opt_state = None
         self._vag = None
@@ -107,9 +136,17 @@ class TrainStep:
             raise ValueError("TrainStep has not run yet")
         return self._vag._cs
 
+    # set by CheckpointManager.attach(); None keeps the per-step cost at one
+    # attribute read
+    _ckpt_manager = None
+
     @property
     def step_count(self) -> int:
+        """Completed optimizer steps; checkpoint/restore round-trips it."""
         return self._step_count
+
+    def _guard_key(self) -> str:
+        return self.guard.program_key() if self.guard is not None else "noguard"
 
     def _split(self):
         """(trainable params, frozen params and buffers) by qualified name;
@@ -157,7 +194,9 @@ class TrainStep:
             return traced({**frozen, **tparams}, args, kwargs)
 
         traced_split.__name__ = getattr(inner, "__name__", "step")
-        traced_split.__cache_extra__ = getattr(inner, "__cache_extra__", None)
+        inner_extra = getattr(inner, "__cache_extra__", None)
+        guard_key = self._guard_key()
+        traced_split.__cache_extra__ = lambda: (inner_extra() if inner_extra is not None else None, guard_key)
         cd = self.tmodule._cd
         self._vag = ThunderValueAndGrad(traced_split, argnums=0, transforms=cd.transforms,
                                         executors=cd.executors)
@@ -179,6 +218,12 @@ class TrainStep:
 
     def __call__(self, *args, **kwargs):
         args, kwargs = self._bucketize(args, kwargs)
+        # fault-injection seam (TT_FAULT): with no plan armed this is one
+        # module-global read
+        step_idx = self._step_count
+        if _faults.active():
+            _faults.maybe_sleep(step_idx)
+            args, kwargs = _faults.maybe_poison(args, kwargs, step_idx)
         tparams, frozen = self._split()
         plan = self._plan
         if plan is not None:
@@ -191,16 +236,72 @@ class TrainStep:
         if self._vag is None:
             self._build()
         first = next(iter(tparams.values()), None)
-        if self.cuda_graphs and first is not None and graphex.captures_on(first.device):
-            loss = self._graphed(tparams, frozen, args, kwargs)
-        else:
-            loss = self._step(tparams, frozen, args, kwargs, in_place=False)
+        graphed = self.cuda_graphs and first is not None and graphex.captures_on(first.device)
+
+        def run():
+            if graphed:
+                return self._graphed(tparams, frozen, args, kwargs)
+            return self._step(tparams, frozen, args, kwargs, in_place=False)
+
+        try:
+            out = self._dispatch(run)
+        except BaseException:
+            # a step that dies while the manager is draining a preemption is
+            # the drain arriving, not a crash: finalize the preemption from
+            # the last completed step (raises Preempted)
+            mgr = self._ckpt_manager
+            if mgr is not None and mgr.preempted:
+                mgr._finalize_preempt(self)
+            raise
         self._step_count += 1
+        if self.guard is not None:
+            loss, finite, gnorm = out
+            # host half of the guard: one device sync, then the policy
+            # (raise / skip-with-budget / rollback via the manager)
+            self.guard.after_step(self, loss, (finite, gnorm))
+        else:
+            loss = out
+        if _faults.active():
+            _faults.maybe_preempt(step_idx)
+        mgr = self._ckpt_manager
+        if mgr is not None:
+            # periodic save / preemption drain; idle cost is an Event read
+            # plus an int modulo (CheckpointManager.on_step)
+            mgr.on_step(self)
         return loss
+
+    def _dispatch(self, run):
+        """Run the step, with bounded retry-with-backoff for transient errors
+        when the guard asks for it (thunder_tpu/training.py:_dispatch)."""
+        g = self.guard
+        step_idx = self._step_count
+        if g is None or g.policy.retry_transient <= 0:
+            if _faults.active():
+                # `die` kills the process mid-step, outside any retry loop (a
+                # dead host does not retry); `oom` likewise does not recover
+                # on the next attempt
+                _faults.maybe_die(step_idx)
+                _faults.maybe_oom(step_idx)
+                _faults.maybe_raise("transient", step_idx)
+            return run()
+
+        def attempt():
+            # inside the retry loop: `transient@N*k` fails the first k
+            # attempts of step N
+            if _faults.active():
+                _faults.maybe_raise("transient", step_idx)
+            return run()
+
+        if _faults.active():
+            _faults.maybe_die(step_idx)
+            _faults.maybe_oom(step_idx)
+        return g.run_with_retry(attempt, step=step_idx)
 
     def _step(self, tparams, frozen, args, kwargs, in_place: bool):
         """Forward, backward, the update, then the forward's buffer writes
-        (into the module's buffers when ``in_place``: a CUDA graph's)."""
+        (into the module's buffers when ``in_place``: a CUDA graph's). Under
+        a guard the update and the buffer writes are gated by the step's
+        finite flag, and the step returns (loss, finite, grad norm)."""
         loss, grads = self._vag(tparams, frozen, args, kwargs)
         pending = self._vag.consume_pending_effects()
         if self._plan is not None and pending is not None:
@@ -209,10 +310,29 @@ class TrainStep:
                 "distributed TrainStep are not supported yet — stats would "
                 "need a cross-replica mean; freeze the buffers (module.eval()) "
                 "or train without a mesh plan")
-        self.optimizer.update(tparams, grads[0][0], self.opt_state)
+        param_grads = grads[0][0]
+        if self.guard is None:
+            self.optimizer.update(tparams, param_grads, self.opt_state)
+            if pending is not None:
+                apply_effects(*pending, in_place=in_place)
+            return loss
+        with torch.no_grad():
+            ok = torch.isfinite(loss)
+            if self.guard.policy.check_grad_norm:
+                gnorm = global_norm(param_grads)
+                ok = ok & torch.isfinite(gnorm)
+            else:
+                gnorm = torch.zeros((), dtype=torch.float32, device=loss.device)
+            finite = ok.to(torch.int32)
+        self.optimizer.update(tparams, param_grads, self.opt_state, finite=finite)
         if pending is not None:
-            apply_effects(*pending, in_place=in_place)
-        return loss
+            keys, values = pending
+            keep = finite.bool()
+            # a non-finite step's buffer writes (running stats, amax
+            # histories) came from the NaN forward: the old values stay
+            values = [torch.where(keep, v, owner._buffers[name]) for (owner, name), v in zip(keys, values)]
+            apply_effects(keys, values, in_place=in_place)
+        return loss, finite, gnorm
 
     def _graphed(self, tparams, frozen, args, kwargs):
         """The step as one CUDA graph per batch signature. Inputs: the
@@ -224,7 +344,7 @@ class TrainStep:
         is_t = [isinstance(x, torch.Tensor) for x in leaves]
         state = [t for t in tree_flatten(self.opt_state)[0] if isinstance(t, torch.Tensor)]
         resident = [*tparams.values(), *frozen.values(), *state]
-        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t, self._vag.fn))
+        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t, self._vag.fn), self._guard_key())
         prog = self._programs.get(key)
         if prog is None:
             nt, nf, nr = len(tparams), len(frozen), len(resident)
@@ -249,7 +369,7 @@ class TrainStep:
 
     def micro_step(self, *args, **kwargs):
         raise NotImplementedError("TrainStep.micro_step (no_sync gradient accumulation) is not "
-                                  "ported yet")
+                                  "ported yet (ROADMAP A3b)")
 
 
 def _local_batch(plan, args: tuple, kwargs: dict):

@@ -19,7 +19,10 @@ warp a row (4 rows a block), and an empty kernel's launch (the floor). Then
 AdamW at the parameter shapes of moe_train's MoEGPT, train's llama-350m and
 remat_train's llama-1b (f32 p and g): the chain
 (cudaex.adamw_plain), the kernel, the kernel, the chain, and
-torch._fused_adamw_ with the same hyper-parameters. Prints one JSON line a
+torch._fused_adamw_ with the same hyper-parameters; then the kernel
+unflagged, under the skip flag of a guarded step set to 1 (a finite step:
+the full update) and 0 (a skipped step: nothing written), in turns
+(unflagged, flag 1, flag 0, flag 0, flag 1, unflagged). Prints one JSON line a
 case, with each bound, and the card's name and power limit. Needs a CUDA
 card and nvcc.
 
@@ -169,6 +172,14 @@ def adamw_ab(dev, gen) -> None:
         turns = {}
         for name in ("chain", "kernel", "kernel", "chain"):
             turns.setdefault(name, []).append(cs.cuda_ms(fns[name], [args], iters=5)[0])
+        finite = torch.ones((), dtype=torch.int32, device=dev)
+        skip = torch.zeros((), dtype=torch.int32, device=dev)
+        flagged = {"kernel": fns["kernel"],
+                   "kernel_flag_1": lambda *a: cudaex.adamw_update(*a, step=step_t, finite=finite, **h),
+                   "kernel_flag_0": lambda *a: cudaex.adamw_update(*a, step=step_t, finite=skip, **h)}
+        flag_turns = {}
+        for name in ("kernel", "kernel_flag_1", "kernel_flag_0", "kernel_flag_0", "kernel_flag_1", "kernel"):
+            flag_turns.setdefault(name, []).append(cs.cuda_ms(flagged[name], [args], iters=5)[0])
         steps = [torch.ones((), device=dev) for _ in ps]
         turns["torch._fused_adamw_"] = [cs.cuda_ms(
             lambda *a: torch._fused_adamw_(*a, [], steps, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
@@ -176,7 +187,8 @@ def adamw_ab(dev, gen) -> None:
                                            maximize=False), [args], iters=5)[0]]
         print(json.dumps({"kernel": "adamw", "model": which, "params": sum(p.numel() for p in ps),
                           "tensors": len(ps), "bound_ms": b, "bound_by": by, "ms": turns,
-                          "share_of_bound": {k: b / (sum(v) / len(v)) for k, v in turns.items()}}), flush=True)
+                          "share_of_bound": {k: b / (sum(v) / len(v)) for k, v in turns.items()},
+                          "skip_flag_ms": flag_turns}), flush=True)
         del args, ps, gs, steps
         torch.cuda.empty_cache()
 
