@@ -2,7 +2,9 @@
 quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
 eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
 ResNet-50 train and eval, a plain-PyTorch Llama through the torch frontend,
-resilient training (guard, checkpoints, faults, loader), agree.
+training with frozen int8/NF4 linears, fp8 inference from a meta-built
+model, the compiler extensions, resilient training (guard, checkpoints,
+faults, loader), agree.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -307,7 +309,56 @@ Phases, each printing one JSON line:
 32. frontend_train_agreement — f32, train_agreement's config: 3 AdamW
                steps of the frontend road against the hand-written step
                (LOSS_RTOL, PARAM_ATOL).
-33. resilient_train — llama-350m at full width, B=4, T=2048, bf16 autocast,
+33. quant_train — TrainStep(jit(GPTForCausalLM(Llama-3-1B),
+               [QuantizeInt8Transform(mlp.fc_1, mlp.fc_2),
+               QuantizeNF4Transform(mlp.proj), AutocastTransform()]),
+               AdamW(lr=1e-4)) at full width and depth, f32 master weights,
+               B=1, T=512 (M = QUANT_MAX_M: every frozen linear claimed;
+               autocast leaves them f32 x, so they run the kernels' f32
+               route): compile, 2 warm-up and 10 timed steps, captured (0
+               captures, 10 replays); int8_linear 32, nf4_linear 16, the
+               flash-RoPE pair 16 each and AdamW 1 a step between zeroed
+               counters; every quantized linear of the forward trace claimed
+               by its kernel; the codes, scales and absmax bit-equal after
+               the steps and every trainable tensor moved; the trainable
+               parameter count, the frozen weight bytes, peak memory;
+               quant_train_profile over 2 steps. The kernels phase times
+               both kernels at these shapes in bf16 and f32.
+34. quant_train_agreement — f32, TF32 off, Llama-3-1B's widths at 2 layers,
+               B=1, T=512, on two int8-exact data (QUANT_AGREE_DATA): 3
+               steps of the TrainStep op by op against the hand-written
+               step whose frozen linears are written out
+               (FrozenLinearReference: the kernels' f32 function forward,
+               thunder_tpu's bf16-rounded rules backward): on both data
+               the step-1 loss within LOSS_RTOL and every step-1 gradient
+               within QUANT_GRAD_RTOL of its tensor's norm, frozen tensors
+               bit-equal; on the held data the 3 steps' losses within
+               LOSS_RTOL and parameters within PARAM_ATOL; then the
+               captured step bit-equal to op by op over 3 batches.
+35. fp8_inference — Llama-3-1B built under meta_device() (nothing allocated)
+               and materialized onto the card by MaterializationTransform
+               (seed), twice; tt.jit(model, transforms=[FP8LinearInference()],
+               cuda_graphs=True) at B=2, T=2048, bf16 (frontend_eval's
+               shape), in turns with the bf16 forward of the other copy
+               (fp8, bf16, bf16, fp8), each profiled twice: device and wall
+               ms a call; weight bytes; torch._scaled_mm calls a forward
+               (81, every linear); then one uncaptured forward whose every
+               fp8 linear is held against thunder_tpu's _fp8_linear_impl
+               written out on the same x (fp8_inference_err <= 1: f32
+               accumulation, the tensor cores' FP8_MMA_EPS and the final
+               cast), the logits being lm_head's.
+36. extensions — ExtensionsNet (an autocast_ctx region, tt.custom_op with
+               register_vjp, a diagonal ltorch.einsum and a scatter, a
+               folded constant) through tt.jit(transforms=[ConstantFolding(),
+               PrunePrologueChecks()]): the captured forward bit-equal to op
+               by op, the trace holding each part; a captured TrainStep
+               (its backward's torch.vjp_fallback for EINSUM and SCATTER
+               and the custom vjp) bit-equal to op by op over 3 batches,
+               its losses within EXT_LOSS_RTOL of the CPU's, its step-1
+               gradients within EXT_GRAD_RTOL (of each tensor's norm) of
+               the CPU's and of torch autograd's through extensions_plain
+               (plain torch: torch.einsum, Tensor.scatter) on the card.
+37. resilient_train — llama-350m at full width, B=4, T=2048, bf16 autocast,
                AdamW, captured, ``ScaledLoss`` (the loss times a float
                input of ones, which nan_loss poisons): a token file of
                RESILIENT_TOKENS uint16 tokens from --seed under build/, a
@@ -334,7 +385,7 @@ Phases, each printing one JSON line:
                share over 3 prefetched guarded steps (profiled), and the
                guarded and an unguarded step's ms in turns (unguarded,
                guarded, guarded, unguarded).
-34. resilient_kill_resume — llama-350m at 2 layers, f32, B=1, T=512: three
+38. resilient_kill_resume — llama-350m at 2 layers, f32, B=1, T=512: three
                processes (KILL_RESUME_CHILD): 12 uninterrupted steps; 12
                steps under TT_FAULT=die@7 with a save every 4, killed by
                os._exit in step 7 (exit code 77, only the step-4 save);
@@ -1250,8 +1301,12 @@ QUANT_CASES = {
     + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"]), ("attn_prefill256", 256, *QUANT_SHAPES["attn"]),
        ("mlp_proj_prefill256", 256, *QUANT_SHAPES["mlp_proj"])],
     "nf4": [(label, 4, N, K) for label, (N, K) in QUANT_SHAPES.items()]
-    + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"])],
+    + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"]), ("mlp_proj_train512", 512, *QUANT_SHAPES["mlp_proj"])],
 }
+# quant_train's frozen linears (M = 512): x reaches them in f32 (the f32
+# norm's output, the f32 MLP product), so they run the f32 route; timed in
+# f32 too
+QUANT_F32_TIMED = {"int8": ("fc_1_prefill512",), "nf4": ("mlp_proj_train512",)}
 
 
 def quant_plan(cudaex, kind: str, M: int, N: int, K: int) -> dict:
@@ -1281,12 +1336,12 @@ def nf4_inputs(dev, gen, dt, M, N, K, quantized: bool):
     return x, pk, ak
 
 
-def quant_work(kind: str, M: int, N: int, K: int) -> tuple[float, float]:
+def quant_work(kind: str, M: int, N: int, K: int, itemsize: int = 2) -> tuple[float, float]:
     """(bytes, operations) of one weight-only linear: the weights in their
     stored form (int8 + f32 scales; NF4 codes + f32 absmax) and x read once,
-    y written once (bf16); 2·M·N·K operations."""
+    y written once (x's dtype, bf16 unless named); 2·M·N·K operations."""
     w = N * K + 4 * N if kind == "int8" else N * K // 2 + 4 * N * K // 64
-    return w + 2 * M * K + 2 * M * N, 2.0 * M * N * K
+    return w + itemsize * (M * K + M * N), 2.0 * M * N * K
 
 
 def check_quant(cudaex, dev, gen, kind: str) -> dict:
@@ -1363,7 +1418,21 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
                               fraction_of_bound=b / ms)
         del sets, wsets
         torch.cuda.empty_cache()
-    extra = {}
+    timings_f32 = {}
+    for label, M, N, K in shapes:
+        if label not in QUANT_F32_TIMED[kind]:
+            continue
+        nbytes, ops = quant_work(kind, M, N, K, itemsize=4)
+        b, by = bound_ms(nbytes, ops, "float32")
+        sets = copies(lambda: make(torch.float32, M, N, K, False), nbytes)
+        ms, eager = cuda_ms(fn, sets)
+        plain_ms, _ = cuda_ms(plain, sets[:1], iters=10)
+        timings_f32[label] = dict(M=M, N=N, K=K, route=cudaex.weight_only_plan(kind, M, N, K, torch.float32)["route"],
+                                  ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                  fraction_of_bound=b / ms)
+        del sets
+        torch.cuda.empty_cache()
+    extra = {"timing_f32": timings_f32}
     if kind == "int8":
         extra["library"] = ("torch._weight_int8pack_mm" if lib_ok
                             else f"none: torch._weight_int8pack_mm on the card raised: {lib_error}")
@@ -1992,20 +2061,21 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
     return out
 
 
-def int8_exact_(gpt, seed: int) -> None:
-    """Every Linear weight as q · 2^-9 with integer q in [-126, 126] and
-    q[:, 0] = 127 (tests/test_mfu_levers.py:_make_int8_exact): int8
-    quantization recovers q and the scale 2^-9 exactly, and the int8
-    kernel's sum(x·q)·2^-9 is the f32 product with the weights q · 2^-9."""
+def int8_exact_(gpt, seed: int, select=None, scale: float = 2.0 ** -9) -> None:
+    """Every Linear weight (``select(name)`` ones, when given) as q · scale
+    with integer q in [-126, 126] and q[:, 0] = 127
+    (tests/test_mfu_levers.py:_make_int8_exact; scale a power of two): int8
+    quantization recovers q and the scale exactly, and the int8 kernel's
+    sum(x·q)·scale is the f32 product with the weights q · scale."""
     from thunder_tpu_torch import nn
 
     gen = torch.Generator(device=gpt.device).manual_seed(seed)
     with torch.no_grad():
-        for mod in gpt.modules():
-            if isinstance(mod, nn.Linear):
+        for name, mod in gpt.named_modules():
+            if isinstance(mod, nn.Linear) and (select is None or select(name)):
                 q = torch.randint(-126, 127, mod.weight.shape, device=gpt.device, generator=gen)
                 q[:, 0] = 127
-                mod.weight.copy_(q.to(mod.weight.dtype) * 2.0 ** -9)
+                mod.weight.copy_(q.to(mod.weight.dtype) * scale)
 
 
 def quant_agreement(tt, cudaex, cfg, prompts, seed) -> dict:
@@ -5042,7 +5112,678 @@ def frontend_train_agreement(tt, cudaex, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 33-34: resilient training
+# phases 33-36: frozen int8/NF4 linears in training, fp8 inference from a
+# meta-built model, the compiler extensions
+# ---------------------------------------------------------------------------
+
+# B·T = cudaex.QUANT_MAX_M: the checkers claim every frozen linear of the step
+QUANT_TRAIN_B, QUANT_TRAIN_T = 1, 512
+
+
+def quant_train_transforms() -> list:
+    """QuantizeInt8Transform on every mlp.fc_1 and mlp.fc_2,
+    QuantizeNF4Transform on every mlp.proj (kernel layout at Llama-3-1B's
+    K = 8192): those weights frozen, the rest trainable."""
+    from thunder_tpu_torch.transforms.quantization import QuantizeInt8Transform, QuantizeNF4Transform
+
+    return [QuantizeInt8Transform(target_predicate=lambda n, m: n.endswith(("mlp.fc_1", "mlp.fc_2"))),
+            QuantizeNF4Transform(target_predicate=lambda n, m: n.endswith("mlp.proj"))]
+
+
+def split_state(model) -> tuple[dict, dict]:
+    """(trainable, frozen) parameters by name, cloned."""
+    named = list(model.named_parameters())
+    return ({k: p.detach().clone() for k, p in named if p.requires_grad},
+            {k: p.detach().clone() for k, p in named if not p.requires_grad})
+
+
+def require_frozen_and_trained(phase: str, model, trainable0: dict, frozen0: dict) -> dict:
+    """Every frozen tensor (codes, scales, absmax) bit-equal to its start,
+    every trainable one moved."""
+    now = dict(model.named_parameters())
+    changed = sorted(k for k, v in frozen0.items() if not torch.equal(now[k].detach(), v))
+    stuck = sorted(k for k, v in trainable0.items() if torch.equal(now[k].detach(), v))
+    if changed or stuck:
+        raise AssertionError(f"{phase}: frozen tensors changed {changed[:8]}; trainable ones did not "
+                             f"move {stuck[:8]}")
+    return dict(frozen_tensors=len(frozen0), frozen_bit_equal=True, trainable_tensors=len(trainable0),
+                trainable_all_moved=True)
+
+
+def require_quant_claims(phase: str, cudaex, trace) -> dict:
+    """Every frozen linear of the forward trace claimed by its kernel: a
+    shape the checker declines would decompose here, and fails the phase."""
+    impls = {"quant.linear_int8": cudaex._int8_linear_impl, "quant.linear_nf4_kl": cudaex._nf4_kl_impl}
+    seen = {k: 0 for k in impls}
+    for b in trace.bound_symbols:
+        sid = b.sym.id
+        if isinstance(sid, str) and sid.startswith("quant."):
+            if impls.get(sid) is not b.impl:
+                raise AssertionError(f"{phase}: {sid} is not claimed by its kernel (impl {b.impl})")
+            seen[sid] += 1
+    return seen
+
+
+def quant_train(tt, cudaex, seed) -> dict:
+    """Llama-3-1B at full width and depth with every mlp.fc_1/fc_2 int8 and
+    every mlp.proj NF4 (frozen), the rest trained: bf16 autocast, f32
+    master weights, AdamW, B=1, T=512, captured."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    B, T, n_steps = QUANT_TRAIN_B, QUANT_TRAIN_T, 10
+    cfg = Config.from_name("Llama-3-1B", block_size=T)
+    reset_peak_memory()
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    step = TrainStep(tt.jit(model, transforms=[*quant_train_transforms(), AutocastTransform()]),
+                     optim.AdamW(lr=TRAIN_LR))
+    trainable0, frozen0 = split_state(model)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    counters = {"int8_linear": cudaex.int8_linear, "nf4_linear": cudaex.nf4_linear,
+                "flash_rope_fwd": cudaex.flash_rope_attention,
+                "flash_rope_bwd": cudaex.flash_rope_attention_backward, "adamw": cudaex.adamw_update}
+    for c in counters.values():
+        c.launches = 0
+    graphs0 = graph_stats(tt, [step])
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    per_step = {k: c.launches / n_steps for k, c in counters.items()}
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    if graphs != {"graph_captures": 0, "graph_replays": n_steps}:
+        raise AssertionError(f"quant_train: the timed steps ran {graphs}, want {n_steps} replays and no capture")
+    want = {"int8_linear": 2 * cfg.n_layer, "nf4_linear": cfg.n_layer, "flash_rope_fwd": cfg.n_layer,
+            "flash_rope_bwd": cfg.n_layer, "adamw": 1}
+    if per_step != want:
+        raise AssertionError(f"quant_train: launches a step {per_step}, want {want}")
+    claims = require_quant_claims("quant_train", cudaex, tt.last_traces(step)[-1])
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"quant_train losses {losses}")
+    state = require_frozen_and_trained("quant_train", model, trainable0, frozen0)
+    frozen_bytes = sum(v.numel() * v.element_size() for v in frozen0.values())
+    x_dtypes = sorted({str(b.args[0].dtype) for b in tt.last_traces(step)[-1].bound_symbols
+                       if isinstance(b.sym.id, str) and b.sym.id.startswith("quant.")})
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 autocast, f32 master",
+               frozen="int8 mlp.fc_1/fc_2, NF4 mlp.proj", frozen_linears_x_dtype=x_dtypes,
+               steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s, compile_s=compile_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+               launches_per_step=per_step, claims_per_forward=claims,
+               trainable_parameters=sum(v.numel() for v in trainable0.values()),
+               frozen_weight_bytes=frozen_bytes, **state, **graphs)
+    del trainable0, frozen0
+    prof = train_profile(step, idx, tgt, "quant_train_profile")
+    out.update(device_ms_per_step=prof["device_busy_ms"] / prof["steps"], idle_share=prof["idle_share"],
+               device_ms_per_step_by_kind=prof["device_ms_per_step_by_kind"])
+    emit("quant_train", **out)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class FrozenLinearReference(torch.autograd.Function):
+    """A frozen int8 or NF4 linear written out in plain torch. Forward: the
+    kernels' function in f32 (int8: the sum of x·q, then the per-row
+    scale; NF4: the kernel-layout codes looked up in the NF4 table times
+    their block's absmax). Backward: thunder_tpu's rules (_qlin_bwd,
+    _nf4_kl_bwd): the incoming gradient and the dequantized weight rounded
+    to bf16, dx their product cast back to the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, kind, codes, aux):
+        if kind == "int8":
+            y = torch.matmul(x.float(), codes.float().t()) * aux.float()
+            ctx.w_bf16 = codes.to(torch.bfloat16) * aux.to(torch.bfloat16)[:, None]
+        else:
+            w = nf4_dequant_written(codes, aux, x.shape[-1])
+            y = torch.matmul(x.float(), w.t())
+            ctx.w_bf16 = w.to(torch.bfloat16)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.matmul(g.to(torch.bfloat16), ctx.w_bf16).to(g.dtype), None, None, None
+
+
+def nf4_dequant_written(packed, absmax, K: int):
+    """Kernel-layout NF4 (transforms/quantization.py:pack_nf4_kernel_layout)
+    to f32: within each block_k slice of a row, byte j holds column j in
+    its high nibble and column j + block_k/2 in its low one; 64-value blocks
+    share an absmax."""
+    from thunder_tpu_torch.transforms.quantization import NF4_CODE, nf4_kernel_block_k
+
+    N, bk = packed.shape[0], nf4_kernel_block_k(K)
+    b = packed.reshape(N, K // bk, bk // 2).long()
+    codes = torch.cat([b >> 4, b & 15], dim=-1).reshape(N, K)
+    return NF4_CODE.to(packed.device)[codes] * absmax.reshape(N, K // 64).repeat_interleave(64, dim=1)
+
+
+# The frozen linears' step-1 gradients against FrozenLinearReference's. Both
+# sides compute in f32 but for one rounding, the same on both: the frozen
+# backward rounds the incoming gradient and the dequantized weight to bf16.
+# Where the two f32 gradients straddle a bf16 rounding boundary, their
+# rounded values land one bf16 ulp (at most 2^-7 of the value) apart, and
+# that gap flows on into every gradient upstream; if every rounded element
+# landed apart, a tensor's gradient would move by at most about 2^-7 of its
+# norm. So each trainable tensor's step-1 gradient is held to
+# QUANT_GRAD_RTOL = 2^-7 of its norm: a missing scale, a wrong NF4 table
+# entry or a transposed weight moves it by O(1).
+QUANT_GRAD_RTOL = 2.0 ** -7
+# The phase's two data: the held one (int8-exact fc_1/fc_2 at the init's
+# scale, codes · 2^-13: std ~0.009, the init's ~0.013), and every linear
+# int8-exact at 2^-9 (std 0.14, loss ~29.7), on which the 3-step losses
+# part past LOSS_RTOL (1.9e-4 on an H100 80GB HBM3), as AdamW's ±lr steps of
+# near-zero gradients follow signs that the summation order can flip: on it
+# the phase holds the first step (its loss and gradients, which no AdamW
+# step has touched) and reports the 3 steps.
+QUANT_AGREE_DATA = {"fc_1/fc_2 at 2^-13": (lambda name: name.endswith(("mlp.fc_1", "mlp.fc_2")), 2.0 ** -13),
+                    "every linear at 2^-9": (None, 2.0 ** -9)}
+
+
+class FirstGradsAdamW(ReferenceAdamW):
+    """ReferenceAdamW that keeps its first step's gradients."""
+
+    def step(self, grads: list):
+        if self.t == 0:
+            self.first = [g.detach().clone() for g in grads]
+        super().step(grads)
+
+
+def quant_train_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, Llama-3-1B's widths at 2 layers, B=1, T=512 (every
+    frozen linear under QUANT_MAX_M, on its kernel's f32 route), on each of
+    QUANT_AGREE_DATA: 3 AdamW steps of the port's TrainStep (op by op, its
+    gradients read by GradRecorder) against the hand-written step whose
+    frozen linears are FrozenLinearReference. Held on both data: the
+    step-1 loss within LOSS_RTOL, every trainable tensor's step-1 gradient
+    within QUANT_GRAD_RTOL of its norm, the frozen tensors bit-equal. Held
+    on the first data (the held one): the 3 steps' losses within LOSS_RTOL
+    and parameters within PARAM_ATOL; on the second they are reported.
+    Then the captured step against op by op, bit for bit (``captured``)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+    from thunder_tpu_torch.training import TrainStep
+
+    B, T, n_steps = QUANT_TRAIN_B, QUANT_TRAIN_T, 3
+    cfg = Config.from_name("Llama-3-1B", n_layer=2, block_size=T)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    held_data = next(iter(QUANT_AGREE_DATA))
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False, loss_rtol=LOSS_RTOL,
+               grad_rtol=QUANT_GRAD_RTOL, param_atol=PARAM_ATOL, data={})
+    failed = []
+    for data, (select, scale) in QUANT_AGREE_DATA.items():
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        int8_exact_(model.gpt, seed, select=select, scale=scale)
+        rec = GradRecorder(optim.AdamW(lr=TRAIN_LR))
+        step = TrainStep(tt.jit(model, transforms=quant_train_transforms()), rec, cuda_graphs=False)
+        trainable0, frozen0 = split_state(model)
+        ref = {k: v.clone().requires_grad_() for k, v in trainable0.items()}
+        consts = {k: v.clone() for k, v in frozen0.items()}
+
+        def linear(x, name):
+            mod = name[:-len(".weight")]
+            if f"{mod}.scale" in consts:
+                return FrozenLinearReference.apply(x, "int8", consts[name], consts[f"{mod}.scale"])
+            if f"{mod}.absmax" in consts:
+                return FrozenLinearReference.apply(x, "nf4", consts[name], consts[f"{mod}.absmax"])
+            return torch.nn.functional.linear(x, ref[name])
+
+        opt = FirstGradsAdamW(list(ref.values()), TRAIN_LR)
+        n0 = (cudaex.int8_linear.launches, cudaex.nf4_linear.launches)
+        got = [float(step(idx, tgt)) for _ in range(n_steps)]
+        launched = (cudaex.int8_linear.launches - n0[0], cudaex.nf4_linear.launches - n0[1])
+        want = [float(reference_step(ref, opt, cfg, idx, tgt, plain_attention, False, linear=linear))
+                for _ in range(n_steps)]
+        if launched != (2 * cfg.n_layer * n_steps, cfg.n_layer * n_steps):
+            raise AssertionError(f"quant_train_agreement: int8/NF4 launches {launched} over {n_steps} steps")
+        state = require_frozen_and_trained("quant_train_agreement", model, trainable0, frozen0)
+        g1, r1 = rec.steps[0], dict(zip(ref, opt.first))
+        if g1.keys() != r1.keys():
+            raise AssertionError(f"quant_train_agreement: gradients for {sorted(g1)}, want {sorted(r1)}")
+        grad_rel = {k: ((g1[k] - r1[k]).norm() / r1[k].norm().clamp(min=1e-30)).item() for k in r1}
+        worst = max(grad_rel, key=grad_rel.get)
+        now = dict(model.named_parameters())
+        rels = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        row = dict(int8_exact_scale=scale, losses=got, reference_losses=want, step1_loss_rel=rels[0],
+                   loss_max_rel=max(rels), grad_max_rel=grad_rel[worst], grad_worst_tensor=worst,
+                   grad_median_rel=float(np.median(list(grad_rel.values()))),
+                   param_max_abs=max((now[k].detach() - v.detach()).abs().max().item() for k, v in ref.items()),
+                   launches=dict(zip(("int8_linear", "nf4_linear"), launched)), **state)
+        out["data"][data] = row
+        if not rels[0] <= LOSS_RTOL or not row["grad_max_rel"] <= QUANT_GRAD_RTOL:
+            failed.append(f"{data}: step-1 loss {rels[0]}, gradient of {worst} {row['grad_max_rel']}")
+        if data == held_data and (not row["loss_max_rel"] <= LOSS_RTOL or not row["param_max_abs"] <= PARAM_ATOL):
+            failed.append(f"{data}: losses {row['loss_max_rel']}, params {row['param_max_abs']}")
+        del step, model, ref, opt, rec, g1, r1, trainable0, frozen0, consts, now
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def held_step(graphs):
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        int8_exact_(model.gpt, seed, select=QUANT_AGREE_DATA[held_data][0], scale=QUANT_AGREE_DATA[held_data][1])
+        return TrainStep(tt.jit(model, transforms=quant_train_transforms()), optim.AdamW(lr=TRAIN_LR),
+                         cuda_graphs=graphs), model
+
+    out["captured"] = captured_against_op_by_op(
+        tt, "quant_train_agreement (captured)", held_step,
+        [train_batch(cfg, B, T, seed + 1 + i) for i in range(n_steps)],
+        (cudaex.int8_linear, cudaex.nf4_linear, cudaex.adamw_update))
+    emit("quant_train_agreement", **out)
+    if failed:
+        raise AssertionError(f"quant train agreement: {failed}")
+    torch.cuda.empty_cache()
+    return out
+
+
+# fp8 inference: the port's fp8 linear (torch._scaled_mm on the card) against
+# thunder_tpu's _fp8_linear_impl written out (fp8_reference_linear) on the
+# same x, so on the same e4m3 codes of x and of the weights. Both sum the same
+# exact products of e4m3 codes in f32-or-better, in other orders: each sum is
+# within K·u·Σ|products| of the exact one (u = 2^-24, the f32 unit
+# roundoff), so the two within 2·K·u·Σ|products|; the f32 epilogue (two
+# products and the bias) adds 4u of |y| + |bias|; the final cast to x's
+# dtype rounds each, so where the f32 values straddle a rounding boundary
+# they part by one more ulp of the output dtype. FP8_INF_B, FP8_INF_T:
+# frontend_eval's shape.
+FP8_INF_B, FP8_INF_T = 2, 2048
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+MANTISSA_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+# On the card, torch._scaled_mm sums the e4m3 products on the tensor cores,
+# whose partial sums keep fewer bits than f32 before each promotion into the
+# f32 accumulator, so its sums stray further than an f32 accumulation: the
+# f32-only bound held at the path's shapes (0.84 of it at K = 2048 on an
+# H100 80GB HBM3) and failed at K = 256. FP8_MMA_EPS bounds that stray
+# relative to Σ|products|; fp8_mma_sweep measures it at K from 32 to 8192 in
+# every run, and the phase fails if a K exceeds it.
+FP8_MMA_EPS = 2.0 ** -11
+FP8_SWEEP_KS = (32, 64, 256, 1024, 2048, 4096, 8192)
+
+
+def fp8_reference_linear(x, qweight, scale, bias=None) -> tuple:
+    """thunder_tpu/transforms/fp8_inference.py:_fp8_linear_impl written out,
+    over x's rows flattened: (y, the f32 value before the cast,
+    Σ|products|·scales + |bias|), each (rows, N)."""
+    x_amax = torch.clamp_min(x.abs().amax(), 1e-12)
+    x_scale = (x_amax / 448.0).to(torch.float32)
+    xq = (x.float() / x_scale).to(torch.float8_e4m3fn).float().reshape(-1, x.shape[-1])
+    w = qweight.float()
+    s = x_scale * scale[None, :]
+    out = torch.matmul(xq, w.t()) * s
+    mag = torch.matmul(xq.abs(), w.abs().t()) * s
+    if bias is not None:
+        out = out + bias
+        mag = mag + bias.abs()
+    return out.to(x.dtype), out, mag
+
+
+def fp8_inference_err(x, qweight, scale, bias, y) -> float:
+    """max over y of |y - plain| / bound (module comment above); at most 1
+    where the port computes thunder_tpu's function."""
+    ref, f32, mag = fp8_reference_linear(x, qweight, scale, bias)
+    y = y.float().reshape(f32.shape)
+    acc = ((2 * x.shape[-1] + 4) * F32_UNIT_ROUNDOFF + (FP8_MMA_EPS if y.is_cuda else 0.0)) * mag
+    top = torch.maximum(f32.abs(), y.abs()) + acc
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - MANTISSA_BITS[x.dtype])
+    return ((y - ref.float()).abs() / (acc + ulp)).max().item()
+
+
+def fp8_mma_sweep(dev, M: int = 256, N: int = 1024) -> dict:
+    """max |_scaled_mm's f32 sum − the exact sum| / Σ|products| of e4m3
+    codes (x from a normal, weights from quantize_fp8_weight), by K: the
+    route's accumulation error, which FP8_MMA_EPS bounds."""
+    from thunder_tpu_torch.transforms import fp8_inference as f8
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    out = {}
+    for K in FP8_SWEEP_KS:
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.float8_e4m3fn)
+        q, _ = f8.quantize_fp8_weight(torch.randn(N, K, device=dev, generator=gen) * 0.02)
+        y = torch._scaled_mm(x, q.t(), scale_a=one, scale_b=one, out_dtype=torch.float32, use_fast_accum=False)
+        exact = torch.matmul(x.double(), q.double().t())
+        mag = torch.matmul(x.double().abs(), q.double().abs().t())
+        out[K] = ((y.double() - exact).abs() / mag).max().item()
+    return out
+
+
+def fp8_inference(tt, cudaex, seed) -> dict:
+    """Llama-3-1B built under meta_device() and materialized straight onto
+    the card by MaterializationTransform(seed) (twice: one copy per road),
+    then tt.jit(model, transforms=[FP8LinearInference()], cuda_graphs=True)
+    as a captured forward at B=2, T=2048, bf16, in turns with the bf16
+    forward of the same weights (fp8, bf16, bf16, fp8), each profiled twice
+    a round; torch._scaled_mm calls a forward; and every fp8 linear of one
+    uncaptured forward held against the plain version on its own x
+    (fp8_inference_err <= 1), the logits being lm_head's."""
+    from thunder_tpu_torch.core.devices import resolve_device
+    from thunder_tpu_torch.executors import torchex
+    from thunder_tpu_torch.models.litgpt import GPT, Config
+    from thunder_tpu_torch.transforms import fp8_inference as f8
+    from thunder_tpu_torch.transforms.materialization import MaterializationTransform, meta_device
+
+    B, T = FP8_INF_B, FP8_INF_T
+    cfg = Config.from_name("Llama-3-1B", block_size=T)
+    reset_peak_memory()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with meta_device():
+        models = {"fp8": GPT(cfg, torch.bfloat16, seed=seed), "bf16": GPT(cfg, torch.bfloat16, seed=seed)}
+    meta_bytes = torch.cuda.memory_allocated() - mem0
+    if meta_bytes or not all(t.is_meta for m in models.values() for t in [*m.parameters(), *m.buffers()]):
+        raise AssertionError(f"fp8_inference: the meta build allocated {meta_bytes} bytes on the card")
+    for m in models.values():
+        MaterializationTransform(seed=seed).transform_module(m)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dev = resolve_device(None)
+    if not all(t.device == dev for m in models.values() for t in [*m.parameters(), *m.buffers()]):
+        raise AssertionError("fp8_inference: a materialized tensor is not on the card")
+    bf16_bytes = weight_bytes(models["bf16"])
+    progs = {"fp8": tt.jit(models["fp8"], transforms=[f8.FP8LinearInference()], cuda_graphs=True),
+             "bf16": tt.jit(models["bf16"], cuda_graphs=True)}
+    idx = torch.from_numpy(np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, T)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        for prog in progs.values():
+            for _ in range(3):  # op by op, capture, replay
+                prog(idx)
+    torch.cuda.synchronize()
+    n_fp8 = sum(b.sym.id == "fp8.linear" for b in tt.last_traces(progs["fp8"])[-1].bound_symbols)
+    graphs0 = graph_stats(tt, list(progs.values()))
+    c0 = f8.SCALED_MM_CALLS["scaled_mm"]
+    with torch.no_grad():
+        logits = progs["fp8"](idx)
+        bf16_logits = progs["bf16"](idx)
+    torch.cuda.synchronize()
+    scaled_mm_calls = f8.SCALED_MM_CALLS["scaled_mm"] - c0
+    if scaled_mm_calls != n_fp8 or n_fp8 != 5 * cfg.n_layer + 1:
+        raise AssertionError(f"fp8_inference: {scaled_mm_calls} torch._scaled_mm calls a forward, "
+                             f"{n_fp8} fp8 linears in the trace, want {5 * cfg.n_layer + 1}")
+    if not torch.isfinite(logits).all() or tuple(logits.shape) != (B, T, cfg.padded_vocab_size):
+        raise AssertionError(f"fp8_inference: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    rel_bf16 = ((logits.float() - bf16_logits.float()).abs().max() / bf16_logits.float().abs().max()).item()
+    del logits, bf16_logits
+    runs = []
+    for road in ("fp8", "bf16", "bf16", "fp8"):
+        prog = progs[road]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FRONTEND_CALLS):
+                prog(idx)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / FRONTEND_CALLS
+            prof, check = profile_twice(f"fp8_inference_{road}_profile", lambda: [prog(idx) for _ in range(2)])
+        runs.append(dict(road=road, wall_ms_per_call=wall * 1e3,
+                         device_ms_per_call=sum(r[0] for r in prof["rows"]) / 2e3,
+                         clock_ratio=prof["clock_ratio"], two_profiles=check))
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, list(progs.values())).items()}
+    require_replayed("fp8_inference", graphs)
+    if graphs["graph_captures"]:
+        raise AssertionError(f"fp8_inference: {graphs['graph_captures']} captures after warm-up")
+    # every fp8 linear of one uncaptured forward against the plain version on its own x
+    checks = []
+
+    def checked(x, qweight, scale, bias=None):
+        y = f8.fp8_linear_impl(x, qweight, scale, bias)
+        ref = fp8_reference_linear(x, qweight, scale, bias)[0]
+        checks.append(dict(N=qweight.shape[0], K=qweight.shape[1],
+                           max_abs_err=(y.float().reshape(ref.shape) - ref.float()).abs().max().item(),
+                           err_over_bound=fp8_inference_err(x, qweight, scale, bias, y)))
+        return y
+
+    impl = torchex.ex.implmap["fp8.linear"]
+    torchex.ex.implmap["fp8.linear"] = (checked, None)
+    try:
+        with torch.no_grad():
+            tt.jit(models["fp8"])(idx)
+    finally:
+        torchex.ex.implmap["fp8.linear"] = impl
+    torch.cuda.synchronize()
+    worst = max(checks, key=lambda c: c["err_over_bound"])
+    sweep = fp8_mma_sweep(dev)
+    fp8_bytes = weight_bytes(models["fp8"])
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 activations, e4m3 weights",
+               built="meta_device, MaterializationTransform onto the card", build_s=build_s,
+               meta_build_bytes=meta_bytes, weight_bytes=fp8_bytes, bf16_weight_bytes=bf16_bytes,
+               fp8_linears=n_fp8, scaled_mm_calls_per_forward=scaled_mm_calls, runs=runs,
+               device_ms={road: [r["device_ms_per_call"] for r in runs if r["road"] == road] for road in progs},
+               logits_max_abs_err=checks[-1]["max_abs_err"], logits_err_over_bound=checks[-1]["err_over_bound"],
+               worst_linear=worst, linears_checked=len(checks), fp8_vs_bf16_logits_max_rel=rel_bf16,
+               mma_err_over_sum_by_K=sweep, fp8_mma_eps=FP8_MMA_EPS,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **graphs)
+    emit("fp8_inference", **out)
+    if len(checks) != n_fp8 or worst["err_over_bound"] > 1.0:
+        raise AssertionError(f"fp8_inference: the fp8 linear parts from the plain version: {worst}")
+    if max(sweep.values()) > FP8_MMA_EPS:
+        raise AssertionError(f"fp8_inference: _scaled_mm's sums stray past FP8_MMA_EPS: {sweep}")
+    del progs, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+EXT_B, EXT_D = 64, 256
+
+
+def extensions_op():
+    """tt.custom_op's swish4 with its vjp (thunder_tpu's TestCustomOp op),
+    registered once."""
+    import thunder_tpu_torch as tt
+
+    if not hasattr(extensions_op, "op"):
+        @tt.custom_op("chip_smoke.swish4", like=lambda x: x)
+        def swish4(x):
+            return x * torch.sigmoid(4.0 * x)
+
+        @swish4.register_vjp
+        def swish4_vjp(x, g):
+            s = torch.sigmoid(4.0 * x)
+            return g * (s + 4.0 * x * s * (1.0 - s))
+
+        extensions_op.op = swish4
+    return extensions_op.op
+
+
+class ExtensionsNet(torch.nn.Module):
+    """A net whose forward uses this slice's breadth: an autocast_ctx region
+    (fc1 in bf16), a custom op with a registered vjp, ltorch.einsum on a
+    diagonal spec (the EINSUM prim) and a scatter (both differentiated by
+    the vjp fallback), a constant subgraph (full, iota, exp) that
+    ConstantFolding folds; an MSE loss."""
+
+    def __init__(self, device, seed: int):
+        from thunder_tpu_torch import nn
+
+        super().__init__()
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.fc1 = nn.Linear(EXT_D, EXT_D, device=device, generator=gen)
+        self.fc2 = nn.Linear(EXT_D, EXT_D, device=device, generator=gen)
+        n = int(math.isqrt(EXT_D))
+        # n distinct columns a row: a scatter whose index repeats within a
+        # row writes one of the repeated sources, which one left undefined
+        # (torch's CUDA scatter and jax's both say so), so the card and the
+        # CPU may keep different ones
+        self.register_buffer("cols", torch.rand(EXT_B, EXT_D, device=device, generator=gen).argsort(dim=1)[:, :n])
+
+    def forward(self, x, y):
+        from thunder_tpu_torch.core import dtypes, prims
+        from thunder_tpu_torch.ops import ltorch
+        from thunder_tpu_torch.transforms.autocast import autocast_ctx
+
+        n = int(math.isqrt(EXT_D))
+        with autocast_ctx(dtypes.bfloat16):
+            h = self.fc1(x)
+        h = extensions_op()(ltorch.to(h, dtypes.float32))
+        d = ltorch.einsum("bii->bi", ltorch.reshape(h, (x.shape[0], n, n)))
+        h = ltorch.scatter(h, 1, self.cols, d)
+        c = prims.mul(prims.exp(prims.full((EXT_D,), -0.5, dtype=dtypes.float32)),
+                      prims.add(prims.iota(EXT_D, dtype=dtypes.float32), 1.0))
+        return ltorch.mse_loss(self.fc2(h * ltorch.true_divide(c, float(EXT_D))), y)
+
+
+def extensions_plain(params: dict, cols, x, y):
+    """ExtensionsNet's loss written out in plain torch over its parameter
+    dict: fc1's inputs cast to bf16 as autocast_ctx casts them (the bias
+    added after the product, as ltorch.linear adds it), torch.einsum and
+    Tensor.scatter (torch autograd differentiates them), the custom op's
+    function, the constant computed."""
+    F = torch.nn.functional
+    n = int(math.isqrt(EXT_D))
+    bf = torch.bfloat16
+    h = (F.linear(x.to(bf), params["fc1.weight"].to(bf)) + params["fc1.bias"].to(bf)).float()
+    h = h * torch.sigmoid(4.0 * h)
+    d = torch.einsum("bii->bi", h.reshape(x.shape[0], n, n))
+    h = h.scatter(1, cols, d)
+    c = (torch.exp(torch.full((EXT_D,), -0.5, device=x.device))
+         * (torch.arange(EXT_D, dtype=torch.float32, device=x.device) + 1.0))
+    return F.mse_loss(F.linear(h * (c / float(EXT_D)), params["fc2.weight"], params["fc2.bias"]), y)
+
+
+def extensions_step1_grads(tt, net, batch) -> tuple[dict, dict]:
+    """(the port's, the plain version's) step-1 gradients by name on net's
+    device: the port's from a TrainStep run op by op (GradRecorder reads
+    them), the plain version's from torch autograd on the same weights."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.constant_folding import ConstantFolding
+    from thunder_tpu_torch.transforms.prune_prologue_checks import PrunePrologueChecks
+
+    params = {k: p.detach().clone().requires_grad_() for k, p in net.named_parameters()}
+    plain = dict(zip(params, torch.autograd.grad(extensions_plain(params, net.cols, *batch),
+                                                 list(params.values()))))
+    rec = GradRecorder(optim.AdamW(lr=TRAIN_LR))
+    step = TrainStep(tt.jit(net, transforms=[ConstantFolding(), PrunePrologueChecks()]), rec, cuda_graphs=False)
+    step(*batch)
+    return rec.steps[0], plain
+
+
+def grads_rel(got: dict, want: dict) -> dict:
+    """|got - want| / |want| by tensor (2-norms)."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"gradients for {sorted(got)}, want {sorted(want)}")
+    return {k: ((got[k] - want[k]).norm() / want[k].norm().clamp(min=1e-30)).item() for k in want}
+
+
+def extensions(tt, cudaex, seed) -> dict:
+    """ExtensionsNet through tt.jit(..., transforms=[ConstantFolding(),
+    PrunePrologueChecks()]): its forward as a captured jit program (the
+    constant folded, no prologue check, the autocast casts, the custom op
+    claimed by its executor), bit-equal to the op-by-op program; then
+    differentiated by a captured TrainStep (the backward holds
+    torch.vjp_fallback for the einsum and the scatter, and the custom op's
+    vjp), 3 AdamW steps bit-equal to op by op (captured_against_op_by_op)
+    and their losses within EXT_LOSS_RTOL of the same steps on the CPU;
+    its step-1 gradients within EXT_GRAD_RTOL of the CPU's and of
+    extensions_plain's by torch autograd on the card."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.core.devices import resolve_device
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.constant_folding import ConstantFolding
+    from thunder_tpu_torch.transforms.prune_prologue_checks import PrunePrologueChecks
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    batches = [tuple(torch.from_numpy(rng.randn(EXT_B, EXT_D).astype(np.float32)) for _ in range(2))
+               for _ in range(3)]
+    start = {k: v.cpu() for k, v in ExtensionsNet(dev, seed).state_dict().items()}
+
+    def net(device):
+        m = ExtensionsNet(device, seed)
+        m.load_state_dict({k: v.to(device) for k, v in start.items()})
+        return m
+
+    def transforms():
+        return [ConstantFolding(), PrunePrologueChecks()]
+
+    # the forward as a captured jit program against op by op
+    outs = {}
+    for graphs in (False, True):
+        fwd = tt.jit(net(dev), transforms=transforms(), cuda_graphs=graphs)
+        x, y = (t.to(dev) for t in batches[0])
+        with torch.no_grad():
+            outs[graphs] = [fwd(x, y).clone() for _ in range(3)]
+        stats = graph_stats(tt, [fwd])
+    if stats["graph_replays"] < 1 or not all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])):
+        raise AssertionError(f"extensions: the captured forward is not the op-by-op one: {outs}, {stats}")
+    acquired, folded = tt.last_traces(fwd)[0], tt.last_traces(fwd)[1]
+    exec_ids = [b.sym.id for b in tt.last_traces(fwd)[-1].bound_symbols]
+    pro = tt.last_prologue_traces(fwd)[-1]
+    claims = dict(
+        folded=sum(b.sym.id == PrimIDs.EXP for b in acquired.bound_symbols) == 1
+        and not any(b.sym.id == PrimIDs.EXP for b in folded.bound_symbols)
+        and PrimIDs.TENSOR_CONSTANT in exec_ids,
+        prologue_checks=sum(b.sym.id == PrimIDs.CHECK_TENSOR_SHAPE_AND_METADATA for b in pro.bound_symbols),
+        bf16_casts=sum(b.sym.id == PrimIDs.CONVERT_ELEMENT_TYPE and str(b.args[1]) == "dtypes.bfloat16"
+                       for b in tt.last_traces(fwd)[-1].bound_symbols),
+        custom_op=[b.impl is extensions_op().fn for b in tt.last_traces(fwd)[-1].bound_symbols
+                   if b.sym.id == "chip_smoke.swish4"] == [True],
+        einsum_prim=PrimIDs.EINSUM in exec_ids)
+    if not (claims["folded"] and claims["prologue_checks"] == 0 and claims["bf16_casts"] >= 2
+            and claims["custom_op"] and claims["einsum_prim"]):
+        raise AssertionError(f"extensions: the forward program lacks a part: {claims}")
+
+    # differentiated: a captured TrainStep against op by op, and against the CPU
+    def make(graphs, device=dev):
+        model = net(device)
+        return TrainStep(tt.jit(model, transforms=transforms()), optim.AdamW(lr=TRAIN_LR),
+                         cuda_graphs=graphs), model
+
+    card_batches = [tuple(t.to(dev) for t in b) for b in batches]
+    captured = captured_against_op_by_op(tt, "extensions", make, card_batches, (cudaex.adamw_update,))
+    step, model = make(False)
+    card_losses = [float(step(*b)) for b in card_batches]
+    bwd = tt.last_backward_traces(step)[-1].bound_symbols
+    fallback = sorted(str(b.args[0]) for b in bwd if b.sym.id == "torch.vjp_fallback")
+    custom_vjp = sum(str(b.sym.id).startswith("chip_smoke.swish4_vjp") for b in bwd)
+    cpu_step, cpu_model = make(False, torch.device("cpu"))
+    cpu_losses = [float(cpu_step(*b)) for b in batches]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    del step, model, cpu_step, cpu_model
+    card_grads, plain_grads = extensions_step1_grads(tt, net(dev), card_batches[0])
+    cpu_grads, _ = extensions_step1_grads(tt, net(torch.device("cpu")), batches[0])
+    against_cpu = grads_rel({k: g.cpu() for k, g in card_grads.items()}, cpu_grads)
+    against_plain = grads_rel(card_grads, plain_grads)
+    out = dict(B=EXT_B, D=EXT_D, forward=claims, forward_graph_replays=stats["graph_replays"],
+               backward_vjp_fallback=fallback, backward_custom_vjp=custom_vjp, captured=captured,
+               losses=card_losses, cpu_losses=cpu_losses, cpu_loss_max_rel=loss_rel,
+               cpu_loss_rtol=EXT_LOSS_RTOL, step1_grad_rel_cpu=against_cpu,
+               step1_grad_rel_plain=against_plain, grad_rtol=EXT_GRAD_RTOL,
+               seconds=time.perf_counter() - t0)
+    emit("extensions", **out)
+    if fallback != ["PrimIDs.EINSUM", "PrimIDs.SCATTER"] or custom_vjp != 1:
+        raise AssertionError(f"extensions: the backward lacks a rule: fallback {fallback}, custom vjp {custom_vjp}")
+    if (not loss_rel <= EXT_LOSS_RTOL or not max(against_cpu.values()) <= EXT_GRAD_RTOL
+            or not max(against_plain.values()) <= EXT_GRAD_RTOL):
+        raise AssertionError(f"extensions: the card parts from the CPU or the plain version: losses {loss_rel}, "
+                             f"gradients {against_cpu}, {against_plain}")
+    return out
+
+
+# The card against the CPU and the plain version on ExtensionsNet: f32 but
+# for fc1's bf16 region (its product, and its backward's products, rounded
+# to bf16), where cuBLAS and the CPU sum in other orders and a value on a
+# rounding boundary lands one bf16 ulp (at most 2^-7 of it) apart. Such
+# flips move the MSE loss by far less than EXT_LOSS_RTOL of itself; if every
+# rounded value of the region landed apart, a gradient would move by about
+# 2^-7 of its norm, so each tensor's step-1 gradient is held to
+# EXT_GRAD_RTOL = 2^-7 of its norm. The fallback's and the custom vjp's
+# gradients are f32; the einsum's cotangent scaled by 1.1 in the fallback
+# moves fc1's gradients past it.
+EXT_LOSS_RTOL = 1e-3
+EXT_GRAD_RTOL = 2.0 ** -7
+
+
+# ---------------------------------------------------------------------------
+# phases 37-38: resilient training
 # ---------------------------------------------------------------------------
 
 RESILIENT_PLAN = "nan_loss@5,transient@9*2,preempt@14"
@@ -5498,6 +6239,12 @@ def main() -> int:
     frontend_train_agreement(tt, cudaex, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    quant_trained = quant_train(tt, cudaex, args.seed)
+    quant_train_agreement(tt, cudaex, args.seed)
+    fp8_inference(tt, cudaex, args.seed)
+    extensions(tt, cudaex, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     resilient = resilient_train(tt, cudaex, args.seed)
     torch.cuda.empty_cache()
     resilient_kill_resume(args.seed)
@@ -5560,6 +6307,9 @@ def main() -> int:
         if name in on_resilient:
             # launches a step on resilient_train's guarded path
             kernels[-1]["resilient_launches_per_step"] = on_resilient[name]
+        if name in quant_trained["launches_per_step"]:
+            # launches a step on quant_train's path (frozen int8/NF4 linears)
+            kernels[-1]["quant_train_launches_per_step"] = quant_trained["launches_per_step"][name]
         if name == "adamw":
             kernels[-1]["skip_flag"] = res["skip_flag"]
     print(json.dumps({"kernels": kernels}), flush=True)

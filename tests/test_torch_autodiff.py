@@ -146,13 +146,21 @@ def test_rope_sdpa_claims_the_flash_kernels(name, claimed, monkeypatch):
 
 
 def test_unported_fallback_ops_raise_naming_the_op():
-    """thunder_tpu takes scatter's gradient from jax.vjp, and no port path
-    differentiates it yet; the port raises (var has a rule now:
-    tests/test_torch_vision_grads.py)."""
-    vag = tt.value_and_grad(lambda x, s: tl.sum(tl.scatter(x, 0, torch.tensor([[1, 0, 2, 1]]), s)),
-                            argnums=(0,))
-    with pytest.raises(NotImplementedError, match="scatter"):
-        vag(torch.rand(3, 4), torch.rand(1, 4))
+    """thunder_tpu takes scatter's gradient from jax.vjp; the port takes it
+    from torch.func.vjp of torchex's scatter (the torch.vjp_fallback
+    operator in the backward trace) and no longer raises. Both gradients
+    equal torch autograd's (var has a rule: tests/test_torch_vision_grads.py;
+    thunder_tpu's jax.grad: tests/test_torch_compiler_ext.py)."""
+    idx = torch.tensor([[1, 0, 2, 1]])
+    w = torch.arange(12.0).reshape(3, 4)
+    vag = tt.value_and_grad(lambda x, s: tl.sum(tl.scatter(x, 0, idx, s) * w), argnums=(0, 1))
+    x, s = torch.rand(3, 4), torch.rand(1, 4)
+    _, grads = vag(x, s)
+    xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+    (torch.scatter(xr, 0, idx, sr) * w).sum().backward()
+    torch.testing.assert_close(grads[0][0], xr.grad, rtol=0, atol=0)
+    torch.testing.assert_close(grads[0][1], sr.grad, rtol=0, atol=0)
+    assert any(b.sym.id == "torch.vjp_fallback" for b in tt.last_backward_traces(vag)[-1].bound_symbols)
 
 
 def test_grad_returns_only_the_gradients():

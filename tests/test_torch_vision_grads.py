@@ -297,7 +297,7 @@ def test_copy_with_setitem_grad_matches_jax_vjp(case):
 
 def test_only_unreached_ops_fall_back():
     """thunder_tpu's JAX_VJP_FALLBACK less the nine rules written here and
-    dist.ring_attention: what no port path differentiates yet."""
+    dist.ring_attention: the ops whose gradient comes from torch.func.vjp."""
     assert autodiff.VJP_FALLBACK_OPS == {prims.PrimIDs.GROUPED_MM, prims.PrimIDs.EINSUM,
                                          prims.PrimIDs.SCATTER}
     for name in ("CONVOLUTION", "CONV_TRANSPOSE", "REDUCE_WINDOW", "VAR", "ATAN2", "CUMSUM", "CUMPROD",

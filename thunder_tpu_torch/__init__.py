@@ -16,7 +16,9 @@ slice brings ``parallel`` (a mesh over torch.distributed process groups,
 ``ddp`` and ring-attention ``context_parallel``); the frontend slice
 brings ``interop.torch_frontend`` (plain torch modules traced through
 ``__torch_function__``), the auto-registered catalog (ops/auto_register.py),
-``compile`` with ``recipes`` and ``plugins``. A program runs where
+``compile`` with ``recipes`` and ``plugins``; the transform-breadth slice
+brings ``jit``'s ``cache=``, ``sharp_edges=`` and ``debug_options=``
+(core/options.py) and ``custom_op`` (_custom_op.py). A program runs where
 its tensor inputs live; model and engine constructors take ``device`` and
 default to the card (raising when there is none).
 """
@@ -181,6 +183,9 @@ class ThunderCompiledFunction:
         if entry is None:
             cs.cache_misses.add()
             entry = self._compile(args, kwargs, key)
+            if self._cd.cache_option == "no caching":
+                # compiled for this call alone: nothing is kept between calls
+                self._cache.clear()
         else:
             cs.cache_hits.add()
         with torch.no_grad():
@@ -259,7 +264,43 @@ def uses_torch_frontend(module: torch.nn.Module) -> bool:
                for m in module.modules() for k in type(m).__mro__)
 
 
+def _check_options(fn, cache, sharp_edges, debug_options) -> str:
+    """The cache option's value, after thunder_tpu/__init__.py:jit's checks
+    of the options that need a part the port has not yet: the
+    bytecode-interpreter frontend (ROADMAP A7) and analysis/ (A6)."""
+    from .core.options import CacheOption, DebugOptions, SharpEdgesOption, resolve_cache_option
+
+    cache = resolve_cache_option(cache)
+    SharpEdgesOption(sharp_edges)
+    if cache in (CacheOption.SYMBOLIC_VALUES, CacheOption.SAME_INPUT) and isinstance(fn, torch.nn.Module):
+        raise ValueError(
+            f"cache={cache.value!r} is only supported for plain callables "
+            f"(modules always take tensor inputs; use 'constant values')")
+    if sharp_edges != "allow":
+        raise ValueError(
+            "sharp_edges checking requires the bytecode-interpreter frontend, "
+            "which is not ported yet (ROADMAP A7)")
+    if cache in (CacheOption.SYMBOLIC_VALUES, CacheOption.SAME_INPUT):
+        raise NotImplementedError(
+            f"cache={cache.value!r} rides on the bytecode-interpreter frontend's prologues "
+            f"(thunder_tpu's frontend/compiled.py), which is not ported yet (ROADMAP A7)")
+    if debug_options is not None:
+        if not isinstance(debug_options, DebugOptions):
+            raise TypeError(f"debug_options takes a DebugOptions, got {type(debug_options).__name__}")
+        if debug_options.check_traces:
+            raise NotImplementedError(
+                "DebugOptions(check_traces=True) checks every trace with analysis/'s verifier, "
+                "which is not ported yet (ROADMAP A6)")
+        for name in ("show_interpreter_log", "record_interpreter_history"):
+            if getattr(debug_options, name):
+                raise NotImplementedError(
+                    f"DebugOptions({name}=True) needs the bytecode-interpreter frontend, "
+                    f"which is not ported yet (ROADMAP A7)")
+    return cache.value
+
+
 def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence | None = None,
+        cache: str = "constant values", sharp_edges: str = "allow", debug_options=None,
         cuda_graphs: bool = False, graph_pool=None):
     """Compile a callable into a cached trace program. Its tensor inputs
     decide the device it runs on; calls with new (shape, dtype, device)
@@ -273,19 +314,27 @@ def jit(fn: Callable, *, executors: Sequence | None = None, transforms: Sequence
     graph (executors/graphex.py: its first call runs op by op, its second
     captures, later calls replay); CPU tensors always run op by op.
     Non-parameter outputs then come back as clones. Programs given one
-    ``graphex.GraphPool`` share its memory and must not run at once."""
+    ``graphex.GraphPool`` share its memory and must not run at once.
+
+    ``cache`` (core/options.py): "constant values" (the default) keeps one
+    specialization per input metadata; "no caching" compiles every call
+    and keeps nothing. "symbolic values" and "same input", ``sharp_edges``
+    other than "allow", and ``debug_options`` that check traces raise, as
+    the parts they need are not ported yet (thunder_tpu routes them to its
+    bytecode-interpreter frontend and analysis/)."""
     from .nn.module import ThunderModule
 
+    cache = _check_options(fn, cache, sharp_edges, debug_options)
     if isinstance(fn, torch.nn.Module) and uses_torch_frontend(fn):
         from .interop.torch_frontend import compile_torch_module
 
         return compile_torch_module(fn, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
-                                    graph_pool=graph_pool)
+                                    graph_pool=graph_pool, cache=cache)
     if isinstance(fn, torch.nn.Module):
         return ThunderModule(fn, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
-                             graph_pool=graph_pool)
+                             graph_pool=graph_pool, cache=cache)
     cd = CompileData(fn=fn, executors=resolve_executors(executors) if executors is not None else (),
-                     transforms=transforms or ())
+                     transforms=transforms or (), cache_option=cache)
     return ThunderCompiledFunction(cd, cuda_graphs=cuda_graphs, graph_pool=graph_pool)
 
 
@@ -336,6 +385,14 @@ def graph_captures(cfn) -> int:
 
 def graph_replays(cfn) -> int:
     return int(_get_cs(cfn).graph_replays)
+
+
+def custom_op(qualname, *, like=None, meta=None, tags=()):
+    """A torch-implemented custom operation usable inside traced functions
+    (_custom_op.py; thunder_tpu/__init__.py:custom_op)."""
+    from ._custom_op import custom_op as _custom_op
+
+    return _custom_op(qualname, like=like, meta=meta, tags=tags)
 
 
 def value_and_grad(fn, argnums=0):

@@ -40,10 +40,12 @@ class CompileStats:
 class CompileData:
     """Per-function compile configuration."""
 
-    def __init__(self, *, fn: Callable, executors: Sequence = (), transforms: Sequence = ()):
+    def __init__(self, *, fn: Callable, executors: Sequence = (), transforms: Sequence = (),
+                 cache_option: str = "constant values"):
         self.fn = fn
         self.executors = tuple(executors)
         self.transforms = tuple(transforms)
+        self.cache_option = cache_option
 
 
 def apply_effects(effect_keys, effects, in_place: bool = False) -> None:

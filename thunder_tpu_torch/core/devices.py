@@ -70,9 +70,17 @@ def default_device() -> Device:
     return Device(DeviceType.CUDA, 0)
 
 
+# set inside transforms/materialization.py:meta_device(): every device an
+# entry point resolves is then torch's meta device
+_meta_mode = [False]
+
+
 def resolve_device(device=None) -> torch.device:
     """An entry point's device: the card unless the caller names another one.
-    Raises when no device was named and no card is present."""
+    Raises when no device was named and no card is present. Under
+    ``meta_device()`` it is torch's meta device, whatever was named."""
+    if _meta_mode[0]:
+        return torch.device("meta")
     if device is not None:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:

@@ -864,6 +864,17 @@ def _grouped_mm_meta(a, b, group_sizes):
 grouped_mm = make_prim(PrimIDs.GROUPED_MM, "grouped_mm", _grouped_mm_meta, tags=(OpTags.MATMUL_OP,))
 
 
+def _einsum_meta(spec, *operands):
+    from .einsum_utils import output_shape
+
+    spec = pyval(spec)
+    shape = output_shape(spec, [op.shape for op in operands])
+    return TensorProxy(shape=shape, dtype=operands[0].dtype, device=operands[0].device)
+
+
+einsum = make_prim(PrimIDs.EINSUM, "einsum", _einsum_meta, tags=(OpTags.MATMUL_OP,))
+
+
 def _scatter_meta(a, indices, value, dim):
     """put_along_axis-style scatter (torch.scatter with src tensor)."""
     return TensorProxy(shape=a.shape, dtype=a.dtype, device=a.device)

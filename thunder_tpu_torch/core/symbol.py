@@ -1,7 +1,8 @@
 """Symbol and BoundSymbol: the hierarchical IR node.
 
 The IR node of thunder_tpu/core/symbol.py, unchanged but for the eager
-escape hatch, which runs through torchex. A ``Symbol`` is a named
+escape hatch, which runs through torchex; with it the bind-time autocast
+hook (``_autocast_stack``) of transforms/autocast.py:autocast_ctx. A ``Symbol`` is a named
 operation with a ``meta`` function that (a) computes output proxies and (b) for
 composite symbols, records the decomposition as subsymbols by calling other
 symbols. A ``BoundSymbol`` is a symbol bound to concrete args/outputs plus its
@@ -10,12 +11,44 @@ hierarchy they support (flash-attention claims ``sdpa`` whole; the op-by-op
 executor runs flattened prims)."""
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Sequence
 
 from .baseutils import SymbolInterface, check
 from .codeutils import ContextInterner, prettyprint, flat_proxies
 from .proxies import Proxy, variableify
 from .trace import get_tracectx
+
+
+class _ThreadLocalStack(threading.local):
+    """A per-thread stack with list-like append/pop/indexing. Autocast
+    policies apply at symbol-bind time, so a process-global list would let
+    one tracing thread's ``with autocast_ctx():`` region cast the symbols
+    another thread binds (the trace context is a ContextVar already)."""
+
+    def __init__(self):
+        self._items: list = []
+
+    def append(self, x) -> None:
+        self._items.append(x)
+
+    def pop(self):
+        return self._items.pop()
+
+    def __bool__(self) -> bool:
+        return bool(self._items)
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __getitem__(self, i):
+        return self._items[i]
+
+
+# the active in-forward autocast policies (transforms/autocast.py
+# autocast_ctx): callables (sym, args, kwargs) -> (args, kwargs), or None
+# for an enabled=False region; the innermost is last
+_autocast_stack = _ThreadLocalStack()
 
 
 class OpTags:
@@ -77,6 +110,14 @@ class Symbol(SymbolInterface):
             from ..executors import torchex
 
             return torchex.eager_execute(self, *args, **kwargs)
+
+        if _autocast_stack:
+            # in-forward autocast region: the innermost policy casts
+            # matmul-class inputs at bind time, so the casts are ordinary
+            # trace bsyms and survive autodiff
+            pol = _autocast_stack[-1]
+            if pol is not None:
+                args, kwargs = pol(self, args, kwargs)
 
         if self.is_prim:
             out = self.meta(*args, **kwargs)

@@ -1,8 +1,7 @@
-"""Common trace-to-trace passes (dce, cse, del_last_used) and the
-``Transform`` base of the compile pipeline.
+"""Common trace-to-trace passes (dce, cse, flatten_to_prims, del_last_used)
+and the ``Transform`` base of the compile pipeline.
 
-The passes and the Transform of thunder_tpu/core/transform_common.py (trace
-flattening waits for the slice that needs it).
+The passes and the Transform of thunder_tpu/core/transform_common.py.
 """
 from __future__ import annotations
 
@@ -79,6 +78,27 @@ def cse(trace: TraceCtx) -> TraceCtx:
     new_trace.set_provenance(f"Common Subexpression Elimination (took {(time.perf_counter()-start)*1000:.2f} ms)")
     return new_trace
 
+
+
+def flatten_to_prims(trace: TraceCtx, *, keep=None) -> TraceCtx:
+    """Expand composite bsyms into their prim subsymbols
+    (thunder_tpu/core/transform_common.py:flatten_to_prims). ``keep(bsym)``
+    stops the descent (e.g. executor-claimed composites stay whole)."""
+    new_bsyms: list[BoundSymbol] = []
+
+    def rec(bsym: BoundSymbol):
+        if (keep is not None and keep(bsym)) or not bsym.subsymbols:
+            new_bsyms.append(bsym)
+            return
+        for sub in bsym.subsymbols:
+            rec(sub)
+
+    for bsym in trace.bound_symbols:
+        rec(bsym)
+    new_trace = from_trace(trace)
+    new_trace.bound_symbols = new_bsyms
+    new_trace.set_provenance("Flatten to prims")
+    return new_trace
 
 
 def del_last_used(trace: TraceCtx) -> TraceCtx:

@@ -141,6 +141,38 @@ _reg(PrimIDs.SCATTER_ADD, lambda a, indices, value, dim: a.scatter_add(dim, indi
 _reg(PrimIDs.SCATTER, lambda a, indices, value, dim: a.scatter(dim, indices.long(), value))
 
 
+def _low_precision(a) -> bool:
+    return a.dtype in (torch.bfloat16, torch.float16)
+
+
+def _einsum(spec, *operands):
+    """jnp.einsum with f32 accumulation for bf16/fp16 operands (jaxex's
+    preferred_element_type), one cast to the first operand's dtype."""
+    if _low_precision(operands[0]):
+        return torch.einsum(spec, *[o.float() for o in operands]).to(operands[0].dtype)
+    return torch.einsum(spec, *operands)
+
+
+_reg(PrimIDs.EINSUM, _einsum)
+
+
+def _grouped_mm(a, b, group_sizes):
+    """lax.ragged_dot: rows [end(g-1), end(g)) of a times b[g], rows past
+    the last group zero, summed in f32 for bf16/fp16 and cast once. Each
+    row's group comes from the sizes on the device (no host read), and each
+    group's product is masked in: G full products, a plain version."""
+    acc = torch.float32 if _low_precision(a) else a.dtype
+    ends = torch.cumsum(group_sizes.long(), 0)
+    gid = torch.searchsorted(ends, torch.arange(a.shape[0], device=a.device), right=True)
+    out = torch.zeros((a.shape[0], b.shape[2]), dtype=acc, device=a.device)
+    for g in builtins.range(b.shape[0]):
+        out = torch.where((gid == g)[:, None], torch.matmul(a.to(acc), b[g].to(acc)), out)
+    return out.to(a.dtype)
+
+
+_reg(PrimIDs.GROUPED_MM, _grouped_mm)
+
+
 def _window(a, start_indices, sizes):
     """Index tensors of the window a[start:start+size] on every dim, starts
     clamped as lax.dynamic_slice clamps them (a start may be a 0-d tensor:

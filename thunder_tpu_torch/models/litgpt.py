@@ -273,7 +273,8 @@ class GPT(nn.Module):
     def __init__(self, cfg: Config, dtype=torch.float32, *, device=None, seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # under meta_device() nothing is drawn: a meta tensor ignores the generator
+        gen = torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.padded_vocab_size, cfg.n_embd, dtype=dtype, device=device,
                                 generator=gen)
@@ -282,6 +283,12 @@ class GPT(nn.Module):
         self.lm_head = nn.Linear(cfg.n_embd, cfg.padded_vocab_size, bias=cfg.lm_head_bias,
                                  dtype=dtype, device=device, generator=gen)
         cos, sin = build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base, dtype, device)
+        if device.type == "meta":
+            # how MaterializationTransform makes them on the target device
+            cos.init_fn = lambda gen: build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base, dtype,
+                                                       gen.device)[0]
+            sin.init_fn = lambda gen: build_rope_cache(cfg.block_size, cfg.rope_n_elem, cfg.rope_base, dtype,
+                                                       gen.device)[1]
         self.register_buffer("cos", cos)
         self.register_buffer("sin", sin)
 

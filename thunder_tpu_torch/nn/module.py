@@ -73,9 +73,13 @@ class ThunderModule:
     writes (update_buffer) are rebound on the module after the call."""
 
     def __init__(self, module: torch.nn.Module, *, executors=None, transforms=None, cuda_graphs=False,
-                 graph_pool=None):
+                 graph_pool=None, cache: str = "constant values"):
         from .. import jit as _jit
 
+        if cache not in ("constant values", "no caching"):
+            raise ValueError(
+                f"cache={cache!r} is not supported for modules "
+                f"(supported: 'constant values', 'no caching')")
         self._module = module
 
         def _traced(params: dict, args: tuple, kwargs: dict):
@@ -91,7 +95,7 @@ class ThunderModule:
         for tf in transforms:
             tf.transform_module(self)
         self._cfn = _jit(_traced, executors=executors, transforms=transforms, cuda_graphs=cuda_graphs,
-                         graph_pool=graph_pool)
+                         graph_pool=graph_pool, cache=cache)
 
     @property
     def module(self) -> torch.nn.Module:

@@ -768,6 +768,103 @@ def einsum_bmm(a, b):
     return prims.matmul(a, b)
 
 
+@torchsymbol(name="grouped_mm", id="torch.grouped_mm")
+def grouped_mm(a, b, group_sizes):
+    return prims.grouped_mm(a, b, group_sizes)
+
+
+# einsum (thunder_tpu/ops/ltorch.py's decomposition): pairwise contractions
+# as transpose/reshape/matmul/sum prims, whose grad rules exist; the EINSUM
+# prim only for a spec with an index repeated inside one operand (a diagonal)
+
+from ..core.einsum_utils import expand_ellipsis as _einsum_expand_ellipsis_impl  # noqa: E402
+
+
+def _einsum_expand_ellipsis(spec: str, operands):
+    return _einsum_expand_ellipsis_impl(spec, [op.ndim for op in operands])
+
+
+def _einsum_pair(s1, x, s2, y, keep):
+    """Contract two einsum operands into one matmul. Size-1 dims broadcast
+    against the other operand (ellipsis broadcasting): each shared index
+    takes the larger size and size-1 dims are expanded."""
+    sizes = {}
+    for ch, d in zip(s1, x.shape):
+        sizes[ch] = d
+    for ch, d in zip(s2, y.shape):
+        sizes[ch] = builtins.max(sizes.get(ch, 1), d)
+    set1, set2 = set(s1), set(s2)
+    if builtins.any(x.shape[i] != sizes[ch] for i, ch in enumerate(s1)):
+        x = clang.expand(x, tuple(sizes[ch] for ch in s1))
+    if builtins.any(y.shape[i] != sizes[ch] for i, ch in enumerate(s2)):
+        y = clang.expand(y, tuple(sizes[ch] for ch in s2))
+    # pre-sum indices that appear in only one operand and are not needed later
+    drop1 = [ch for ch in s1 if ch not in set2 and ch not in keep]
+    if drop1:
+        x = clang.sum_(x, tuple(s1.index(ch) for ch in drop1), False)
+        s1 = "".join(ch for ch in s1 if ch not in drop1)
+        set1 = set(s1)
+    drop2 = [ch for ch in s2 if ch not in set1 and ch not in keep]
+    if drop2:
+        y = clang.sum_(y, tuple(s2.index(ch) for ch in drop2), False)
+        s2 = "".join(ch for ch in s2 if ch not in drop2)
+        set2 = set(s2)
+    batch = [ch for ch in s1 if ch in set2 and ch in keep]
+    contract = [ch for ch in s1 if ch in set2 and ch not in keep]
+    mdims = [ch for ch in s1 if ch not in set2]
+    ndims = [ch for ch in s2 if ch not in set1]
+    # permute to (batch, m, contract) and (batch, contract, n)
+    perm1 = [s1.index(ch) for ch in batch + mdims + contract]
+    perm2 = [s2.index(ch) for ch in batch + contract + ndims]
+    if perm1 != list(builtins.range(len(s1))):
+        x = clang.permute(x, perm1)
+    if perm2 != list(builtins.range(len(s2))):
+        y = clang.permute(y, perm2)
+
+    def size(chs):
+        return math.prod(sizes[ch] for ch in chs)
+
+    x2 = clang.reshape(x, (size(batch), size(mdims), size(contract)))
+    y2 = clang.reshape(y, (size(batch), size(contract), size(ndims)))
+    out = prims.matmul(x2, y2)
+    out_spec = "".join(batch + mdims + ndims)
+    return out_spec, clang.reshape(out, tuple(sizes[ch] for ch in out_spec))
+
+
+@torchsymbol(name="einsum")
+def einsum(equation, *operands):
+    """General einsum, decomposed to transpose/reshape/matmul/sum prims
+    (their grad rules and the matmul claims apply); the EINSUM prim for a
+    spec with a repeated index inside one operand."""
+    if len(operands) == 1 and isinstance(operands[0], (tuple, list)):
+        operands = tuple(operands[0])
+    equation = pyval(equation)
+    in_specs, out_spec = _einsum_expand_ellipsis(equation, operands)
+    for sub in in_specs:
+        if len(set(sub)) != len(sub):
+            return prims.einsum(equation, *operands)
+    if len(operands) == 1:
+        s, x = in_specs[0], operands[0]
+        drop = [ch for ch in s if ch not in out_spec]
+        if drop:
+            x = clang.sum_(x, tuple(s.index(ch) for ch in drop), False)
+            s = "".join(ch for ch in s if ch in out_spec)
+        perm = [s.index(ch) for ch in out_spec]
+        return clang.permute(x, perm) if perm != list(builtins.range(len(s))) else x
+    spec, acc = in_specs[0], operands[0]
+    for i in builtins.range(1, len(operands)):
+        keep = set(out_spec)
+        for j in builtins.range(i + 1, len(operands)):
+            keep |= set(in_specs[j])
+        spec, acc = _einsum_pair(spec, acc, in_specs[i], operands[i], keep)
+    drop = [ch for ch in spec if ch not in out_spec]
+    if drop:
+        acc = clang.sum_(acc, tuple(spec.index(ch) for ch in drop), False)
+        spec = "".join(ch for ch in spec if ch in out_spec)
+    perm = [spec.index(ch) for ch in out_spec]
+    return clang.permute(acc, perm) if perm != list(builtins.range(len(spec))) else acc
+
+
 @torchsymbol(name="linear", id="torch.nn.functional.linear")
 def linear(a, w, bias=None):
     out = prims.linear(a, w, bias)

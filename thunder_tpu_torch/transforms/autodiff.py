@@ -17,10 +17,12 @@ residuals for the minimal forward subgraph that re-derives them (saving its
 external inputs instead), and the backward replays that subgraph lazily,
 right before the first grad rule that reads one of its outputs.
 
-Of the ops whose gradient thunder_tpu takes from ``jax.vjp``, those no port
-path reaches yet (VJP_FALLBACK_OPS below) raise NotImplementedError here;
-the others have rules written out. There is no interpreter frontend yet:
-programs are acquired by direct proxy tracing."""
+Of the ops whose gradient thunder_tpu takes from ``jax.vjp`` of their jax
+implementation, most have rules written out here; the rest
+(VJP_FALLBACK_OPS: GROUPED_MM, EINSUM, SCATTER) take theirs from
+``torch.func.vjp`` of torchex's implementation, recorded in the backward
+trace as the ``torch.vjp_fallback`` operator. There is no interpreter
+frontend yet: programs are acquired by direct proxy tracing."""
 from __future__ import annotations
 
 import math
@@ -74,11 +76,12 @@ def has_grad_rule(sym_id) -> bool:
 
 
 # ops whose gradient thunder_tpu takes from jax.vjp of their jax impl
-# (JAX_VJP_FALLBACK there) and no port path differentiates yet:
-# differentiating one raises NotImplementedError naming it. The rest of
-# thunder_tpu's set has explicit rules below (convolution, conv_transpose,
-# reduce_window, var, atan2, cumsum, cumprod, digamma, copy_with_setitem)
-# and dist.ring_attention in parallel/context_parallel.py.
+# (JAX_VJP_FALLBACK there) and that have no rule written out here: their
+# gradients come from torch.func.vjp of torchex's impl (_fallback_grad
+# below). The rest of thunder_tpu's set has explicit rules below
+# (convolution, conv_transpose, reduce_window, var, atan2, cumsum, cumprod,
+# digamma, copy_with_setitem) and dist.ring_attention in
+# parallel/context_parallel.py.
 VJP_FALLBACK_OPS: set = {PrimIDs.GROUPED_MM, PrimIDs.EINSUM, PrimIDs.SCATTER}
 
 
@@ -1102,6 +1105,70 @@ def _setitem_bwd(key, n_key_tensors, value_shape, g):
 
 
 # ---------------------------------------------------------------------------
+# the vjp fallback: torch.func.vjp of torchex's implementation
+# ---------------------------------------------------------------------------
+
+
+def _vjp_fallback_meta(sym_id, args, kwargs, cots):
+    return tuple(TensorProxy(shape=p.shape, dtype=p.dtype, device=p.device)
+                 for p in _flat_tensors((args, kwargs)) if _is_diff_dtype(p))
+
+
+def _vjp_fallback_impl(sym_id, args, kwargs, cots):
+    """The gradients of the op's float tensor arguments, in order:
+    torch.func.vjp of torchex's implementation of ``sym_id`` at (args,
+    kwargs), with the output's cotangent. Everything stays on the device
+    (the forward runs again inside the vjp), so a CUDA graph captures it."""
+    from ..core.pytree import tree_flatten, tree_unflatten
+    from ..executors import torchex
+
+    fn = torchex.ex.implmap[sym_id][0]
+    flat, spec = tree_flatten((args, kwargs))
+    is_float = [isinstance(x, torch.Tensor) and x.is_floating_point() for x in flat]
+
+    def of_floats(*fts):
+        it = iter(fts)
+        a, k = tree_unflatten([next(it) if m else x for x, m in zip(flat, is_float)], spec)
+        return fn(*a, **k)
+
+    with torch.enable_grad():
+        _, vjp_fn = torch.func.vjp(of_floats, *[x for x, m in zip(flat, is_float) if m])
+        return tuple(vjp_fn(cots[0]))
+
+
+_vjp_fallback_op = []
+
+
+def vjp_fallback(sym_id, args, kwargs, cots):
+    """The ``torch.vjp_fallback`` operator, registered on torchex at its
+    first use (torchex imports this module)."""
+    if not _vjp_fallback_op:
+        from ..executors import torchex
+
+        _vjp_fallback_op.append(torchex.ex.register_operator(
+            "vjp_fallback", meta=_vjp_fallback_meta, fn=_vjp_fallback_impl))
+    return _vjp_fallback_op[0](sym_id, args, kwargs, cots)
+
+
+def _fallback_grad(pid):
+    """(aug, bwd) of an op in VJP_FALLBACK_OPS: the forward saves its
+    arguments; the backward hands them and the cotangent to vjp_fallback and
+    gives no gradient to an integer input (indices, group sizes)."""
+    def aug(*args, **kwargs):
+        return VJPResult(prims.get_prim(pid)(*args, **kwargs), (args, kwargs))
+
+    def bwd(args, kwargs, g):
+        grads = iter(vjp_fallback(pid, args, kwargs, (g,)))
+        return tuple(next(grads) if _is_diff_dtype(p) else None for p in _flat_tensors((args, kwargs)))
+
+    return aug, bwd
+
+
+for _pid in VJP_FALLBACK_OPS:
+    register_grad(_pid, *_fallback_grad(_pid))
+
+
+# ---------------------------------------------------------------------------
 # the transform itself
 # ---------------------------------------------------------------------------
 
@@ -1273,10 +1340,6 @@ def forward_and_backward_traces(trace: TraceCtx, *, grad_all_inexact_args: bool 
                     if _is_diff_dtype(o):
                         diff.add(o.name)
                 return
-        if needs_grad and out_is_diff and bsym.sym.id in VJP_FALLBACK_OPS:
-            raise NotImplementedError(
-                f"no grad rule for {bsym.sym.name} (id={bsym.sym.id}): thunder_tpu takes it "
-                f"from jax.vjp, which the port has no counterpart of yet")
         if needs_grad and out_is_diff and bsym.subsymbols:
             for sub in bsym.subsymbols:
                 process(sub, in_recompute)
