@@ -57,7 +57,11 @@ Phases, each printing one JSON line:
                M=8 (and the prefill buckets M=512 at fc_1, M=256 at qkv and
                MLP proj), NF4 at M=4 (and M=512 at fc_1), each with
                weight_only_plan's route, K splits and blocks; beside a bf16
-               matmul against weights dequantized beforehand. rms_norm
+               matmul against weights dequantized beforehand; in f32 (the
+               split route; NF4 at M <= 16 the FMA kernel) at every case,
+               timed at quant_train's shapes (M=512) and fc_1's decode
+               (int8 M=8, NF4 M=4) beside the bf16 split operations' bound
+               and the f32-FMA bound. rms_norm
                runs at Llama-3-1B's width (D=2048) at the serve wave's
                decode batches (1, 4, 8 rows) and prefill buckets (128, 512,
                1,024 rows) in bf16 and at 512 rows in f32, each with
@@ -314,9 +318,10 @@ Phases, each printing one JSON line:
                QuantizeNF4Transform(mlp.proj), AutocastTransform()]),
                AdamW(lr=1e-4)) at full width and depth, f32 master weights,
                B=1, T=512 (M = QUANT_MAX_M: every frozen linear claimed;
-               autocast leaves them f32 x, so they run the kernels' f32
+               autocast leaves them f32 x, so they run the kernels' split
                route): compile, 2 warm-up and 10 timed steps, captured (0
-               captures, 10 replays); int8_linear 32, nf4_linear 16, the
+               captures, 10 replays); int8_linear 32, nf4_linear 16 (all
+               on the split route), the
                flash-RoPE pair 16 each and AdamW 1 a step between zeroed
                counters; every quantized linear of the forward trace claimed
                by its kernel; the codes, scales and absmax bit-equal after
@@ -1304,9 +1309,15 @@ QUANT_CASES = {
     + [("fc_1_prefill512", 512, *QUANT_SHAPES["fc_1"]), ("mlp_proj_train512", 512, *QUANT_SHAPES["mlp_proj"])],
 }
 # quant_train's frozen linears (M = 512): x reaches them in f32 (the f32
-# norm's output, the f32 MLP product), so they run the f32 route; timed in
-# f32 too
-QUANT_F32_TIMED = {"int8": ("fc_1_prefill512",), "nf4": ("mlp_proj_train512",)}
+# norm's output, the f32 MLP product), so they run the split route; timed in
+# f32 too, and at fc_1's decode (the f32 agreement phases' decode: int8 M=8
+# on the split route, NF4 M=4 on the FMA kernel, route fma)
+QUANT_F32_TIMED = {"int8": ("fc_1_prefill512", "fc_1"), "nf4": ("mlp_proj_train512", "fc_1")}
+# The split route's bf16 products (f32 x): int8 x0, x1, x2 against the
+# codes; NF4 the six x_i · w_j with i + j <= 2 (csrc/weight_only_linear.cuh)
+QUANT_SPLIT_PASSES = {"int8": 3, "nf4": 6}
+# the split route's two kernels: x's pieces, then the product
+QUANT_SPLIT_STAGES = ("split_x_kernel", "wgmma_kernel")
 
 
 def quant_plan(cudaex, kind: str, M: int, N: int, K: int) -> dict:
@@ -1344,6 +1355,24 @@ def quant_work(kind: str, M: int, N: int, K: int, itemsize: int = 2) -> tuple[fl
     return w + itemsize * (M * K + M * N), 2.0 * M * N * K
 
 
+def quant_split_bound(kind: str, nbytes: float, ops: float) -> tuple[float, str]:
+    """(ms, by) of the split route's own work: QUANT_SPLIT_PASSES x 2MNK
+    bf16 operations at 989 TFLOP/s ("bf16 split operations"), or the bytes
+    where those take longer. A route that did 2MNK in f32 FMAs would be held
+    to bound_ms(..., "float32") instead, which the split route beats."""
+    b, by = bound_ms(nbytes, QUANT_SPLIT_PASSES[kind] * ops, "bfloat16")
+    return b, "bf16 split operations" if by == "operations" else by
+
+
+def count_routes(*fns) -> None:
+    """Sets each weight-only wrapper's launches and launches by route to 0
+    (the route dict in place: CUDA-graph replays add to it)."""
+    for fn in fns:
+        fn.launches = 0
+        for route in fn.routes:
+            fn.routes[route] = 0
+
+
 def check_quant(cudaex, dev, gen, kind: str) -> dict:
     """int8_linear or nf4_linear against its plain version at QUANT_CASES'
     shapes in bf16 and f32, then timed in bf16 beside its bound, its plain
@@ -1371,9 +1400,10 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
             torch.cuda.synchronize()
             err, scaled = flash_err(out, plain(*args))
             errs.append(err)
+            plan = cudaex.weight_only_plan(kind, M, N, K, dt)
             cases.append({"shape": label, "M": M, "N": N, "K": K, "dtype": dname(dt), "max_abs_err": err,
-                          "max_err_over_max1": scaled,
-                          "route": cudaex.weight_only_plan(kind, M, N, K, dt)["route"]})
+                          "max_err_over_max1": scaled, "route": plan["route"], "tile_m": plan["tile_m"],
+                          "splits": plan["splits"]})
             if not scaled <= KERNEL_TOL[dname(dt)]:
                 raise AssertionError(f"{kind}_linear {label} {dt}: error {scaled}")
             del args, out
@@ -1423,13 +1453,19 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
         if label not in QUANT_F32_TIMED[kind]:
             continue
         nbytes, ops = quant_work(kind, M, N, K, itemsize=4)
-        b, by = bound_ms(nbytes, ops, "float32")
+        plan = cudaex.weight_only_plan(kind, M, N, K, torch.float32)
+        b, by = (quant_split_bound(kind, nbytes, ops) if plan["route"] == "split"
+                 else bound_ms(nbytes, ops, "float32"))
         sets = copies(lambda: make(torch.float32, M, N, K, False), nbytes)
         ms, eager = cuda_ms(fn, sets)
         plain_ms, _ = cuda_ms(plain, sets[:1], iters=10)
-        timings_f32[label] = dict(M=M, N=N, K=K, route=cudaex.weight_only_plan(kind, M, N, K, torch.float32)["route"],
-                                  ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                                  fraction_of_bound=b / ms)
+        timings_f32[label] = dict(M=M, N=N, K=K, route=plan["route"], tile_m=plan["tile_m"], splits=plan["splits"],
+                                  blocks=plan["blocks"], ms=ms, eager_ms=eager, plain_ms=plain_ms, bound_ms=b,
+                                  bound_by=by, fraction_of_bound=b / ms,
+                                  f32_fma_bound_ms=bound_ms(nbytes, ops, "float32")[0],
+                                  tflops=ops / ms / 1e9)
+        if plan["route"] == "split":  # the pieces' pass and the product, each
+            timings_f32[label]["device_ms_by_kernel"] = kernel_ms(fn, sets, QUANT_SPLIT_STAGES)
         del sets
         torch.cuda.empty_cache()
     extra = {"timing_f32": timings_f32}
@@ -1441,7 +1477,7 @@ def check_quant(cudaex, dev, gen, kind: str) -> dict:
     emit("kernels", kernel=f"{kind}_linear", cases=cases, timing_bf16=timings, **extra)
     N, K = QUANT_SHAPES["fc_1"]
     return dict(max_abs_err=max(errs), shape=f"fc_1 M={M0} N={N} K={K} bf16 (Llama-3-1B decode)",
-                lm_head=timings["lm_head"], **timings["fc_1"])
+                lm_head=timings["lm_head"], timing_f32=timings_f32, **timings["fc_1"])
 
 
 # llama-350m's linears (N, K) at the train path's M = B·T = 8192 rows: the
@@ -2012,7 +2048,7 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
 
     per_step = 5 * cfg.n_layer + 1
     reset_peak_memory()
-    cudaex.int8_linear.launches = 0
+    count_routes(cudaex.int8_linear)
     steps0 = engine.decode_steps
     cfns = engine_cfns(engine)
     compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
@@ -2036,9 +2072,10 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
     want = per_step * steps + prefill_launches
     decode_claims = sum(b.impl is cudaex._int8_linear_impl
                         for b in tt.last_traces(engine.runner.decode_cfn)[-1].bound_symbols)
-    if decode_claims != per_step or launches != want:
+    routes = dict(cudaex.int8_linear.routes)
+    if decode_claims != per_step or launches != want or routes["split"] or sum(routes.values()) != launches:
         raise AssertionError(f"int8_linear: {decode_claims} claims in the decode trace, {launches} "
-                             f"launches; want {per_step} and {want}")
+                             f"launches ({routes}); want {per_step} and {want}, none on the split route")
     if compiles:
         raise AssertionError(f"{compiles} compiles during the int8 wave")
     n_tok = sum(r.n_new_tokens for r in results)
@@ -2046,7 +2083,7 @@ def quant_serve(tt, cudaex, cfg, prompts, seed, bf16_wave: dict) -> dict:
                requests=len(results), new_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in results])),
                mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in results])),
-               decode_steps=steps, int8_linear_launches=launches,
+               decode_steps=steps, int8_linear_launches=launches, int8_linear_routes=routes,
                launches_expected=dict(per_decode_step=per_step, decode=per_step * steps,
                                       prefill=prefill_launches, buckets=sorted(buckets)),
                compiles_during_wave=compiles, captures_during_wave=graphs["graph_captures"],
@@ -2092,17 +2129,18 @@ def quant_agreement(tt, cudaex, cfg, prompts, seed) -> dict:
     want = [plain.submit(p, max_new_tokens=64) for p in prompts]
     plain.drain()
     del plain
-    n0 = cudaex.int8_linear.launches
+    n0, s0 = cudaex.int8_linear.launches, cudaex.int8_linear.routes["split"]
     engine = ServingEngine(gpt, quantize="int8", **kw)
     got = [engine.submit(p, max_new_tokens=64) for p in prompts]
     engine.drain()
     launched = cudaex.int8_linear.launches - n0
+    on_split = cudaex.int8_linear.routes["split"] - s0
     rows = [{"prompt_len": len(p), "equal": bool(np.array_equal(g.result().new_tokens, w.result().new_tokens))}
             for p, g, w in zip(prompts, got, want)]
     out = dict(model=f"{cfg.name} f32, int8-exact weights", tf32=False, rows=rows,
-               int8_linear_launches=launched)
+               int8_linear_launches=launched, on_split_route=on_split)
     emit("quant_agreement", **out)
-    if not all(r["equal"] for r in rows) or not launched:
+    if not all(r["equal"] for r in rows) or not launched or on_split != launched:
         raise AssertionError(f"int8 streams differ from the unquantized engine's: {out}")
     del engine, gpt
     torch.cuda.empty_cache()
@@ -2135,7 +2173,7 @@ def nf4_inference(tt, cudaex, cfg, seed) -> dict:
     eng.generate(prompt, NF4_NEW)  # compiles prefill and decode, captures the decode loop
     t_warm = time.perf_counter() - t0
     reset_peak_memory()
-    cudaex.nf4_linear.launches = 0
+    count_routes(cudaex.nf4_linear)
     graphs0 = graph_stats(tt, [eng._decode_cfn])
     out_toks, m = eng.generate(prompt, NF4_NEW)
     torch.cuda.synchronize()
@@ -2147,14 +2185,17 @@ def nf4_inference(tt, cudaex, cfg, seed) -> dict:
     per_step = 5 * cfg.n_layer + 1
     steps = NF4_NEW - 1
     want = per_step * steps + 1
-    if launches != want:
-        raise AssertionError(f"nf4_linear launched {launches} times, want {per_step} x {steps} + 1")
+    routes = dict(cudaex.nf4_linear.routes)
+    if launches != want or routes["split"]:
+        raise AssertionError(f"nf4_linear launched {launches} times ({routes}), want {per_step} x {steps} + 1, "
+                             "none on the split route")
     if not ((out_toks >= 0) & (out_toks < cfg.padded_vocab_size)).all():
         raise AssertionError("nf4_inference: tokens out of range")
     step = decode_step_split(eng, gpt, prompt)
     out = dict(model=cfg.name, n_layer=cfg.n_layer, dtype="bfloat16 activations, NF4 weights",
                B=NF4_B, prompt_len=NF4_PROMPT, new_tokens=NF4_NEW, tokens_per_s=m.tokens_per_sec,
-               ttft_ms=1e3 * m.ttft_s, tbot_ms=1e3 * m.tbot_s, nf4_linear_launches=launches, **graphs,
+               ttft_ms=1e3 * m.ttft_s, tbot_ms=1e3 * m.tbot_s, nf4_linear_launches=launches,
+               nf4_linear_routes=routes, **graphs,
                launches_expected=dict(per_decode_step=per_step, decode_steps=steps, prefill_lm_head=1),
                weight_bytes=weight_bytes(gpt), bf16_weight_bytes=bf16_bytes,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, quantize_s=t_quant,
@@ -2297,21 +2338,25 @@ def nf4_agreement(tt, cudaex, cfg, seed) -> dict:
     B, T, new = NF4_B, 128, 32
     prompt = torch.from_numpy(np.random.RandomState(seed + 3).randint(
         0, cfg.vocab_size, (B, T)).astype(np.int32))
-    n0 = cudaex.nf4_linear.launches
+    n0, r0 = cudaex.nf4_linear.launches, dict(cudaex.nf4_linear.routes)
     got, _ = GPTInference(gpt, max_seq=T + new, dtype=torch.float32).generate(prompt, new)
     launched = cudaex.nf4_linear.launches - n0
+    routes = {k: v - r0[k] for k, v in cudaex.nf4_linear.routes.items()}
     want, m = GPTInference(ref, max_seq=T + new, dtype=torch.float32).generate(prompt, new)
     rows = [agree_row(got[b, T:].cpu().numpy(), want[b, T:].cpu().numpy(), m.top2_gap[b], T)
             for b in range(B)]
     # the prefill, the new - 1 decode steps of the scan_decode graph, and the
     # decode call that compiles and warms the decode program before a
-    # signature's first capture (GPTInference._scan_program)
+    # signature's first capture (GPTInference._scan_program); the prefill's
+    # block linears (B·T = 512 rows) on the split route, the rest (B rows)
+    # on the FMA kernel
     expected = (5 * cfg.n_layer + 1) * (new + 1)
+    want_routes = dict.fromkeys(routes, 0) | {"split": 5 * cfg.n_layer, "fma": expected - 5 * cfg.n_layer}
     out = dict(model=f"{cfg.name} f32", tf32=False, rows=rows, tolerance=AGREE_GAP,
-               nf4_linear_launches=launched, nf4_linear_launches_expected=expected)
+               nf4_linear_launches=launched, nf4_linear_launches_expected=expected, nf4_linear_routes=routes)
     emit("nf4_agreement", **out)
     bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
-    if bad or launched != expected:
+    if bad or launched != expected or routes != want_routes:
         raise AssertionError(f"nf4 agreement: {out}")
     del gpt, ref
     torch.cuda.empty_cache()
@@ -5192,9 +5237,11 @@ def quant_train(tt, cudaex, seed) -> dict:
                 "flash_rope_bwd": cudaex.flash_rope_attention_backward, "adamw": cudaex.adamw_update}
     for c in counters.values():
         c.launches = 0
+    count_routes(cudaex.int8_linear, cudaex.nf4_linear)
     graphs0 = graph_stats(tt, [step])
     step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
     per_step = {k: c.launches / n_steps for k, c in counters.items()}
+    routes = {k: dict(counters[k].routes) for k in ("int8_linear", "nf4_linear")}
     graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
     if graphs != {"graph_captures": 0, "graph_replays": n_steps}:
         raise AssertionError(f"quant_train: the timed steps ran {graphs}, want {n_steps} replays and no capture")
@@ -5202,6 +5249,8 @@ def quant_train(tt, cudaex, seed) -> dict:
             "flash_rope_bwd": cfg.n_layer, "adamw": 1}
     if per_step != want:
         raise AssertionError(f"quant_train: launches a step {per_step}, want {want}")
+    if any(r["split"] != counters[k].launches or sum(r.values()) != r["split"] for k, r in routes.items()):
+        raise AssertionError(f"quant_train: launches by route {routes}; want all on the split route")
     claims = require_quant_claims("quant_train", cudaex, tt.last_traces(step)[-1])
     losses = [first] + losses
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -5214,7 +5263,7 @@ def quant_train(tt, cudaex, seed) -> dict:
                frozen="int8 mlp.fc_1/fc_2, NF4 mlp.proj", frozen_linears_x_dtype=x_dtypes,
                steps=n_steps, ms_per_step=step_s * 1e3, tokens_per_s=B * T / step_s, compile_s=compile_s,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
-               launches_per_step=per_step, claims_per_forward=claims,
+               launches_per_step=per_step, launches_by_route=routes, claims_per_forward=claims,
                trainable_parameters=sum(v.numel() for v in trainable0.values()),
                frozen_weight_bytes=frozen_bytes, **state, **graphs)
     del trainable0, frozen0
@@ -5298,7 +5347,7 @@ class FirstGradsAdamW(ReferenceAdamW):
 
 def quant_train_agreement(tt, cudaex, seed) -> dict:
     """f32, TF32 off, Llama-3-1B's widths at 2 layers, B=1, T=512 (every
-    frozen linear under QUANT_MAX_M, on its kernel's f32 route), on each of
+    frozen linear under QUANT_MAX_M, on its kernel's split route), on each of
     QUANT_AGREE_DATA: 3 AdamW steps of the port's TrainStep (op by op, its
     gradients read by GradRecorder) against the hand-written step whose
     frozen linears are FrozenLinearReference. Held on both data: the
@@ -5336,13 +5385,14 @@ def quant_train_agreement(tt, cudaex, seed) -> dict:
             return torch.nn.functional.linear(x, ref[name])
 
         opt = FirstGradsAdamW(list(ref.values()), TRAIN_LR)
-        n0 = (cudaex.int8_linear.launches, cudaex.nf4_linear.launches)
+        n0 = (cudaex.int8_linear.routes["split"], cudaex.nf4_linear.routes["split"])
         got = [float(step(idx, tgt)) for _ in range(n_steps)]
-        launched = (cudaex.int8_linear.launches - n0[0], cudaex.nf4_linear.launches - n0[1])
+        launched = (cudaex.int8_linear.routes["split"] - n0[0], cudaex.nf4_linear.routes["split"] - n0[1])
         want = [float(reference_step(ref, opt, cfg, idx, tgt, plain_attention, False, linear=linear))
                 for _ in range(n_steps)]
         if launched != (2 * cfg.n_layer * n_steps, cfg.n_layer * n_steps):
-            raise AssertionError(f"quant_train_agreement: int8/NF4 launches {launched} over {n_steps} steps")
+            raise AssertionError(f"quant_train_agreement: int8/NF4 split-route launches {launched} over "
+                                 f"{n_steps} steps")
         state = require_frozen_and_trained("quant_train_agreement", model, trainable0, frozen0)
         g1, r1 = rec.steps[0], dict(zip(ref, opt.first))
         if g1.keys() != r1.keys():
@@ -6310,6 +6360,13 @@ def main() -> int:
         if name in quant_trained["launches_per_step"]:
             # launches a step on quant_train's path (frozen int8/NF4 linears)
             kernels[-1]["quant_train_launches_per_step"] = quant_trained["launches_per_step"][name]
+        if name in quant_trained["launches_by_route"]:
+            # quant_train's f32 x: the split route's launches and its time at that shape
+            kernels[-1]["quant_train_split_launches_per_step"] = (quant_trained["launches_by_route"][name]["split"]
+                                                                  / quant_trained["steps"])
+            f32 = res["timing_f32"][QUANT_F32_TIMED[name[:-len("_linear")]][0]]
+            kernels[-1]["f32_split"] = {k: f32[k] for k in ("M", "N", "K", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "f32_fma_bound_ms")}
         if name == "adamw":
             kernels[-1]["skip_flag"] = res["skip_flag"]
     print(json.dumps({"kernels": kernels}), flush=True)

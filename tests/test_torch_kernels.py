@@ -22,11 +22,12 @@ at other running maxima); on the card the kernel against its plain version
 at f32 1e-4 and bf16 2e-2, as paged attention. The weight-only int8 and
 NF4 linears (plain versions against pallasex in tests/test_torch_quant.py,
 their routes' arithmetic in tests/test_torch_quant_kernel.py) against their
-plain versions on the card at f32 1e-4 (FMAs in another summation order)
-and bf16 2e-2 (one rounding of f32 sums taken in another order: an ulp,
-2^-8 relative), on every route of cudaex.weight_only_plan; a rerun and
-three CUDA-graph replays bit-equal to the eager call (the K splits' sum
-order is fixed and their counters reset).
+plain versions on the card at f32 1e-4 (the split route: exact products
+of bf16 pieces summed in f32, in another order) and bf16 2e-2 (one rounding
+of f32 sums taken in another order: an ulp, 2^-8 relative), on every route
+of cudaex.weight_only_plan; a rerun and three CUDA-graph replays bit-equal
+to the eager call (the K splits' sum order is fixed and their counters
+reset; the split route's pieces are scratch of the call).
 """
 import math
 
@@ -1001,10 +1002,12 @@ def _nf4_card_inputs(cuda, dtype, M, N, K, seed):
 QUANT_M = [1, 4, 8, 16, 17, 40, 256, 512]
 
 
-def _expected_route(M, K, dtype):
-    """f32 x: the FMA kernel; bf16 decode (M <= 16, K in whole 128-k chunks):
-    stream; other bf16: wgmma."""
-    return "f32" if dtype == torch.float32 else ("stream" if M <= 16 and K % 128 == 0 else "wgmma")
+def _expected_route(M, K, dtype, kind="int8"):
+    """f32 x: split (NF4 at M <= 16: fma); bf16 decode (M <= 16, K in whole
+    128-k chunks): stream; other bf16: wgmma."""
+    if dtype == torch.float32:
+        return "fma" if kind == "nf4" and M <= 16 else "split"
+    return "stream" if M <= 16 and K % 128 == 0 else "wgmma"
 
 
 @pytest.mark.gpu
@@ -1041,7 +1044,7 @@ def test_nf4_linear_kernel_matches_plain(cuda, M, N, K, dtype):
     multiple of 256, so it has no ragged tail."""
     x, pk, ak = _nf4_card_inputs(cuda, dtype, M, N, K, seed=M + K)
     plan = cudaex.weight_only_plan("nf4", M, N, K, dtype)
-    assert plan["route"] == _expected_route(M, K, dtype)
+    assert plan["route"] == _expected_route(M, K, dtype, "nf4")
     n0 = cudaex.nf4_linear.launches
     out = cudaex.nf4_linear(x, pk, ak)
     torch.cuda.synchronize()
@@ -1050,10 +1053,10 @@ def test_nf4_linear_kernel_matches_plain(cuda, M, N, K, dtype):
     torch.testing.assert_close(out.float(), cudaex.nf4_linear_plain(x, pk, ak).float(), atol=tol, rtol=tol)
 
 
-def _quant_call(cuda, kind, M, N, K, seed):
+def _quant_call(cuda, kind, M, N, K, seed, dtype=torch.bfloat16):
     if kind == "int8":
-        return cudaex.int8_linear, _int8_card_inputs(cuda, torch.bfloat16, M, N, K, seed)
-    return cudaex.nf4_linear, _nf4_card_inputs(cuda, torch.bfloat16, M, N, K, seed)
+        return cudaex.int8_linear, _int8_card_inputs(cuda, dtype, M, N, K, seed)
+    return cudaex.nf4_linear, _nf4_card_inputs(cuda, dtype, M, N, K, seed)
 
 
 # (M, N, K): stream with K splits, stream without, wgmma with, wgmma without
@@ -1094,6 +1097,38 @@ def test_weight_only_cuda_graph_replays_match_eager(cuda, kind, M, N, K):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+
+
+# (M, N, K) of the split route (f32 x): K split at a decode M and at a
+# prefill M, and not (quant_train's fc_1 / mlp_proj at 512 rows)
+QUANT_F32_CASES = [(8, 2048, 8192), (40, 2048, 2048), (512, 8192, 2048), (512, 2048, 8192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+@pytest.mark.parametrize("M,N,K", QUANT_F32_CASES)
+def test_weight_only_f32_routes_captured_and_rerun_bit_equal(cuda, kind, M, N, K):
+    """f32 x on the split route (NF4 at M = 8: fma): a rerun and three
+    replays of a captured call (x's pieces and the partial sums allocated
+    inside the capture) equal the eager call bit for bit."""
+    fn, args = _quant_call(cuda, kind, M, N, K, seed=13, dtype=torch.float32)
+    assert cudaex.weight_only_plan(kind, M, N, K, torch.float32)["route"] == _expected_route(M, K, torch.float32,
+                                                                                           kind)
+    eager = fn(*args)
+    assert torch.equal(fn(*args).view(torch.int32), eager.view(torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), eager.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -40,6 +40,10 @@ On the card (``gpu``):
 * a tiny quantized Llama's captured TrainStep: every frozen linear claimed
   by its kernel, the kernels launched, frozen tensors bit-equal, losses
   finite and falling.
+* the frozen linears' f32 route (``split``) at quant_train's two shapes
+  (int8 fc_1, NF4 mlp.proj, 512 rows): within chip_smoke.py's
+  KERNEL_TOL["float32"] of the plain version, a rerun bit-equal, and each
+  launch counted on the split route.
 """
 import numpy as np
 import pytest
@@ -337,3 +341,28 @@ def test_card_quantized_train_step_claims_and_launches_the_kernels(cuda):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     now = dict(model.named_parameters())
     assert all(torch.equal(now[k], v) for k, v in frozen0.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,N,K", [("int8", 8192, 2048), ("nf4", 2048, 8192)], ids=["int8-fc_1", "nf4-mlp_proj"])
+def test_card_split_route_at_quant_train_shapes(cuda, kind, N, K):
+    import chip_smoke
+
+    M = chip_smoke.QUANT_TRAIN_B * chip_smoke.QUANT_TRAIN_T
+    g = torch.Generator(device=cuda).manual_seed(N + K)
+    if kind == "int8":
+        fn, plain, args = cudaex.int8_linear, cudaex.int8_linear_plain, chip_smoke.int8_inputs(
+            cuda, g, torch.float32, M, N, K)
+    else:
+        fn, plain, args = cudaex.nf4_linear, cudaex.nf4_linear_plain, chip_smoke.nf4_inputs(
+            cuda, g, torch.float32, M, N, K, True)
+    assert cudaex.weight_only_plan(kind, M, N, K, torch.float32)["route"] == "split"
+    n0 = fn.routes["split"]
+    first = fn(*args)
+    second = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.routes["split"] == n0 + 2 and first.dtype == torch.float32
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert chip_smoke.flash_err(first, plain(*args))[1] <= chip_smoke.KERNEL_TOL["float32"]
+

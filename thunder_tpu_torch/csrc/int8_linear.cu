@@ -24,64 +24,37 @@
 // operand of mma.sync, with the 8 or 16 tokens as the product's n. Prefill
 // runs a persistent TMA/wgmma product with the widened weights as register A
 // operands and x's tile as B. The scale is applied once to the f32 sum (after
-// any K splits are summed in split order). f32 x keeps the FMA kernel.
+// any K splits are summed in split order).
+//
+// f32 x (quant_train's frozen fc_1/fc_2 under autocast, the f32 agreement
+// paths) takes the `split` route. What bounded it: f32 FMAs (67 TFLOP/s; the
+// FMA kernel this replaces reached 11.6 at M = 512), since tf32 products
+// would round x to 11 bits. A code is exact in bf16 and x is the exact sum of
+// three bf16 pieces (weight_only_linear.cuh's header note), so the bf16
+// tensor cores form the three products x0·q, x1·q and x2·q exactly and sum
+// them in f32: one decode of each k16 slice of codes, three wgmmas against
+// the pieces' tiles, the scale once to the f32 sum.
 
 #include "weight_only_linear.cuh"
 
-namespace {
-
-// route f32's format policy
-struct Int8Weights {
-  static constexpr int kChunkK = 64;  // 4 lanes x 16 k
-  static constexpr int kGroups = 1;
-  const int8_t* q;
-  const float* scale;
-  int K;
-
-  struct Raw {
-    uint4 v;
-  };
-
-  __device__ __forceinline__ void init() const {}
-
-  __device__ __forceinline__ int group_k(int c, int lane_k, int) const {
-    return c * kChunkK + 16 * lane_k;
-  }
-
-  __device__ __forceinline__ void load(Raw& r, int n, int c, int lane_k) const {
-    const int k = group_k(c, lane_k, 0);
-    r.v = make_uint4(0u, 0u, 0u, 0u);
-    if (n >= 0 && k < K) r.v = __ldcs(reinterpret_cast<const uint4*>(q + static_cast<size_t>(n) * K + k));
-  }
-
-  __device__ __forceinline__ void decode(const Raw& r, int, float (&w)[16]) const {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&r.v);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = static_cast<float>(b[i]);
-  }
-
-  __device__ __forceinline__ float epilogue(float acc, int n) const { return acc * scale[n]; }
-};
-
-}  // namespace
-
 // x (M, K) f32 or bf16, q (N, K) int8, scale (N,) f32, y (M, N) like x; all
 // contiguous and 16-byte aligned, K a multiple of 16. route, rows, tile_m,
-// splits, units_per_split, grid and stages are cudaex.weight_only_plan's (f32
-// x: route 0, the rest unread); partial (splits, M, N) f32 and counters (one
-// a tile, zero) where the wgmma route splits K, else null. Returns the
-// launch's cudaGetLastError().
+// splits, units_per_split, grid and stages are cudaex.weight_only_plan's;
+// partial (splits, M, N) f32 and counters (one a tile, zero) where the plan
+// splits K, else null; pieces (3, M, K) bf16 scratch for the split route (f32
+// x), else null. Returns the first failing launch's cudaGetLastError().
 extern "C" int tt_int8_linear(const void* x, const void* q, const void* scale, void* y, void* partial,
-                              void* counters, int M, int N, int K, int dtype, int route, int rows, int tile_m,
-                              int splits, int units_per_split, int grid, int stages, void* stream) {
+                              void* counters, void* pieces, int M, int N, int K, int dtype, int route, int rows,
+                              int tile_m, int splits, int units_per_split, int grid, int stages, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tt::kF32 && route == tt::wol::kRouteF32) {
-    const Int8Weights w{static_cast<const int8_t*>(q), static_cast<const float*>(scale), K};
-    return tt::wol::launch_f32(static_cast<const float*>(x), w, static_cast<float*>(y), M, N, K, s);
-  }
-  if (dtype != tt::kBF16 || K % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (K % 16) return static_cast<int>(cudaErrorInvalidValue);
   const tt::wol::Weights w{static_cast<const uint8_t*>(q), static_cast<const float*>(scale), K, 0};
   const tt::wol::Plan p{route, rows, tile_m, splits, units_per_split, grid, stages};
+  if (dtype == tt::kF32)
+    return tt::wol::launch_split<false>(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(pieces), w,
+                                        static_cast<float*>(y), static_cast<float*>(partial),
+                                        static_cast<int*>(counters), M, N, p, s);
+  if (dtype != tt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
   return tt::wol::launch_bf16<false>(static_cast<const __nv_bfloat16*>(x), w, static_cast<__nv_bfloat16*>(y),
                                      static_cast<float*>(partial), static_cast<int*>(counters), M, N, p, s);
 }

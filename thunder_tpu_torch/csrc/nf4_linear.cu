@@ -29,7 +29,19 @@
 // persistent TMA/wgmma product with the decoded weights as register A
 // operands and two x tiles (k and k + block_k/2) as B. The TPU kernel's
 // select tree and 0/1 expander product were workarounds for Mosaic's missing
-// gather and repeat. f32 x keeps the FMA kernel.
+// gather and repeat.
+//
+// f32 x (quant_train's frozen mlp.proj under autocast, the f32 agreement
+// paths) takes the `split` route above M = 16. What bounded it: f32 FMAs (67
+// TFLOP/s; the FMA kernel, which keeps M <= 16, reached 12.3 at M = 512),
+// since tf32 products would round x to 11 bits. A pass splits x into three
+// bf16 pieces (weight_only_linear.cuh's header note); each decoded weight w =
+// code · absmax, taken in f32 as the plain version takes it, is split in
+// registers into three pieces the same way, and the bf16 tensor cores sum
+// the six exact products x_i · w_j with i + j <= 2 in f32. The three dropped
+// ones are each at most 2^-24 of |x·w| (2^-23 in all), about the one f32
+// rounding the plain version makes of each product. Six x tiles a stage and
+// the pair table fit beside three stages at 64-token tiles, not 128.
 
 #include "weight_only_linear.cuh"
 
@@ -37,7 +49,7 @@ namespace {
 
 __shared__ float code_s[16];
 
-// route f32's format policy
+// route fma's format policy
 struct Nf4Weights {
   static constexpr int kChunkK = 128;  // 4 lanes x 16 bytes x 2 nibbles
   static constexpr int kGroups = 2;
@@ -89,22 +101,28 @@ struct Nf4Weights {
 // x (M, K) f32 or bf16, packed (N, K/2) uint8 in the kernel layout of
 // slice width block_k (256 or 512, dividing K), absmax (N, K/64) f32, y
 // (M, N) like x; all contiguous and 16-byte aligned. route, rows, tile_m,
-// splits, units_per_split, grid and stages are cudaex.weight_only_plan's (f32
-// x: route 0, the rest unread); partial (splits, M, N) f32 and counters (one
-// a tile, zero) where the wgmma route splits K, else null. Returns the
-// launch's cudaGetLastError().
+// splits, units_per_split, grid and stages are cudaex.weight_only_plan's;
+// partial (splits, M, N) f32 and counters (one a tile, zero) where the plan
+// splits K, else null; pieces (3, M, K) bf16 scratch for the split route (f32
+// x; the fma route reads none of the plan but its route). Returns the first
+// failing launch's cudaGetLastError().
 extern "C" int tt_nf4_linear(const void* x, const void* packed, const void* absmax, void* y, void* partial,
-                             void* counters, int M, int N, int K, int block_k, int dtype, int route, int rows,
-                             int tile_m, int splits, int units_per_split, int grid, int stages, void* stream) {
+                             void* counters, void* pieces, int M, int N, int K, int block_k, int dtype, int route,
+                             int rows, int tile_m, int splits, int units_per_split, int grid, int stages,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block_k % 256 != 0 || K % block_k != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == tt::kF32 && route == tt::wol::kRouteF32) {
-    const Nf4Weights w{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K, block_k / 2};
-    return tt::wol::launch_f32(static_cast<const float*>(x), w, static_cast<float*>(y), M, N, K, s);
-  }
-  if (dtype != tt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
   const tt::wol::Weights w{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K, block_k / 2};
   const tt::wol::Plan p{route, rows, tile_m, splits, units_per_split, grid, stages};
+  if (dtype == tt::kF32 && route == tt::wol::kRouteFma) {
+    const Nf4Weights f{static_cast<const uint8_t*>(packed), static_cast<const float*>(absmax), K, block_k / 2};
+    return tt::wol::launch_f32(static_cast<const float*>(x), f, static_cast<float*>(y), M, N, K, s);
+  }
+  if (dtype == tt::kF32)
+    return tt::wol::launch_split<true>(static_cast<const float*>(x), static_cast<__nv_bfloat16*>(pieces), w,
+                                       static_cast<float*>(y), static_cast<float*>(partial),
+                                       static_cast<int*>(counters), M, N, p, s);
+  if (dtype != tt::kBF16) return static_cast<int>(cudaErrorInvalidValue);
   return tt::wol::launch_bf16<true>(static_cast<const __nv_bfloat16*>(x), w, static_cast<__nv_bfloat16*>(y),
                                     static_cast<float*>(partial), static_cast<int*>(counters), M, N, p, s);
 }

@@ -180,6 +180,10 @@ __device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi, __half) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The accumulator operands of an m64n16k16 product: d[0..7].
+#define TT_WGMMA_D8_REGS "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define TT_WGMMA_D8_OUTS \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 // The accumulator operands of an m64n64k16 product: d[0..31].
 #define TT_WGMMA_D32_REGS \
   "{" \
@@ -215,7 +219,8 @@ __device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi, __half) {
 // B (16 x N, shared), TA / TB 1 for an MN-major operand; scale_d 0
 // overwrites d.
 // wgmma_rs: d (64 x N) += A (64 x 16, registers, the m16n8k16 A fragment of
-// each warp's 16 rows) · B (16 x N, shared), TB 1 for an MN-major B.
+// each warp's 16 rows) · B (16 x N, shared), TB 1 for an MN-major B; with a
+// scale_d argument (N = 16, 64 or 128), scale_d 0 overwrites d.
 // The element type is picked by the last argument's type.
 #define TT_WGMMA_OPS(TYPE, PTX)                                                              \
   template <int TA, int TB>                                                                  \
@@ -253,6 +258,33 @@ __device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi, __half) {
                  TT_WGMMA_D64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"        \
                  : TT_WGMMA_D64_OUTS                                                         \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));      \
+  }                                                                                          \
+  template <int TB>                                                                          \
+  __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],            \
+                                           uint64_t b, int scale_d, TYPE) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32." PTX "." PTX " "             \
+                 TT_WGMMA_D8_REGS ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"          \
+                 : TT_WGMMA_D8_OUTS                                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB)); \
+  }                                                                                          \
+  template <int TB>                                                                          \
+  __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],           \
+                                           uint64_t b, int scale_d, TYPE) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " "             \
+                 TT_WGMMA_D32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"        \
+                 : TT_WGMMA_D32_OUTS                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB)); \
+  }                                                                                          \
+  template <int TB>                                                                          \
+  __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],           \
+                                           uint64_t b, int scale_d, TYPE) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " "            \
+                 TT_WGMMA_D64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"        \
+                 : TT_WGMMA_D64_OUTS                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB)); \
   }
 
 TT_WGMMA_OPS(__nv_bfloat16, "bf16")

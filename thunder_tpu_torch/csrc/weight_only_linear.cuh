@@ -1,12 +1,57 @@
 // The weight-only quantized linears (int8_linear.cu, nf4_linear.cu): y (M, N)
 // = x (M, K) · W (N, K)ᵀ, where W stays quantized in device memory and is
 // decoded in registers; f32 sums, one rounding to x's dtype at the end.
-// cudaex.weight_only_plan picks one of three routes from the shapes alone:
+// cudaex.weight_only_plan picks one of four routes from the shapes alone:
 //
-// f32 x — `f32`: linear_f32_kernel. A block owns 16 rows and 16 columns and
-// its 8 warps split K; each lane decodes 16 weights from one 16-byte load and
-// sums them by FMAs (the tensor cores would round f32 operands to tf32); the
-// warps' sums meet in shared memory. The agreement phases read this route.
+// f32 x, NF4 at M <= 16 — `fma`: linear_f32_kernel. A block owns 16 rows and
+// 16 columns and its 8 warps split K; each lane decodes 16 weights from one
+// 16-byte load and sums them by FMAs; the warps' sums meet in shared memory.
+// At these M the split route below was slower for NF4 (a decode step's six
+// shapes 1.81 against 1.74 ms, tools/quant_ab.py --f32, H100 80GB HBM3,
+// 700 W): its fixed costs (the pieces' pass, the pipeline's fill, the K
+// splits' tail) come to ~10-15 µs a launch, where the NF4 attention
+// projections take 10-11 µs on this kernel. int8 is faster on the split
+// route at every M.
+//
+// f32 x, any other M — `split` (operations bound at prefill): split_x_kernel,
+// then wgmma_kernel<kNf4, BT, true>. What bounds f32 x on this card: its f32 FMA
+// rate is 67 TFLOP/s (the kernel this replaces reached 12 of it at M = 512),
+// and tf32 products would drop 13 bits of x. The split design: an f32 value
+// is the exact sum of three bf16 pieces, x0 = bf16(x), x1 = bf16(x - x0) and
+// x2 = bf16(x - x0 - x1). Each residual is exact in f32 (the rounding error
+// of a value with at most 24 significant bits), and each rounding takes the
+// next 8 of them, so 3 x 8 >= 24 and x0 + x1 + x2 == x bit for bit wherever
+// x's lowest significand bit is at least 2^-133, bf16's least subnormal (every
+// |x| >= 2^-110; below it the bits under 2^-133 are lost, < 2^-133 absolute).
+// |x1| <= 2^-8 |x| and |x2| <= 2^-16 |x|. A product of two bf16 values has at
+// most 16 significant bits, so the bf16 tensor cores (989 TFLOP/s) form each
+// exactly and add it into f32 accumulators: the only rounding left is the f32
+// summation, in another order than the plain version's. A pass over x writes
+// the pieces (3, M, K) bf16 to scratch the wrapper allocates (torch.empty, so
+// a CUDA-graph capture holds it); the wgmma route's persistent product below
+// takes a k range's three pieces as one TMA box (three x tiles) and issues a
+// product a pair of pieces into the same f32 accumulators:
+//   int8: a code (-128..127) is exact in bf16, so three products, x0, x1, x2
+//     against the one decoded A fragment; the scale once to the f32 sum.
+//   NF4: w = code · absmax taken in f32 (the plain version's weight), split in
+//     registers into w0 + w1 + w2 like x; the six products x_i · w_j with i + j
+//     <= 2. The three dropped ones are each at most 2^-24 |x w|, 2^-23 in all:
+//     about the one f32 rounding the plain version makes of each product.
+// The tensor cores add a chain of products into their f32 accumulators with
+// fewer bits than an f32 add keeps, and toward zero (on an H100, NF4 with
+// 4,096 k in one chain failed the card test's 1e-4 of |y|), so each 64-byte
+// unit's products (int8 12, NF4 48 a warpgroup) go into fresh registers,
+// which join the f32 sums by FADD once they land; the other consumer
+// warpgroup's products keep the tensor cores busy meanwhile. So promoted,
+// y is within 4.6e-6 of max(1, |y|) of the exact product at K = 8192, its
+// mean signed error -8e-7 of |y| for NF4 and -2e-7 for int8 (cuBLAS's f32
+// product: 1e-9).
+// y leaves in f32 straight from the accumulators (a warp's store writes eight
+// consecutive columns, one 32-byte sector, of four rows); rows past M and
+// columns past N are not written. int8 takes tiles of 16 tokens at M <= 16
+// (m64n16k16: a quarter of the padded products of 64), 64 to M = 64, else
+// 128; NF4 64 (its six x tiles a stage and its pair table leave no room for
+// 128).
 //
 // bf16 x, M <= 16, K in whole 128-k chunks — `stream` (decode; bytes bound):
 // stream_kernel. The product is swapped, yᵀ = W · xᵀ: the decoded weights
@@ -39,18 +84,19 @@
 // wgmma_wait<1>). The epilogue scales (int8), rounds to bf16 into a staging
 // tile in shared memory, transposed to y's (token, n) order, and the
 // warpgroup writes it out in 16-byte rows (rows past M and columns past N
-// are not written).
+// are not written). The split route is this kernel with three x tiles a k
+// range, a product a pair of pieces, and the f32 epilogue above.
 //
-// K splits (both bf16 routes): each block writes its f32 sums to scratch
+// K splits (stream, wgmma, split): each block writes its f32 sums to scratch
 // (splits, M, N) the wrapper allocates; the last block of a column slice or
 // tile to finish — it learns this from a counter of a persistent buffer that
 // it resets to zero itself, so a CUDA-graph replay finds it zero — sums the
 // splits in split order (a thread keeps up to 16 loads in flight), scales
-// (int8) and rounds once. One launch, no second kernel: the layers this
-// serves take 6-30 µs, where a second launch's gap would be a large share;
-// the sum order is fixed, so a rerun is bit-equal. The counter buffer is one
-// a device: launches that split must run in stream order (they leave it at
-// zero). Measured on the card, the split tail (the partials' stores, a
+// (int8) and rounds once (split: stores the f32 sum). One launch, no second
+// kernel: the layers this serves take 6-30 µs, where a second launch's gap
+// would be a large share; the sum order is fixed, so a rerun is bit-equal.
+// The counter buffer is one a device: launches that split must run in stream
+// order (they leave it at zero). Measured on the card, the split tail (the partials' stores, a
 // fence, the counter's atomic, the last block's loads) costs ~3 µs, so the
 // decode route splits only where x will not fit; a cluster of the split
 // blocks summing through distributed shared memory was slower still
@@ -73,7 +119,8 @@
 //     conflict; 32 KB). A byte costs a PRMT or LOP3 and a LEA (its address),
 //     one 8-byte load, two FMULs by the absmax of each nibble's 64-group (the
 //     high nibble's k and the low nibble's k + block_k/2 lie in different
-//     groups) and one cvt.rn.bf16x2.f32: 3 instructions a weight, against
+//     groups) and one cvt.rn.bf16x2.f32 (split: the f32 products, then three
+//     roundings and two subtractions a pair): 3 instructions a weight, against
 //     4.5 for the 16-entry table (a lookup, a multiply, half a pack, and
 //     the nibble's address) of the kernel this replaces. W is exactly the
 //     plain version's round_bf16(code · absmax). The stream route pairs a
@@ -93,7 +140,7 @@ namespace wol {
 using namespace tt::sm90;
 
 // ---------------------------------------------------------------------------
-// route f32: linear_f32_kernel (f32 x)
+// route fma: linear_f32_kernel (NF4, f32 x, M <= 16)
 // ---------------------------------------------------------------------------
 
 // The policy W supplies the format:
@@ -208,10 +255,10 @@ int launch_f32(const float* x, const W& w, float* y, int M, int N, int K, cudaSt
 }
 
 // ---------------------------------------------------------------------------
-// shared pieces of the bf16 routes
+// shared pieces of the routes
 // ---------------------------------------------------------------------------
 
-enum Route : int { kRouteF32 = 0, kRouteStream = 1, kRouteWgmma = 2 };
+enum Route : int { kRouteSplit = 0, kRouteStream = 1, kRouteWgmma = 2, kRouteFma = 3 };
 
 namespace {
 __constant__ float kNf4Code[16] = {
@@ -300,6 +347,38 @@ __device__ __forceinline__ uint32_t nf4pair(uint32_t table, uint32_t v, float am
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// The split route's bf16 pieces: 3 of an f32 value (3 x 8 significant bits
+// >= 24; 1 for the bf16 routes, the value rounded once). pieces[i] packs
+// the pair's i-th pieces (a's low); a = Σ low halves, b = Σ high halves.
+constexpr int kSplitPieces = 3;
+template <int P>
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t (&pieces)[P]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    pieces[i] = *reinterpret_cast<const uint32_t*>(&v);
+    a -= __low2float(v);  // exact: the rounding error of a's remaining bits
+    b -= __high2float(v);
+  }
+}
+
+// x (M, K) f32 -> pieces (3, M, K) bf16 with x0 + x1 + x2 == x (header
+// note); n4 = M·K / 4, the float4s of x. Reads 4 bytes and writes 6 an
+// element. (A template, so each source that includes this header may define
+// it.)
+template <int P = kSplitPieces>
+__global__ void __launch_bounds__(256) split_x_kernel(const float4* __restrict__ x, uint2* __restrict__ pieces,
+                                                      long long n4) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += 256ll * gridDim.x) {
+    const float4 v = __ldcs(x + i);
+    uint32_t lo[P], hi[P];
+    split_pair(v.x, v.y, lo);
+    split_pair(v.z, v.w, hi);
+#pragma unroll
+    for (int p = 0; p < P; ++p) pieces[p * n4 + i] = make_uint2(lo[p], hi[p]);
+  }
+}
+
 // The last block of a split column slice or tile to finish: a counter of
 // the persistent buffer, reset to zero by that block. Every thread calls it
 // after writing its partials; returns true in the block that sums them.
@@ -317,11 +396,11 @@ __device__ __forceinline__ bool last_split(int* counter, int splits, int* flag, 
 // The last block's sum of the K splits for y's region tokens [m0, m0 + rows)
 // x columns [n0, n0 + cols) (cols a multiple of 4; rows past M and columns
 // past N skipped): split 0 + split 1 + ... in that order, times scale[n]
-// (int8; null for NF4), rounded once to bf16. Each thread keeps U 4-column
-// positions x S splits of loads in flight (one dependent load after another
-// would cost an L2 round trip each).
-template <int U, int S>
-__device__ __forceinline__ void combine_splits(const float* __restrict__ partial, __nv_bfloat16* __restrict__ y,
+// (int8; null for NF4), rounded once to bf16 (OutT float: stored in f32).
+// Each thread keeps U 4-column positions x S splits of loads in flight (one
+// dependent load after another would cost an L2 round trip each).
+template <int U, int S, class OutT>
+__device__ __forceinline__ void combine_splits(const float* __restrict__ partial, OutT* __restrict__ y,
                                                const float* __restrict__ scale, int M, int N, int splits, int m0,
                                                int rows, int n0, int cols, int tid, int threads) {
   const size_t stride = static_cast<size_t>(M) * N;  // floats from one split to the next
@@ -331,7 +410,12 @@ __device__ __forceinline__ void combine_splits(const float* __restrict__ partial
       if (tok >= M || n >= N) continue;
       float sum = 0.f;
       for (int sp = 0; sp < splits; ++sp) sum += __ldcg(partial + sp * stride + static_cast<size_t>(tok) * N + n);
-      y[static_cast<size_t>(tok) * N + n] = __float2bfloat16(scale ? sum * scale[n] : sum);
+      const float v = scale ? sum * scale[n] : sum;
+      if constexpr (std::is_same_v<OutT, float>) {
+        y[static_cast<size_t>(tok) * N + n] = v;
+      } else {
+        y[static_cast<size_t>(tok) * N + n] = __float2bfloat16(v);
+      }
     }
     return;
   }
@@ -372,11 +456,15 @@ __device__ __forceinline__ void combine_splits(const float* __restrict__ partial
       const int n = static_cast<int>(off[u] % N);
       float4 r = acc[u];
       if (scale) r = make_float4(r.x * scale[n], r.y * scale[n + 1], r.z * scale[n + 2], r.w * scale[n + 3]);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(r.x, r.y), hi = __floats2bfloat162_rn(r.z, r.w);
-      uint2 pk;
-      pk.x = *reinterpret_cast<const uint32_t*>(&lo);
-      pk.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(y + off[u]) = pk;
+      if constexpr (std::is_same_v<OutT, float>) {
+        *reinterpret_cast<float4*>(y + off[u]) = r;
+      } else {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(r.x, r.y), hi = __floats2bfloat162_rn(r.z, r.w);
+        uint2 pk;
+        pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+        pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(y + off[u]) = pk;
+      }
     }
   }
 }
@@ -638,34 +726,49 @@ __global__ void __launch_bounds__(kStreamThreads, NT == 1 ? 4 : 3)
 }
 
 // ---------------------------------------------------------------------------
-// route wgmma: wgmma_kernel (bf16 x, 16 < M <= 512)
+// routes wgmma (bf16 x, 16 < M <= 512) and split (f32 x): wgmma_kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 128;  // weight rows a tile: two consumer warpgroups of 64
 constexpr int kWgConsumers = 256;
 constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
 
-template <bool kNf4, int BT> struct WgCfg {
-  static constexpr int kXBoxes = kNf4 ? 2 : 1;              // x boxes a stage: k_of(unit) (and + hb)
+template <bool kNf4, int BT, bool kSplit> struct WgCfg {
+  static constexpr int kXPieces = kSplit ? kSplitPieces : 1;  // x tiles a k range: one TMA box
+  static constexpr int kWPieces = kSplit && kNf4 ? kSplitPieces : 1;  // A fragments a slice
   static constexpr int kXBox = BT * 128;                    // [BT tokens][64 k] bf16, 128-byte swizzle
+  static constexpr int kXRange = kXPieces * kXBox;          // a k range's pieces
+  static constexpr int kXRanges = kNf4 ? 2 : 1;             // k_of(unit) (and + hb)
   static constexpr int kW = kWgRows * kUnitBytes;           // the weight unit: [128 rows][64 bytes]
   static constexpr int kAm = kNf4 ? 2 * kWgRows * 4 : 0;   // absmax [hi/lo][128 rows]
-  static constexpr int kStage = (kXBoxes * kXBox + kW + kAm + 1023) / 1024 * 1024;
-  static constexpr int kStages = kNf4 ? (BT == 128 ? 3 : 4) : 6;
+  static constexpr int kStage = (kXRanges * kXRange + kW + kAm + 1023) / 1024 * 1024;
+  static constexpr int kStages = kSplit ? (kNf4 ? 3 : (BT == 16 ? 8 : BT == 128 ? 4 : 6))
+                                        : (kNf4 ? (BT == 128 ? 3 : 4) : 6);
   static constexpr int kStgPitch = 144;                     // bytes a token row of the y staging tile
-  static constexpr int kStg = BT * kStgPitch;               // a warpgroup's [BT][64] bf16 staging tile
+  static constexpr int kStg = kSplit ? 0 : BT * kStgPitch;  // a warpgroup's [BT][64] bf16 staging tile
   static constexpr int kTable = kNf4 ? kTableBytes : 0;
   static constexpr int kBars = kStages * 2 * 8 + 16;
   static constexpr int kSmem = kStages * kStage + 2 * kStg + kTable + kBars + 1024;
+  static_assert(kSmem <= 232448, "a wgmma block's shared memory");
 };
 
-template <bool kNf4, int BT>
+// The products of a k16 slice: (x piece, w piece) pairs. bf16: (0, 0);
+// split int8: x0, x1, x2 against the one fragment; split NF4: i + j <= 2.
+template <bool kNf4, bool kSplit> struct Pairs {
+  static constexpr int kN = kSplit ? (kNf4 ? 6 : 3) : 1;
+  // pair q's x piece and w piece: NF4 (0,0) (0,1) (1,0) (0,2) (1,1) (2,0)
+  __host__ __device__ static constexpr int x(int q) { return kNf4 ? (q == 2 || q == 4 ? 1 : q == 5 ? 2 : 0) : q; }
+  __host__ __device__ static constexpr int w(int q) { return kNf4 ? (q == 1 || q == 4 ? 1 : q == 3 ? 2 : 0) : 0; }
+};
+
+template <bool kNf4, int BT, bool kSplit>
 __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, const Weights wt,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ partial, int* __restrict__ counters, int M, int N,
-                 int splits, int ups) {
-  using C = WgCfg<kNf4, BT>;
+                 std::conditional_t<kSplit, float, __nv_bfloat16>* __restrict__ y, float* __restrict__ partial,
+                 int* __restrict__ counters, int M, int N, int splits, int ups) {
+  using C = WgCfg<kNf4, BT, kSplit>;
   using F = Fmt<kNf4>;
+  using P = Pairs<kNf4, kSplit>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -702,7 +805,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const int b = (u0 + i) * kUnitBytes, kh = F::k_of(b, wt.hb);
           if constexpr (kNf4) {
             const int ghi = kh / 64, glo = ghi + wt.hb / 64, G = K / 64;
-            const uint32_t dst = sb + s * C::kStage + C::kXBoxes * C::kXBox + C::kW;
+            const uint32_t dst = sb + s * C::kStage + C::kXRanges * C::kXRange + C::kW;
 #pragma unroll
             for (int e = pl; e < 2 * kWgRows; e += 32) {
               const int n = n0 + (e % kWgRows);
@@ -712,10 +815,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             cp_async_arrive(&full[s]);
           }
           if (pl == 0) {
-            mbar_expect_tx(&full[s], C::kXBoxes * C::kXBox + C::kW);
-            tma_load_3d(st, &tm_x, &full[s], kh, m0, 0);
-            if constexpr (kNf4) tma_load_3d(st + C::kXBox, &tm_x, &full[s], kh + wt.hb, m0, 0);
-            tma_load_3d(st + C::kXBoxes * C::kXBox, &tm_w, &full[s], b, n0, 0);
+            mbar_expect_tx(&full[s], C::kXRanges * C::kXRange + C::kW);
+            tma_load_3d(st, &tm_x, &full[s], kh, m0, 0);  // the k range's pieces, one tile each
+            if constexpr (kNf4) tma_load_3d(st + C::kXRange, &tm_x, &full[s], kh + wt.hb, m0, 0);
+            tma_load_3d(st + C::kXRanges * C::kXRange, &tm_w, &full[s], b, n0, 0);
           }
         }
       }
@@ -737,7 +840,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t sel = kNf4 ? ((2 * c) | ((2 * c + 1) << 4)) : ((2 * c) | ((2 * c + 1) << 8));
   const int rl = 64 * wg + 16 * warp + g;  // this lane's rows of the tile: rl and rl + 8
   constexpr int kAcc = BT / 2;
-  constexpr int kA = kNf4 ? 8 : 4;  // A registers a k16 slice (NF4: the high and low slices)
+  // A registers a k16 slice: 4 a fragment, [w piece][high / low slice (NF4)][4]
+  constexpr int kA = 4 * (kNf4 ? 2 : 1) * C::kWPieces;
   const uint32_t stg = sb + stg_off + wg * C::kStg;
 
   int f = 0;  // stages consumed so far
@@ -746,18 +850,24 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int m0 = (tile % n_m) * BT, n0 = (tile / n_m) * kWgRows;
     const int nu = min(units, split * ups + ups) - split * ups;
     float acc[kAcc];
+    // split: a unit's products land in `part` (its first overwrites), then
+    // join acc by FADD: the tensor cores' own sums of a long chain of
+    // products keep fewer bits than an f32 add (header note)
+    float part[kSplit ? kAcc : 1];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kSplit ? kAcc : 1); ++i) part[i] = 0.f;
     uint32_t A[2][kA] = {};
     int pend = -1;  // the stage whose products may still run
     for (int i = 0; i < nu; ++i, ++f) {
       const int s = f % C::kStages;
       mbar_wait(&full[s], (f / C::kStages) & 1);
       const uint32_t st = sb + s * C::kStage;
-      const uint32_t wr = st + C::kXBoxes * C::kXBox + rl * kUnitBytes;
+      const uint32_t wr = st + C::kXRanges * C::kXRange + rl * kUnitBytes;
       float ah = 0.f, al = 0.f, bh = 0.f, bl = 0.f;
       if constexpr (kNf4) {
-        const uint32_t am = st + C::kXBoxes * C::kXBox + C::kW;
+        const uint32_t am = st + C::kXRanges * C::kXRange + C::kW;
         ah = lds32f(am + 4 * rl);
         al = lds32f(am + 4 * (kWgRows + rl));
         bh = lds32f(am + 4 * (rl + 8));
@@ -774,7 +884,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           a[3] = i8pair(prmt(rb.z, rb.w, sel));
         } else {
           // bytes 2c, 2c+1 and 2c+8, 2c+9: their high nibbles make the high
-          // slice's fragment (a[0..3]), their low nibbles the low slice's (a[4..7])
+          // slice's fragment (a[8p + 0..3]), their low nibbles the low slice's
+          // (a[8p + 4..7]), p the w piece
           const uint32_t va = prmt(ra.x, ra.y, sel), vb = prmt(rb.x, rb.y, sel);
           const uint32_t wa = prmt(ra.z, ra.w, sel), wb = prmt(rb.z, rb.w, sel);
           const uint32_t src[4] = {va, vb, wa, wb};
@@ -783,26 +894,43 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int r = 0; r < 4; ++r) {
             const float2 e0 = lds64f(table + ((src[r] & 0xFFu) << 7));
             const float2 e1 = lds64f(table + (((src[r] >> 8) & 0xFFu) << 7));
-            const __nv_bfloat162 h = __floats2bfloat162_rn(e0.x * hi[r], e1.x * hi[r]);
-            const __nv_bfloat162 l = __floats2bfloat162_rn(e0.y * lo[r], e1.y * lo[r]);
-            a[r] = *reinterpret_cast<const uint32_t*>(&h);
-            a[4 + r] = *reinterpret_cast<const uint32_t*>(&l);
+            uint32_t h[C::kWPieces], l[C::kWPieces];
+            // w = code · absmax rounded in f32 (__fmul_rn: never contracted into
+            // the pieces' subtractions), as the plain version's weight
+            split_pair(__fmul_rn(e0.x, hi[r]), __fmul_rn(e1.x, hi[r]), h);
+            split_pair(__fmul_rn(e0.y, lo[r]), __fmul_rn(e1.y, lo[r]), l);
+#pragma unroll
+            for (int p = 0; p < C::kWPieces; ++p) {
+              a[8 * p + r] = h[p];
+              a[8 * p + 4 + r] = l[p];
+            }
           }
         }
         wgmma_fence();
-        {
-          const uint32_t af[4] = {a[0], a[1], a[2], a[3]};
-          wgmma_rs<0>(acc, af, desc_sw128(st + 32 * j, 16, 1024), __nv_bfloat16{});
-        }
-        if constexpr (kNf4) {
-          const uint32_t af[4] = {a[4], a[5], a[6], a[7]};
-          wgmma_rs<0>(acc, af, desc_sw128(st + C::kXBox + 32 * j, 16, 1024), __nv_bfloat16{});
-        }
+#pragma unroll
+        for (int half = 0; half < C::kXRanges; ++half)
+#pragma unroll
+          for (int q = 0; q < P::kN; ++q) {
+            const int o = 8 * P::w(q) + 4 * half;  // the fragment of w piece w(q) (NF4: of this half)
+            const uint32_t af[4] = {a[o], a[o + 1], a[o + 2], a[o + 3]};
+            const uint32_t xt = st + half * C::kXRange + P::x(q) * C::kXBox + 32 * j;
+            if constexpr (kSplit) {
+              wgmma_rs<0>(part, af, desc_sw128(xt, 16, 1024), j + half + q > 0 ? 1 : 0, __nv_bfloat16{});
+            } else {
+              wgmma_rs<0>(acc, af, desc_sw128(xt, 16, 1024), __nv_bfloat16{});
+            }
+          }
         wgmma_commit();
         wgmma_wait<1>();  // the previous slice's products are done: its fragment buffer is free
 #pragma unroll
         for (int i = 0; i < kA; ++i) asm volatile("" : "+r"(A[(j & 1) ^ 1][i])::"memory");
         if (j == 0 && pend >= 0) mbar_arrive(&empty[pend]);
+      }
+      if constexpr (kSplit) {  // the unit's products into the f32 sums (the other warpgroup's run meanwhile)
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
       }
       pend = s;
     }
@@ -817,25 +945,33 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) sc[h] = n0 + rl + 8 * h < N ? wt.s[n0 + rl + 8 * h] : 0.f;
       }
-      named_bar_sync(2 + wg, 128);  // the previous tile's rows have left the staging tile
+      if constexpr (kSplit) {  // f32 y from the accumulators: 8 columns (32 bytes) of 4 rows a store
 #pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const int h = (i >> 1) & 1, t = 8 * (i >> 2) + 2 * c + (i & 1);
-        const __nv_bfloat16 v = __float2bfloat16(acc[i] * sc[h]);
-        sts16(stg + t * C::kStgPitch + 2 * (16 * warp + g + 8 * h), *reinterpret_cast<const uint16_t*>(&v));
-      }
-      named_bar_sync(2 + wg, 128);
-      const int nw = n0 + 64 * wg;  // this warpgroup's 64 columns of y
-      for (int e = tid; e < BT * 8; e += 128) {
-        const int t = e >> 3, q = e & 7, tok = m0 + t, n = nw + 8 * q;
-        if (tok >= M || n >= N) continue;
-        const uint4 v = lds128(stg + t * C::kStgPitch + 16 * q);
-        __nv_bfloat16* dst = y + static_cast<size_t>(tok) * N + n;
-        if ((N & 7) == 0 && n + 8 <= N) {
-          *reinterpret_cast<uint4*>(dst) = v;
-        } else {
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-          for (int i = 0; i < 8 && n + i < N; ++i) dst[i] = h[i];
+        for (int i = 0; i < kAcc; ++i) {
+          const int h = (i >> 1) & 1, tok = m0 + 8 * (i >> 2) + 2 * c + (i & 1), n = n0 + rl + 8 * h;
+          if (tok < M && n < N) y[static_cast<size_t>(tok) * N + n] = acc[i] * sc[h];
+        }
+      } else {
+        named_bar_sync(2 + wg, 128);  // the previous tile's rows have left the staging tile
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) {
+          const int h = (i >> 1) & 1, t = 8 * (i >> 2) + 2 * c + (i & 1);
+          const __nv_bfloat16 v = __float2bfloat16(acc[i] * sc[h]);
+          sts16(stg + t * C::kStgPitch + 2 * (16 * warp + g + 8 * h), *reinterpret_cast<const uint16_t*>(&v));
+        }
+        named_bar_sync(2 + wg, 128);
+        const int nw = n0 + 64 * wg;  // this warpgroup's 64 columns of y
+        for (int e = tid; e < BT * 8; e += 128) {
+          const int t = e >> 3, q = e & 7, tok = m0 + t, n = nw + 8 * q;
+          if (tok >= M || n >= N) continue;
+          const uint4 v = lds128(stg + t * C::kStgPitch + 16 * q);
+          __nv_bfloat16* dst = y + static_cast<size_t>(tok) * N + n;
+          if ((N & 7) == 0 && n + 8 <= N) {
+            *reinterpret_cast<uint4*>(dst) = v;
+          } else {
+            const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+            for (int i = 0; i < 8 && n + i < N; ++i) dst[i] = h[i];
+          }
         }
       }
     } else {
@@ -857,10 +993,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // launch
 // ---------------------------------------------------------------------------
 
-// What cudaex.weight_only_plan chose for a bf16 call: the route, the weight
-// rows a block (stream: 16 or 64; wgmma: 128), the tokens a tile (stream: 8
-// or 16; wgmma: 64 or 128), the K splits and units a split (wgmma), the
-// wgmma route's persistent blocks, and the stages (checked against the
+// What cudaex.weight_only_plan chose for a call: the route, the weight rows a
+// block (stream: 16 or 64; wgmma and split: 128), the tokens a tile (stream: 8
+// or 16; wgmma and split: 64 or 128), the K splits and units a split, the
+// persistent blocks (wgmma, split), and the stages (checked against the
 // kernel's).
 struct Plan {
   int route, rows, tile_m, splits, ups, grid, stages;
@@ -910,14 +1046,33 @@ int launch_stream(const CUtensorMap& mw, const CUtensorMap& mx, const Weights& w
   return static_cast<int>(cudaGetLastError());
 }
 
+// A wgmma or split launch: p.grid persistent blocks.
+template <bool kNf4, int BT, bool kSplit, class OutT>
+int launch_wgmma(const CUtensorMap& mx, const CUtensorMap& mw, const Weights& wt, OutT* y, float* partial,
+                 int* counters, int M, int N, const Plan& p, cudaStream_t stream) {
+  using C = WgCfg<kNf4, BT, kSplit>;
+  if (p.stages != C::kStages) return static_cast<int>(cudaErrorInvalidValue);
+  const int e = allow_smem<wgmma_kernel<kNf4, BT, kSplit>>(C::kSmem);
+  if (e) return e;
+  wgmma_kernel<kNf4, BT, kSplit><<<p.grid, kWgThreads, C::kSmem, stream>>>(mx, mw, wt, y, partial, counters, M, N,
+                                                                           p.splits, p.ups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's K splits cover the row's units, none empty, with scratch where
+// there are two or more.
+template <bool kNf4>
+bool splits_ok(const Weights& wt, const Plan& p, int unit, const float* partial, const int* counters) {
+  const int units = (Fmt<kNf4>::row_bytes(wt.K) + unit - 1) / unit;
+  return p.splits >= 1 && p.ups >= 1 && static_cast<long long>(p.splits) * p.ups >= units &&
+         static_cast<long long>(p.splits - 1) * p.ups < units &&
+         (p.splits == 1 || (partial != nullptr && counters != nullptr));
+}
+
 template <bool kNf4>
 int launch_bf16(const __nv_bfloat16* x, const Weights& wt, __nv_bfloat16* y, float* partial, int* counters, int M,
                 int N, const Plan& p, cudaStream_t stream) {
-  const int unit = p.route == kRouteStream ? kStreamUnit : kUnitBytes;
-  const int units = (Fmt<kNf4>::row_bytes(wt.K) + unit - 1) / unit;
-  if (p.splits < 1 || p.ups < 1 || static_cast<long long>(p.splits) * p.ups < units ||
-      static_cast<long long>(p.splits - 1) * p.ups >= units ||
-      (p.splits > 1 && (partial == nullptr || counters == nullptr)))
+  if (!splits_ok<kNf4>(wt, p, p.route == kRouteStream ? kStreamUnit : kUnitBytes, partial, counters))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mw, mx;
   if (p.route == kRouteStream) {  // tile_m: 8 or 16 tokens; rows: 16 or 64 a block
@@ -942,22 +1097,38 @@ int launch_bf16(const __nv_bfloat16* x, const Weights& wt, __nv_bfloat16* y, flo
   int e = make_map_rows(&mw, wt.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, Fmt<kNf4>::row_bytes(wt.K), N, kUnitBytes, kWgRows);
   if (!e) e = make_map_3d(&mx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wt.K, M, 1, p.tile_m);
   if (e) return e;
-  if (p.tile_m == 64) {
-    using C = WgCfg<kNf4, 64>;
-    if (p.stages != C::kStages) return static_cast<int>(cudaErrorInvalidValue);
-    e = allow_smem<wgmma_kernel<kNf4, 64>>(C::kSmem);
-    if (e) return e;
-    wgmma_kernel<kNf4, 64><<<p.grid, kWgThreads, C::kSmem, stream>>>(mx, mw, wt, y, partial, counters, M, N, p.splits,
-                                                                     p.ups);
+  return p.tile_m == 64 ? launch_wgmma<kNf4, 64, false>(mx, mw, wt, y, partial, counters, M, N, p, stream)
+                        : launch_wgmma<kNf4, 128, false>(mx, mw, wt, y, partial, counters, M, N, p, stream);
+}
+
+// The split route: the pass that writes x's pieces into `pieces` (3, M, K)
+// bf16, then the product over them in 64-token tiles (int8: 16, 64 or 128).
+template <bool kNf4>
+int launch_split(const float* x, __nv_bfloat16* pieces, const Weights& wt, float* y, float* partial, int* counters,
+                 int M, int N, const Plan& p, cudaStream_t stream) {
+  if (!splits_ok<kNf4>(wt, p, kUnitBytes, partial, counters) || p.route != kRouteSplit || p.rows != kWgRows ||
+      (p.tile_m != 64 && (kNf4 || (p.tile_m != 16 && p.tile_m != 128))) || p.grid < 1 || pieces == nullptr ||
+      wt.K % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = static_cast<long long>(M) * wt.K / 4;
+  const long long blocks = (n4 + 255) / 256;
+  split_x_kernel<><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<uint2*>(pieces), n4);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  CUtensorMap mw, mx;
+  e = make_map_rows(&mw, wt.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, Fmt<kNf4>::row_bytes(wt.K), N, kUnitBytes, kWgRows);
+  // a box: the three pieces' [tile_m tokens][64 k] tiles, one after the other
+  if (!e) e = make_map_3d(&mx, pieces, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wt.K, M, kSplitPieces, p.tile_m,
+                          kSplitPieces);
+  if (e) return e;
+  if constexpr (kNf4) {
+    return launch_wgmma<true, 64, true>(mx, mw, wt, y, partial, counters, M, N, p, stream);
   } else {
-    using C = WgCfg<kNf4, 128>;
-    if (p.stages != C::kStages) return static_cast<int>(cudaErrorInvalidValue);
-    e = allow_smem<wgmma_kernel<kNf4, 128>>(C::kSmem);
-    if (e) return e;
-    wgmma_kernel<kNf4, 128><<<p.grid, kWgThreads, C::kSmem, stream>>>(mx, mw, wt, y, partial, counters, M, N,
-                                                                      p.splits, p.ups);
+    if (p.tile_m == 16) return launch_wgmma<false, 16, true>(mx, mw, wt, y, partial, counters, M, N, p, stream);
+    return p.tile_m == 64 ? launch_wgmma<false, 64, true>(mx, mw, wt, y, partial, counters, M, N, p, stream)
+                          : launch_wgmma<false, 128, true>(mx, mw, wt, y, partial, counters, M, N, p, stream);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wol

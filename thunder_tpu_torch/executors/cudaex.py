@@ -189,9 +189,9 @@ def _library():
         lib.tt_flash_bwd.restype = i
         lib.tt_cross_entropy.argtypes = [p, p, p, p, i, i, i, p]
         lib.tt_cross_entropy.restype = i
-        lib.tt_int8_linear.argtypes = [p] * 6 + [i] * 11 + [p]
+        lib.tt_int8_linear.argtypes = [p] * 7 + [i] * 11 + [p]
         lib.tt_int8_linear.restype = i
-        lib.tt_nf4_linear.argtypes = [p] * 6 + [i] * 12 + [p]
+        lib.tt_nf4_linear.argtypes = [p] * 7 + [i] * 12 + [p]
         lib.tt_nf4_linear.restype = i
         lib.tt_fp8_linear.argtypes = [p] * 10 + [i] * 5 + [f, p]
         lib.tt_fp8_linear.restype = i
@@ -1570,16 +1570,23 @@ _QUANT_X_DTYPES = (torch.float32, torch.bfloat16)
 # int8, 256 k of NF4) and NF4's absmax. Registers hold it to 4 blocks an SM
 # (3 with 16 tokens), shared memory (228 KB an SM, 1 KB of it reserved a
 # block) may hold it to fewer. The wgmma route's tiles are 128 rows by 64 or
-# 128 tokens; its unit is 64 bytes of each row, its stages (kind, tokens) ->
-# count, and it splits K where its tiles leave SMs idle. Both routes sum K
-# splits in scratch, the last block of a slice or tile to finish adding them
-# in split order.
-_WOL_ROUTES = {"f32": 0, "stream": 1, "wgmma": 2}
-_WOL_UNIT = {"stream": 128, "wgmma": 64, "f32": 64}
+# 128 tokens; its unit is 64 bytes of each row, its stages (route, kind,
+# tokens) -> count, and it splits K where its tiles leave SMs idle. The split
+# route (f32 x) is the wgmma route's kernel over x's three bf16 pieces (3, M,
+# K), which a pass writes to scratch first: int8 at every M (16-token tiles
+# at M <= 16), NF4 above M = 16 (64-token tiles), where it beats the FMA
+# kernel (route fma: NF4 at M <= 16).
+# Every route sums K splits in scratch, the last block of a slice or tile to
+# finish adding them in split order.
+_WOL_ROUTES = {"split": 0, "stream": 1, "wgmma": 2, "fma": 3}
+_WOL_UNIT = {"stream": 128, "wgmma": 64, "split": 64, "fma": 64}
 _STREAM_STAGES, _STREAM_MAX_M, _STREAM_X_K = (1, 2, 4, 6, 8, 12, 16), 16, 2048
 _SM_SMEM = 228 * 1024
 _WGMMA_ROWS = 128
-_WGMMA_STAGES = {("int8", 64): 6, ("int8", 128): 6, ("nf4", 64): 4, ("nf4", 128): 3}
+_WGMMA_STAGES = {("wgmma", "int8", 64): 6, ("wgmma", "int8", 128): 6, ("wgmma", "nf4", 64): 4,
+                 ("wgmma", "nf4", 128): 3, ("split", "int8", 16): 8, ("split", "int8", 64): 6,
+                 ("split", "int8", 128): 4, ("split", "nf4", 64): 3}
+_SPLIT_PIECES = 3  # bf16 pieces of an f32 x (csrc/weight_only_linear.cuh kSplitPieces)
 _WGMMA_MIN_UNITS = 4  # a K split of the wgmma route holds at least this many units
 _WOL_COUNTERS = 4096  # the persistent split counters a device (one a split slice or tile)
 
@@ -1615,7 +1622,11 @@ def weight_only_plan(kind, M, N, K, dtype, block_k=None, sms=H100_SMS) -> dict:
     (M, K) against weights (N, K), from the shapes and x's dtype alone (no
     tensor is read, so the launch is safe to capture in a CUDA graph):
 
-    * ``route``: ``f32`` (f32 x: the FMA kernel, 16 x 16 blocks), ``stream``
+    * ``route``: ``fma`` (f32 x, NF4 at M <= 16: the FMA kernel, 16 x 16
+      blocks; the split route is slower there), ``split`` (other f32 x: x's
+      three bf16 pieces, then the wgmma route's tiles with a product a pair
+      of pieces; 16-token tiles at M <= 16, else 64 for NF4 and for int8 at
+      M <= 64, else 128), ``stream``
       (bf16, M <= 16, K a multiple of 128: blocks of ``rows`` weight rows, 16
       where ceil(N / 64) < 2 · sms and the 16-row grid is one wave of
       resident blocks, else 64 (16-row blocks' 8 warps split K), over
@@ -1626,12 +1637,14 @@ def weight_only_plan(kind, M, N, K, dtype, block_k=None, sms=H100_SMS) -> dict:
       TMA/wgmma tiles of 128 rows by ``tile_m`` tokens, K split while the
       tiles leave SMs idle); its ``code`` for csrc/weight_only_linear.cuh;
     * ``rows``: weight rows a block or tile; ``tile_m``: tokens (stream: 8
-      or 16, the n8 tiles; wgmma: 64 or 128; f32: 16);
+      or 16, the n8 tiles; wgmma: 64 or 128; split: 16, 64 or 128; fma: 16);
     * ``splits`` and ``units_per_split`` (units of a row's bytes: 128 on
       the stream route, 64 on the others);
-    * ``grid``: the launch grid; ``blocks``: blocks (or, for wgmma, work
-      items) it runs; ``stages``;
-    * ``scratch``: the f32 partial sums (splits, M, N) when K is split;
+    * ``grid``: the launch grid; ``blocks``: blocks (or, for wgmma and
+      split, work items) it runs; ``stages``;
+    * ``scratch``: name -> (shape, dtype) of what the wrapper allocates:
+      ``partial``, the f32 partial sums (splits, M, N) when K is split, and
+      ``pieces``, x's bf16 pieces (3, M, K) on the split route;
       ``counters``: the split counters the launch uses (zero without).
 
     block_k is NF4's slice width (nf4_kernel_block_k(K) by default)."""
@@ -1640,12 +1653,13 @@ def weight_only_plan(kind, M, N, K, dtype, block_k=None, sms=H100_SMS) -> dict:
         block_k = block_k or nf4_kernel_block_k(K)
         _require(block_k is not None and K % block_k == 0, f"weight_only_plan: no NF4 slice width for K={K}")
     row_bytes = K if kind == "int8" else K // 2
-    if dtype == torch.float32:
+    if dtype == torch.float32 and kind == "nf4" and M <= _STREAM_MAX_M:
         grid = (-(-N // 16), -(-M // 16))
-        return {"route": "f32", "code": _WOL_ROUTES["f32"], "rows": 16, "tile_m": 16, "splits": 1,
-                "units_per_split": -(-row_bytes // _WOL_UNIT["f32"]), "grid": grid, "blocks": grid[0] * grid[1], "stages": 0,
-                "scratch": {}, "counters": 0}
-    if M <= _STREAM_MAX_M and row_bytes % _WOL_UNIT["stream"] == 0:  # (int8: K in whole 128-k chunks)
+        return {"route": "fma", "code": _WOL_ROUTES["fma"], "rows": 16, "tile_m": 16, "splits": 1,
+                "units_per_split": -(-row_bytes // _WOL_UNIT["fma"]), "grid": grid, "blocks": grid[0] * grid[1],
+                "stages": 0, "scratch": {}, "counters": 0}
+    if dtype != torch.float32 and M <= _STREAM_MAX_M and row_bytes % _WOL_UNIT["stream"] == 0:
+        # (int8: K in whole 128-k chunks)
         route, tile_m = "stream", 8 if M <= 8 else 16
         units = -(-row_bytes // _WOL_UNIT[route])
         splits, ups = _balanced_splits(units, -(-K // _STREAM_X_K))
@@ -1669,43 +1683,49 @@ def weight_only_plan(kind, M, N, K, dtype, block_k=None, sms=H100_SMS) -> dict:
                and _stream_per_sm(kind, rows, tile_m, stages, ups) * sms < blocks):
             stages = max(d for d in _STREAM_STAGES if d < stages)
     else:
-        route, rows, tile_m = "wgmma", _WGMMA_ROWS, 64 if M <= 64 else 128
+        route, rows = "split" if dtype == torch.float32 else "wgmma", _WGMMA_ROWS
+        tile_m = 64 if M <= 64 or (route, kind) == ("split", "nf4") else 128
+        if route == "split" and M <= _STREAM_MAX_M:  # m64n16k16: a quarter of 64's padded products
+            tile_m = 16
         units = -(-row_bytes // _WOL_UNIT[route])
         tiles = -(-M // tile_m) * -(-N // rows)
         splits, ups = _balanced_splits(units, max(1, min(sms // tiles, units // _WGMMA_MIN_UNITS)))
-        blocks, stages = tiles * splits, _WGMMA_STAGES[(kind, tile_m)]
+        blocks, stages = tiles * splits, _WGMMA_STAGES[(route, kind, tile_m)]
         grid = (min(blocks, sms),)
     scratch = {"partial": ((splits, M, N), torch.float32)} if splits > 1 else {}
+    if route == "split":
+        scratch["pieces"] = ((_SPLIT_PIECES, M, K), torch.bfloat16)
     return {"route": route, "code": _WOL_ROUTES[route], "rows": rows, "tile_m": tile_m, "splits": splits,
             "units_per_split": ups, "grid": grid, "blocks": blocks, "stages": stages, "scratch": scratch,
-            "counters": tiles if scratch else 0}
+            "counters": tiles if splits > 1 else 0}
 
 
 _wol_counters = {}
 
 
-def _wol_scratch(plan, device):
-    """The plan's partial sums (torch.empty) and the device's persistent
-    split counters (zeros, made once outside any CUDA-graph capture; each
-    launch that splits leaves its counters at zero), where it has them."""
-    if not plan["scratch"]:
-        return None, None
-    shape, dt = plan["scratch"]["partial"]
-    cnt = _wol_counters.get(device)
-    if cnt is None:
-        _require(not torch.cuda.is_current_stream_capturing(),
-                 "weight-only linear: the split counters are made at the first split launch, which must "
-                 "not be under CUDA-graph capture")
-        cnt = _wol_counters[device] = torch.zeros(_WOL_COUNTERS, dtype=torch.int32, device=device)
-    _require(plan["counters"] <= _WOL_COUNTERS, f"weight-only linear: {plan['counters']} split counters needed")
-    return torch.empty(shape, dtype=dt, device=device), cnt
+def _wol_scratch(plan, device) -> dict:
+    """The plan's scratch (torch.empty: the partial sums, x's pieces) and,
+    under ``counters``, the device's persistent split counters (zeros, made
+    once outside any CUDA-graph capture; each launch that splits leaves its
+    counters at zero), where it has them."""
+    out = {name: torch.empty(shape, dtype=dt, device=device) for name, (shape, dt) in plan["scratch"].items()}
+    if plan["counters"]:
+        cnt = _wol_counters.get(device)
+        if cnt is None:
+            _require(not torch.cuda.is_current_stream_capturing(),
+                     "weight-only linear: the split counters are made at the first split launch, which must "
+                     "not be under CUDA-graph capture")
+            cnt = _wol_counters[device] = torch.zeros(_WOL_COUNTERS, dtype=torch.int32, device=device)
+        _require(plan["counters"] <= _WOL_COUNTERS, f"weight-only linear: {plan['counters']} split counters needed")
+        out["counters"] = cnt
+    return out
 
 
-def _wol_args(plan, partial, counters, M, N, K, *rest) -> tuple:
+def _wol_args(plan, scratch: dict, M, N, K, *rest) -> tuple:
     """The C entry points' arguments after x, the weights and y."""
-    return (partial.data_ptr() if partial is not None else None,
-            counters.data_ptr() if counters is not None else None, M, N, K, *rest, plan["code"],
-            plan["rows"], plan["tile_m"], plan["splits"], plan["units_per_split"], plan["grid"][0], plan["stages"])
+    ptr = [scratch[k].data_ptr() if k in scratch else None for k in ("partial", "counters", "pieces")]
+    return (*ptr, M, N, K, *rest, plan["code"], plan["rows"], plan["tile_m"], plan["splits"],
+            plan["units_per_split"], plan["grid"][0], plan["stages"])
 
 
 def int8_linear_plain(x, qweight, scale):
@@ -1729,20 +1749,23 @@ def int8_linear(x, qweight, scale):
     _require(qweight.dtype == torch.int8 and scale.dtype == torch.float32 and tuple(scale.shape) == (N,),
              "int8_linear: weights must be int8 (N, K) and scale f32 (N,)")
     _require(K % 16 == 0, f"int8_linear: K={K} is not a multiple of 16")
+    _require(x2.data_ptr() % 16 == 0, "int8_linear: x must be 16-byte aligned")
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         plan = weight_only_plan("int8", M, N, K, x.dtype)
-        partial, counters = _wol_scratch(plan, x.device)
+        scratch = _wol_scratch(plan, x.device)  # held until the launch is enqueued
         _raise_on(_library().tt_int8_linear(x2.data_ptr(), qweight.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                                            *_wol_args(plan, partial, counters, M, N, K, _DTYPE_CODE[x.dtype]),
+                                            *_wol_args(plan, scratch, M, N, K, _DTYPE_CODE[x.dtype]),
                                             _stream(x)),
                   "int8_linear")
         int8_linear.launches += 1
+        int8_linear.routes[plan["route"]] += 1
     return y.reshape(*x.shape[:-1], N)
 
 
 int8_linear.launches = 0
+int8_linear.routes = dict.fromkeys(_WOL_ROUTES, 0)  # launches by weight_only_plan's route (zero it in place)
 
 
 def int8_linear_supported(x, qweight, scale, bias=None) -> bool:
@@ -1794,21 +1817,24 @@ def nf4_linear(x, packed_kl, absmax_kl, block_size: int = 64):
     _require(packed_kl.dtype == torch.uint8 and tuple(packed_kl.shape) == (N, K // 2)
              and absmax_kl.dtype == torch.float32 and tuple(absmax_kl.shape) == (N, K // 64),
              f"nf4_linear: packed must be uint8 ({N}, {K // 2}) and absmax f32 ({N}, {K // 64})")
+    _require(x2.data_ptr() % 16 == 0, "nf4_linear: x must be 16-byte aligned")
     M = x2.shape[0]
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         plan = weight_only_plan("nf4", M, N, K, x.dtype, bk)
-        partial, counters = _wol_scratch(plan, x.device)
+        scratch = _wol_scratch(plan, x.device)  # held until the launch is enqueued
         _raise_on(_library().tt_nf4_linear(x2.data_ptr(), packed_kl.data_ptr(), absmax_kl.data_ptr(),
                                            y.data_ptr(),
-                                           *_wol_args(plan, partial, counters, M, N, K, bk, _DTYPE_CODE[x.dtype]),
+                                           *_wol_args(plan, scratch, M, N, K, bk, _DTYPE_CODE[x.dtype]),
                                            _stream(x)),
                   "nf4_linear")
         nf4_linear.launches += 1
+        nf4_linear.routes[plan["route"]] += 1
     return y.reshape(*x.shape[:-1], N)
 
 
 nf4_linear.launches = 0
+nf4_linear.routes = dict.fromkeys(_WOL_ROUTES, 0)  # launches by weight_only_plan's route (zero it in place)
 
 
 def nf4_linear_supported(x, packed_kl, absmax_kl, out_features, in_features, block_size=64,
@@ -2317,3 +2343,6 @@ for _wrapper in (rms_norm, adamw_update, paged_attention, paged_chunk_attention,
                  flash_rope_attention_backward, flash_attention, flash_attention_backward, cross_entropy,
                  int8_linear, nf4_linear, fp8_linear, grouped_mlp, ring_flash_step, ring_flash_bwd_step):
     graphex.register_counter(_wrapper)
+for _wrapper in (int8_linear, nf4_linear):  # and the weight-only linears' launches by route
+    for _route in _WOL_ROUTES:
+        graphex.register_counter(_wrapper.routes, _route)
