@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve,
-quantized serving, fleet-serve, train, fp8-train, LoRA, NanoGPT train and
+"""Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve
+(greedy and sampled), quantized serving, fleet-serve (bf16, int8, MoE),
+SLO-monitored serving and training, train, fp8-train, LoRA, NanoGPT train and
 eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
 ResNet-50 train and eval, a plain-PyTorch Llama through the torch frontend,
 training with frozen int8/NF4 linears, fp8 inference from a meta-built
@@ -96,8 +97,9 @@ Phases, each printing one JSON line:
                wave: int8_linear must launch 81 times a decode step plus 81
                (or 1, lm_head only, above 512 rows) a prefill, 0 compiles.
    quant_agreement — f32, TF32 off, int8-exact weights (integer codes
-               times 2^-9): 4 int8 streams must equal the unquantized
-               engine's token for token.
+               times 2^-9): 4 greedy int8 streams must equal the
+               unquantized engine's token for token; 4 sampled ones are held
+               to its sampled streams under the sampled-agreement rule.
    nf4_inference (run before serve) — GPTInference over Llama-3-1B
                bf16 after QuantizeNF4Transform, B=4, 512-token prompts, 64
                new tokens; nf4_linear must launch 81 times a decode step
@@ -121,7 +123,48 @@ Phases, each printing one JSON line:
 7. fleet_agreement — f32, TF32 off: Llama-3-1B with a 2-layer draft from
                another seed, prefix sharing, chunks and a 48-page pool that
                forces a preemption; 6 streams against solo GPTInference
-               under the AGREE_GAP rule.
+               under the AGREE_GAP rule; then the same wave with four
+               requests sampled (T 0.7 and 1.0, seeds at and above 2^32),
+               each against solo GPTInference.generate(temperature=, seed=)
+               under the sampled-agreement rule: both paths' logits are read
+               at every draw; their CDFs must stay within SAMPLE_SHIFT of
+               each other, each token must be its path's own draw at
+               u(seed, position), and a stream may differ only after a draw
+               whose solo margin is below the measured shift of the CDFs
+               and below SAMPLE_MARGIN.
+   sampler (in the kernels phase) — serving/sampling.py on the card: the
+               draws' histogram against softmax (chi-square), card against
+               CPU draws at (8, 128256), temperature 0 as the argmax, the
+               engine's captured sampler program at 1, 8 and 24 rows held to
+               the CPU over several replays with new inputs, and its device
+               µs a call.
+   sampled_serve (in the serve phase) — the serve wave all greedy and
+               with half its requests sampled (T=0.8), in turns, on the
+               serve engine: tokens/s, TTFT, TBOT, 0 captures and
+               compiles, the greedy waves' launches equal to the serve
+               wave's, the sampler's share of a decode step.
+   quant_fleet — the fleet wave through ServingEngine(quantize="int8")
+               with every fleet stage and the self-draft, beside the bf16
+               fleet wave: int8_linear's launches by route against the
+               program calls (chunks and verify on wgmma, decode on
+               stream), 0 compiles and captures.
+   quant_fleet_agreement — f32 at QUANT_FLEET_AGREE_LAYERS layers,
+               int8-exact weights: fleet_agreement's waves (greedy and
+               sampled) through the unquantized and the int8 fleet engines:
+               greedy streams equal, sampled ones under the
+               sampled-agreement rule.
+   moe_fleet — MoEGPT under int8 and every fleet stage with a 2-layer
+               dense draft, the fleet wave: grouped_mlp n_layer a target
+               program call (so inside the chunk and verify graphs),
+               int8_linear by route; then f32 at QUANT_FLEET_AGREE_LAYERS
+               layers, fleet_agreement's waves against solo GPTInference of
+               the same quantized MoEGPT.
+   slo_serve — ServingEngine(slo=): tokens/s with a loose SLOPolicy
+               attached to one engine and detached, in turns, beside a
+               second engine without one (goodput 1.0); then, f32, an impossible
+               p99 TTFT while batch-lane requests hold every slot: a
+               slo.breach, burn-rate preemption, greedy streams equal to
+               the wave without a policy.
 8. train     — TrainStep(jit(GPTForCausalLM(llama-350m), transforms=
                [AutocastTransform()]), AdamW(lr=1e-4)) at full width and
                depth, f32 master weights, bf16 autocast, B=4, T=2048, one
@@ -135,7 +178,8 @@ Phases, each printing one JSON line:
                hand-written plain-PyTorch step of the same model in bf16
                autocast with F.scaled_dot_product_attention, timed alike
                (the counterpart of bench.py's hand-written baseline; the
-               port never calls it).
+               port never calls it). train_slo: a TrainStep(slo=) on the
+               same module, captured, in turns with the unmonitored step.
 9. train_profile — torch.profiler over 2 train steps: device busy share,
                the kernels that take the time (by name, and per step by
                kind: attention, matmul, optimizer, ...), launches a step.
@@ -1768,6 +1812,7 @@ def serve(tt, cudaex, cfg, prompts, seed) -> dict:
                ops_per_program_call=ops, compiles_during_wave=compiles,
                captures_during_wave=graphs["graph_captures"], graph_replays=graphs["graph_replays"])
     emit("serve", **out)
+    out["sampled"] = sampled_serve(tt, cudaex, engine, prompts, out)
     short = make_prompts(np.random.RandomState(1), 8, 128, 128, cfg.vocab_size)
     prof = profile_wave(engine, [(p, 32, "interactive") for p in short])
     emit("graphs_pdl", cell="serve decode step", **pdl_in_graphs(tt, cudaex, engine))
@@ -2115,34 +2160,59 @@ def int8_exact_(gpt, seed: int, select=None, scale: float = 2.0 ** -9) -> None:
                 mod.weight.copy_(q.to(mod.weight.dtype) * scale)
 
 
+# quant_agreement's sampled requests: one a prompt, (temperature, seed)
+QUANT_SAMPLED = ((0.7, 21), (1.0, 2 ** 32 + 22), (0.7, 23), (1.0, 24))
+
+
 def quant_agreement(tt, cudaex, cfg, prompts, seed) -> dict:
     """f32, TF32 off, Llama-3-1B at full width and depth with int8-exact
     weights: the int8 engine's greedy streams must equal the unquantized
-    engine's token for token."""
+    engine's token for token; its sampled streams (QUANT_SAMPLED, submitted
+    beside the greedy ones) are held to the unquantized engine's under the
+    sampled-agreement rule (SAMPLE_SHIFT, SAMPLE_MARGIN), each engine's
+    draws read by EngineDraws."""
     from thunder_tpu_torch.models.litgpt import GPT
     from thunder_tpu_torch.serving import ServingEngine
 
-    gpt = GPT(cfg, torch.float32, seed=seed)
-    int8_exact_(gpt, seed)
+    def model():
+        gpt = GPT(cfg, torch.float32, seed=seed)
+        int8_exact_(gpt, seed)
+        return gpt
+
+    def wave(engine):
+        futs = [engine.submit(p, max_new_tokens=64) for p in prompts]
+        futs += [engine.submit(p, max_new_tokens=64, temperature=t, seed=sd)
+                 for p, (t, sd) in zip(prompts, QUANT_SAMPLED)]
+        engine.drain()
+        return [f.result().new_tokens for f in futs]
+
+    gpt = model()
     kw = dict(max_batch=8, page_size=16, max_seq=2048, dtype=torch.float32)
     plain = ServingEngine(gpt, **kw)
-    want = [plain.submit(p, max_new_tokens=64) for p in prompts]
-    plain.drain()
+    plain_draws = EngineDraws(plain)
+    want = wave(plain)
+    plain_draws.remove()
     del plain
     n0, s0 = cudaex.int8_linear.launches, cudaex.int8_linear.routes["split"]
     engine = ServingEngine(gpt, quantize="int8", **kw)
-    got = [engine.submit(p, max_new_tokens=64) for p in prompts]
-    engine.drain()
+    draws = EngineDraws(engine)
+    got = wave(engine)
+    draws.remove()
     launched = cudaex.int8_linear.launches - n0
     on_split = cudaex.int8_linear.routes["split"] - s0
-    rows = [{"prompt_len": len(p), "equal": bool(np.array_equal(g.result().new_tokens, w.result().new_tokens))}
-            for p, g, w in zip(prompts, got, want)]
-    out = dict(model=f"{cfg.name} f32, int8-exact weights", tf32=False, rows=rows,
-               int8_linear_launches=launched, on_split_route=on_split)
+    n = len(prompts)
+    rows = [{"prompt_len": len(p), "equal": bool(np.array_equal(g, w))}
+            for p, g, w in zip(prompts, got[:n], want[:n])]
+    sampled = [sample_row(g, w, t, sd, len(p), draws.at, plain_draws.at)
+               for p, (t, sd), g, w in zip(prompts, QUANT_SAMPLED, got[n:], want[n:])]
+    del engine, gpt, draws, plain_draws
+    torch.cuda.empty_cache()
+    out = dict(model=f"{cfg.name} f32, int8-exact weights", tf32=False, rows=rows, sampled_rows=sampled,
+               sampled=sampled_summary(sampled), int8_linear_launches=launched, on_split_route=on_split)
     emit("quant_agreement", **out)
-    if not all(r["equal"] for r in rows) or not launched or on_split != launched:
+    bad = rows_failing(sampled)
+    if not all(r["equal"] for r in rows) or bad or not launched or on_split != launched:
         raise AssertionError(f"int8 streams differ from the unquantized engine's: {out}")
-    del engine, gpt
     torch.cuda.empty_cache()
     return out
 
@@ -2404,11 +2474,12 @@ def engine_cfns(engine) -> list:
             for n in ("prefill_cfn", "decode_cfn", "chunk_cfn", "verify_cfn")]
 
 
-def run_wave(tt, engine, specs) -> dict:
+def run_wave(tt, engine, specs, zero=()) -> dict:
     """warmup over the wave's prompt lengths (compiles and captures the
     programs), replay the wave once with 2 new tokens each (warms the prefix
-    cache: benchmark_serving.py's warm-up), then zero the counters and
-    submit the whole wave at once; it must compile and capture nothing."""
+    cache: benchmark_serving.py's warm-up), then zero the counters (and call
+    each of ``zero``) and submit the whole wave at once; it must compile and
+    capture nothing."""
     from thunder_tpu_torch.executors import cudaex
 
     engine.warmup(sorted({len(p) for p, _, _ in specs}))
@@ -2425,6 +2496,8 @@ def run_wave(tt, engine, specs) -> dict:
     cudaex.rms_norm.launches = 0
     cudaex.paged_attention.launches = 0
     cudaex.paged_chunk_attention.launches = 0
+    for z in zero:
+        z()
     t0 = time.perf_counter()
     futs = [engine.submit(p, n, lane=lane) for p, n, lane in specs]
     engine.drain()
@@ -2506,10 +2579,214 @@ def fleet(tt, cudaex, cfg, seed) -> dict:
     torch.cuda.empty_cache()
     serving_pair(tt, cudaex, "fleet", lambda g: ServingEngine(gpt, prefix_sharing=True, chunk_tokens=256,
                                                               draft_gpt=gpt, spec_k=2, cuda_graphs=g, **base),
-                 specs[:12])
+                 specs[:8])
     del gpt
     torch.cuda.empty_cache()
     return out
+
+
+def agreement_engine(gpt, draft, **kw):
+    """fleet_agreement's engine: 4 slots, a 48-page pool, prefix sharing,
+    256-token chunks, the draft with spec_k=2 (f32)."""
+    from thunder_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(gpt, max_batch=4, page_size=16, max_seq=2048, dtype=torch.float32, n_pages=49,
+                         prefix_sharing=True, chunk_tokens=256, draft_gpt=draft, spec_k=2, **kw)
+
+
+# fleet_agreement's sampled requests, by index into agreement_wave's six
+# (temperature, seed): seeds at and above 2^32 (taken mod 2^32)
+AGREE_SAMPLED = {0: (1.0, 2 ** 32 + 3), 1: (0.7, 5), 3: (1.0, 2 ** 32 + 9), 4: (0.7, 2 ** 33 + 11)}
+# The sampled-agreement rule. Two paths (an engine and solo GPTInference, or
+# two engines) draw a request's token at position p from the same uniform
+# u(seed, p), each by the inverse CDF of its own softmax(logits / T)
+# (serving/sampling.sample_tokens). At every draw while the streams agree,
+# both paths' logits are read (EngineDraws, solo_draws) and give the
+# reference's margin (the distance of u from the nearer edge of its token's
+# interval, over the total) and the shift D between the two paths: the
+# largest distance between their normalized CDFs. A token can change only
+# where the margin is below D, so a difference is excused only there, and
+# only below SAMPLE_MARGIN. D must stay below SAMPLE_SHIFT at every draw:
+# f32 paths through the same weights stay far below it, int8-exact weights
+# (whose logits put most of the mass on a few tokens) move the CDFs by up
+# to ~2e-4 between the split route and cuBLAS, and unrelated logits (std
+# 0.57 over 128,256 tokens, the mass spread thin) lie ~2e-3 apart. Each path's
+# token must be its own draw from its logits at u(seed, p) (but within
+# SAMPLER_CPU_MARGIN of an edge, where the one-row recomputation may round
+# otherwise). A stream drawn at another position, temperature or from
+# other logits fails.
+SAMPLE_MARGIN = 1e-4
+SAMPLE_SHIFT = 1e-3
+AGREE_NEW = 24
+
+
+def agreement_wave(engine, cfg, seed, sampled=None) -> tuple:
+    """A long batch-lane request (500 tokens: chunks of 256 + 244, 33 pages
+    reserved of 48) decodes while five interactive ones arrive (two share a
+    160-token prefix; the first needs 16 pages, 15 are free), so it is
+    preempted and resumed. ``sampled``: {index: (temperature, seed)}.
+    Returns (prompts, [(temperature, seed)], futures)."""
+    sampled = sampled or {}
+    rng = np.random.RandomState(seed + 2)
+    tok = lambda n: rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)  # noqa: E731
+    shared = tok(160)
+    long_p = tok(500)
+    prompts = [long_p, np.concatenate([shared, tok(5)]), np.concatenate([shared, tok(9)]), tok(20), tok(45),
+               tok(60)]
+    draws = [sampled.get(i, (0.0, None)) for i in range(len(prompts))]
+    futs = [engine.submit(long_p, AGREE_NEW, lane="batch", temperature=draws[0][0], seed=draws[0][1])]
+    while engine.stats()["active"] == 0 and not futs[0].done():  # chunks, then decoding
+        engine._step_once()
+    if futs[0].done():
+        raise AssertionError(f"the batch-lane request ended before decoding: {futs[0].result()}")
+    futs += [engine.submit(p, AGREE_NEW, temperature=t, seed=sd) for p, (t, sd) in zip(prompts[1:], draws[1:])]
+    engine.drain()
+    return prompts, draws, futs
+
+
+class EngineDraws:
+    """Stands in for a serving engine's sampler while installed and keeps
+    the logits and temperature of every sampled row it draws, by the row's
+    uniform (one (seed, position) pair's). The last draw at a uniform is the
+    committed token's: a committed position is never drawn again, and a
+    verify step draws after the draft proposed at that position."""
+
+    def __init__(self, engine):
+        self.engine, self.sampler, self.draws = engine, engine.sampler, {}
+        engine.sampler = self
+
+    def __call__(self, logits, u, temps):
+        for r in np.nonzero(temps > 0)[0]:
+            self.draws[float(u[r])] = (logits[r].detach().clone(), float(temps[r]))
+        return self.sampler(logits, u, temps)
+
+    def at(self, step: int, u: float):
+        return self.draws.get(float(u))
+
+    def remove(self) -> None:
+        self.engine.sampler = self.sampler
+        self.engine = None
+
+
+def solo_draws(solo, prompt, n: int, temperature: float, seed):
+    """solo.generate(prompt, n, temperature=, seed=)'s stream and, for
+    each of its draws, the logits (V,) it drew from (its prefill's, then
+    each decode step's), read by wrapping its two programs for the call."""
+    logits = []
+
+    def tap(fn):
+        def tapped(*args):
+            out = fn(*args)
+            logits.append(out[0][0].detach().clone())
+            return out
+
+        tapped._cs = fn._cs
+        return tapped
+
+    programs = solo._prefill_cfn, solo._decode_cfn
+    solo._prefill_cfn, solo._decode_cfn = (tap(f) for f in programs)
+    try:
+        out, _ = solo.generate(torch.from_numpy(prompt[None, :]), n, temperature=temperature, seed=seed)
+    finally:
+        solo._prefill_cfn, solo._decode_cfn = programs
+    return out[0, len(prompt):].cpu().numpy(), logits
+
+
+def draw_pair(la, lb, u: float, temperature: float) -> dict:
+    """Both paths' draws at uniform ``u`` from logits ``la`` (under test)
+    and ``lb`` (the reference), as sample_tokens forms them: each token and
+    margin, and the shift D = max |C_a - C_b| of the two normalized CDFs."""
+    from thunder_tpu_torch.serving.sampling import sample_tokens
+
+    x = torch.stack([la, lb]).float()
+    t = torch.full((2,), temperature, dtype=torch.float32, device=x.device)
+    tok, margin = sample_tokens(x, torch.full((2,), u, dtype=torch.float64, device=x.device), t)
+    c = torch.cumsum(torch.softmax(x / t[:, None], -1).double(), -1)
+    c = c / c[:, -1:]
+    tok, margin = tok.tolist(), margin.tolist()
+    return dict(tok_a=tok[0], tok_b=tok[1], margin_a=margin[0], margin_b=margin[1],
+                shift=float((c[0] - c[1]).abs().max()))
+
+
+def sample_row(got, want, temperature: float, seed, prompt_len: int, got_at, want_at) -> dict:
+    """A sampled stream (``got``, the path under test) against its
+    reference (``want``) under the sampled-agreement rule, draw by draw
+    while they agree. ``got_at(step, u)`` and ``want_at(step, u)`` give each
+    path's (logits, temperature) of the draw at that step, or None. A
+    broken rule is the row's ``fault``."""
+    from thunder_tpu_torch.serving.sampling import canonical_seed, philox_uniform
+
+    us = philox_uniform(canonical_seed(seed), prompt_len + np.arange(len(want)), 0)
+    row = {"prompt_len": prompt_len, "temperature": temperature, "seed": seed,
+           "equal": bool(np.array_equal(got, want))}
+    margins, shifts = [], []
+    for step, u in enumerate(us):
+        a, b = got_at(step, u), want_at(step, u)
+        if a is None or b is None:
+            row["fault"] = f"draw {step}: no {'tested' if a is None else 'reference'} draw at its uniform"
+            break
+        if np.float32(a[1]) != np.float32(temperature) or np.float32(b[1]) != np.float32(temperature):
+            row["fault"] = f"draw {step}: drawn at temperatures {a[1]} and {b[1]}"
+            break
+        d = draw_pair(a[0], b[0], float(u), temperature)
+        margins.append(d["margin_b"])
+        shifts.append(d["shift"])
+        if ((d["tok_a"] != got[step] and d["margin_a"] >= SAMPLER_CPU_MARGIN)
+                or (d["tok_b"] != want[step] and d["margin_b"] >= SAMPLER_CPU_MARGIN)):
+            row["fault"] = f"draw {step}: a token is not its path's draw from its logits: {d}"
+            break
+        if d["shift"] >= SAMPLE_SHIFT:
+            row["fault"] = f"draw {step}: the paths' distributions are {d['shift']} apart"
+            break
+        if got[step] != want[step]:
+            row.update(first_diff_step=step, margin_at_diff=d["margin_b"], shift_at_diff=d["shift"])
+            if not d["margin_b"] < min(d["shift"], SAMPLE_MARGIN):
+                row["fault"] = (f"draw {step}: differs at a margin {d['margin_b']} not below the shift "
+                                f"{d['shift']} and {SAMPLE_MARGIN}")
+            break
+    row.update(draws_compared=len(margins), min_margin=min(margins, default=None),
+               median_margin=float(np.median(margins)) if margins else None,
+               max_shift=max(shifts, default=None))
+    return row
+
+
+def sampled_summary(rows) -> dict:
+    """The sampled rows' draws compared, smallest and median of their
+    rows' median margins, and the largest shift between the paths."""
+    rows = [r for r in rows if r.get("temperature", 0) > 0]
+    compared = [r for r in rows if r["draws_compared"]]
+    return dict(draws_compared=sum(r["draws_compared"] for r in rows),
+                min_margin=min((r["min_margin"] for r in compared), default=None),
+                median_of_row_median_margins=(float(np.median([r["median_margin"] for r in compared]))
+                                              if compared else None),
+                max_shift=max((r["max_shift"] for r in compared), default=None), shift_bound=SAMPLE_SHIFT,
+                margins_at_diff=[r["margin_at_diff"] for r in rows if "margin_at_diff" in r],
+                margin_bound=SAMPLE_MARGIN,
+                diverged=sum(not r["equal"] for r in rows), faults=sum("fault" in r for r in rows))
+
+
+def solo_rows(solo, prompts, draws, streams, tap=None) -> list:
+    """Each stream against solo GPTInference.generate of its prompt:
+    agree_row for a greedy one; for a sampled one (its temperature and
+    seed), sample_row with ``tap`` (the engine's EngineDraws) as the tested
+    path's draws and the solo draws as the reference."""
+    rows = []
+    for p, (temp, sd), got in zip(prompts, draws, streams):
+        if temp > 0:
+            want, logits = solo_draws(solo, p, len(got), temp, sd)
+            rows.append(sample_row(got, want, temp, sd, len(p), tap.at,
+                                   lambda step, u, lg=logits, t=temp: (lg[step], t) if step < len(lg) else None))
+        else:
+            out, m = solo.generate(torch.from_numpy(p[None, :]), len(got))
+            rows.append(agree_row(got, out[0, len(p):].cpu().numpy(), m.top2_gap[0], len(p)))
+    return rows
+
+
+def rows_failing(rows) -> list:
+    """Greedy rows that differ other than after a solo top-2 gap below
+    AGREE_GAP; sampled rows that break the sampled-agreement rule."""
+    return [r for r in rows if ("fault" in r if r.get("temperature", 0) > 0
+                                else not r["equal"] and not r.get("solo_top2_gap", 1.0) < AGREE_GAP)]
 
 
 def fleet_agreement(cfg, seed) -> dict:
@@ -2517,51 +2794,713 @@ def fleet_agreement(cfg, seed) -> dict:
     draft of the same width from another seed (so proposals are rejected and
     rollback runs); prefix sharing and 256-token chunks; a pool of 48 pages,
     so the long batch-lane request is preempted by the interactive ones and
-    resumed. Every stream must equal the solo dense GPTInference stream,
-    or differ only after a step whose solo top-2 gap is < AGREE_GAP."""
+    resumed. Every greedy stream must equal the solo dense GPTInference
+    stream, or differ only after a step whose solo top-2 gap is < AGREE_GAP.
+    Then the same wave with AGREE_SAMPLED's requests sampled (T 0.7 and 1.0,
+    seeds at and above 2^32; the prefix cache cleared): every sampled stream
+    is held to solo GPTInference.generate(temperature=, seed=) under the
+    sampled-agreement rule (SAMPLE_SHIFT, SAMPLE_MARGIN)."""
     from thunder_tpu_torch.inference import GPTInference
     from thunder_tpu_torch.models.litgpt import GPT, Config
-    from thunder_tpu_torch.serving import ServingEngine
 
     gpt = GPT(cfg, torch.float32, seed=seed)
     draft = GPT(Config.from_name(cfg.name, n_layer=2), torch.float32, seed=seed + 1)
-    engine = ServingEngine(gpt, max_batch=4, page_size=16, max_seq=2048, dtype=torch.float32,
-                           n_pages=49, prefix_sharing=True, chunk_tokens=256, draft_gpt=draft,
-                           spec_k=2)
-    rng = np.random.RandomState(seed + 2)
-    tok = lambda n: rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)  # noqa: E731
-    shared = tok(160)
-    long_p = tok(500)  # chunks of 256 + 244; 33 pages reserved of 48
-    inter = [np.concatenate([shared, tok(5)]), np.concatenate([shared, tok(9)]),
-             tok(20), tok(45), tok(60)]
-    new = 24
-    futs = [engine.submit(long_p, new, lane="batch")]
-    while engine.stats()["active"] == 0 and not futs[0].done():  # chunks, then decoding
-        engine._step_once()
-    if futs[0].done():
-        raise AssertionError(f"the batch-lane request ended before decoding: {futs[0].result()}")
-    futs += [engine.submit(p, new) for p in inter]  # the first one needs 16 pages: 15 are free
-    engine.drain()
+    engine = agreement_engine(gpt, draft)
     solo = GPTInference(gpt, max_seq=2048, dtype=torch.float32)
-    rows = []
-    for p, f in zip([long_p] + inter, futs):
-        out, m = solo.generate(torch.from_numpy(p[None, :]), new)
-        rows.append(agree_row(f.result().new_tokens, out[0, len(p):].cpu().numpy(),
-                              m.top2_gap[0], len(p)))
+    prompts, draws, futs = agreement_wave(engine, cfg, seed)
+    rows = solo_rows(solo, prompts, draws, [f.result().new_tokens for f in futs])
+    stages = dict(preempted=engine.preempted, resumed=engine.resumed, spec_accepted=engine.spec_accepted,
+                  spec_proposed=engine.spec_proposed, prefix_hits=engine.prefix_hits,
+                  chunk_calls=engine.chunk_calls, verify_calls=engine.verify_calls)
+    engine.prefix.clear()
+    p0 = engine.preempted
+    tap = EngineDraws(engine)
+    prompts, draws, futs = agreement_wave(engine, cfg, seed, AGREE_SAMPLED)
+    tap.remove()
+    sampled_rows = solo_rows(solo, prompts, draws, [f.result().new_tokens for f in futs], tap)
     out = dict(model=f"{cfg.name} f32", draft=f"{cfg.name} n_layer=2 seed {seed + 1}", tf32=False,
-               rows=rows, tolerance=AGREE_GAP, preempted=engine.preempted, resumed=engine.resumed,
-               spec_accepted=engine.spec_accepted, spec_proposed=engine.spec_proposed,
-               prefix_hits=engine.prefix_hits, chunk_calls=engine.chunk_calls,
-               verify_calls=engine.verify_calls)
+               rows=rows, tolerance=AGREE_GAP, **stages, sampled_rows=sampled_rows,
+               sampled=sampled_summary(sampled_rows), sampled_wave_preempted=engine.preempted - p0)
     emit("fleet_agreement", **out)
-    bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
+    bad = rows_failing(rows + sampled_rows)
     if bad:
         raise AssertionError(f"fleet streams differ from solo: {bad}")
-    if not (engine.preempted >= 1 and engine.resumed >= 1 and engine.prefix_hits >= 1
-            and engine.spec_accepted < engine.spec_proposed):
+    if not (stages["preempted"] >= 1 and stages["resumed"] >= 1 and stages["prefix_hits"] >= 1
+            and stages["spec_accepted"] < stages["spec_proposed"] and out["sampled_wave_preempted"] >= 1):
         raise AssertionError(f"fleet_agreement did not exercise every stage: {out}")
-    del engine, gpt, draft, solo
+    del engine, gpt, draft, solo, tap
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sampler, sampled_serve, quant_fleet, quant_fleet_agreement, moe_fleet,
+# slo_serve (the serving path's sampling, int8 and MoE under every fleet
+# stage, and SLO monitoring)
+# ---------------------------------------------------------------------------
+
+SAMPLER_ROWS = (1, 8, 24)         # a prefill's first token, a decode step, a verify step (8 x 3)
+SAMPLER_CHI_P = 1e-3              # the sampled histogram against softmax(l / T)
+SAMPLER_CPU_MARGIN = 1e-6         # card and CPU may draw differently only this close to an edge
+QUANT_FLEET_AGREE_LAYERS = 4      # the f32 depth of quant_fleet_agreement, moe_fleet's agreement, slo_serve's burn
+
+
+SAMPLER_TEMPS = np.array([0.0, 0.5, 0.7, 1.0, 1.0, 1.3, 0.0, 0.9], np.float32)
+SAMPLER_CALLS = 5                 # a row count's captured-program calls: op by op, then 4 replays (the first captures)
+
+
+def check_sampler(dev) -> dict:
+    """serving/sampling.py on the card: 2^17 draws at V=64 and T 0.5 and 1.0
+    against softmax(l / T) (chi-square, p > SAMPLER_CHI_P); (8, 128256)
+    Llama-3 bf16 logits drawn on the card and on the CPU from the same
+    uniforms (equal tokens but where the CPU margin is < SAMPLER_CPU_MARGIN;
+    temperature-0 rows the argmax). Then the engine's captured program
+    (Sampler) at 1, 8 and 24 rows: SAMPLER_CALLS calls a row count with new
+    logits, uniforms and temperatures each (the first op by op, the others
+    replays of its graph, captured at the second), each held to the CPU's
+    sample_tokens as above; and its device µs a call (CUDA events over its
+    graph's replays)."""
+    from scipy import stats
+
+    import thunder_tpu_torch as tt
+    from thunder_tpu_torch.serving.sampling import Sampler, philox_uniform, sample_tokens
+
+    rng = np.random.RandomState(0)
+    n, V = 1 << 17, 64
+    logits = torch.from_numpy(rng.randn(V).astype(np.float32) * 2)
+    chi = {}
+    for temp in (0.5, 1.0):
+        u = torch.from_numpy(philox_uniform(11, np.arange(n), 0)).to(dev)
+        tok, _ = sample_tokens(logits.to(dev).expand(n, V), u, torch.full((n,), temp, device=dev))
+        counts = np.bincount(tok.cpu().numpy(), minlength=V)
+        p = torch.softmax(logits.double() / temp, -1).numpy()
+        chi[str(temp)] = float(stats.chisquare(counts, p * n).pvalue)
+    R, V = 8, 128256
+    temps = SAMPLER_TEMPS
+    differ, near, rows = [], 0, 0
+    for trial in range(16):
+        lg = torch.from_numpy(rng.randn(R, V).astype(np.float32) * 3).to(torch.bfloat16)
+        u = philox_uniform(trial, np.arange(R) + 100, 0)
+        dt, _ = sample_tokens(lg.to(dev), torch.from_numpy(u).to(dev), torch.from_numpy(temps).to(dev))
+        ct, cm = sample_tokens(lg, torch.from_numpy(u), torch.from_numpy(temps))
+        dt = dt.cpu()
+        if not torch.equal(dt[temps == 0], torch.argmax(lg[temps == 0], -1)):
+            raise AssertionError(f"sampler: a temperature-0 row is not the argmax (trial {trial})")
+        for r in range(R):
+            rows += 1
+            near += int(cm[r] < SAMPLER_CPU_MARGIN)
+            if dt[r] != ct[r]:
+                differ.append(dict(trial=trial, row=r, cpu_margin=float(cm[r])))
+    sampler = Sampler(dev)
+    us, captured = {}, {}
+    for R in SAMPLER_ROWS:
+        replays0 = tt.graph_replays(sampler)
+        for call in range(SAMPLER_CALLS):
+            lg = torch.from_numpy(rng.randn(R, V).astype(np.float32) * 3).to(torch.bfloat16)
+            u, t = philox_uniform(call + 40, np.arange(R) + 1000 * R, 0), np.resize(np.roll(temps, call), R)
+            tok = sampler(lg.to(dev), u, t).cpu()
+            ct, cm = sample_tokens(lg, torch.from_numpy(u), torch.from_numpy(t))
+            if not torch.equal(tok[t == 0], torch.argmax(lg[t == 0], -1)):
+                raise AssertionError(f"sampler: the program's temperature-0 row is not the argmax ({R} rows)")
+            for r in np.nonzero((tok != ct).numpy())[0]:
+                differ.append(dict(program_rows=R, call=call, row=int(r), cpu_margin=float(cm[r])))
+        captured[str(R)] = dict(calls=SAMPLER_CALLS, replays=tt.graph_replays(sampler) - replays0)
+        replay = next(iter(sampler.program(R, V, torch.bfloat16)._graphs.values())).replay_fn
+        replay()
+        us[str(R)] = 1e3 * _event_ms(lambda: [replay() for _ in range(200)]) / 200
+    out = dict(chi_square_p=chi, cpu_rows=rows, cpu_rows_near_an_edge=near, cpu_differ=differ,
+               margin_bound=SAMPLER_CPU_MARGIN, captured_program=captured, graph_captures=tt.graph_captures(sampler),
+               device_us_per_call=us, vocab=V, logits_dtype="bfloat16")
+    emit("sampler", **out)
+    if min(chi.values()) <= SAMPLER_CHI_P:
+        raise AssertionError(f"sampler: the draws do not follow softmax(l / T): {chi}")
+    if any(d["cpu_margin"] >= SAMPLER_CPU_MARGIN for d in differ):
+        raise AssertionError(f"sampler: card and CPU draw differently away from an edge: {differ}")
+    if out["graph_captures"] != len(SAMPLER_ROWS) or any(c["replays"] != SAMPLER_CALLS - 1
+                                                         for c in captured.values()):
+        raise AssertionError(f"sampler: the program was not captured once and replayed a row count: {out}")
+    return out
+
+
+def graph_us(replay, reps: int = 100) -> float:
+    """Device µs a replay of a captured graph (CUDA events over ``reps``)."""
+    replay()
+    return 1e3 * _event_ms(lambda: [replay() for _ in range(reps)]) / reps
+
+
+def sampled_serve(tt, cudaex, engine, prompts, served: dict) -> dict:
+    """The serve wave (16 requests, 64 new tokens) on the serve phase's warm
+    engine, all greedy and with every other request sampled at T=0.8
+    (distinct seeds), in turns greedy, sampled, sampled, greedy: tokens/s,
+    TTFT, TBOT; 0 captures and 0 compiles, replays > 0 (the sampler's own
+    in the sampled waves, none in the greedy ones); the greedy waves'
+    launches and decode steps equal the serve wave's. The sampler's share
+    of a decode step: its captured program at max_batch rows against the
+    decode program's graph, device µs a replay."""
+    cfns = engine_cfns(engine) + [engine.sampler]
+    counters = (cudaex.rms_norm, cudaex.paged_attention)
+    runs = []
+    for sampled in (False, True, True, False):
+        for c in counters:
+            c.launches = 0
+        steps0 = engine.decode_steps
+        compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
+        sampler0 = tt.graph_replays(engine.sampler)
+        t0 = time.perf_counter()
+        futs = [engine.submit(p, max_new_tokens=64, temperature=0.8 if sampled and i % 2 else 0.0,
+                              seed=7000 + i) for i, p in enumerate(prompts)]
+        engine.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = [f.result() for f in futs]
+        graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, cfns).items()}
+        n_tok = sum(r.n_new_tokens for r in res)
+        runs.append(dict(sampled=sampled, tokens_per_s=n_tok / wall, wall_s=wall,
+                         mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in res])),
+                         mean_tbot_ms=1e3 * float(np.mean([r.tbot_s for r in res])),
+                         decode_steps=engine.decode_steps - steps0,
+                         launches={c.__name__: c.launches for c in counters},
+                         compiles_during_wave=sum(tt.cache_misses(c) for c in cfns) - compiles0,
+                         captures_during_wave=graphs["graph_captures"], graph_replays=graphs["graph_replays"],
+                         sampler_replays=tt.graph_replays(engine.sampler) - sampler0))
+        if any(r.n_new_tokens != 64 for r in res):
+            raise AssertionError(f"sampled_serve: a request ended early: {[r.n_new_tokens for r in res]}")
+    decode_us = graph_us(decode_graph(engine.runner.decode_cfn))
+    V = engine.gpt.lm_head.weight.shape[0]
+    prog = engine.sampler.program(engine.max_batch, V, engine.dtype)
+    sampler_us = graph_us(next(iter(prog._graphs.values())).replay_fn)
+    out = dict(model=served["model"], requests=len(prompts), sampled_requests=len(prompts) // 2, temperature=0.8,
+               runs=runs, decode_step_device_us=decode_us, sampler_device_us=sampler_us,
+               sampler_share_of_decode_step=sampler_us / decode_us,
+               serve_wave=dict(launches=served["launches"], decode_steps=served["decode_steps"]))
+    emit("sampled_serve", **out)
+    for r in runs:
+        if r["captures_during_wave"] or r["compiles_during_wave"] or not r["graph_replays"]:
+            raise AssertionError(f"sampled_serve: captures, compiles or no replays after warmup: {r}")
+        if bool(r["sampler_replays"]) != r["sampled"]:
+            raise AssertionError(f"sampled_serve: the sampler ran {r['sampler_replays']} times in {r}")
+        if not r["sampled"] and (r["launches"] != served["launches"]
+                                 or r["decode_steps"] != served["decode_steps"]):
+            raise AssertionError(f"sampled_serve: the greedy wave launched {r['launches']} in "
+                                 f"{r['decode_steps']} steps, the serve wave {served['launches']} in "
+                                 f"{served['decode_steps']}")
+    return out
+
+
+class ProgramCalls:
+    """Counts each runner program's calls by (runner, program, rows) while
+    installed: the engine reads its programs off the runners each call, so a
+    counting wrapper (carrying the program's compile stats) stands in."""
+
+    NAMES = ("prefill_cfn", "chunk_cfn", "decode_cfn", "verify_cfn")
+
+    def __init__(self, engine):
+        from collections import Counter
+
+        self.calls = Counter()
+        self.saved = []
+        for label, runner in (("target", engine.runner), ("draft", engine.draft_runner)):
+            if runner is None:
+                continue
+            for name in self.NAMES:
+                fn = getattr(runner, name)
+                self.saved.append((runner, name, fn))
+                setattr(runner, name, self._counted(label, name, fn))
+
+    def _counted(self, label, name, fn):
+        def counted(params, toks, *rest):
+            self.calls[(label, name, toks.shape[0] * toks.shape[1])] += 1
+            return fn(params, toks, *rest)
+
+        counted._cs = fn._cs
+        counted.__name__ = name
+        return counted
+
+    def zero(self):
+        self.calls.clear()
+
+    def remove(self):
+        for runner, name, fn in self.saved:
+            setattr(runner, name, fn)
+
+
+def int8_linears(gpt) -> tuple:
+    """([(N, K)] of one block's int8 linears, (N, K) of lm_head)."""
+    from thunder_tpu_torch import nn
+
+    blk = [tuple(m.weight.shape) for m in gpt.h[0].modules()
+           if isinstance(m, nn.Linear) and m.weight.dtype == torch.int8]
+    return blk, tuple(gpt.lm_head.weight.shape)
+
+
+def int8_routes_expected(cudaex, gpt, calls, label: str = "target") -> dict:
+    """int8_linear's launches by route that ``label``'s program calls
+    account for: a call with M rows runs each block linear at M (when M <=
+    QUANT_MAX_M: the checker claims no larger x) and lm_head at M (decode,
+    verify: logits at every row) or 1 (prefill, chunk: the last token)."""
+    blk, head = int8_linears(gpt)
+    n_layer = len(gpt.h)
+    out = {r: 0 for r in cudaex.int8_linear.routes}
+    for (lab, name, M), n in calls.items():
+        if lab != label:
+            continue
+        if M <= cudaex.QUANT_MAX_M:
+            for N, K in blk:
+                out[cudaex.weight_only_plan("int8", M, N, K, torch.bfloat16)["route"]] += n * n_layer
+        Mh = M if name in ("decode_cfn", "verify_cfn") else 1
+        out[cudaex.weight_only_plan("int8", Mh, *head, torch.bfloat16)["route"]] += n
+    return out
+
+
+def rows_by_route(cudaex, gpt, calls) -> dict:
+    """Program calls by rows, and the route each of a block's int8 linears
+    takes at those rows."""
+    blk, _ = int8_linears(gpt)
+    out = {}
+    for (lab, name, M), n in sorted(calls.items()):
+        routes = sorted({cudaex.weight_only_plan("int8", M, N, K, torch.bfloat16)["route"] for N, K in blk}
+                        ) if M <= cudaex.QUANT_MAX_M else ["not claimed"]
+        out[f"{lab} {name} M={M}"] = dict(calls=n, block_routes=routes)
+    return out
+
+
+def cold_wave(tt, engine, specs, zero=()) -> dict:
+    """The wave again on the warm engine with its prefix cache emptied, so
+    every prompt is prefilled or chunked from its first token (256-row
+    chunks): the counters zeroed (and each of ``zero`` called) just before;
+    tokens/s, program calls, captures and compiles."""
+    engine.prefix.clear()
+    cfns = engine_cfns(engine)
+    compiles0, graphs0 = sum(tt.cache_misses(c) for c in cfns), graph_stats(tt, cfns)
+    before = {k: getattr(engine, k) for k in ("chunk_calls", "verify_calls", "prefix_hits")}
+    for z in zero:
+        z()
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, n, lane=lane) for p, n, lane in specs]
+    engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(f.result().n_new_tokens for f in futs)
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, cfns).items()}
+    return dict(tokens_per_s=n_tok / wall, wall_s=wall, **{k: getattr(engine, k) - v for k, v in before.items()},
+                compiles_during_wave=sum(tt.cache_misses(c) for c in cfns) - compiles0,
+                captures_during_wave=graphs["graph_captures"], graph_replays=graphs["graph_replays"])
+
+
+def quant_fleet(tt, cudaex, cfg, seed, bf16_fleet: dict) -> dict:
+    """The fleet phase's 32-request mixed wave through
+    ServingEngine(quantize="int8", prefix_sharing=True, chunk_tokens=256,
+    draft_gpt=gpt, spec_k=2) in bf16 (the self-draft is quantized with the
+    target): tokens/s beside the bf16 fleet wave of the same call; 0
+    compiles and captures; int8_linear's launches by route equal to what
+    the program calls account for (verify's 24 rows on `wgmma`, decode's 8
+    and the warm cache's 16-row suffix chunks on `stream`, none on
+    `split`); paged_chunk_attention as the fleet phase checks it; every
+    chunk, verify and decode trace claims thunder.int8_linear on every
+    quantized Linear. Then the wave again with the prefix cache emptied
+    (cold_wave): its 256-row chunks on `wgmma`, routes as accounted."""
+    from thunder_tpu_torch.models.litgpt import GPT
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = GPT(cfg, torch.bfloat16, seed=seed)
+    specs, kinds = mixed_specs(np.random.RandomState(seed), cfg.vocab_size, 32)
+    engine = ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16,
+                           prefix_sharing=True, chunk_tokens=256, draft_gpt=gpt, spec_k=2, quantize="int8")
+    calls = ProgramCalls(engine)
+    zero = (lambda: count_routes(cudaex.int8_linear), calls.zero)
+
+    def expected():
+        return {r: a + b for (r, a), b in zip(int8_routes_expected(cudaex, gpt, calls.calls, "target").items(),
+                                              int8_routes_expected(cudaex, gpt, calls.calls, "draft").values())}
+
+    try:
+        wave = run_wave(tt, engine, specs, zero=zero)
+        routes, want, warm_calls = dict(cudaex.int8_linear.routes), expected(), dict(calls.calls)
+        cold = cold_wave(tt, engine, specs, zero=zero)
+        cold.update(int8_linear_routes=dict(cudaex.int8_linear.routes), int8_routes_expected=expected(),
+                    program_calls=rows_by_route(cudaex, gpt, calls.calls))
+    finally:
+        calls.remove()
+    want_chunk = 2 * cfg.n_layer * wave["chunk_calls"] + cfg.n_layer * wave["verify_calls"]
+    per_call = 5 * cfg.n_layer + 1
+    claims = {f"{lab} {cfn.__name__}": sum(b.impl is cudaex._int8_linear_impl
+                                           for b in tt.last_traces(cfn)[-1].bound_symbols)
+              for lab, runner in (("target", engine.runner), ("draft", engine.draft_runner))
+              for cfn in ((runner.chunk_cfn, runner.verify_cfn) if lab == "target"
+                          else (runner.chunk_cfn, runner.decode_cfn))}
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, dtype="bfloat16 activations, int8 weights",
+               draft="self (quantized with the target)", spec_k=2, chunk_tokens=256, kinds=kinds, **wave,
+               spec_accept_rate=wave["spec_accepted"] / max(1, wave["spec_proposed"]),
+               int8_linear_launches=cudaex.int8_linear.launches, int8_linear_routes=routes,
+               int8_routes_expected=want, program_calls=rows_by_route(cudaex, gpt, warm_calls),
+               int8_claims_per_program=claims, chunk_launches_expected=want_chunk, cold_prefix_cache=cold,
+               bf16_fleet_same_call={k: bf16_fleet[k] for k in ("tokens_per_s", "mean_ttft_ms", "mean_tbot_ms",
+                                                                "engine_iterations")},
+               tokens_per_s_vs_bf16_fleet=wave["tokens_per_s"] / bf16_fleet["tokens_per_s"])
+    emit("quant_fleet", **out)
+    if wave["compiles_during_wave"] or wave["captures_during_wave"]:
+        raise AssertionError(f"quant_fleet: {wave['compiles_during_wave']} compiles and "
+                             f"{wave['captures_during_wave']} captures during the wave")
+    if routes != want or routes["split"] or not routes["wgmma"] or not routes["stream"]:
+        raise AssertionError(f"quant_fleet: int8_linear launched {routes} by route, the programs account "
+                             f"for {want}")
+    cold_chunks = [k for k in cold["program_calls"] if k.startswith("target chunk_cfn M=256")]
+    if (cold["int8_linear_routes"] != cold["int8_routes_expected"] or cold["compiles_during_wave"]
+            or cold["captures_during_wave"] or not cold_chunks
+            or cold["program_calls"][cold_chunks[0]]["block_routes"] != ["wgmma"]):
+        raise AssertionError(f"quant_fleet: the cold wave {cold}")
+    if wave["launches"]["paged_chunk_attention"] != want_chunk:
+        raise AssertionError(f"quant_fleet: paged_chunk_attention launched "
+                             f"{wave['launches']['paged_chunk_attention']}, want {want_chunk}")
+    if any(v != per_call for v in claims.values()):
+        raise AssertionError(f"quant_fleet: int8_linear claims a program {claims}, want {per_call}")
+    del engine, gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_fleet_agreement(cfg, seed) -> dict:
+    """f32, TF32 off, Llama-3-1B's width at QUANT_FLEET_AGREE_LAYERS layers
+    with int8-exact weights: fleet_agreement's wave (a 2-layer draft from
+    another seed, prefix sharing, 256-token chunks, preemption), greedy and
+    then with AGREE_SAMPLED's requests sampled, through the unquantized
+    fleet engine and the int8 one: every greedy stream must be equal token
+    for token, every sampled one held to the unquantized engine's under the
+    sampled-agreement rule (SAMPLE_SHIFT, SAMPLE_MARGIN), each engine's
+    draws read by EngineDraws."""
+    from thunder_tpu_torch.models.litgpt import GPT, Config
+
+    acfg = Config.from_name(cfg.name, n_layer=QUANT_FLEET_AGREE_LAYERS)
+    gpt = GPT(acfg, torch.float32, seed=seed)
+    int8_exact_(gpt, seed)
+    draft = GPT(Config.from_name(cfg.name, n_layer=2), torch.float32, seed=seed + 1)
+    streams, stages, taps = {}, {}, {}
+    for quantize in (None, "int8"):
+        engine = agreement_engine(gpt, draft, quantize=quantize)
+        taps[quantize] = EngineDraws(engine)
+        got = []
+        for sampled in (None, AGREE_SAMPLED):
+            prompts, draws, futs = agreement_wave(engine, acfg, seed, sampled)
+            got.append([f.result().new_tokens for f in futs])
+            engine.prefix.clear()
+        taps[quantize].remove()
+        streams[quantize] = got
+        stages[str(quantize)] = dict(preempted=engine.preempted, resumed=engine.resumed,
+                                     prefix_hits=engine.prefix_hits, verify_calls=engine.verify_calls,
+                                     chunk_calls=engine.chunk_calls)
+        del engine
+    rows = [dict(wave="greedy", request=i, equal=bool(np.array_equal(b, a)))
+            for i, (a, b) in enumerate(zip(streams[None][0], streams["int8"][0]))]
+    for i, (p, (t, sd), a, b) in enumerate(zip(prompts, draws, streams[None][1], streams["int8"][1])):
+        rows.append(dict(wave="sampled", request=i, equal=bool(np.array_equal(b, a))) if t == 0
+                    else dict(wave="sampled", request=i, **sample_row(b, a, t, sd, len(p), taps["int8"].at,
+                                                                      taps[None].at)))
+    out = dict(model=f"{cfg.name} f32 at {acfg.n_layer} layers (depth cut), int8-exact weights",
+               draft=f"{cfg.name} n_layer=2 seed {seed + 1}, unquantized", tf32=False, rows=rows, stages=stages,
+               sampled=sampled_summary(rows))
+    emit("quant_fleet_agreement", **out)
+    bad = [r for r in rows if ("fault" in r if r.get("temperature", 0) > 0 else not r["equal"])]
+    if bad or stages["int8"]["preempted"] < 2 or not stages["int8"]["prefix_hits"]:
+        raise AssertionError(f"quant_fleet_agreement: {bad or stages}")
+    del gpt, draft, taps
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_fleet(tt, cudaex, cfg, seed, bf16_fleet: dict) -> dict:
+    """MoEGPT (Llama-3-1B, 8 experts of 1024, top-2, drop-free) under
+    quantize="int8" (attention linears, the router gate at N=8, lm_head) and
+    every fleet stage, a 2-layer dense bf16 draft of the same vocabulary
+    (seed + 1), on the mixed wave: 0 compiles and captures; grouped_mlp
+    launches n_layer times each target prefill, chunk and verify call the
+    engine makes (so inside the chunk and verify graphs), int8_linear by
+    route as the calls account for, in the warm wave and in a cold one
+    (cold_wave: 256-row chunks); the chunk and verify traces claim both.
+    Then f32 at QUANT_FLEET_AGREE_LAYERS layers: fleet_agreement's wave,
+    greedy and sampled, through the int8 MoE fleet engine against solo
+    GPTInference of the same quantized MoEGPT, under the AGREE_GAP and
+    sampled-agreement (SAMPLE_SHIFT, SAMPLE_MARGIN) rules."""
+    from thunder_tpu_torch.inference import GPTInference
+    from thunder_tpu_torch.models.litgpt import GPT, Config
+    from thunder_tpu_torch.models.moe import MoEGPT
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = MoEGPT(cfg, moe_config(cfg), torch.bfloat16, seed=seed)
+    draft = GPT(Config.from_name(cfg.name, n_layer=2), torch.bfloat16, seed=seed + 1)
+    specs, kinds = mixed_specs(np.random.RandomState(seed), cfg.vocab_size, 32)
+    engine = ServingEngine(gpt, max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16,
+                           prefix_sharing=True, chunk_tokens=256, draft_gpt=draft, spec_k=2, quantize="int8")
+    calls = ProgramCalls(engine)
+
+    def zero():
+        count_routes(cudaex.int8_linear)
+        cudaex.grouped_mlp.launches = 0
+        calls.zero()
+
+    def expected():
+        return (cfg.n_layer * sum(n for k, n in calls.calls.items() if k[0] == "target"),
+                int8_routes_expected(cudaex, gpt, calls.calls, "target"))
+
+    try:
+        wave = run_wave(tt, engine, specs, zero=(zero,))
+        grouped, routes = cudaex.grouped_mlp.launches, dict(cudaex.int8_linear.routes)
+        (want_grouped, want_routes), warm_calls = expected(), dict(calls.calls)
+        cold = cold_wave(tt, engine, specs, zero=(zero,))
+        want_cold = expected()
+        cold.update(grouped_mlp_launches=cudaex.grouped_mlp.launches, grouped_mlp_expected=want_cold[0],
+                    int8_linear_routes=dict(cudaex.int8_linear.routes), int8_routes_expected=want_cold[1],
+                    program_calls=rows_by_route(cudaex, gpt, calls.calls))
+    finally:
+        calls.remove()
+    claims = {cfn.__name__: {"grouped_mlp": sum(b.impl is cudaex._grouped_mlp_impl
+                                                for b in tt.last_traces(cfn)[-1].bound_symbols),
+                             "int8_linear": sum(b.impl is cudaex._int8_linear_impl
+                                                for b in tt.last_traces(cfn)[-1].bound_symbols)}
+              for cfn in (engine.runner.chunk_cfn, engine.runner.verify_cfn)}
+    m = gpt.h[0].moe.cfg
+    out = dict(model=f"{cfg.name} + MoE (E={m.n_expert}, H={m.intermediate_size}, top-{m.n_expert_per_token}, "
+                     f"drop-free), int8", draft=f"{cfg.name} n_layer=2 bf16 seed {seed + 1}", kinds=kinds, **wave,
+               grouped_mlp_launches=grouped, grouped_mlp_expected=want_grouped,
+               int8_linear_routes=routes, int8_routes_expected=want_routes,
+               program_calls=rows_by_route(cudaex, gpt, warm_calls), claims=claims, cold_prefix_cache=cold,
+               bf16_fleet_same_call={k: bf16_fleet[k] for k in ("tokens_per_s", "mean_ttft_ms", "mean_tbot_ms")},
+               tokens_per_s_vs_bf16_fleet=wave["tokens_per_s"] / bf16_fleet["tokens_per_s"])
+    del engine, gpt, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold_chunks = [k for k in cold["program_calls"] if k.startswith("target chunk_cfn M=256")]
+    if (wave["compiles_during_wave"] or wave["captures_during_wave"] or cold["compiles_during_wave"]
+            or cold["captures_during_wave"] or not cold_chunks):
+        emit("moe_fleet", **out)
+        raise AssertionError("moe_fleet: compiles or captures during a wave, or no 256-row chunk in the cold one")
+    if (cold["grouped_mlp_launches"] != cold["grouped_mlp_expected"]
+            or cold["int8_linear_routes"] != cold["int8_routes_expected"]):
+        emit("moe_fleet", **out)
+        raise AssertionError(f"moe_fleet: the cold wave {cold}")
+    if grouped != want_grouped or routes != want_routes or not routes["wgmma"]:
+        emit("moe_fleet", **out)
+        raise AssertionError(f"moe_fleet: grouped_mlp {grouped} (want {want_grouped}), "
+                             f"int8 {routes} (want {want_routes})")
+    if any(c != {"grouped_mlp": cfg.n_layer, "int8_linear": 3 * cfg.n_layer + 1} for c in claims.values()):
+        emit("moe_fleet", **out)
+        raise AssertionError(f"moe_fleet: claims {claims}")
+    # f32 agreement at cut depth against the same quantized model alone
+    acfg = Config.from_name(cfg.name, n_layer=QUANT_FLEET_AGREE_LAYERS)
+    gpt = MoEGPT(acfg, moe_config(acfg), torch.float32, seed=seed)
+    draft = GPT(Config.from_name(cfg.name, n_layer=2), torch.float32, seed=seed + 1)
+    engine = agreement_engine(gpt, draft, quantize="int8")
+    solo = GPTInference(gpt, max_seq=2048, dtype=torch.float32)
+    tap = EngineDraws(engine)
+    rows = []
+    for sampled in (None, AGREE_SAMPLED):
+        prompts, draws, futs = agreement_wave(engine, acfg, seed, sampled)
+        rows += solo_rows(solo, prompts, draws, [f.result().new_tokens for f in futs], tap)
+        engine.prefix.clear()
+    tap.remove()
+    out["agreement"] = dict(model=f"{acfg.name} + MoE f32 at {acfg.n_layer} layers (depth cut), int8",
+                            rows=rows, tolerance=AGREE_GAP, sampled=sampled_summary(rows),
+                            preempted=engine.preempted, resumed=engine.resumed, prefix_hits=engine.prefix_hits,
+                            verify_calls=engine.verify_calls)
+    emit("moe_fleet", **out)
+    bad = rows_failing(rows)
+    if bad or engine.preempted < 2:
+        raise AssertionError(f"moe_fleet: streams differ from solo: {bad} (preempted {engine.preempted})")
+    del engine, gpt, draft, solo, tap
+    torch.cuda.empty_cache()
+    return out
+
+
+SLO_NEW = 64
+# slo_serve's timed bf16 waves, (engine, policy attached), after an untimed
+# wave on each engine: engine 0's policy is attached and detached between
+# its waves, so policy and none run on one instance; engine 1 never has one,
+# so 0 against 1 without a policy sizes what a second instance alone
+# changes (an A/A pair). The three kinds interleave wave by wave, each at
+# the same mean position (a wave is ~0.6 s of host-bound decode, and the
+# host drifts by several per cent within a call).
+SLO_ROUNDS = (((0, True), (0, False), (1, False)) + ((1, False), (0, False), (0, True))) * 2
+
+
+class HostTime:
+    """The host seconds spent in the wrapped methods of some objects."""
+
+    def __init__(self):
+        self.s = 0.0
+
+    def wrap(self, obj, name: str) -> None:
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+
+
+def slo_serve(tt, cudaex, cfg, seed) -> dict:
+    """ServingEngine(slo=) over Llama-3-1B: (1) bf16, 16 requests of 128
+    tokens (one prefill bucket), SLO_NEW new each, in the turns of
+    SLO_ROUNDS: tokens/s of each, the policy's cost on one engine, the host
+    ms its monitor takes a wave (HostTime), and a second engine's tokens/s
+    against the first's without one; the loose policy's goodput must be
+    1.0. (2) f32 at
+    QUANT_FLEET_AGREE_LAYERS layers, the bus on: an impossible p99 TTFT
+    (breached by the first retirement) while 4 batch-lane requests hold
+    every slot and 4 interactive ones wait: there must be a slo.breach,
+    preempted >= 1, and greedy streams equal to the same wave's through an
+    engine without a policy (or differing only after a solo top-2 gap <
+    AGREE_GAP)."""
+    from thunder_tpu_torch import observability
+    from thunder_tpu_torch.inference import GPTInference
+    from thunder_tpu_torch.models.litgpt import GPT, Config
+    from thunder_tpu_torch.observability import SLOPolicy
+    from thunder_tpu_torch.serving import ServingEngine
+
+    gpt = GPT(cfg, torch.bfloat16, seed=seed)
+    prompts = make_prompts(np.random.RandomState(seed + 5), 16, 128, 128, cfg.vocab_size)
+    loose = SLOPolicy(p99_ttft_ms=60_000.0, p99_tbot_ms=10_000.0, min_goodput=0.5, window=64, min_samples=4)
+    base = dict(max_batch=8, page_size=16, max_seq=2048, dtype=torch.bfloat16)
+    engines = [ServingEngine(gpt, slo=loose, **base), ServingEngine(gpt, **base)]
+    for e in engines:
+        e.warmup([128])
+        for p in prompts:  # an untimed wave: the first after warmup runs slow
+            e.submit(p, SLO_NEW)
+        e.drain()
+    engines[0].reset_slo_accounting()
+    monitor = engines[0].slo_monitor
+    host = HostTime()
+    for name in ("status", "observe_request"):
+        host.wrap(monitor, name)
+    runs = []
+    for k, with_policy in SLO_ROUNDS:
+        e = engines[k]
+        if k == 0:
+            e.slo_policy, e.slo_monitor = (loose, monitor) if with_policy else (None, None)
+        host0 = host.s
+        t0 = time.perf_counter()
+        futs = [e.submit(p, SLO_NEW) for p in prompts]
+        e.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = [f.result() for f in futs]
+        runs.append(dict(engine=k, policy=with_policy, tokens_per_s=sum(r.n_new_tokens for r in res) / wall,
+                         wall_ms=1e3 * wall, monitor_host_ms=1e3 * (host.s - host0),
+                         mean_ttft_ms=1e3 * float(np.mean([r.ttft_s for r in res])),
+                         slo_met=sum(bool(r.slo_met) for r in res) if with_policy else None))
+    engines[0].slo_policy, engines[0].slo_monitor = loose, monitor
+    loose_stats = {k: engines[0].stats()[k] for k in ("requests_retired", "requests_slo_met", "goodput")}
+    del engines, gpt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    acfg = Config.from_name(cfg.name, n_layer=QUANT_FLEET_AGREE_LAYERS)
+    g32 = GPT(acfg, torch.float32, seed=seed)
+    kw = dict(max_batch=4, page_size=16, max_seq=2048, dtype=torch.float32)
+    impossible = SLOPolicy(p99_ttft_ms=1e-3, window=8, min_samples=1)
+    rng = np.random.RandomState(seed + 6)
+    short = rng.randint(0, cfg.vocab_size, (16,)).astype(np.int32)
+    batch = make_prompts(rng, 4, 128, 300, cfg.vocab_size)
+    inter = make_prompts(rng, 4, 16, 64, cfg.vocab_size)
+
+    def burn_wave(engine):
+        first = engine.submit(short, 2)
+        engine.drain()
+        futs = [engine.submit(p, 24, lane="batch") for p in batch]
+        while engine.stats()["active"] < 4:
+            engine._step_once()
+        futs += [engine.submit(p, 8) for p in inter]
+        engine.drain()
+        return [first.result().new_tokens] + [f.result().new_tokens for f in futs]
+
+    observability.reset()
+    observability.enable()
+    try:
+        burn = ServingEngine(g32, slo=impossible, **kw)
+        got = burn_wave(burn)
+        breaches = [r["attrs"] for r in observability.records()
+                    if r["kind"] == "event" and r["name"] == "slo.breach"]
+        counters = {k: v for k, v in observability.counters().items() if k.startswith(("slo.", "serve.preempted"))}
+    finally:
+        observability.disable()
+        observability.reset()
+    plain = ServingEngine(g32, **kw)
+    want = burn_wave(plain)
+    solo = GPTInference(g32, max_seq=2048, dtype=torch.float32)
+    rows = []
+    for p, g, w in zip([short] + batch + inter, got, want):
+        if np.array_equal(g, w):
+            rows.append({"prompt_len": len(p), "equal": True})
+        else:
+            _, m = solo.generate(torch.from_numpy(p[None, :]), len(w))
+            rows.append(agree_row(g, w, m.top2_gap[0], len(p)))
+
+    def mean_rate(k: int, policy: bool) -> float:
+        return float(np.mean([r["tokens_per_s"] for r in runs if r["engine"] == k and r["policy"] == policy]))
+
+    out = dict(model=cfg.name, bf16_runs=runs, loose_policy=repr(loose), loose_stats=loose_stats,
+               tokens_per_s_with_policy=[r["tokens_per_s"] for r in runs if r["policy"]],
+               tokens_per_s_without=[r["tokens_per_s"] for r in runs if r["engine"] == 0 and not r["policy"]],
+               tokens_per_s_second_engine=[r["tokens_per_s"] for r in runs if r["engine"] == 1],
+               policy_over_none_same_engine=mean_rate(0, True) / mean_rate(0, False),
+               second_engine_over_first=mean_rate(1, False) / mean_rate(0, False),
+               monitor_host_share=float(np.mean([r["monitor_host_ms"] / r["wall_ms"] for r in runs if r["policy"]])),
+               burn=dict(model=f"{cfg.name} f32 at {acfg.n_layer} layers (depth cut)", policy=repr(impossible),
+                         breach_reasons=sorted({b["reason"] for b in breaches}), counters=counters,
+                         preempted=burn.preempted, resumed=burn.resumed, plain_preempted=plain.preempted,
+                         goodput=burn.goodput(), rows=rows))
+    emit("slo_serve", **out)
+    policy_waves = sum(with_policy for _, with_policy in SLO_ROUNDS)
+    if loose_stats["goodput"] != 1.0 or loose_stats["requests_retired"] != policy_waves * len(prompts):
+        raise AssertionError(f"slo_serve: the loose policy's goodput {loose_stats}")
+    if "p99-ttft" not in out["burn"]["breach_reasons"] or burn.preempted < 1 or plain.preempted:
+        raise AssertionError(f"slo_serve: no burn-rate preemption: {out['burn']}")
+    bad = [r for r in rows if not r["equal"] and not r["solo_top2_gap"] < AGREE_GAP]
+    if bad:
+        raise AssertionError(f"slo_serve: streams under the policy differ from the plain engine's: {bad}")
+    del burn, plain, solo, g32
+    torch.cuda.empty_cache()
+    return out
+
+
+SLO_TRAIN_STEPS = 4
+
+
+def train_slo_pair(tt, step, idx, tgt, tokens_per_step: int) -> dict:
+    """TrainStep(slo=SLOPolicy(...)) on train's module and batch (its own
+    AdamW state), captured, in turns with train's unmonitored step
+    (unmonitored, monitored, monitored, unmonitored) after its compile and
+    capture: SLO_TRAIN_STEPS synchronized steps a turn after one untimed; ms a step of each, the
+    monitor's status after the last turn (a healthy policy: no breach)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.observability import SLOPolicy
+    from thunder_tpu_torch.training import TrainStep
+
+    policy = SLOPolicy(p99_step_ms=10_000.0, min_tokens_per_s=1_000.0, tokens_per_step=tokens_per_step,
+                       window=64, min_samples=4)
+    mon = TrainStep(step.tmodule, optim.AdamW(lr=TRAIN_LR), slo=policy)
+    steps = {False: step, True: mon}
+    mon(idx, tgt)  # compiles
+    mon(idx, tgt)  # captures
+    runs = []
+    for monitored in (False, True, True, False):
+        st = steps[monitored]
+        graphs0 = graph_stats(tt, [st])
+        ms, losses = timed_steps(lambda: st(idx, tgt), 1, SLO_TRAIN_STEPS)
+        graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [st]).items()}
+        runs.append(dict(monitored=monitored, ms_per_step=ms * 1e3, **graphs))
+    status = mon.slo_monitor.status()
+    out = dict(policy=repr(policy), runs=runs, slo_status=status,
+               monitored_ms=[r["ms_per_step"] for r in runs if r["monitored"]],
+               unmonitored_ms=[r["ms_per_step"] for r in runs if not r["monitored"]])
+    emit("train_slo", **out)
+    if any(r["graph_captures"] or r["graph_replays"] != SLO_TRAIN_STEPS + 1 for r in runs) \
+            or status["breached"] or status["source"] != "training":
+        raise AssertionError(f"train_slo: {out}")
+    del mon
     return out
 
 
@@ -2752,6 +3691,7 @@ def train(tt, cudaex, seed) -> dict:
     prof = train_profile(step, idx, tgt)
     train_pair("train", step, idx, tgt, (cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward,
                                          cudaex.adamw_update))
+    out["slo"] = train_slo_pair(tt, step, idx, tgt, B * T)
     del step, model
     torch.cuda.empty_cache()
     out["baseline"] = baseline(cfg, B, T, n_steps, seed, bound["model_ops_per_step"])
@@ -6240,6 +7180,7 @@ def main() -> int:
     fp8 = check_fp8(cudaex, dev, gen)
     grouped = check_grouped(cudaex, dev, gen)
     adamw = check_adamw(cudaex, dev, gen)
+    check_sampler(dev)
 
     cfg = Config.from_name("Llama-3-1B")
     rng = np.random.RandomState(args.seed)
@@ -6256,6 +7197,10 @@ def main() -> int:
     quant_agreement(tt, cudaex, cfg, prompts[:4], args.seed)
     fleet_wave = fleet(tt, cudaex, cfg, args.seed)
     fleet_agreement(cfg, args.seed)
+    quant_fleet_wave = quant_fleet(tt, cudaex, cfg, args.seed, fleet_wave)
+    quant_fleet_agreement(cfg, args.seed)
+    moe_fleet_wave = moe_fleet(tt, cudaex, cfg, args.seed, fleet_wave)
+    slo_serve(tt, cudaex, cfg, args.seed)
     trained, _ = train(tt, cudaex, args.seed)
     train_agreement(tt, cudaex, args.seed)
     fp8_trained = fp8_train(tt, cudaex, args.seed, trained)
@@ -6369,6 +7314,16 @@ def main() -> int:
                                                               "f32_fma_bound_ms")}
         if name == "adamw":
             kernels[-1]["skip_flag"] = res["skip_flag"]
+        if name == "int8_linear":
+            # launches by route in the int8 fleet waves: chunks (M <= 256) and verify (M = 24) on wgmma
+            kernels[-1]["quant_fleet_launches_by_route"] = quant_fleet_wave["int8_linear_routes"]
+            kernels[-1]["quant_fleet_cold_launches_by_route"] = \
+                quant_fleet_wave["cold_prefix_cache"]["int8_linear_routes"]
+            kernels[-1]["moe_fleet_launches_by_route"] = moe_fleet_wave["int8_linear_routes"]
+        if name == "grouped_mlp":
+            # launches in the int8 MoE fleet wave: n_layer a target prefill, chunk and verify call
+            kernels[-1]["moe_fleet_launches"] = moe_fleet_wave["grouped_mlp_launches"]
+            kernels[-1]["moe_fleet_cold_launches"] = moe_fleet_wave["cold_prefix_cache"]["grouped_mlp_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

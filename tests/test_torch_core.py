@@ -188,7 +188,8 @@ def test_port_imports_neither_jax_nor_thunder_tpu():
             "thunder_tpu_torch/robustness/faults.py", "thunder_tpu_torch/robustness/preemption.py",
             "thunder_tpu_torch/robustness/guards.py", "thunder_tpu_torch/robustness/checkpoint_manager.py",
             "thunder_tpu_torch/parallel/checkpoint.py", "thunder_tpu_torch/data/__init__.py",
-            "thunder_tpu_torch/data/prefetch.py"} <= names
+            "thunder_tpu_torch/data/prefetch.py", "thunder_tpu_torch/serving/sampling.py",
+            "thunder_tpu_torch/observability/slo.py", "thunder_tpu_torch/observability/telemetry.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "thunder_tpu")]
     assert not bad, bad

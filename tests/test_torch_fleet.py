@@ -504,9 +504,18 @@ def test_mixed_wave_replay_never_recompiles(gpt, draft):
 
 
 def test_unported_arguments_raise(gpt, draft):
+    """The arguments the engine refused before sampling and SLO monitoring
+    were ported now work: ``slo=`` takes an SLOPolicy (another type raises
+    TypeError naming it), and a speculative engine takes a sampled request
+    (its stream: tests/test_torch_sampling.py). The arguments still refused
+    raise as before."""
+    from thunder_tpu_torch.observability import SLOPolicy
+
     kw = dict(max_batch=2, page_size=PS, max_seq=MAX_SEQ, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="slo=.*slice 8"):
+    with pytest.raises(TypeError, match="slo=.*SLOPolicy"):
         ServingEngine(gpt, slo=object(), **kw)
+    policy = SLOPolicy(p99_ttft_ms=1e9, window=4, min_samples=1)
+    assert ServingEngine(gpt, slo=policy, **kw).slo_monitor.policy is policy
     with pytest.raises(ValueError, match="unknown serving quantization mode: 'fp8'"):
         ServingEngine(gpt, quantize="fp8", **kw)
     with pytest.raises(ValueError, match="spec_k"):
@@ -514,8 +523,9 @@ def test_unported_arguments_raise(gpt, draft):
     with pytest.raises(ValueError, match="chunk_tokens"):
         ServingEngine(gpt, chunk_tokens=12, **kw)
     teng = ServingEngine(gpt, draft_gpt=draft, spec_k=2, **kw)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        teng.submit(np.zeros(3, np.int32), max_new_tokens=2, temperature=0.5)
+    fut = teng.submit(np.zeros(3, np.int32), max_new_tokens=2, temperature=0.5, seed=1)
+    teng.drain()
+    assert fut.result().n_new_tokens == 2 and teng.spec_proposed > 0
 
 
 def test_fleet_engine_needs_a_card_or_a_named_device(monkeypatch, gpt, draft):

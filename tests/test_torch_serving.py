@@ -191,12 +191,17 @@ def test_dense_generate_matches_jax(jgpt, gpt, prompts):
 
 
 def test_sampling_is_refused(gpt, prompts):
+    """Temperature sampling was refused before it was ported; now a sampled
+    request and a sampled generate() run, and with the same seed give the
+    same stream (every identity: tests/test_torch_sampling.py)."""
     teng = ServingEngine(gpt, max_batch=2, page_size=PS, max_seq=64, dtype=torch.float32,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        teng.submit(prompts[0], max_new_tokens=3, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        GPTInference(gpt, dtype=torch.float32).generate(prompts[0][None, :], 3, temperature=0.8)
+    fut = teng.submit(prompts[0], max_new_tokens=3, temperature=0.8, seed=5)
+    teng.drain()
+    out, m = GPTInference(gpt, dtype=torch.float32).generate(prompts[0][None, :], 3, temperature=0.8,
+                                                             seed=5)
+    np.testing.assert_array_equal(fut.result().new_tokens, out[0, len(prompts[0]):].numpy())
+    assert m.sample_margin.shape == (1, 3)
 
 
 def test_entry_points_need_a_card_or_a_named_device(monkeypatch, gpt):

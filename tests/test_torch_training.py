@@ -142,12 +142,12 @@ def test_adamw_keeps_f32_state_for_bf16_params():
 
 @pytest.mark.parametrize("arg", ["mesh_plan", "guard", "slo", "buckets", "bucket_pad"])
 def test_unported_train_step_options_raise(arg):
-    """mesh_plan and slo raise NotImplementedError naming the argument.
-    buckets, bucket_pad (tests/test_torch_buckets.py) and guard
-    (tests/test_torch_robustness.py) are ported: a value of the wrong type
-    raises TypeError naming the argument."""
+    """mesh_plan raises NotImplementedError naming the argument. buckets,
+    bucket_pad (tests/test_torch_buckets.py), guard
+    (tests/test_torch_robustness.py) and slo (tests/test_torch_slo.py) are
+    ported: a value of the wrong type raises TypeError naming the argument."""
     model = tlg.GPTForCausalLM(tlg.Config.from_name("tiny"), device="cpu")
-    err = TypeError if arg in ("buckets", "bucket_pad", "guard") else NotImplementedError
+    err = TypeError if arg in ("buckets", "bucket_pad", "guard", "slo") else NotImplementedError
     with pytest.raises(err, match=arg):
         TrainStep(model, topt.AdamW(), **{arg: object()})
     with pytest.raises(NotImplementedError, match="micro_step"):

@@ -1,12 +1,14 @@
-"""Dense KV-cached greedy generation, and the block plumbing serving shares.
+"""Dense KV-cached generation, and the block plumbing serving shares.
 
 The port of thunder_tpu/inference.py. ``cached_sdpa``, ``split_qkv_rope``
 and ``block_mix`` are the per-block pieces the paged serving runner
 (serving/runner.py) reuses, so solo and batched decoding run the same block
-math. ``GPTInference.generate`` is greedy only. With ``scan_decode=True``
-(the default, as in thunder_tpu) every decode step of a call is one CUDA
-graph on the card (thunder_tpu scans the steps into one XLA program), with
-``False`` it loops in Python over the compiled decode step.
+math. ``GPTInference.generate`` decodes greedily or, with a temperature,
+samples position-keyed draws (serving/sampling.py) that give the serving
+engine's stream for the same seed. With ``scan_decode=True`` (the default,
+as in thunder_tpu) every greedy decode step of a call is one CUDA graph on
+the card (thunder_tpu scans the steps into one XLA program); a sampled call,
+and ``False``, loop in Python over the compiled decode step.
 """
 from __future__ import annotations
 
@@ -26,7 +28,10 @@ from .ops import clang, ltorch
 @dataclass
 class GenerationMetrics:
     """TTFT/TBOT/throughput of one generate() call, plus the margin between
-    the top two logits at each greedy choice (where a tie could flip)."""
+    the top two logits at each greedy choice (where a tie could flip) and,
+    for a sampled call, each draw's margin (serving/sampling.sample_tokens:
+    how far its uniform lay from the nearer edge of the token's interval,
+    as a share of the total probability)."""
 
     ttft_s: float = 0.0
     tbot_s: float = 0.0
@@ -34,6 +39,7 @@ class GenerationMetrics:
     ms_per_token: float = 0.0
     n_new_tokens: int = 0
     top2_gap: np.ndarray = field(default_factory=lambda: np.zeros((0, 0), np.float32))
+    sample_margin: np.ndarray = field(default_factory=lambda: np.zeros((0, 0), np.float64))
 
 
 class KVCache:
@@ -109,7 +115,7 @@ def block_mix(block, cfg, x, h):
 
 
 class GPTInference:
-    """Greedy generation over a models.litgpt.GPT or a models.moe.MoEGPT
+    """Generation over a models.litgpt.GPT or a models.moe.MoEGPT
     with a dense KV cache, on the model's device. The blocks run manually
     so attention reads the cache; prefill and decode are two compiled
     programs, and decode takes its position as a 0-d int32 tensor so one
@@ -205,17 +211,21 @@ class GPTInference:
         return prog
 
     def generate(self, prompt, max_new_tokens: int = 32, *, temperature: float = 0.0,
-                 scan_decode: bool = True):
+                 seed: Optional[int] = None, scan_decode: bool = True):
         """prompt: (B, T) int tensor or array. Returns (tokens (B, T+max_new)
         on the model's device, metrics). ``scan_decode`` (greedy only):
         on the card all decode steps run as one CUDA graph, one replay a
         call; CPU tensors, and ``scan_decode=False``, loop over the decode
-        program in Python."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature sampling is not ported: thunder_tpu keys it with jax's threefry "
-                "(fold_in(PRNGKey(seed), pos)), which torch cannot reproduce; only greedy "
-                "decoding (temperature=0) is available")
+        program in Python.
+
+        ``temperature`` > 0 samples: the token at position p of row b draws
+        the Philox uniform of counter (p, b) under key ``seed`` mod 2^32 (0
+        when None), so row 0 (and a B=1 call) is the serving engine's stream
+        for a request with that seed."""
+        from .serving.sampling import canonical_seed, philox_uniform, sample_tokens
+
+        if not temperature >= 0.0:
+            raise ValueError(f"temperature={temperature} must be >= 0")
         cfg = self.cfg
         dev = self.gpt.lm_head.weight.device
         prompt = torch.as_tensor(prompt, device=dev)
@@ -228,22 +238,33 @@ class GPTInference:
         ks, vs = KVCache(cfg.n_layer, B, cfg.n_query_groups, self.max_seq, cfg.head_size,
                          self.dtype, dev).as_tuple()
 
+        sampled = temperature > 0.0
+        if sampled:
+            key = canonical_seed(seed if seed is not None else 0)
+            temps = torch.full((B,), float(temperature), dtype=torch.float32, device=dev)
         t_start = time.perf_counter()
         logits, ks, vs = self._prefill_cfn(params, prompt, ks, vs)
-        toks, gaps = [], []
+        toks, gaps, margins = [], [], []
 
-        def pick(logits):
+        def pick(logits, pos: int):
+            """The token at position ``pos`` from the logits before it."""
             top2 = torch.topk(logits.float(), 2, dim=-1).values
             gaps.append(top2[:, 0] - top2[:, 1])
-            toks.append(torch.argmax(logits, -1).to(prompt.dtype))
+            if sampled:
+                u = torch.from_numpy(philox_uniform(key, pos, np.arange(B))).to(dev)
+                tok, margin = sample_tokens(logits, u, temps)
+                margins.append(margin)
+            else:
+                tok = torch.argmax(logits, -1)
+            toks.append(tok.to(prompt.dtype))
             return toks[-1]
 
-        nxt = pick(logits)
+        nxt = pick(logits, T)
         nxt.cpu()  # the first token is out when the host can read it
         ttft = time.perf_counter() - t_start
         t_decode = time.perf_counter()
         n_steps = max_new_tokens - 1
-        if scan_decode and n_steps > 0 and graphex.captures_on(dev):
+        if scan_decode and not sampled and n_steps > 0 and graphex.captures_on(dev):
             pos = torch.tensor(T, dtype=torch.int32, device=dev)
             prog = self._scan_program(params, n_steps, nxt, ks, vs, pos)
             scan_toks, scan_gaps = prog(nxt, pos, *ks, *vs, *params.values())
@@ -253,7 +274,8 @@ class GPTInference:
             for i in range(n_steps):
                 pos = torch.tensor(T + i, dtype=torch.int32, device=dev)
                 logits, ks, vs = self._decode_cfn(params, nxt[:, None], ks, vs, pos)
-                nxt = pick(logits)
+                # the step wrote position T + i; its token takes T + i + 1
+                nxt = pick(logits, T + i + 1)
             out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
             top2_gap = torch.stack(gaps, dim=1).cpu().numpy()  # waits for the last step
         dt = time.perf_counter() - t_decode
@@ -265,4 +287,6 @@ class GPTInference:
             n_new_tokens=max_new_tokens,
             top2_gap=top2_gap,
         )
+        if sampled:
+            metrics.sample_margin = torch.stack(margins, dim=1).cpu().numpy()
         return out, metrics

@@ -1,11 +1,15 @@
-"""thunder_tpu_torch.observability: the structured event bus and its metrics.
+"""thunder_tpu_torch.observability: the structured event bus, its metrics
+and the SLO monitors.
 
 thunder_tpu/observability/ for the port, limited to what is ported: the bus
-(``events``: spans, events, counters, ``summary``, ``dump``) and the
-metrics vocabulary over it (``metrics``). The robustness layer reports its
-interventions here. The flight recorder, memory watch, live telemetry,
-SLO monitors, the fleet view and the profiler hooks are not ported yet
-(ROADMAP A6).
+(``events``: spans, events, counters, ``summary``, ``dump``), the metrics
+vocabulary over it (``metrics``), the SLO policy and its sliding-window
+monitor (``slo``; ``ServingEngine(slo=)`` and ``TrainStep(slo=)``) and the
+nearest-rank ``telemetry.percentile`` they read. The robustness layer
+reports its interventions here, the serving engine its ``serve.*``
+traffic. The flight recorder, memory watch, the rest of live telemetry,
+request trace ids, the fleet view and the profiler hooks are not ported
+yet (ROADMAP A6).
 
 Quick start::
 
@@ -30,4 +34,6 @@ from .events import (  # noqa: F401
     span,
     summary,
 )
+from . import slo  # noqa: F401
 from .metrics import INTERVENTION_CODES, record_intervention  # noqa: F401
+from .slo import SLOMonitor, SLOPolicy  # noqa: F401

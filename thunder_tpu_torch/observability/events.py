@@ -2,7 +2,7 @@
 
 thunder_tpu/observability/events.py for the port, whole but for the
 modules it resets and summarises that are not ported yet (the flight
-recorder, memory watch, SLO windows and live telemetry: ROADMAP A6). The
+recorder, memory watch and live telemetry: ROADMAP A6). The
 robustness layer (robustness/) reports every intervention here: guard
 skips, raises and rollbacks, transient retries, checkpoint saves, restores
 and failures, preemption drains. Process-global and thread-safe; span
@@ -140,10 +140,15 @@ def enabled() -> bool:
 
 
 def reset() -> None:
-    """Clear recorded state (tests; keeps enabled/export settings)."""
+    """Clear recorded state (tests; keeps enabled/export settings), and
+    every live SLO monitor's sliding windows and breach latches, so one
+    reset between phases carries no breach state into the next."""
     with _BUS.lock:
         _BUS.records.clear()
         _BUS.counters.clear()
+    from . import slo  # deferred: slo imports this module
+
+    slo.reset_windows()
 
 
 def records() -> list[dict]:

@@ -34,14 +34,21 @@ the base engine behaves exactly as before:
   the batch lane), which re-prefills on resume — cheap when prefix sharing
   holds its pages in cache.
 
-Decoding is greedy, so every accept rule on the path (prefix hit,
-speculative verify, preemption and resume) is exact: a request's stream is
-the one it would produce alone. thunder_tpu samples with position-keyed jax
-threefry keys, which torch cannot reproduce, so a request with temperature
-> 0 is refused. ``quantize="int8"`` serves int8 weights
-(runner.quantize_for_serving). Not ported: the SLO policy and its monitor
-(``slo=``, the observability slice) with the SLO-burn preemption it drives,
-and the serve.* observability bus.
+Sampling is position-keyed (serving/sampling.py): the token at position p
+of a request with seed s draws its one uniform from Philox4x32-10 at
+counter (p, 0) under key s, computed on the host. So every accept rule on
+the path (prefix hit, speculative verify, preemption and resume) is exact,
+and a request's stream is the one it produces alone
+(inference.GPTInference.generate with the same seed). thunder_tpu keys the
+same draws with jax's threefry, which torch cannot reproduce, so sampled
+streams are the port's own; greedy ones (temperature 0) are thunder_tpu's.
+A batch whose requests are all greedy takes the argmax and runs no sampler.
+``quantize="int8"`` serves int8 weights (runner.quantize_for_serving).
+
+``slo=SLOPolicy(...)`` stamps each retired request's ``slo_met``, feeds an
+SLOMonitor (observability/slo.py) and, while a target burns and interactive
+requests wait, sheds one batch-lane sequence an iteration. With the bus on
+(observability.enable) the engine counts its traffic as ``serve.*``.
 """
 from __future__ import annotations
 
@@ -58,8 +65,12 @@ import torch
 from ..compile_service.buckets import BucketLadder
 from ..core.devices import resolve_device
 from ..executors.graphex import GraphPool
+from ..observability import events as _obs
+from ..observability import metrics as _obs_metrics
+from ..observability.slo import SLOMonitor, SLOPolicy
 from .kv_pages import PagedKVCache, PrefixCache
 from .runner import PagedGPTRunner, quantize_for_serving
+from .sampling import Sampler, canonical_seed, philox_uniform
 
 
 @dataclass
@@ -73,6 +84,9 @@ class RequestResult:
     tbot_s: float               # mean time between output tokens
     n_new_tokens: int = 0
     finish_reason: str = "length"   # "length" | "eos" | "cancelled"
+    # per-request SLO-met flag stamped at retirement when the engine has an
+    # SLOPolicy (the goodput numerator); None without a policy
+    slo_met: Optional[bool] = None
 
 
 @dataclass
@@ -80,6 +94,8 @@ class _Request:
     request_id: int
     prompt: np.ndarray
     max_new_tokens: int
+    temperature: float
+    seed: int
     eos_id: Optional[int]
     future: Future
     t_submit: float
@@ -100,7 +116,7 @@ class _Request:
 
 
 class ServingEngine:
-    """Continuous-batching greedy inference over a models.litgpt.GPT or a
+    """Continuous-batching inference over a models.litgpt.GPT or a
     models.moe.MoEGPT.
 
     max_batch   decode slots (sequences packed into one decode step)
@@ -124,26 +140,28 @@ class ServingEngine:
     spec_k          draft tokens proposed per iteration (default 4 with a
                     draft, 0 without)
     preemption      allow spilling batch-lane sequences for a page-starved
-                    interactive admission (on; only bites with lanes in use)
+                    interactive admission or while an SLO target burns (on;
+                    only bites with lanes in use)
     quantize        weight-only quantization applied to ``gpt`` in place
                     before tracing: None/"none" or "int8"
     cuda_graphs     run every program on the card as a CUDA graph (the
                     default; the counterpart of thunder_tpu's XLA programs),
-                    the target's and the draft's in one graph memory pool;
-                    ``warmup`` captures them before a wave
+                    the target's, the draft's and the sampler's in one graph
+                    memory pool; ``warmup`` captures them before a wave
+    slo             an observability.SLOPolicy: per-request SLO-met flags,
+                    goodput, an SLOMonitor and burn-rate preemption
     """
 
     def __init__(self, gpt, *, max_batch: int = 8, page_size: int = 16,
                  n_pages: Optional[int] = None, max_seq: Optional[int] = None,
                  dtype=torch.bfloat16, min_bucket: Optional[int] = None, device=None,
-                 slo=None, prefix_sharing: bool = False,
+                 slo: Optional[SLOPolicy] = None, prefix_sharing: bool = False,
                  chunk_tokens: Optional[int] = None, prefill_budget: Optional[int] = None,
                  draft_gpt=None, spec_k: Optional[int] = None, preemption: bool = True,
                  quantize: Optional[str] = None, cuda_graphs: bool = True):
-        if slo is not None:
-            raise NotImplementedError(
-                "ServingEngine(slo=) is not ported: SLOPolicy and SLOMonitor come with the "
-                "observability slice (slice 8)")
+        if slo is not None and not isinstance(slo, SLOPolicy):
+            raise TypeError(f"ServingEngine(slo=...) takes an observability.SLOPolicy, "
+                            f"got {type(slo).__name__}")
         # weight-only quantization must precede BOTH the program tracing and
         # the named_parameters snapshot below (runner.quantize_for_serving)
         gpt = quantize_for_serving(gpt, quantize)
@@ -191,6 +209,9 @@ class ServingEngine:
                                   cfg.head_size, dtype, self.device)
         pool = GraphPool()
         self.runner = PagedGPTRunner(gpt, page_size=page_size, cuda_graphs=cuda_graphs, graph_pool=pool)
+        # position-keyed temperature sampling: one captured program a row
+        # count; an all-greedy batch never calls it
+        self.sampler = Sampler(self.device, pool, cuda_graphs=cuda_graphs)
         # the Parameters themselves: a CUDA graph reads them in place
         self.params = dict(gpt.named_parameters())
         self.prefix = PrefixCache(self.cache.allocator, page_size) if prefix_sharing else None
@@ -223,10 +244,13 @@ class ServingEngine:
             self.draft_params = dict(draft_gpt.named_parameters())
 
         # host-side packed decode state; pos/toks change every step and are
-        # re-uploaded, the page tables only at (un)assignment
+        # re-uploaded, the page tables only at (un)assignment; seeds and
+        # temperatures stay on the host, where the sampler's uniforms are drawn
         self._page_tables = np.zeros((max_batch, self.n_pages_max), np.int32)
         self._pos = np.zeros((max_batch,), np.int32)
         self._toks = np.zeros((max_batch,), np.int32)
+        self._seeds = np.zeros((max_batch,), np.uint32)
+        self._temps = np.zeros((max_batch,), np.float32)
         self._pt_dev = None
         self._pt_dirty = True
         self._slots: List[Optional[_Request]] = [None] * max_batch
@@ -255,19 +279,26 @@ class ServingEngine:
         self.preempted = 0
         self.resumed = 0
 
+        # SLO accounting (observability/slo.py): a policy gets a sliding-window
+        # monitor and per-request SLO-met flags at retirement; without one
+        # the retirement path pays one `is None` test
+        self.slo_policy = slo
+        self.slo_monitor = SLOMonitor(slo, source="serving") if slo is not None else None
+        self.requests_retired = 0       # non-cancelled retirements
+        self.requests_slo_met = 0
+
     # -- public API -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, *, temperature: float = 0.0,
-               eos_id: Optional[int] = None, lane: str = "interactive") -> Future:
-        """Enqueue one greedy generation request; thread-safe. The Future
-        resolves to a RequestResult (or a ValueError for an inadmissible
-        request). lane="interactive" admits ahead of lane="batch"; batch
-        sequences may be preempted (spilled and later resumed, stream
-        unchanged) when an interactive request is page-starved."""
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature sampling is not ported: thunder_tpu keys it with jax's threefry "
-                "(fold_in(PRNGKey(seed), pos)), which torch cannot reproduce; submit greedy "
-                "requests (temperature=0)")
+               seed: Optional[int] = None, eos_id: Optional[int] = None,
+               lane: str = "interactive") -> Future:
+        """Enqueue one generation request; thread-safe. The Future resolves
+        to a RequestResult (or a ValueError for an inadmissible request).
+        temperature 0 decodes greedily; above 0 the token at position p
+        draws from seed's Philox stream at p (``seed`` mod 2^32, the request
+        id when None). lane="interactive" admits ahead of lane="batch";
+        batch sequences may be preempted (spilled and later resumed, stream
+        unchanged) when an interactive request is page-starved or the SLO
+        budget is burning."""
         fut: Future = Future()
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         with self._lock:
@@ -289,13 +320,20 @@ class ServingEngine:
             fut.set_exception(ValueError(
                 f"request {rid}: needs {worst} pages, pool has {usable}"))
             return fut
-        req = _Request(rid, prompt, max_new_tokens, eos_id, fut, time.perf_counter(), lane=lane)
+        if not temperature >= 0.0:
+            fut.set_exception(ValueError(f"request {rid}: temperature={temperature} must be >= 0"))
+            return fut
+        req = _Request(rid, prompt, max_new_tokens, float(temperature),
+                       canonical_seed(seed if seed is not None else rid), eos_id, fut,
+                       time.perf_counter(), lane=lane)
         with self._lock:
             if self._stopped:
                 fut.set_exception(RuntimeError("serving engine stopped"))
                 return fut
             (self._pending if lane == "interactive" else self._pending_batch).append(req)
             self._outstanding += 1
+        if _obs.enabled():
+            _obs_metrics.record_serve("requests")
         return fut
 
     def start(self) -> None:
@@ -367,6 +405,7 @@ class ServingEngine:
             runners.append((self.draft_runner, self.draft_params, self.draft_cache))
         buckets = sorted({self.ladder.bucket_for(int(L)) for L in prompt_lens})
         chunks = self.chunk_ladder.rungs if (self.chunk_tokens < self.max_seq or self.prefix is not None) else ()
+        sampled = set()  # (rows, vocab, dtype) of every sampler program a sampled wave runs
         for _ in range(2):
             for i, (runner, params, cache) in enumerate(runners):
                 calls = [(runner.prefill_cfn, (zeros(1, b), zeros(b // ps)), (self._scalar(0),)) for b in buckets]
@@ -377,8 +416,13 @@ class ServingEngine:
                 elif self.spec_k or i == 0:
                     calls.append((runner.decode_cfn, (zeros(B, 1),), (zeros(B, npm), zeros(B))))
                 for cfn, head, tail in calls:
-                    _, kps, vps = cfn(params, *head, cache.k_pages, cache.v_pages, *tail)
+                    logits, kps, vps = cfn(params, *head, cache.k_pages, cache.v_pages, *tail)
                     cache.rebind(kps, vps)
+                    if i == 0 or cfn is runner.decode_cfn:
+                        # the draft's prefill and chunk logits are never sampled
+                        sampled.add((logits.shape[:-1].numel(), logits.shape[-1], logits.dtype))
+        for rows, vocab, dtype in sorted(sampled, key=str):
+            self.sampler.warmup(rows, vocab, dtype)
         for L in prompt_lens:
             self.submit(np.zeros((int(L),), np.int32), max_new_tokens)
         self.drain()
@@ -408,7 +452,29 @@ class ServingEngine:
         }
         if self.prefix is not None:
             out["prefix_cache_pages"] = len(self.prefix)
+        if self.slo_policy is not None:
+            out["requests_retired"] = self.requests_retired
+            out["requests_slo_met"] = self.requests_slo_met
+            out["goodput"] = (round(self.requests_slo_met / self.requests_retired, 4)
+                              if self.requests_retired else None)
+            out["slo"] = self.slo_monitor.status()
         return out
+
+    def goodput(self) -> Optional[float]:
+        """Cumulative fraction of retired (non-cancelled) requests whose
+        SLO-met flag was True; None without a policy or before the first
+        retirement (the SLOMonitor keeps a sliding-window goodput besides)."""
+        if self.slo_policy is None or not self.requests_retired:
+            return None
+        return self.requests_slo_met / self.requests_retired
+
+    def reset_slo_accounting(self) -> None:
+        """Zero the goodput counters and restart the sliding-window monitor
+        (same policy): called after warmup so its traffic counts nowhere."""
+        self.requests_retired = 0
+        self.requests_slo_met = 0
+        if self.slo_policy is not None:
+            self.slo_monitor = SLOMonitor(self.slo_policy, source="serving")
 
     def page_fragmentation(self) -> float:
         """Internal fragmentation of the page pool: the fraction of
@@ -450,6 +516,7 @@ class ServingEngine:
         return max(bucket // self.page_size, PagedKVCache.pages_for(L + max_new, self.page_size))
 
     def _step_once(self) -> None:
+        self._maybe_preempt_for_slo()
         self._admit()
         self._advance_prefills()
         self._decode()
@@ -575,10 +642,14 @@ class ServingEngine:
                 if self.draft_cache is not None:
                     self.draft_cache.copy_page(old, new)
                 req.pages[req.n_shared - 1] = new
+        saved = L_eff if resumed else L_eff - 1
         self.prefix_hits += 1
-        self.prefix_tokens_saved += L_eff if resumed else L_eff - 1
+        self.prefix_tokens_saved += saved
+        if _obs.enabled():
+            _obs_metrics.record_serve("prefix_hits")
+            _obs_metrics.record_serve("prefix_tokens_saved", delta=saved)
         if resumed:
-            self.resumed += 1
+            self._on_resume(req)
             self._activate(req, slot, pos=L_eff, tok=req.tokens[-1])
         else:
             # t_first stays 0.0: TTFT is stamped when the first token
@@ -592,7 +663,16 @@ class ServingEngine:
         if req.covered:
             self.prefix_hits += 1
             self.prefix_tokens_saved += req.covered
+            if _obs.enabled():
+                _obs_metrics.record_serve("prefix_hits")
+                _obs_metrics.record_serve("prefix_tokens_saved", delta=req.covered)
         self._chunking[slot] = req
+
+    def _on_resume(self, req: _Request) -> None:
+        self.resumed += 1
+        if _obs.enabled():
+            _obs_metrics.record_serve("resumed", event=True, request=req.request_id,
+                                      n_tokens=len(req.tokens))
 
     def _preempt_one(self) -> bool:
         """Spill the most recently admitted batch-lane sequence: free its
@@ -612,7 +692,23 @@ class ServingEngine:
         with self._lock:
             self._pending_batch.appendleft(req)
         self.preempted += 1
+        if _obs.enabled():
+            _obs_metrics.record_serve("preempted", event=True, request=req.request_id,
+                                      n_tokens=len(req.tokens))
         return True
+
+    def _maybe_preempt_for_slo(self) -> None:
+        """Burn-rate preemption: while the SLO monitor reports a breached or
+        burning target and interactive requests wait, shed one batch-lane
+        sequence an iteration to shorten the interactive path."""
+        if not self.preemption or self.slo_monitor is None or not self._pending:
+            return
+        status = self.slo_monitor.status()
+        burning = bool(status.get("breached")) or any(
+            t.get("burn_rate") is not None and t["burn_rate"] >= 1.0
+            for t in status.get("targets", {}).values())
+        if burning:
+            self._preempt_one()
 
     def _fail(self, req: _Request, exc: Exception) -> None:
         """Contain one request's failure: return its pages, fail its Future,
@@ -626,6 +722,9 @@ class ServingEngine:
             pass  # the caller's cancel() raced the done() window
         with self._lock:
             self._outstanding -= 1
+        if _obs.enabled():
+            _obs_metrics.record_serve("failed", event=True, request=req.request_id,
+                                      error=type(exc).__name__)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -633,7 +732,17 @@ class ServingEngine:
     def _scalar(self, x: int) -> torch.Tensor:
         return torch.tensor(x, dtype=torch.int32, device=self.device)
 
+    def _first_token(self, req: _Request, logits, pos: int) -> int:
+        """The first generated token from a prefill's (1, V) logits: its
+        argmax, or with a temperature the sampler's draw at ``pos`` (the
+        prompt's length, the position the token takes)."""
+        if req.temperature <= 0.0:
+            return int(torch.argmax(logits[0]))
+        u = philox_uniform([req.seed], [pos], 0)
+        return int(self.sampler(logits, u, np.asarray([req.temperature], np.float32))[0])
+
     def _prefill(self, req: _Request, slot: int) -> None:
+        obs_on = _obs.enabled()
         resumed = bool(req.tokens)
         prompt_eff = req.prompt_eff if req.prompt_eff is not None else req.prompt
         L = len(prompt_eff)
@@ -641,6 +750,7 @@ class ServingEngine:
         req.bucket = bucket
         idx = np.zeros((1, bucket), np.int32)
         idx[0, :L] = prompt_eff
+        t0 = time.perf_counter()
         try:
             idx_d = self._tensor(idx)
             page_ids = torch.tensor(req.pages[:bucket // self.page_size], dtype=torch.int32,
@@ -657,19 +767,25 @@ class ServingEngine:
                     self.draft_cache.v_pages, last)
                 self.draft_cache.rebind(dkps, dvps)
             if not resumed:
-                tok0 = int(torch.argmax(logits[0]))
+                tok0 = self._first_token(req, logits, L)
         except Exception as e:
             self._fail(req, e)
             return
         if self.prefix is not None:
             self.prefix.insert(prompt_eff, req.pages)
+        t_done = time.perf_counter()
+        if obs_on:
+            _obs_metrics.record_serve("prefills", event=True, request=req.request_id, bucket=bucket,
+                                      prompt_len=L, ms=round((t_done - t0) * 1e3, 3),
+                                      pool_utilization=round(self.cache.utilization(), 4))
+            _obs_metrics.record_serve("prefill_tokens", delta=L)
         if resumed:
             # the spilled stream already owns its next token (and t_first
             # keeps the first life's stamp — TTFT is end to end)
-            self.resumed += 1
+            self._on_resume(req)
             self._activate(req, slot, pos=L, tok=req.tokens[-1])
             return
-        req.t_first = req.t_last = time.perf_counter()
+        req.t_first = req.t_last = t_done
         req.tokens.append(tok0)
         if self._finished(req, tok0):
             self._retire(req)
@@ -737,6 +853,8 @@ class ServingEngine:
                 self.draft_cache.v_pages, start_d, last_d)
             self.draft_cache.rebind(dkps, dvps)
         req.chunk_pos = min(start + cb, L_eff)
+        if _obs.enabled():
+            _obs_metrics.record_serve("prefill_tokens", delta=n_real)
         return cb, logits
 
     def _finish_chunked(self, req: _Request, slot: int, logits) -> None:
@@ -746,12 +864,16 @@ class ServingEngine:
         req.bucket = self.ladder.bucket_for(L_eff)
         if self.prefix is not None:
             self.prefix.insert(req.prompt_eff, req.pages)
+        if _obs.enabled():
+            _obs_metrics.record_serve("prefills", event=True, request=req.request_id, bucket=req.bucket,
+                                      prompt_len=L_eff, chunked=True,
+                                      pool_utilization=round(self.cache.utilization(), 4))
         if req.tokens:
-            self.resumed += 1
+            self._on_resume(req)
             self._activate(req, slot, pos=L_eff, tok=req.tokens[-1])
             return
         try:
-            tok0 = int(torch.argmax(logits[0]))
+            tok0 = self._first_token(req, logits, L_eff)
         except Exception as e:
             self._fail(req, e)
             return
@@ -767,6 +889,8 @@ class ServingEngine:
         self._page_tables[slot] = self.cache.page_table_row(req.pages, self.n_pages_max)
         self._pos[slot] = pos
         self._toks[slot] = tok
+        self._seeds[slot] = req.seed
+        self._temps[slot] = req.temperature
         self._pt_dirty = True
 
     def _clear_slot(self, i: int) -> None:
@@ -774,6 +898,8 @@ class ServingEngine:
         self._page_tables[i] = 0
         self._pos[i] = 0
         self._toks[i] = 0
+        self._seeds[i] = 0
+        self._temps[i] = 0.0
         self._pt_dirty = True
 
     def _upload_page_tables(self) -> None:
@@ -813,7 +939,12 @@ class ServingEngine:
                 self.params, self._tensor(self._toks[:, None]), self.cache.k_pages,
                 self.cache.v_pages, self._pt_dev, self._tensor(self._pos))
             self.cache.rebind(kps, vps)
-            nxt = torch.argmax(logits, -1).cpu().numpy()
+            if self._temps.any():
+                # the NEXT token's position is pos+1 (this step wrote pos)
+                nxt = self.sampler(logits, philox_uniform(self._seeds, self._pos + 1, 0),
+                                   self._temps).cpu().numpy()
+            else:
+                nxt = torch.argmax(logits, -1).cpu().numpy()
         except Exception as e:
             # the packed step failed: every active sequence is implicated
             for i in active:
@@ -822,6 +953,9 @@ class ServingEngine:
             return
         t_now = time.perf_counter()
         self.decode_steps += 1
+        if _obs.enabled():
+            _obs_metrics.record_serve("decode_steps")
+            _obs_metrics.record_serve("tokens", delta=len(active))
         for i in active:
             self._commit(i, self._slots[i], int(nxt[i]), t_now)
 
@@ -830,12 +964,19 @@ class ServingEngine:
         packed target verify step scores all k+1 positions, the accepted
         prefix commits (capped at k — NO bonus token, which is what keeps
         the draft pool valid through the new position without a catch-up
-        pass). The proposals stay on the card until the verify step's
-        argmax comes back, so an iteration syncs the host once."""
+        pass). The draft proposes with the same position-keyed draws (draft
+        step j at base_pos + j), and the verify step draws its k+1 positions
+        at base_pos + 1 ... base_pos + k + 1, so a proposal is accepted
+        while it equals the target's own draw. The proposals stay on the
+        card until the verify step's tokens come back (every uniform is
+        drawn on the host up front), so an iteration syncs the host once."""
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return
         k = self.spec_k
+        K1 = k + 1
+        obs_on = _obs.enabled()
+        sampled = bool(self._temps.any())
         self._upload_page_tables()
         try:
             base_pos = self._pos.copy()
@@ -846,7 +987,11 @@ class ServingEngine:
                     self.draft_params, cur, self.draft_cache.k_pages, self.draft_cache.v_pages,
                     self._pt_dev, self._tensor(base_pos + (j - 1)))
                 self.draft_cache.rebind(dkps, dvps)
-                dj = torch.argmax(dlog, -1).to(torch.int32)
+                if sampled:
+                    dj = self.sampler(dlog, philox_uniform(self._seeds, base_pos + j, 0), self._temps)
+                else:
+                    dj = torch.argmax(dlog, -1)
+                dj = dj.to(torch.int32)
                 cand.append(dj)
                 cur = dj[:, None]
             toks_mat = torch.stack(cand, 1)  # (max_batch, k+1)
@@ -855,7 +1000,15 @@ class ServingEngine:
                 self._tensor(base_pos))
             self.cache.rebind(kps, vps)
             self.verify_calls += 1
-            samples = torch.argmax(vlog, -1).cpu().numpy()  # (max_batch, k+1)
+            if sampled:
+                B = toks_mat.shape[0]
+                pos_flat = (base_pos[:, None] + 1 + np.arange(K1, dtype=np.int32)[None, :]).reshape(-1)
+                samples = self.sampler(vlog.reshape(B * K1, -1),
+                                          philox_uniform(np.repeat(self._seeds, K1), pos_flat, 0),
+                                          np.repeat(self._temps, K1))
+                samples = samples.reshape(B, K1).cpu().numpy()
+            else:
+                samples = torch.argmax(vlog, -1).cpu().numpy()  # (max_batch, k+1)
             toks_mat = toks_mat.cpu().numpy()
         except Exception as e:
             for i in active:
@@ -864,6 +1017,7 @@ class ServingEngine:
             return
         t_now = time.perf_counter()
         self.decode_steps += 1
+        committed_total = accepted_total = 0
         for i in active:
             req = self._slots[i]
             m = 0
@@ -874,9 +1028,16 @@ class ServingEngine:
             # position past anything the draft ever wrote)
             self.spec_proposed += k
             self.spec_accepted += m
+            accepted_total += m
             for j in range(min(m + 1, k)):
+                committed_total += 1
                 if not self._commit(i, req, int(samples[i, j]), t_now):
                     break
+        if obs_on:
+            _obs_metrics.record_serve("decode_steps")
+            _obs_metrics.record_serve("tokens", delta=committed_total)
+            _obs_metrics.record_serve("spec_proposed", delta=k * len(active))
+            _obs_metrics.record_serve("spec_accepted", delta=accepted_total)
 
     def _finished(self, req: _Request, tok: int) -> bool:
         if req.future.cancelled():
@@ -899,6 +1060,23 @@ class ServingEngine:
             reason = "eos"
         else:
             reason = "length"
+        slo_met = None
+        if reason != "cancelled" and self.slo_policy is not None:
+            ttft_ms = ttft * 1e3
+            # a one-token request has no between-token interval: only its
+            # TTFT binds
+            tbot_ms = tbot * 1e3 if n_new > 1 else None
+            slo_met = self.slo_policy.request_met(ttft_ms, tbot_ms)
+            self.requests_retired += 1
+            self.requests_slo_met += int(slo_met)
+            self.slo_monitor.observe_request(ttft_ms=ttft_ms, tbot_ms=tbot_ms, met=bool(slo_met),
+                                             tokens=n_new)
+        if _obs.enabled():
+            _obs_metrics.record_serve(
+                "cancelled" if reason == "cancelled" else "retired", event=True,
+                request=req.request_id, n_new=n_new, ttft_ms=round(ttft * 1e3, 3),
+                tbot_ms=round(tbot * 1e3, 3), finish=reason, lane=req.lane,
+                pool_utilization=round(self.cache.utilization(), 4))
         result = RequestResult(
             request_id=req.request_id,
             tokens=np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)]),
@@ -907,6 +1085,7 @@ class ServingEngine:
             tbot_s=tbot,
             n_new_tokens=n_new,
             finish_reason=reason,
+            slo_met=slo_met,
         )
         try:
             req.future.set_result(result)

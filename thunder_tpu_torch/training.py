@@ -63,13 +63,16 @@ sites of ``robustness.faults`` (TT_FAULT) are where thunder_tpu has them:
 ``transient`` (inside the guard's bounded retry) at dispatch, ``preempt``
 after it.
 
+``slo=SLOPolicy(...)`` attaches an SLOMonitor (observability/slo.py) fed
+each step's host wall time, as thunder_tpu's.
+
 Not ported yet: guards under a distributed plan (an all-rank verdict:
-ROADMAP A3b), SLO monitoring (``slo=``: ROADMAP A6), the AOT executable
-cache and no_sync gradient accumulation (``micro_step``: ROADMAP A3b).
+ROADMAP A3b), the AOT executable cache and no_sync gradient accumulation (``micro_step``: ROADMAP A3b).
 Asking for one of them raises NotImplementedError naming it."""
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -97,8 +100,22 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep(mesh_plan=...) is not read: the distributed plan rides on the "
                 "module (parallel.ddp / parallel.context_parallel)")
+        # an SLOPolicy (observability/slo.py) gets a sliding-window monitor
+        # over each step's host wall time (the replay's submission, as
+        # thunder_tpu times its dispatch) and tokens/s (through
+        # policy.tokens_per_step); without one a step pays one `is None` test
+        self.slo_monitor = None
         if slo is not None:
-            raise NotImplementedError("TrainStep(slo=...) (SLO monitoring) is not ported yet (ROADMAP A6)")
+            from .observability.slo import SLOMonitor, SLOPolicy
+
+            if not isinstance(slo, SLOPolicy):
+                raise TypeError(f"TrainStep(slo=...) takes an observability.SLOPolicy, got {type(slo).__name__}")
+            if slo.min_tokens_per_s is not None and not slo.tokens_per_step:
+                # a training step has no per-request token count: without
+                # tokens_per_step the throughput target would never be evaluated
+                raise ValueError("SLOPolicy(min_tokens_per_s=...) on a TrainStep needs "
+                                 "tokens_per_step=<batch tokens per step> to compute throughput")
+            self.slo_monitor = SLOMonitor(slo, source="training")
         if buckets is not None and not isinstance(buckets, BucketLadder):
             raise TypeError(f"TrainStep(buckets=...) takes a BucketLadder, got {type(buckets).__name__}")
         if bucket_pad is not None and not isinstance(bucket_pad, dict):
@@ -217,6 +234,8 @@ class TrainStep:
         return pad_to_bucket(args, kwargs, self.buckets, axis=self.bucket_axis, pad_values=self.bucket_pad)
 
     def __call__(self, *args, **kwargs):
+        slo_mon = self.slo_monitor
+        t_host = time.perf_counter_ns() if slo_mon is not None else 0
         args, kwargs = self._bucketize(args, kwargs)
         # fault-injection seam (TT_FAULT): with no plan armed this is one
         # module-global read
@@ -254,6 +273,8 @@ class TrainStep:
                 mgr._finalize_preempt(self)
             raise
         self._step_count += 1
+        if slo_mon is not None:
+            slo_mon.observe_step((time.perf_counter_ns() - t_host) / 1e6)
         if self.guard is not None:
             loss, finite, gnorm = out
             # host half of the guard: one device sync, then the policy
