@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, kernels, serve
 (greedy and sampled), quantized serving, fleet-serve (bf16, int8, MoE),
 SLO-monitored serving and training, train, fp8-train, LoRA, NanoGPT train and
-eval, remat, MoE serve and train, context-parallel train, ViT-B/16 and
+eval, remat, MoE serve and train, context-parallel train, sharded training
+(FSDP, tensor and expert parallelism on one rank), ViT-B/16 and
 ResNet-50 train and eval, a plain-PyTorch Llama through the torch frontend,
 training with frozen int8/NF4 linears, fp8 inference from a meta-built
 model, the compiler extensions, resilient training (guard, checkpoints,
@@ -285,7 +286,8 @@ Phases, each printing one JSON line:
 23. cp_train — TrainStep over context_parallel(jit(GPTForCausalLM(llama-350m,
                block_size=8192), [AutocastTransform()]), make_mesh({"sp": 1}))
                on a one-rank NCCL process group (opened once for phases
-               23-24 and destroyed after them), AdamW(lr=1e-4), B=1, T=8192:
+               23-24 and the sharded phases after them, then destroyed),
+               AdamW(lr=1e-4), B=1, T=8192:
                3 untimed steps and 10 timed ones between zeroed counters;
                ring_flash_fwd and ring_flash_bwd must read 24 x 10 each and
                the flash-RoPE pair 0; losses finite and falling; 2 steps
@@ -299,6 +301,30 @@ Phases, each printing one JSON line:
                within MOE_PARAM_ATOL (flip-prone elements within
                ADAMW_FLIP_ATOL), as moe_train_agreement; then the CP step
                captured against op by op over 3 new batches, bit for bit.
+   fsdp_train — train's configuration (llama-350m, B=4, T=2048, bf16
+               autocast, AdamW, captured) under fsdp(zero=3) over a
+               one-rank mesh of the same NCCL group: 10 timed steps
+               between zeroed counters (the flash-RoPE pair 24 x 10, AdamW
+               10 over the rank's shards, 0 captures, 10 replays), its
+               profile (each one-rank gather and reduce-scatter is one
+               device copy), the plain step's profile and both in turns;
+               the saved-for-backward bytes at zero=3 and zero=2, which
+               must differ by exactly the gathered matmul weights' bf16
+               copies (ZeRO-3 re-gathers).
+   sharded_agreement — f32, TF32 off, llama-350m at 2 layers, B=1,
+               T=1024: 3 captured steps under fsdp(zero=2), fsdp(zero=3), a
+               1 x 1 dp x fsdp mesh with GradBucketingTransform,
+               ddp(bucket_mb=) (both 64 MiB buckets, which must pack) and
+               column/row tensor parallelism of the MLPs, each bit-equal to
+               the plain captured step; a no_sync window under fsdp(zero=3)
+               against the plain window (the MoE road agreement's bounds);
+               3 windows captured against op by op, bit for bit.
+   ep_moe    — moe_ep_forward at ep=1 (E=8, D=2048, H=1024, top-2, bf16,
+               N=4,096 tokens): one grouped_mlp launch a call, device µs a
+               call against MoEMLP's grouped road on the same tokens and
+               weights; in f32 the output and the gradients of x, the
+               router and the three panels within MOE_GRAD_RTOL of their
+               largest of the function written out on grouped_mlp_plain.
 25. vit_train — TrainStep(jit(ViTForClassification(vit-b16),
                [AutocastTransform()]), AdamW(lr=1e-4)) at B=64, 224x224
                (patch 16: T=197, 12 heads of 64, full attention), full width
@@ -3710,6 +3736,9 @@ KERNEL_KINDS = (
     ("scan", ("scan_outer_dim", "scan_innermost_dim")),
     ("matmul", ("nvjet", "gemm", "cutlass", "cublas")),
     ("optimizer", ("adamw_kernel", "multi_tensor_apply")),
+    # a one-rank NCCL collective is one device-to-device copy ("memcpy128",
+    # "memcpy32_post" inside a graph)
+    ("memcpy", ("Memcpy", "memcpy")),
     ("reduction", ("reduce_kernel",)),
     ("copy_cast", ("direct_copy", "copy_kernel")),
     ("elementwise", ("elementwise_kernel", "index_elementwise")),
@@ -3730,15 +3759,20 @@ def train_profile(step, idx, tgt, phase: str = "train_profile") -> dict:
                  if e.key.startswith("nccl:") and not str(e.device_type).endswith("CUDA")]
     busy_us = sum(r[0] for r in rows)
     by_kind: dict = {}
-    for us, k, _ in rows:
+    count_by_kind: dict = {}
+    other = []
+    for us, k, c in rows:
         kind = next((kind for kind, marks in KERNEL_KINDS if any(m in k for m in marks)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / 2
+        count_by_kind[kind] = count_by_kind.get(kind, 0) + c / 2
+        if kind == "other":
+            other.append({"name": k[:80], "device_ms": us / 1e3 / 2, "count": c / 2})
     out = dict(steps=2, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                idle_share=(1 - busy_us / wall_us) if busy_us else None,
                kernel_launches_per_step=sum(r[2] for r in rows) / 2,
-               device_ms_per_step_by_kind=by_kind,
+               device_ms_per_step_by_kind=by_kind, kernels_per_step_by_kind=count_by_kind,
                top=[{"name": k[:80], "device_ms": us / 1e3, "count": c} for us, k, c in rows[:12]],
-               two_profiles=check)
+               other_per_step=other[:6], two_profiles=check)
     if nccl_host or "collective" in by_kind:
         out["nccl"] = dict(
             device_ms_per_step=by_kind.get("collective", 0.0),
@@ -5177,6 +5211,422 @@ def cp_train_agreement(tt, cudaex, seed) -> dict:
     del runs, cp, ref, tight, flip
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# after phase 24, on the same one-rank NCCL group: sharded training —
+# fsdp_train, sharded_agreement, ep_moe
+# ---------------------------------------------------------------------------
+
+# The plans sharded_agreement holds bit for bit against no plan, each on
+# one-rank meshes of the process group (sharded_step says what each is)
+SHARDED_PLANS = ("fsdp:2", "fsdp:3", "dp_x_fsdp+bucketing", "ddp+bucketing", "tp")
+# The bucketing plans' bucket size. dryrun_multichip's 1 MiB makes no bucket
+# at llama-350m's widths: every gradient but the RMSNorm weights' exceeds
+# it, so each would sit alone (PERF.md, PR 24); 64 MiB packs several.
+SHARDED_BUCKET_MB = 64
+# fsdp_train against the plain train step in turns, FSDP_TURN_STEPS a turn
+FSDP_TURNS = ("fsdp:3", "plain", "plain", "fsdp:3")
+FSDP_TURN_STEPS = 5
+# moe_ep_forward's shape (MoEGPT's experts at Llama-3-1B, moe_config) and
+# the calls a profile of it covers
+EP_E, EP_D, EP_H, EP_K, EP_N = 8, 2048, 1024, 2, 4096
+EP_CALLS = 5
+
+
+def sharded_step(tt, model, cfg, plan: str, autocast: bool, opt=None, cuda_graphs: bool = True):
+    """TrainStep over jit(model) (autocast or not; AdamW(lr=TRAIN_LR) unless
+    ``opt``) under ``plan``, each mesh of size 1 over the process group:
+    "plain" (no plan); "fsdp:2" / "fsdp:3" (fsdp at that ZeRO stage);
+    "dp_x_fsdp+bucketing" (ddp then fsdp on a 1 x 1 dp x fsdp mesh, with
+    GradBucketingTransform, as __graft_entry__.dryrun_multichip's phase 1);
+    "ddp+bucketing" (ddp(bucket_mb=)), both at SHARDED_BUCKET_MB; "tp"
+    (column_parallel of every mlp.fc_1 and mlp.fc_2, row_parallel of every
+    mlp.proj)."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.parallel import (GradBucketingTransform, column_parallel, ddp, fsdp, make_mesh,
+                                            row_parallel)
+    from thunder_tpu_torch.training import TrainStep
+    from thunder_tpu_torch.transforms.autocast import AutocastTransform
+
+    transforms = [AutocastTransform()] if autocast else []
+    if plan == "dp_x_fsdp+bucketing":
+        transforms.append(GradBucketingTransform(SHARDED_BUCKET_MB))
+    tm = tt.jit(model, transforms=transforms or None)
+    if plan.startswith("fsdp:"):
+        fsdp(tm, make_mesh({"fsdp": 1}), zero=int(plan[-1]))
+    elif plan == "dp_x_fsdp+bucketing":
+        mesh = make_mesh({"dp": 1, "fsdp": 1})
+        ddp(tm, mesh)
+        fsdp(tm, mesh)
+    elif plan == "ddp+bucketing":
+        ddp(tm, make_mesh({"dp": 1}), bucket_mb=SHARDED_BUCKET_MB)
+    elif plan == "tp":
+        mesh = make_mesh({"tp": 1})
+        mlps = [f"gpt.h.{i}.mlp" for i in range(cfg.n_layer)]
+        column_parallel(tm, mesh, [f"{q}.{n}" for q in mlps for n in ("fc_1", "fc_2")])
+        row_parallel(tm, mesh, [f"{q}.proj" for q in mlps])
+    elif plan != "plain":
+        raise ValueError(f"unknown plan {plan!r}")
+    return TrainStep(tm, opt if opt is not None else optim.AdamW(lr=TRAIN_LR), cuda_graphs=cuda_graphs)
+
+
+COLLECTIVE_IDS = ("dist.all_gather", "dist.reduce_scatter", "dist.all_reduce", "dist.all_to_all",
+                  "dist.synchronize_tensor_parallel_input", "dist.synchronize_tensor_parallel_output",
+                  "dist.pack", "dist.unpack")
+
+
+def collectives(tt, step) -> dict:
+    """The collective prims (and bucketing's pack/unpack) in the step's last
+    forward and backward traces, by id."""
+    out = {}
+    for name, trace in (("forward", tt.last_traces(step)[-1]), ("backward", tt.last_backward_traces(step)[-1])):
+        ids = [b.sym.id for b in trace.bound_symbols]
+        out[name] = {k[len("dist."):]: ids.count(k) for k in COLLECTIVE_IDS if ids.count(k)}
+    return out
+
+
+def saved_for_backward(tt, step) -> dict:
+    """The tensors the step's forward saves for its backward that are not
+    the forward's inputs (the parameters, buffers and batch, held anyway):
+    name -> bytes."""
+    fwd = tt.last_traces(step)[1]
+    inputs = {p.name for p in fwd.args if hasattr(p, "name")}
+    return {p.name: math.prod(p.shape) * p.dtype.bytes for p in fwd.bound_symbols[-1].args[0][1]
+            if hasattr(p, "shape") and p.name not in inputs}
+
+
+def gathered_bytes(model) -> dict:
+    """From the parameter shapes: the f32 bytes of every parameter FSDP
+    shards (all of llama's: each has at least min_shard_numel = 128
+    elements), and the bytes of the gathered forms a ZeRO-2 forward keeps
+    for the backward under autocast: the bf16 copy of every matmul weight
+    (the linears and lm_head; the embedding's gradient reads no weight)."""
+    params = dict(model.named_parameters())
+    return dict(sharded_f32=sum(p.numel() * 4 for p in params.values() if p.numel() >= 128),
+                matmul_bf16=sum(p.numel() * 2 for k, p in params.items() if p.ndim == 2 and "wte" not in k))
+
+
+def fsdp_train(tt, cudaex, seed) -> dict:
+    """train's configuration (llama-350m, B=4, T=2048, bf16 autocast,
+    AdamW(lr=1e-4), captured) under fsdp(zero=3) over a one-rank mesh of
+    the NCCL group: 3 untimed steps, then 10 timed between zeroed counters
+    (the flash-RoPE pair 24 x 10 each, AdamW 10 — on the rank's shards —,
+    0 captures, 10 replays), losses finite and falling; its profile with
+    the NCCL kernels and host calls; the plain train step beside it in
+    turns (FSDP_TURNS); and the saved-for-backward bytes at zero=3 and (one
+    op-by-op step) zero=2, whose difference must be the gathered matmul
+    weights' bf16 copies exactly: ZeRO-3's backward re-gathers them."""
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T, n_steps = 4, 2048, 10
+    cfg = Config.from_name("llama-350m", block_size=T)
+    idx, tgt = train_batch(cfg, B, T, seed)
+    counters = (cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward, cudaex.adamw_update)
+    reset_peak_memory()
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    sizes = gathered_bytes(model)
+    step = sharded_step(tt, model, cfg, "fsdp:3", True)
+    t0 = time.perf_counter()
+    first = float(step(idx, tgt))
+    compile_s = time.perf_counter() - t0
+    for _ in range(2):
+        step(idx, tgt)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    graphs0 = graph_stats(tt, [step])
+    step_s, losses = timed_steps(lambda: step(idx, tgt), 0, n_steps)
+    launches = dict(zip(("flash_rope_fwd", "flash_rope_bwd", "adamw"), (c.launches for c in counters)))
+    graphs = {k: v - graphs0[k] for k, v in graph_stats(tt, [step]).items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_rope_fwd": cfg.n_layer * n_steps, "flash_rope_bwd": cfg.n_layer * n_steps, "adamw": n_steps}
+    if graphs != {"graph_captures": 0, "graph_replays": n_steps}:
+        raise AssertionError(f"fsdp_train: the timed steps ran {graphs}, want {n_steps} replays and no capture")
+    if launches != want:
+        raise AssertionError(f"fsdp_train: launches {launches} over {n_steps} steps, want {want}")
+    losses = [first] + losses
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fsdp_train losses {losses}")
+    coll = collectives(tt, step)
+    saved3 = saved_for_backward(tt, step)
+    bound = step_bound(model, cfg, B, T)
+    out = dict(model=cfg.name, n_layer=cfg.n_layer, B=B, T=T, dtype="bf16 autocast, f32 master",
+               plan="fsdp(zero=3) fsdp=1 (one-rank NCCL group)", steps=n_steps, ms_per_step=step_s * 1e3,
+               tokens_per_s=B * T / step_s, mfu=bound["model_ops_per_step"] / step_s / PEAK_OPS["bfloat16"],
+               **bound, compile_s=compile_s, peak_memory_gb=peak, losses=losses, launches=launches, **graphs,
+               collectives_per_step=coll)
+    emit("fsdp_train", **out)
+    out["profile"] = train_profile(step, idx, tgt, "fsdp_train_profile")
+    # each one-rank collective of the replayed graph is one device copy, no
+    # NCCL kernel and no host call
+    out["collective_copies_per_step"] = {
+        "kernels": out["profile"]["kernels_per_step_by_kind"].get("memcpy", 0),
+        "device_ms": out["profile"]["device_ms_per_step_by_kind"].get("memcpy", 0.0),
+        "nccl": out["profile"].get("nccl")}
+    # the plain step's own peak: above what the FSDP step holds
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain_model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    plain = sharded_step(tt, plain_model, cfg, "plain", True)
+    for _ in range(3):
+        plain(idx, tgt)
+    torch.cuda.synchronize()
+    out["plain_peak_memory_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    out["plain_profile"] = train_profile(plain, idx, tgt, "fsdp_train_plain_profile")
+    turns = []
+    for name in FSDP_TURNS:
+        s, _ = timed_steps(lambda: (step if name == "fsdp:3" else plain)(idx, tgt), 1, FSDP_TURN_STEPS)
+        turns.append({"plan": name, "ms_per_step": s * 1e3})
+    ms = {n: [t["ms_per_step"] for t in turns if t["plan"] == n] for n in ("fsdp:3", "plain")}
+    out["turns"] = turns
+    out["fsdp_over_plain"] = sum(ms["fsdp:3"]) / sum(ms["plain"])
+    del step, plain, model, plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ZeRO-2: one op-by-op step for its traces
+    model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+    step = sharded_step(tt, model, cfg, "fsdp:2", True, cuda_graphs=False)
+    step(idx, tgt)
+    saved2 = saved_for_backward(tt, step)
+    coll2 = collectives(tt, step)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    extra = sum(saved2.values()) - sum(saved3.values())
+    out.update(saved_for_backward_gb={"zero3": sum(saved3.values()) / 1e9, "zero2": sum(saved2.values()) / 1e9},
+               zero2_minus_zero3_bytes=extra, gathered_matmul_bf16_bytes=sizes["matmul_bf16"],
+               sharded_params_f32_bytes=sizes["sharded_f32"],
+               only_zero3_saves=sorted(set(saved3) - set(saved2)), zero2_collectives_per_step=coll2)
+    emit("fsdp_train", **{k: out[k] for k in ("saved_for_backward_gb", "zero2_minus_zero3_bytes",
+                                               "gathered_matmul_bf16_bytes", "sharded_params_f32_bytes",
+                                               "only_zero3_saves", "zero2_collectives_per_step", "turns",
+                                               "fsdp_over_plain", "plain_peak_memory_gb",
+                                               "collective_copies_per_step")})
+    if extra != sizes["matmul_bf16"] or out["only_zero3_saves"]:
+        raise AssertionError(f"fsdp_train: ZeRO-2 saves {extra} bytes more than ZeRO-3, want the gathered "
+                             f"matmul weights' {sizes['matmul_bf16']}; ZeRO-3 alone saves {out['only_zero3_saves']}")
+    if coll["backward"].get("all_gather", 0) == 0 or coll2["backward"].get("all_gather", 0):
+        raise AssertionError(f"fsdp_train: backward all_gathers (the re-gather) zero=3 {coll['backward']}, "
+                             f"zero=2 {coll2['backward']}")
+    return out
+
+
+class WindowedStep:
+    """A TrainStep called in no_sync windows: ``micro`` calls inside
+    ``tmodule.no_sync()`` (the first as ``micro_step``), then a step that
+    folds them; graph_stats reads the TrainStep's counts."""
+
+    def __init__(self, step, micro: int = 2):
+        self.step, self.micro, self.i = step, micro, 0
+
+    @property
+    def _cs(self):
+        return self.step._cs
+
+    def __call__(self, *batch):
+        at = self.i % (self.micro + 1)
+        self.i += 1
+        if at == 0:
+            return self.step.micro_step(*batch)
+        if at < self.micro:
+            with self.step.tmodule.no_sync():
+                return self.step(*batch)
+        return self.step(*batch)
+
+
+def param_state(step) -> dict:
+    """The module's whole (unpadded) parameters and buffers, cloned."""
+    return {k: v.detach().clone() for k, v in step.tmodule.state_dict().items()}
+
+
+def sharded_agreement(tt, cudaex, seed) -> dict:
+    """f32, TF32 off, llama-350m at 2 layers, B=1, T=1024, one-rank meshes
+    of the NCCL group: 3 captured steps (a new batch each) under each of
+    SHARDED_PLANS against the plain captured TrainStep from the same
+    weights: losses and parameters bit-equal (one-rank collectives and
+    pack/unpack only move data). Then a no_sync window (a micro_step, a
+    micro-step through no_sync, the step that folds them) under
+    fsdp(zero=3) against the same window with no plan, op by op: losses
+    within LOSS_RTOL, parameters within MOE_PARAM_ATOL (flip-prone ones
+    within ADAMW_FLIP_ATOL), moe_train_agreement's bounds; and 3 such
+    windows captured against op by op, bit for bit."""
+    from thunder_tpu_torch import optim
+    from thunder_tpu_torch.models.litgpt import Config, GPTForCausalLM
+
+    B, T, n_steps = 1, 1024, 3
+    cfg = Config.from_name("llama-350m", n_layer=2, block_size=T)
+    batches = [train_batch(cfg, B, T, seed + i) for i in range(n_steps)]
+    counters = (cudaex.flash_rope_attention, cudaex.flash_rope_attention_backward, cudaex.adamw_update)
+    runs = {}
+    for plan in ("plain",) + SHARDED_PLANS:
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        step = sharded_step(tt, model, cfg, plan, False)
+        n0 = [c.launches for c in counters]
+        losses = [float(step(*b)) for b in batches]
+        runs[plan] = dict(losses=losses, params=param_state(step), collectives=collectives(tt, step),
+                          launches={c.__name__: c.launches - n for c, n in zip(counters, n0)},
+                          **graph_stats(tt, [step]))
+        require_replayed(f"sharded_agreement ({plan})", runs[plan])
+        del step, model
+    ref = runs["plain"]
+    plans = {}
+    for plan in SHARDED_PLANS:
+        got = runs[plan]
+        differ = sorted(k for k in ref["params"] if not torch.equal(got["params"][k], ref["params"][k]))
+        plans[plan] = dict(losses=got["losses"], losses_bit_equal=got["losses"] == ref["losses"],
+                           params_not_bit_equal=differ, collectives_per_step=got["collectives"],
+                           launches=got["launches"], graph_replays=got["graph_replays"])
+    # the no_sync window under fsdp(zero=3) against no plan, op by op
+    wins = {}
+    for plan in ("plain", "fsdp:3"):
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        rec = GradRecorder(optim.AdamW(lr=TRAIN_LR), wins["plain"]["rec"] if wins else None)
+        step = WindowedStep(sharded_step(tt, model, cfg, plan, False, rec, cuda_graphs=False))
+        wins[plan] = dict(losses=[float(step(*b)) for b in batches], rec=rec, params=param_state(step.step),
+                          step_count=step.step.step_count)
+        del step, model
+    win, wref = wins["fsdp:3"], wins["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(win["losses"], wref["losses"]))
+    prone = win["rec"].flip_prone
+    tight = torch.cat([(win["params"][k] - wref["params"][k]).abs()[~prone[k]] for k in prone])
+    flip = torch.cat([(win["params"][k] - wref["params"][k]).abs()[prone[k]] for k in prone])
+    window = dict(losses=win["losses"], plain_losses=wref["losses"], loss_max_rel=loss_rel, loss_rtol=LOSS_RTOL,
+                  updates=win["step_count"], param_max_abs=tight.max().item(), param_atol=MOE_PARAM_ATOL,
+                  flip_prone_elements=flip.numel(), flip_prone_max_abs=flip.max().item() if flip.numel() else 0.0,
+                  flip_prone_atol=ADAMW_FLIP_ATOL)
+
+    def windowed(graphs):
+        model = GPTForCausalLM(cfg, torch.float32, seed=seed)
+        return WindowedStep(sharded_step(tt, model, cfg, "fsdp:3", False, cuda_graphs=graphs)), model
+
+    window["captured"] = captured_against_op_by_op(
+        tt, "sharded_agreement (the captured window)", windowed,
+        [train_batch(cfg, B, T, seed + 10 + i) for i in range(3 * n_steps)], counters)
+    out = dict(model=f"{cfg.name} n_layer=2", B=B, T=T, steps=n_steps, tf32=False, plain_losses=ref["losses"],
+               plain_collectives_per_step=ref["collectives"], plans=plans, window=window)
+    emit("sharded_agreement", **out)
+    bad = {p: r for p, r in plans.items() if not r["losses_bit_equal"] or r["params_not_bit_equal"]
+           or ("bucketing" in p and not r["collectives_per_step"]["backward"].get("pack"))}
+    if bad:
+        raise AssertionError(f"sharded_agreement: not bit-equal to the plain step, or bucketing packed "
+                             f"nothing: {bad}")
+    if (win["step_count"] != 1 or not loss_rel <= LOSS_RTOL or not window["param_max_abs"] <= MOE_PARAM_ATOL
+            or not window["flip_prone_max_abs"] <= ADAMW_FLIP_ATOL):
+        raise AssertionError(f"sharded_agreement: the fsdp window against the plain window: {window}")
+    del runs, wins, tight, flip
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_params(dev, dtype, gen) -> dict:
+    """moe_ep_forward's weights at MoEMLP's init scale: the router (D, E)
+    and the expert panels (E, D, H), (E, D, H), (E, H, D)."""
+    s = 1.0 / math.sqrt(EP_D)
+
+    def u(shape, bound):
+        return ((torch.rand(shape, device=dev, generator=gen) * 2 - 1) * bound).to(dtype)
+
+    return {"gate_w": u((EP_D, EP_E), s), "w_gate": u((EP_E, EP_D, EP_H), s), "w_up": u((EP_E, EP_D, EP_H), s),
+            "w_down": u((EP_E, EP_H, EP_D), s / 2)}
+
+
+def ep_reference(p: dict, x, K: int, grouped):
+    """moe_ep_forward at ep=1, drop-free, written out in plain torch: the
+    softmax router, top-K renormalized, each (token, k) into the next slot
+    of its expert's bin of N·K slots, ``grouped(bins, panels, live rows)``,
+    the weighted combine."""
+    N, D = x.shape
+    E = p["gate_w"].shape[1]
+    cap = N * K
+    probs = torch.softmax(x @ p["gate_w"], -1)
+    top_p, top_i = torch.topk(probs, K, -1)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    flat_e = top_i.reshape(-1)
+    oh = torch.nn.functional.one_hot(flat_e, E)
+    slot = flat_e * cap + oh.cumsum(0).gather(1, flat_e[:, None])[:, 0] - 1
+    bins = x.new_zeros(E * cap, D).index_add(0, slot, x.repeat_interleave(K, 0))
+    y = grouped(bins.view(E, cap, D), p["w_gate"], p["w_up"], p["w_down"], oh.sum(0)).reshape(E * cap, D)
+    return (y[slot] * top_p.reshape(-1, 1)).view(N, K, D).sum(1)
+
+
+def ep_moe(tt, cudaex, seed, dev="cuda") -> dict:
+    """moe_ep_forward over a one-rank ep mesh of the NCCL group (its two
+    all_to_alls NCCL calls) at MoEGPT's expert widths (E=8, D=2048, H=1024,
+    top-2) on N=4,096 bf16 tokens, drop-free (bins of N·K rows): the
+    grouped_mlp launches a call (the bins' live counts as group_sizes) and
+    the device µs a call, profiled twice, against MoEMLP's grouped road
+    (bins of N rows) on the same tokens and weights. Then f32: the output
+    and the gradients of sum(out · dy) for x, the router and the three
+    panels, through the port's value_and_grad, each within MOE_GRAD_RTOL
+    of its largest of the same function written out (ep_reference) on
+    cudaex.grouped_mlp_plain with torch autograd."""
+    from thunder_tpu_torch.models.moe import MoEConfig, MoEMLP
+    from thunder_tpu_torch.parallel import make_mesh
+    from thunder_tpu_torch.parallel.expert_parallel import moe_ep_forward
+    from thunder_tpu_torch.transforms.autodiff import ThunderValueAndGrad
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mesh = make_mesh({"ep": 1})
+
+    def ep_fwd(p, x):
+        return moe_ep_forward(p, x, mesh=mesh, axis="ep", n_expert_per_token=EP_K)
+
+    p = ep_params(dev, torch.bfloat16, gen)
+    x = torch.randn(EP_N, EP_D, device=dev, generator=gen).to(torch.bfloat16)
+    ep = tt.jit(ep_fwd)
+    moe = MoEMLP(MoEConfig(n_embd=EP_D, intermediate_size=EP_H, n_expert=EP_E, n_expert_per_token=EP_K),
+                 torch.bfloat16, dev)
+    with torch.no_grad():
+        moe.gate.weight.copy_(p["gate_w"].t())
+        for k in ("w_gate", "w_up", "w_down"):
+            getattr(moe, k).copy_(p[k])
+    road = tt.jit(moe)
+    xb = x.view(1, EP_N, EP_D)
+    calls = {"ep": lambda: ep(p, x), "moe_mlp": lambda: road(xb)}
+    launches, device_us, checks = {}, {}, {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        n0 = cudaex.grouped_mlp.launches
+        call()
+        torch.cuda.synchronize()
+        launches[name] = cudaex.grouped_mlp.launches - n0
+        prof, checks[name] = profile_twice(f"ep_moe ({name})", lambda: [call() for _ in range(EP_CALLS)])
+        device_us[name] = sum(r[0] for r in prof["rows"]) / EP_CALLS
+    bf16_diff = (ep(p, x).float() - road(xb).view(EP_N, EP_D).float()).abs().max().item()
+    if launches != {"ep": 1, "moe_mlp": 1}:
+        raise AssertionError(f"ep_moe: grouped_mlp launches a call {launches}, want 1 each")
+    del p, x, moe, road, ep, calls, prof
+    # f32: the port's value_and_grad against the written-out function on the plain grouped MLP
+    p = ep_params(dev, torch.float32, gen)
+    x = torch.randn(EP_N, EP_D, device=dev, generator=gen)
+    dy = torch.randn(EP_N, EP_D, device=dev, generator=gen)
+    n0 = cudaex.grouped_mlp.launches
+    out = tt.jit(ep_fwd)(p, x)
+    (_, grads) = ThunderValueAndGrad(lambda p, x: (ep_fwd(p, x) * dy).sum(), argnums=(0, 1))(p, x)
+    f32_launches = cudaex.grouped_mlp.launches - n0
+    gp, gx = grads[0]
+    ref_p = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    ref_x = x.detach().clone().requires_grad_()
+    ref_out = ep_reference(ref_p, ref_x, EP_K, cudaex.grouped_mlp_plain)
+    ref_g = torch.autograd.grad((ref_out * dy).sum(), [ref_x, *ref_p.values()])
+    got = {"out": out, "x": gx, **{k: gp[k] for k in ref_p}}
+    want = {"out": ref_out.detach(), "x": ref_g[0], **dict(zip(ref_p, ref_g[1:]))}
+    rel = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max().clamp(min=1e-30)).item() for k in want}
+    res = dict(E=EP_E, D=EP_D, H=EP_H, K=EP_K, N=EP_N, dtype="bf16; f32 agreement", capacity=EP_N * EP_K,
+               grouped_mlp_launches_per_call=launches["ep"], moe_mlp_grouped_mlp_launches_per_call=launches["moe_mlp"],
+               device_us_per_call=device_us["ep"], moe_mlp_device_us_per_call=device_us["moe_mlp"],
+               ep_over_moe_mlp=device_us["ep"] / device_us["moe_mlp"], two_profiles=checks,
+               bf16_max_abs_diff_against_moe_mlp=bf16_diff, f32_grouped_mlp_launches=f32_launches,
+               f32_max_err_over_max_ref=rel, rtol=MOE_GRAD_RTOL)
+    emit("ep_moe", **res)
+    if f32_launches < 2 or not all(v <= MOE_GRAD_RTOL for v in rel.values()):
+        raise AssertionError(f"ep_moe: f32 launches {f32_launches}, errors over each tensor's largest {rel}")
+    del p, x, dy, out, grads, ref_p, ref_x, ref_out, ref_g, got, want
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -7216,11 +7666,14 @@ def main() -> int:
     moe_trained = moe_train(tt, cudaex, args.seed)
     moe_train_agreement(tt, cudaex, args.seed)
     ring_fwd, ring_bwd = check_ring(cudaex, dev, gen)
-    # one process group for both CP phases, destroyed after them
+    # one process group for the CP and the sharded phases, destroyed after them
     multiprocess.initialize(f"tcp://localhost:{multiprocess.free_port()}", 1, 0)
     try:
         cp_trained, _ = cp_train(tt, cudaex, args.seed)
         cp_train_agreement(tt, cudaex, args.seed)
+        fsdp_trained = fsdp_train(tt, cudaex, args.seed)
+        sharded_agreement(tt, cudaex, args.seed)
+        ep = ep_moe(tt, cudaex, args.seed)
     finally:
         multiprocess.destroy()
     vit, vit_model = vit_train(tt, cudaex, args.seed)
@@ -7312,6 +7765,9 @@ def main() -> int:
             f32 = res["timing_f32"][QUANT_F32_TIMED[name[:-len("_linear")]][0]]
             kernels[-1]["f32_split"] = {k: f32[k] for k in ("M", "N", "K", "ms", "plain_ms", "bound_ms", "bound_by",
                                                               "f32_fma_bound_ms")}
+        if name in ("flash_rope_fwd", "flash_rope_bwd", "adamw"):
+            # launches in 10 fsdp_train steps (AdamW over the rank's shards)
+            kernels[-1]["fsdp_train_launches"] = fsdp_trained["launches"][name]
         if name == "adamw":
             kernels[-1]["skip_flag"] = res["skip_flag"]
         if name == "int8_linear":
@@ -7324,6 +7780,8 @@ def main() -> int:
             # launches in the int8 MoE fleet wave: n_layer a target prefill, chunk and verify call
             kernels[-1]["moe_fleet_launches"] = moe_fleet_wave["grouped_mlp_launches"]
             kernels[-1]["moe_fleet_cold_launches"] = moe_fleet_wave["cold_prefix_cache"]["grouped_mlp_launches"]
+            # launches a moe_ep_forward call (ep=1, N=4,096 tokens, bins of N·K rows)
+            kernels[-1]["ep_moe_launches_per_call"] = ep["grouped_mlp_launches_per_call"]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

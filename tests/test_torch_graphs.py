@@ -295,12 +295,12 @@ def test_train_step_trace_with_item_is_not_captured_and_names_it(fake_graphs):
 
 def test_collective_captures_only_in_a_one_rank_nccl_group(fake_graphs, monkeypatch):
     """With no NCCL group (the CPU) a trace holding a collective is refused,
-    naming it and ROADMAP A3b; where collectives capture, the same trace
+    naming it and ROADMAP A3c; where collectives capture, the same trace
     passes (the planted contrast)."""
     from thunder_tpu_torch.parallel import prims as dist_prims
 
     cfn = tt.jit(lambda x: dist_prims.all_reduce(x, ("sp",)) * 2.0, cuda_graphs=True)
-    with pytest.raises(NotImplementedError, match="all_reduce.*A3b"):
+    with pytest.raises(NotImplementedError, match="all_reduce.*A3c"):
         cfn(torch.ones(4))
     bad = graphex.uncapturable(tt.last_traces(cfn)[-1])
     assert bad is not None and bad.sym.id == dist_prims.all_reduce.id

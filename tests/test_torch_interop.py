@@ -564,9 +564,12 @@ def test_compile_chooses_the_hf_recipe_and_resolves_plugins():
     # reduce-overhead: CUDA-graph capture (a no-op on CPU tensors)
     assert isinstance(resolve_plugin("reduce-overhead"), ReduceOverhead)
     assert pt.compile(MLP(), plugins="reduce-overhead")._cfn._cuda_graphs is True
-    for name in ("ddp", "fsdp", "tp", "cp"):
-        with pytest.raises(NotImplementedError, match="A3b"):
-            resolve_plugin(name)
+    # the distributed names resolve to parallel/plugins.py's (tests/test_torch_sharded.py applies them)
+    from thunder_tpu_torch.parallel import plugins as dist_plugins
+
+    for name, cls in (("ddp", dist_plugins.DDP), ("fsdp", dist_plugins.FSDP), ("tp", dist_plugins.TensorParallel),
+                      ("cp", dist_plugins.ContextParallel)):
+        assert type(resolve_plugin(name)) is cls
     with pytest.raises(ValueError, match="unknown plugin"):
         resolve_plugin("no-such-plugin")
     with pytest.raises(ValueError, match="unknown recipe"):

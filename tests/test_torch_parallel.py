@@ -631,12 +631,16 @@ def test_distributed_step_refuses_buffer_writes():
 
 
 def test_unported_options_raise():
+    """What the port still refuses under a plan (ROADMAP A3c); ddp's
+    bucket_mb, once refused, now appends the bucketing transform."""
+    from thunder_tpu_torch.parallel import GradBucketingTransform
+
     _, a, _, _, _ = _llama_pair()
-    with pytest.raises(NotImplementedError, match="bucket"):
-        ddp(tt.jit(a), make_mesh({"dp": 1}), bucket_mb=25)
+    tm = ddp(tt.jit(a), make_mesh({"dp": 1}), bucket_mb=25)
+    assert [t.bucket_bytes for t in tm._cd.transforms if isinstance(t, GradBucketingTransform)] == [25 << 20]
     from thunder_tpu_torch.robustness import StepGuard
 
-    with pytest.raises(NotImplementedError, match="guard.*A3b"):  # an all-rank verdict
+    with pytest.raises(NotImplementedError, match="guard.*A3c"):  # an all-rank verdict
         TrainStep(ddp(tt.jit(a), make_mesh({"dp": 1})), topt.AdamW(lr=1e-3), guard=StepGuard())
     with pytest.raises(NotImplementedError, match="mesh_plan.*rides on the module"):
         TrainStep(tt.jit(a), topt.AdamW(lr=1e-3), mesh_plan=object())

@@ -667,7 +667,8 @@ def test_async_save_failure_surfaces_in_strict_wait(tmp_path):
 
 
 def test_distributed_mode_names_a3b(tmp_path):
-    with pytest.raises(NotImplementedError, match="A3b"):
+    """Sharded checkpoints wait for ROADMAP A3c (A3b's second part)."""
+    with pytest.raises(NotImplementedError, match="A3c"):
         CheckpointManager(str(tmp_path), distributed=True)
 
 

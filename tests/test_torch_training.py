@@ -145,10 +145,14 @@ def test_unported_train_step_options_raise(arg):
     """mesh_plan raises NotImplementedError naming the argument. buckets,
     bucket_pad (tests/test_torch_buckets.py), guard
     (tests/test_torch_robustness.py) and slo (tests/test_torch_slo.py) are
-    ported: a value of the wrong type raises TypeError naming the argument."""
+    ported: a value of the wrong type raises TypeError naming the argument.
+    micro_step is ported (tests/test_torch_sharded.py); a guard inside its
+    no_sync window raises."""
+    from thunder_tpu_torch.robustness import StepGuard
+
     model = tlg.GPTForCausalLM(tlg.Config.from_name("tiny"), device="cpu")
     err = TypeError if arg in ("buckets", "bucket_pad", "guard", "slo") else NotImplementedError
     with pytest.raises(err, match=arg):
         TrainStep(model, topt.AdamW(), **{arg: object()})
-    with pytest.raises(NotImplementedError, match="micro_step"):
-        TrainStep(model, topt.AdamW()).micro_step()
+    with pytest.raises(NotImplementedError, match="micro_step.*guards"):
+        TrainStep(model, topt.AdamW(), guard=StepGuard()).micro_step()

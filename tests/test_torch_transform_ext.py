@@ -204,7 +204,7 @@ def test_sharding_fn_raises_naming_the_distributed_slice():
     materialization yet, so the option raises instead of placing anything."""
     from thunder_tpu_torch.transforms.materialization import MaterializationTransform
 
-    with pytest.raises(NotImplementedError, match="A3b"):
+    with pytest.raises(NotImplementedError, match="A3c"):
         MaterializationTransform(seed=0, sharding_fn=lambda name, shape: None)
 
 

@@ -70,9 +70,10 @@ def _fusible(bsym) -> bool:
 
 def collectives_capture() -> bool:
     """Whether this process's collectives can run inside a CUDA graph: those
-    of a one-rank NCCL group do (cp_train's all-reduces). A multi-rank NCCL
-    group's capture has not been tried (ROADMAP A3b); a Gloo group's run on
-    the host."""
+    of a one-rank NCCL group do (cp_train's all-reduces, the FSDP gathers
+    and reduce-scatters, the expert all-to-alls). A multi-rank NCCL group's
+    capture has not been tried (ROADMAP A3c); a Gloo group's run on the
+    host."""
     import torch.distributed as dist
 
     return (dist.is_available() and dist.is_initialized() and dist.get_backend() == "nccl"
@@ -109,7 +110,7 @@ def check_capturable(trace, name: str) -> None:
         raise NotImplementedError(
             f"{name}: CUDA-graph capture was asked for, but the trace holds the collective "
             f"{bad.sym.name} (id={bad.sym.id}) and only a one-rank NCCL group's collectives are "
-            f"captured (multi-rank capture: ROADMAP A3b); run it with cuda_graphs=False")
+            f"captured (multi-rank capture: ROADMAP A3c); run it with cuda_graphs=False")
     if bad is not None:
         raise RuntimeError(
             f"{name}: CUDA-graph capture was asked for, but the trace holds {bad.sym.name} "

@@ -126,3 +126,60 @@ class ThunderModule:
 
     def __call__(self, *args, **kwargs):
         return self._cfn({**self.get_parameters(), **self.get_buffers()}, args, kwargs)
+
+    _no_sync_active = False
+
+    @contextmanager
+    def no_sync(self):
+        """Inside this context a TrainStep over this module accumulates
+        gradients without the cross-rank sync or the optimizer update
+        (``TrainStep.micro_step``); the first step after it folds them in
+        (reference ThunderModule.no_sync, thunder/core/module.py:341)."""
+        self._no_sync_active = True
+        try:
+            yield
+        finally:
+            self._no_sync_active = False
+
+    def state_dict(self) -> dict:
+        """Every parameter and buffer by qualified name, each parameter whole
+        and unpadded: under a distributed plan (parallel/) a rank holds only
+        its block of a sharded parameter, so this gathers the blocks over
+        the plan's axes (a collective: every rank calls it) and slices off
+        FSDP's dim-0 padding (thunder_tpu/nn/module.py:287-295)."""
+        plan = getattr(self, "_dist_plan", None)
+        out = {}
+        for name, p in self.get_parameters().items():
+            t = p.detach()
+            if plan is not None:
+                from ..parallel.transforms import full_parameter
+
+                t = full_parameter(name, t, plan)
+            out[name] = t
+        out.update({name: b.detach() for name, b in self.get_buffers().items()})
+        return out
+
+    def load_state_dict(self, sd: dict, strict: bool = True) -> None:
+        """Copy whole tensors into the parameters and buffers in place: under
+        a plan each rank takes its block, re-padding FSDP's indivisible dim
+        0 (thunder_tpu/nn/module.py:166-175). A shape that does not match
+        raises; ``strict`` also refuses missing and unexpected keys."""
+        plan = getattr(self, "_dist_plan", None)
+        own = {**self.get_parameters(), **self.get_buffers()}
+        if strict:
+            missing, unexpected = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+            if missing or unexpected:
+                raise KeyError(f"load_state_dict: missing {missing}, unexpected {unexpected}")
+        with torch.no_grad():
+            for name, t in own.items():
+                if name not in sd:
+                    continue
+                v = torch.as_tensor(sd[name])
+                if plan is not None and name in plan.param_strategies:
+                    from ..parallel.transforms import local_parameter
+
+                    v = local_parameter(name, v, plan)
+                if tuple(v.shape) != tuple(t.shape):
+                    raise ValueError(f"state_dict shape mismatch for '{name}': checkpoint "
+                                     f"{tuple(v.shape)} vs parameter {tuple(t.shape)}")
+                t.copy_(v)

@@ -6,7 +6,7 @@ robustness/checkpoint_manager.py), ``record_slo_breach`` (slo.py) and
 ``record_serve`` (serving/scheduler.py), with the same counter and event
 vocabulary (so tools/obs_summary.py reads the port's dumps). The cache,
 recompile, fusion, fleet and distributed recorders come with the slices
-whose code calls them (ROADMAP A6, A3b).
+whose code calls them (ROADMAP A6, A3c).
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ ml_dtypes. A directory either package writes, the other reads.
 Not ported: the orbax routes (``save``/``load`` through orbax's
 PyTreeCheckpointer and ``async_save`` through its AsyncCheckpointer) have no
 torch counterpart; robustness.CheckpointManager runs its own writer thread.
-Sharded (per-host) checkpoints belong to ROADMAP A3b."""
+Sharded (per-host) checkpoints belong to ROADMAP A3c."""
 from __future__ import annotations
 
 import json

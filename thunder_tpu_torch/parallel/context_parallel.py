@@ -207,7 +207,7 @@ def context_parallel(tmodule, mesh, *, axis: str = SP_AXIS):
 
     n = mesh.size(axis)
     plan = _get_plan(tmodule) or DistPlan(mesh)
-    new = DistPlan(mesh, {}, (), (axis,))
+    new = DistPlan(mesh, {}, (), seq_axes=(axis,))
     for name in tmodule.get_parameters():
         new.param_strategies.setdefault(name, [ParamStrategy("replicate", axis)])
     plan = plan.merge(new)

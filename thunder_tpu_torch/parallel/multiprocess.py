@@ -20,7 +20,7 @@ card, joined by ``torch.distributed``:
   rank's result. The CPU tests drive the distributed paths through it.
 
 The key-value agreement (``kv_agree``) and the fault paths of thunder_tpu's
-module are not ported yet (ROADMAP A3b)."""
+module are not ported yet (ROADMAP A3c)."""
 from __future__ import annotations
 
 import datetime

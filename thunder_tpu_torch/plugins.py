@@ -4,10 +4,9 @@ thunder_tpu/plugins.py for the port. ``reduce-overhead`` is CUDA-graph
 capture (``cuda_graphs=True``, executors/graphex.py): thunder_tpu's plugin
 is a no-op only because XLA already compiles its whole program, and its
 docstring names CUDA graphs as the GPU's counterpart; graph capture is the
-port's whole-program compile. The distributed plugin names of
-thunder_tpu/parallel/plugins.py (``ddp``, ``fsdp``, ``tp``, ``cp``) are
-known here and raise: a recipe's plugins over the port's parallel slice are
-ROADMAP A3b's."""
+port's whole-program compile. The distributed plugin names (``ddp``,
+``fsdp``, ``tp``, ``cp``) live in parallel/plugins.py, registered when one
+of them is first asked for."""
 from __future__ import annotations
 
 
@@ -30,7 +29,6 @@ class ReduceOverhead(Plugin):
 
 
 _registry: dict[str, type] = {}
-_DISTRIBUTED = ("ddp", "fsdp", "tp", "cp")
 
 
 def register_plugin(name: str, cls: type) -> None:
@@ -44,12 +42,10 @@ def resolve_plugin(p):
     if isinstance(p, Plugin):
         return p
     if isinstance(p, str):
+        if p not in _registry:
+            from .parallel import plugins as _distributed  # noqa: F401  (registers ddp, fsdp, tp, cp)
         if p in _registry:
             return _registry[p]()
-        if p in _DISTRIBUTED:
-            raise NotImplementedError(
-                f"plugin '{p}' is not ported: the port's distributed plugins wait for ROADMAP A3b "
-                f"(use thunder_tpu_torch.parallel's ddp / context_parallel on a jitted module)")
         raise ValueError(f"unknown plugin '{p}' (known: {sorted(_registry)})")
     if isinstance(p, type) and issubclass(p, Plugin):
         return p()

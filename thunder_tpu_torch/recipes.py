@@ -1,8 +1,10 @@
 """Recipes: packaged compile configurations.
 
 thunder_tpu/recipes.py for the port. A Recipe bundles executors, transforms
-and jit options; plugins add to them (plugins.py). ``compile(fn, recipe=)``
-in the package root resolves one and applies it. The executors are the
+and jit options; plugins add to them (plugins.py), and a distributed
+plugin's ``apply_to`` lays its plan on the jitted module (thunder_tpu leaves
+that call to the user). ``compile(fn, recipe=)`` in the package root
+resolves one and applies it. The executors are the
 port's: cudaex (the hand-written Hopper kernels) first, then torchex (one
 torch call a prim)."""
 from __future__ import annotations
@@ -46,7 +48,14 @@ class Recipe:
             executors = p.setup_executors(executors)
             config = p.setup_config(config)
         config.update(kwargs)
-        return jit(fn, executors=executors, transforms=transforms, **config)
+        out = jit(fn, executors=executors, transforms=transforms, **config)
+        for p in self.plugins:
+            # a distributed plugin (parallel/plugins.py) lays its plan on the
+            # jitted module
+            apply_to = getattr(p, "apply_to", None)
+            if apply_to is not None:
+                out = apply_to(out)
+        return out
 
     @classmethod
     def get_for_model(cls, fn) -> "Recipe":

@@ -8,7 +8,7 @@ inside the step: csrc/adamw.cu's skip flag), and the deterministic
 fault-injection harness (``faults``, the TT_FAULT env knob) that keeps every
 recovery path covered by tests. The distributed half (sharded checkpoints,
 all-rank guard verdicts, ``DesyncError``/``check_in_sync``) is not ported
-yet (ROADMAP A3b).
+yet (ROADMAP A3c).
 
 Quick start::
 

@@ -44,7 +44,7 @@ reads, an ``Event.is_set`` and an int modulo.
 
 Distributed (sharded) checkpoints — per-host shards with a merged
 manifest, the cross-host preemption watcher — are not ported yet (ROADMAP
-A3b): ``distributed=True``, or a joined process group of more than one
+A3c): ``distributed=True``, or a joined process group of more than one
 rank, raises NotImplementedError.
 """
 from __future__ import annotations
@@ -153,7 +153,7 @@ def read_meta(stepdir: str) -> dict:
 
 def _refuse_distributed() -> None:
     raise NotImplementedError(
-        "distributed (sharded) checkpoints are not ported yet (ROADMAP A3b): "
+        "distributed (sharded) checkpoints are not ported yet (ROADMAP A3c): "
         "CheckpointManager saves and restores a single process's state")
 
 

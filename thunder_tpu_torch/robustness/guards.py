@@ -32,8 +32,8 @@ one. The recovery for those is a new process and ``CheckpointManager
 events + ``guard.<action>`` counters).
 
 Guards under a distributed plan (an all-rank verdict reduced across the
-mesh, and its agreement counters) are not ported yet (ROADMAP A3b):
-``TrainStep`` refuses a guard on a ``ddp``/``context_parallel`` module.
+mesh, and its agreement counters) are not ported yet (ROADMAP A3c):
+``TrainStep`` refuses a guard on a module under any distributed plan.
 """
 from __future__ import annotations
 

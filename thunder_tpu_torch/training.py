@@ -23,26 +23,42 @@ leaf along ``bucket_axis`` to its rung (``compile_service.pad_to_bucket``,
 fill values from ``bucket_pad``, e.g. -100 for targets), so every length in
 a rung is one program and one graph.
 
-Distributed plans (parallel/): a module wrapped by ``ddp`` and/or
-``context_parallel`` carries a ``_dist_plan``, and its step is one program
-per rank, as thunder_tpu's step is one ``shard_map`` program per device.
-The caller passes the global batch on every rank; each rank takes its own
-block by thunder_tpu's ``_batch_pspec`` rule (dim 0 over the data axes,
-dim 1 over the sequence axes, the latter for leaves of rank >= 2). The
-traced step inserts each parameter's collectives (``synchronize``: the
-gradient all-reduce), traces the model under ``seq_parallel_tracing`` when
-the plan has a sequence axis, and returns ``all_reduce(local loss) /
-loss_world_size`` — the loss every rank gets back. The plan rides on the
-module, so ``mesh_plan=`` (which thunder_tpu stores and never reads)
-raises NotImplementedError naming ``ddp``/``context_parallel``.
+Distributed plans (parallel/): a module wrapped by ``ddp``, ``fsdp``,
+``column_parallel``/``row_parallel`` and/or ``context_parallel`` carries a
+``_dist_plan``, and its step is one program per rank, as thunder_tpu's step
+is one ``shard_map`` program per device. The caller passes the global batch
+on every rank; each rank takes its own block by thunder_tpu's
+``_batch_pspec`` rule (dim 0 over the data axes, dim 1 over the sequence
+axes, the latter for leaves of rank >= 2; a tensor-parallel axis splits
+nothing). The traced step inserts each parameter's collectives
+(``synchronize``: the gradient all-reduce; ``all_gather`` and the unpad
+slice: FSDP's unshard, whose grad rule reduce-scatters), traces the model
+under ``seq_parallel_tracing`` when the plan has a sequence axis, and
+returns ``all_reduce(local loss) / loss_world_size`` — the loss every rank
+gets back. The optimizer updates each rank's own tensors: under FSDP the
+shards and their moments (on the card, one ``cudaex.adamw_update`` over
+them). The plan rides on the module, so ``mesh_plan=`` (which thunder_tpu
+stores and never reads) raises NotImplementedError.
 
 A distributed step is captured too when its collectives capture on the
 rank: a one-rank NCCL group's do. Asking for capture of a step over a
-multi-rank group raises NotImplementedError naming ROADMAP A3b (pass
+multi-rank group raises NotImplementedError naming ROADMAP A3c (pass
 ``cuda_graphs=False``); over Gloo (the CPU) it runs op by op. Before a
 capture the forward and backward traces are checked as ``jit``'s are
 (graphex.check_capturable): a host sync or host-side effect raises, naming
 the symbol.
+
+Gradient accumulation (thunder_tpu/training.py:700-1057): ``micro_step``
+(or a step inside ``tmodule.no_sync()``) runs forward and backward and adds
+the gradients into an accumulator, with no gradient sync and no update;
+the next ``step`` adds its own gradients, syncs the sum once and updates.
+Under DDP a window costs one all-reduce a parameter; under FSDP the
+window's first micro-step gathers every sharded parameter once into whole
+buffers, the micro-steps compute on them with no collective, and the fold
+reduce-scatters each gradient once. On the card each micro-step and the
+fold are CUDA graphs too. Tensor- and context-parallel gradients
+synchronize per micro-batch inherently: a window under such a plan, a
+guard, or a forward that writes buffers raises.
 
 Resilient training (robustness/, thunder_tpu/training.py:281-335,
 :536-700): ``guard=StepGuard(...)`` makes the step compute ``finite =
@@ -67,8 +83,8 @@ after it.
 each step's host wall time, as thunder_tpu's.
 
 Not ported yet: guards under a distributed plan (an all-rank verdict:
-ROADMAP A3b), the AOT executable cache and no_sync gradient accumulation (``micro_step``: ROADMAP A3b).
-Asking for one of them raises NotImplementedError naming it."""
+ROADMAP A3c) and the AOT executable cache. Asking for one of them raises
+NotImplementedError naming it."""
 from __future__ import annotations
 
 import contextlib
@@ -99,7 +115,8 @@ class TrainStep:
         if mesh_plan is not None:
             raise NotImplementedError(
                 "TrainStep(mesh_plan=...) is not read: the distributed plan rides on the "
-                "module (parallel.ddp / parallel.context_parallel)")
+                "module (parallel.ddp / fsdp / column_parallel / row_parallel / context_parallel; "
+                "ROADMAP A3c)")
         # an SLOPolicy (observability/slo.py) gets a sliding-window monitor
         # over each step's host wall time (the replay's submission, as
         # thunder_tpu times its dispatch) and tokens/s (through
@@ -130,7 +147,7 @@ class TrainStep:
         if guard is not None and getattr(loss_module, "_dist_plan", None) is not None:
             raise NotImplementedError(
                 "TrainStep(guard=...) under a distributed plan (an all-rank finite verdict) is not "
-                "ported yet (ROADMAP A3b)")
+                "ported yet (ROADMAP A3c)")
         self.tmodule = loss_module
         self.guard = guard
         self.optimizer = optimizer
@@ -144,6 +161,13 @@ class TrainStep:
         self.cuda_graphs = cuda_graphs
         self._programs: dict = {}  # batch signature -> graphex.CUDAGraphProgram
         self._pool = graphex.GraphPool()
+        # no_sync windows: the gradient accumulator (zeroed by each fold),
+        # whether it holds a window's micro-steps, FSDP's gathered
+        # parameters, and the value-and-grad of the window's program
+        self._acc = None
+        self._acc_open = False
+        self._full = None
+        self._vag_nosync = None
 
     @property
     def _cs(self):
@@ -233,16 +257,9 @@ class TrainStep:
                 break
         return pad_to_bucket(args, kwargs, self.buckets, axis=self.bucket_axis, pad_values=self.bucket_pad)
 
-    def __call__(self, *args, **kwargs):
-        slo_mon = self.slo_monitor
-        t_host = time.perf_counter_ns() if slo_mon is not None else 0
-        args, kwargs = self._bucketize(args, kwargs)
-        # fault-injection seam (TT_FAULT): with no plan armed this is one
-        # module-global read
-        step_idx = self._step_count
-        if _faults.active():
-            _faults.maybe_sleep(step_idx)
-            args, kwargs = _faults.maybe_poison(args, kwargs, step_idx)
+    def _prepare(self, args, kwargs):
+        """The step's (trainable, frozen) tensors and this rank's block of the
+        batch; the optimizer state and the value-and-grad built on first use."""
         tparams, frozen = self._split()
         plan = self._plan
         if plan is not None:
@@ -254,13 +271,33 @@ class TrainStep:
             self.opt_state = self.optimizer.init(tparams)
         if self._vag is None:
             self._build()
+        return tparams, frozen, args, kwargs
+
+    def _graphs_on(self, tparams) -> bool:
         first = next(iter(tparams.values()), None)
-        graphed = self.cuda_graphs and first is not None and graphex.captures_on(first.device)
+        return self.cuda_graphs and first is not None and graphex.captures_on(first.device)
+
+    def __call__(self, *args, **kwargs):
+        if self.tmodule._no_sync_active:
+            return self.micro_step(*args, **kwargs)
+        slo_mon = self.slo_monitor
+        t_host = time.perf_counter_ns() if slo_mon is not None else 0
+        args, kwargs = self._bucketize(args, kwargs)
+        # fault-injection seam (TT_FAULT): with no plan armed this is one
+        # module-global read
+        step_idx = self._step_count
+        if _faults.active():
+            _faults.maybe_sleep(step_idx)
+            args, kwargs = _faults.maybe_poison(args, kwargs, step_idx)
+        tparams, frozen, args, kwargs = self._prepare(args, kwargs)
+        state = dict(enumerate(t for t in tree_flatten(self.opt_state)[0] if isinstance(t, torch.Tensor)))
 
         def run():
-            if graphed:
-                return self._graphed(tparams, frozen, args, kwargs)
-            return self._step(tparams, frozen, args, kwargs, in_place=False)
+            if self._acc_open:
+                # the step that closes a no_sync window
+                return self._fold(tparams, frozen, state, args, kwargs)
+            return self._launch("step", (tparams, frozen, state), lambda tp, fz, _st, a, kw: self._step(
+                tp, fz, a, kw, in_place=self._graphs_on(tparams)), args, kwargs, self._vag)
 
         try:
             out = self._dispatch(run)
@@ -355,42 +392,227 @@ class TrainStep:
             apply_effects(keys, values, in_place=in_place)
         return loss, finite, gnorm
 
-    def _graphed(self, tparams, frozen, args, kwargs):
-        """The step as one CUDA graph per batch signature. Inputs: the
-        parameters, buffers and optimizer state (in place), then the batch's
-        tensors (copied into the graph's buffers)."""
+    def _launch(self, kind: str, groups: tuple, body, args, kwargs, vag):
+        """``body(*groups, args, kwargs)``: op by op, or on the card as one
+        CUDA graph per (kind, batch signature). ``groups`` are dicts of
+        resident tensors (parameters, buffers, optimizer state,
+        accumulators), read and written in place; the batch's tensors are
+        copied into the graph's buffers."""
         from . import _cache_key
 
+        tparams = groups[0]
+        if not self._graphs_on(tparams):
+            return body(*groups, args, kwargs)
         leaves, treedef = tree_flatten((args, kwargs))
         is_t = [isinstance(x, torch.Tensor) for x in leaves]
-        state = [t for t in tree_flatten(self.opt_state)[0] if isinstance(t, torch.Tensor)]
-        resident = [*tparams.values(), *frozen.values(), *state]
-        key = (tuple(tparams), tuple(frozen), _cache_key(leaves, is_t, self._vag.fn), self._guard_key())
+        names = tuple(tuple(g) for g in groups)
+        resident = [t for g in groups for t in g.values()]
+        key = (names[0], names[1], _cache_key(leaves, is_t, self._vag.fn), self._guard_key())
+        if kind != "step":
+            key += (kind,)
         prog = self._programs.get(key)
         if prog is None:
-            nt, nf, nr = len(tparams), len(frozen), len(resident)
+            nr = len(resident)
 
-            def step(*flat):
-                tp = dict(zip(tparams, flat[:nt]))
-                fz = dict(zip(frozen, flat[nt:nt + nf]))
+            def program(*flat):
+                it = iter(flat[:nr])
+                gs = [{k: next(it) for k in g} for g in names]
                 batch = iter(flat[nr:])
                 a, kw = tree_unflatten([next(batch) if t else x for x, t in zip(leaves, is_t)], treedef)
-                return self._step(tp, fz, a, kw, in_place=True)
+                return body(*gs, a, kw)
 
             prog = self._programs[key] = graphex.CUDAGraphProgram(
-                step, name="TrainStep", in_place=[True] * nr + [False] * sum(is_t), pool=self._pool,
-                stats=self._vag._cs, check=self._check_capturable)
+                program, name="TrainStep" if kind == "step" else f"TrainStep.{kind}",
+                in_place=[True] * nr + [False] * sum(is_t), pool=self._pool, stats=self._vag._cs,
+                check=lambda: self._check_capturable(vag))
         return prog(*resident, *(x for x, t in zip(leaves, is_t) if t))
 
-    def _check_capturable(self):
+    def _check_capturable(self, vag=None):
         """The forward and backward traces of the last compile hold nothing
         a graph cannot (graphex.check_capturable raises, naming it)."""
-        graphex.check_capturable(self._cs.last_traces[-1], "TrainStep forward")
-        graphex.check_capturable(self._cs.last_backward_traces[-1], "TrainStep backward")
+        if self._plan is not None and not graphex.collectives_capture():
+            # the window's gradient syncs run outside its traces
+            raise NotImplementedError(
+                "TrainStep: CUDA-graph capture of a distributed step was asked for, but only a one-rank "
+                "NCCL group's collectives are captured (multi-rank capture: ROADMAP A3c); run it with "
+                "cuda_graphs=False")
+        cs = (vag or self._vag)._cs
+        graphex.check_capturable(cs.last_traces[-1], "TrainStep forward")
+        graphex.check_capturable(cs.last_backward_traces[-1], "TrainStep backward")
+
+    # -- no_sync gradient accumulation (thunder_tpu/training.py:700-1057) --
+
+    def _nosync_mode(self):
+        """None without a plan; 'ddp' when every parameter is replicated;
+        'fsdp' when some are dim-0 sharded (thunder_tpu's _nosync_mode)."""
+        plan = self._plan
+        if plan is None:
+            return None
+        kinds = {st.kind for sts in plan.param_strategies.values() for st in sts}
+        if kinds <= {"replicate"}:
+            return "ddp"
+        if kinds <= {"replicate", "shard0"} and not plan.seq_axes:
+            return "fsdp"
+        raise NotImplementedError(
+            "no_sync supports DDP (replicate) and FSDP (shard0) plans; tensor- and context-parallel "
+            "gradients synchronize per micro-batch inherently")
+
+    def _window_vag(self):
+        """The window's value-and-grad: the model on whole parameters, with
+        no parameter collective and no loss sync (without a plan: the
+        step's own)."""
+        plan = self._plan
+        if plan is None:
+            return self._vag
+        if self._vag_nosync is None:
+            from .transforms.autodiff import ThunderValueAndGrad
+
+            inner = self.tmodule._cd.fn
+
+            def traced_nosync(tfull: dict, ffull: dict, args: tuple, kwargs: dict):
+                return inner({**ffull, **tfull}, args, kwargs)
+
+            traced_nosync.__name__ = f"nosync_{getattr(inner, '__name__', 'step')}"
+            inner_extra = getattr(inner, "__cache_extra__", None)
+            traced_nosync.__cache_extra__ = lambda: (inner_extra() if inner_extra is not None else None,
+                                                     "nosync")
+            cd = self.tmodule._cd
+            self._vag_nosync = ThunderValueAndGrad(traced_nosync, argnums=0, transforms=cd.transforms,
+                                                   executors=cd.executors)
+            self._vag_nosync.defer_effects = True
+        return self._vag_nosync
+
+    def _window_params(self, mode, tparams, frozen):
+        """The whole parameters a window computes with. Under FSDP: buffers
+        allocated once, filled at each window's first micro-step by one
+        all_gather (and unpad) a sharded parameter; otherwise the step's own
+        tensors."""
+        if mode != "fsdp":
+            return tparams, frozen
+        from .parallel import prims as dist_prims
+
+        plan = self._plan
+        shard = {k: st for k, sts in plan.param_strategies.items() for st in sts if st.kind == "shard0"}
+        if self._full is None:
+            def alloc(d):
+                out = {}
+                for k, t in d.items():
+                    st = shard.get(k)
+                    if st is None:
+                        out[k] = t
+                    else:
+                        rows = st.orig_dim0 if st.orig_dim0 is not None else t.shape[0] * plan.world_size(st.axis)
+                        out[k] = torch.empty((rows,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+                return out
+
+            self._full = (alloc(tparams), alloc(frozen))
+        if not self._acc_open:
+            with torch.no_grad():
+                for d, full in zip((tparams, frozen), self._full):
+                    for k, t in d.items():
+                        st = shard.get(k)
+                        if st is not None:
+                            g = dist_prims._all_gather_impl(t, st.axis, world_size=plan.world_size(st.axis))
+                            full[k].copy_(g[:full[k].shape[0]])
+        return self._full
+
+    def _sync_loss(self, loss):
+        plan = self._plan
+        if plan is None or not plan.loss_axes:
+            return loss
+        from .parallel import prims as dist_prims
+
+        return dist_prims._all_reduce(loss, plan.loss_axes) / float(plan.loss_world_size)
+
+    def _sync_grad(self, name: str, g):
+        """The window's summed local gradient of ``name`` made the plan's
+        gradient: all-reduced over the loss axes (DDP), or, for a sharded
+        parameter, all-reduced over the loss axes it is not sharded on,
+        padded, and reduce-scattered over its shard axis (FSDP); then
+        divided by the loss world size (thunder_tpu's _fold_dist / _fold_fsdp)."""
+        from .parallel import prims as dist_prims
+        from .parallel.transforms import pad_rows
+
+        plan = self._plan
+        axes = plan.loss_axes
+        st = next((s for s in plan.param_strategies.get(name, ()) if s.kind == "shard0"), None)
+        if st is None:
+            if axes:
+                g = dist_prims._all_reduce(g, axes)
+        else:
+            other = tuple(a for a in axes if a != st.axis)
+            if other:
+                g = dist_prims._all_reduce(g, other)
+            n = plan.world_size(st.axis)
+            g = dist_prims._reduce_scatter_impl(pad_rows(g, st, n), st.axis, world_size=n)
+        return g / float(plan.loss_world_size) if plan.loss_world_size > 1 else g
 
     def micro_step(self, *args, **kwargs):
-        raise NotImplementedError("TrainStep.micro_step (no_sync gradient accumulation) is not "
-                                  "ported yet (ROADMAP A3b)")
+        """Accumulate gradients without the gradient sync or the optimizer
+        update; the next ``step`` folds them in with one sync (thunder_tpu's
+        micro_step). Returns the micro-batch's loss, averaged over the ranks
+        as a step's is."""
+        if self.guard is not None:
+            # the window's fold would update without the finite gate
+            raise NotImplementedError("TrainStep.micro_step: step guards are not supported inside no_sync "
+                                      "gradient-accumulation windows; step without no_sync, or drop the guard")
+        mode = self._nosync_mode()
+        args, kwargs = self._bucketize(args, kwargs)
+        tparams, frozen, args, kwargs = self._prepare(args, kwargs)
+        vag = self._window_vag()
+        full_t, full_f = self._window_params(mode, tparams, frozen)
+        if self._acc is None:
+            self._acc = {k: torch.zeros_like(t) for k, t in full_t.items()}
+
+        def micro(ft, ff, acc, a, kw):
+            loss, grads = vag(ft, ff, a, kw)
+            if vag.consume_pending_effects() is not None:
+                raise NotImplementedError("buffer mutations are not supported inside no_sync windows; "
+                                          "freeze the buffers (eval()) or step without no_sync")
+            g = grads[0][0]
+            for k, t in acc.items():
+                if g[k] is not None:  # a parameter the loss does not reach
+                    t.add_(g[k])
+            return self._sync_loss(loss)
+
+        loss = self._launch("micro", (full_t, full_f, self._acc), micro, args, kwargs, vag)
+        self._acc_open = True
+        return loss
+
+    def _fold(self, tparams, frozen, state, args, kwargs):
+        """The step that closes a window: its own gradients plus the
+        accumulator, synced once, then the update; the accumulator is zeroed
+        for the next window."""
+        mode = self._nosync_mode()
+        vag = self._window_vag()
+        full_t, full_f = self._window_params(mode, tparams, frozen)
+        plan = self._plan
+
+        def fold(tp, fz, ft, ff, acc, _state, a, kw):
+            loss, grads = vag(ft, ff, a, kw)
+            if vag.consume_pending_effects() is not None:
+                raise NotImplementedError("buffer mutations are not supported inside no_sync windows")
+            g = grads[0][0]
+            total = {k: acc[k] if g[k] is None else g[k] + acc[k] for k in g}
+            if plan is not None:
+                total = {k: self._sync_grad(k, v) for k, v in total.items()}
+            for t in acc.values():
+                t.zero_()
+            self.optimizer.update(tp, total, self.opt_state)
+            return self._sync_loss(loss)
+
+        groups = (tparams, frozen, full_t, full_f, self._acc, state)
+        if mode != "fsdp":
+            # the window computed on the step's own tensors: pass them once
+            groups = (tparams, frozen, {}, {}, self._acc, state)
+            body = fold
+
+            def fold(tp, fz, _ft, _ff, acc, st, a, kw):
+                return body(tp, fz, tp, fz, acc, st, a, kw)
+
+        loss = self._launch("fold", groups, fold, args, kwargs, vag)
+        self._acc_open = False
+        return loss
 
 
 def _local_batch(plan, args: tuple, kwargs: dict):

@@ -56,13 +56,13 @@ class MaterializationTransform(Transform):
     """``device`` is every parameter's target, the card unless the caller
     names one. ``sharding_fn`` keeps thunder_tpu's name; it returns a jax
     sharding there, and the port's sharded materialization waits for ROADMAP
-    A3b, so giving it raises."""
+    A3c, so giving it raises."""
 
     def __init__(self, seed: int = 0, sharding_fn: Optional[Callable] = None, device=None):
         if sharding_fn is not None:
             raise NotImplementedError(
                 "MaterializationTransform(sharding_fn=) is not ported: sharded materialization "
-                "waits for the port's distributed training (ROADMAP A3b)")
+                "waits for the GSPMD road of the port's distributed training (ROADMAP A3c)")
         self.seed = seed
         self.device = device
 
